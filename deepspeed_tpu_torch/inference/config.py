@@ -1,0 +1,413 @@
+"""``ds_config`` ``inference`` section parser.
+
+Port of ``deepspeed_tpu/inference/config.py``: the same keys, defaults
+and error messages, so one ds_config drives both packages. ``dtype``
+maps to torch dtypes. ``paged_attention_kernel`` keeps its three
+spellings: ``pallas`` selects the hand-written CUDA kernel
+(ops/paged_attention), ``xla`` its plain PyTorch version, and ``auto``
+the kernel on a CUDA device and the plain version on the CPU.
+Sections this slice does not serve yet (``speculative``, ``fleet``)
+parse and validate as in the JAX package; the engine raises
+``NotImplementedError`` when they are switched on.
+"""
+import torch
+
+INFERENCE = "inference"
+
+INFERENCE_MAX_BATCH_SIZE = "max_batch_size"
+INFERENCE_MAX_BATCH_SIZE_DEFAULT = 8
+
+# None -> the model config's max_seq_len at engine build time.
+INFERENCE_MAX_SEQ_LEN = "max_seq_len"
+INFERENCE_MAX_SEQ_LEN_DEFAULT = None
+
+# None -> derived at engine build time: powers of two from 64 up to
+# max_seq_len (always including max_seq_len itself).
+INFERENCE_PREFILL_BUCKETS = "prefill_buckets"
+INFERENCE_PREFILL_BUCKETS_DEFAULT = None
+
+INFERENCE_DTYPE = "dtype"
+INFERENCE_DTYPE_DEFAULT = "fp32"
+_DTYPE_MAP = {
+    "fp32": torch.float32, "float32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "fp16": torch.float16, "float16": torch.float16,
+}
+
+INFERENCE_MAX_NEW_TOKENS = "max_new_tokens"
+INFERENCE_MAX_NEW_TOKENS_DEFAULT = 128
+
+INFERENCE_EOS_TOKEN_ID = "eos_token_id"
+INFERENCE_EOS_TOKEN_ID_DEFAULT = None
+
+# Sampling defaults. greedy=True is argmax decode (deterministic);
+# each generate() call may override any of them.
+INFERENCE_GREEDY = "greedy"
+INFERENCE_GREEDY_DEFAULT = True
+INFERENCE_TEMPERATURE = "temperature"
+INFERENCE_TEMPERATURE_DEFAULT = 1.0
+INFERENCE_TOP_K = "top_k"
+INFERENCE_TOP_K_DEFAULT = 0          # 0 disables top-k filtering
+INFERENCE_TOP_P = "top_p"
+INFERENCE_TOP_P_DEFAULT = 1.0        # 1.0 disables nucleus filtering
+
+# ---- paged KV cache (docs/inference.md "Paged KV cache") -------------
+# "slot": one contiguous [slots, layers, heads, max_seq, d_head] buffer
+# (the numerics oracle, default); "paged": global page pool + per-
+# sequence page tables — HBM scales with live tokens, enables prefix
+# sharing, admission beyond slots*max_seq worth of mixed lengths.
+INFERENCE_KV_LAYOUT = "kv_layout"
+INFERENCE_KV_LAYOUT_DEFAULT = "slot"
+_KV_LAYOUTS = ("slot", "paged")
+
+INFERENCE_KV_BLOCK_SIZE = "kv_block_size"       # tokens per page
+INFERENCE_KV_BLOCK_SIZE_DEFAULT = 16
+
+# pool size: explicit page count, OR a fraction of the slot layout's
+# footprint (num_pages = ceil(fraction * slots * max_seq / block)).
+# Setting both is a config error — one budget, stated once.
+INFERENCE_NUM_PAGES = "num_pages"
+INFERENCE_NUM_PAGES_DEFAULT = None
+INFERENCE_KV_POOL_FRACTION = "kv_pool_fraction"
+INFERENCE_KV_POOL_FRACTION_DEFAULT = 1.0
+
+# hash-matched shared prompt prefixes (system-prompt dedup); paged only
+INFERENCE_PREFIX_CACHING = "prefix_caching"
+INFERENCE_PREFIX_CACHING_DEFAULT = False
+
+# paged-attention decode read path:
+#   "auto"   - the CUDA page-walk kernel on a CUDA device, the plain
+#              gather-back on the CPU;
+#   "pallas" - the kernel (on CPU tensors its wrapper runs the plain
+#              version);
+#   "xla"    - the plain gather-back (the numerics oracle).
+# Decode-family only; prefill always runs the gather path. Loud no-op on
+# the slot layout (engine resolves).
+INFERENCE_PAGED_ATTENTION_KERNEL = "paged_attention_kernel"
+INFERENCE_PAGED_ATTENTION_KERNEL_DEFAULT = "auto"
+_PAGED_ATTENTION_KERNELS = ("auto", "pallas", "xla")
+
+# chunked prefill: admit long prompts in pieces of at most this many
+# tokens so one long prefill never stalls the decode batch; null = off
+INFERENCE_PREFILL_CHUNK_TOKENS = "prefill_chunk_tokens"
+INFERENCE_PREFILL_CHUNK_TOKENS_DEFAULT = None
+
+# ---- speculative decoding (docs/inference.md) ------------------------
+INFERENCE_SPECULATIVE = "speculative"
+SPEC_ENABLED = "enabled"
+SPEC_METHOD = "method"               # "ngram" | "model"
+SPEC_NUM_DRAFT_TOKENS = "num_draft_tokens"
+SPEC_NGRAM_MAX = "ngram_max"
+SPEC_NGRAM_MIN = "ngram_min"
+SPEC_KNOWN_KEYS = {SPEC_ENABLED, SPEC_METHOD, SPEC_NUM_DRAFT_TOKENS,
+                   SPEC_NGRAM_MAX, SPEC_NGRAM_MIN}
+_SPEC_METHODS = ("ngram", "model")
+
+# ---- disaggregated serving fleet (docs/inference.md, docs/fleet.md) --
+INFERENCE_FLEET = "fleet"
+FLEET_ENABLED = "enabled"
+FLEET_ROLE = "role"                       # null | "prefill" | "decode"
+FLEET_HANDOFF_QUANTIZE = "handoff_quantize"
+FLEET_HANDOFF_BLOCK_SIZE = "handoff_block_size"
+FLEET_TTFT_SLO_S = "ttft_slo_s"
+FLEET_TPOT_SLO_S = "tpot_slo_s"
+FLEET_ADMIT_BUDGET_FACTOR = "admit_budget_factor"
+FLEET_MAX_ADAPTERS = "max_adapters"
+FLEET_ADAPTER_RANK = "adapter_rank"
+FLEET_KNOWN_KEYS = {FLEET_ENABLED, FLEET_ROLE, FLEET_HANDOFF_QUANTIZE,
+                    FLEET_HANDOFF_BLOCK_SIZE, FLEET_TTFT_SLO_S,
+                    FLEET_TPOT_SLO_S, FLEET_ADMIT_BUDGET_FACTOR,
+                    FLEET_MAX_ADAPTERS, FLEET_ADAPTER_RANK}
+_FLEET_ROLES = ("prefill", "decode")
+
+
+class DeepSpeedInferenceConfigError(Exception):
+    pass
+
+
+def _require(cond, msg):
+    if not cond:
+        raise DeepSpeedInferenceConfigError("inference config: " + msg)
+
+
+class DeepSpeedInferenceConfig:
+    """Typed view of the ``inference`` sub-dict of a ds_config."""
+
+    KNOWN_KEYS = {
+        INFERENCE_MAX_BATCH_SIZE, INFERENCE_MAX_SEQ_LEN,
+        INFERENCE_PREFILL_BUCKETS, INFERENCE_DTYPE,
+        INFERENCE_MAX_NEW_TOKENS, INFERENCE_EOS_TOKEN_ID,
+        INFERENCE_GREEDY, INFERENCE_TEMPERATURE, INFERENCE_TOP_K,
+        INFERENCE_TOP_P,
+        INFERENCE_KV_LAYOUT, INFERENCE_KV_BLOCK_SIZE,
+        INFERENCE_NUM_PAGES, INFERENCE_KV_POOL_FRACTION,
+        INFERENCE_PREFIX_CACHING, INFERENCE_PREFILL_CHUNK_TOKENS,
+        INFERENCE_PAGED_ATTENTION_KERNEL, INFERENCE_SPECULATIVE,
+        INFERENCE_FLEET,
+    }
+
+    def __init__(self, param_dict=None):
+        sub = (param_dict or {}).get(INFERENCE, {})
+        _require(isinstance(sub, dict),
+                 "must be a dict, got {}".format(type(sub).__name__))
+
+        self.max_batch_size = sub.get(INFERENCE_MAX_BATCH_SIZE,
+                                      INFERENCE_MAX_BATCH_SIZE_DEFAULT)
+        _require(isinstance(self.max_batch_size, int) and
+                 not isinstance(self.max_batch_size, bool) and
+                 self.max_batch_size >= 1,
+                 "{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_MAX_BATCH_SIZE, self.max_batch_size))
+
+        self.max_seq_len = sub.get(INFERENCE_MAX_SEQ_LEN,
+                                   INFERENCE_MAX_SEQ_LEN_DEFAULT)
+        _require(self.max_seq_len is None or
+                 (isinstance(self.max_seq_len, int) and self.max_seq_len >= 2),
+                 "{} must be an int >= 2 or null, got {!r}".format(
+                     INFERENCE_MAX_SEQ_LEN, self.max_seq_len))
+
+        buckets = sub.get(INFERENCE_PREFILL_BUCKETS,
+                          INFERENCE_PREFILL_BUCKETS_DEFAULT)
+        if buckets is not None:
+            _require(isinstance(buckets, (list, tuple)) and len(buckets) > 0
+                     and all(isinstance(b, int) and b >= 1 for b in buckets),
+                     "{} must be a non-empty list of ints, got {!r}".format(
+                         INFERENCE_PREFILL_BUCKETS, buckets))
+            buckets = sorted(set(int(b) for b in buckets))
+        self.prefill_buckets = buckets
+
+        dtype_str = str(sub.get(INFERENCE_DTYPE,
+                                INFERENCE_DTYPE_DEFAULT)).lower()
+        _require(dtype_str in _DTYPE_MAP,
+                 "{} must be one of {}, got {!r}".format(
+                     INFERENCE_DTYPE, sorted(_DTYPE_MAP), dtype_str))
+        self.dtype_name = dtype_str
+        self.dtype = _DTYPE_MAP[dtype_str]
+
+        self.max_new_tokens = sub.get(INFERENCE_MAX_NEW_TOKENS,
+                                      INFERENCE_MAX_NEW_TOKENS_DEFAULT)
+        _require(isinstance(self.max_new_tokens, int) and
+                 self.max_new_tokens >= 1,
+                 "{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_MAX_NEW_TOKENS, self.max_new_tokens))
+
+        self.eos_token_id = sub.get(INFERENCE_EOS_TOKEN_ID,
+                                    INFERENCE_EOS_TOKEN_ID_DEFAULT)
+        _require(self.eos_token_id is None or
+                 isinstance(self.eos_token_id, int),
+                 "{} must be an int or null, got {!r}".format(
+                     INFERENCE_EOS_TOKEN_ID, self.eos_token_id))
+
+        self.greedy = bool(sub.get(INFERENCE_GREEDY, INFERENCE_GREEDY_DEFAULT))
+        self.temperature = float(sub.get(INFERENCE_TEMPERATURE,
+                                         INFERENCE_TEMPERATURE_DEFAULT))
+        _require(self.temperature > 0.0,
+                 "{} must be > 0, got {!r}".format(INFERENCE_TEMPERATURE,
+                                                   self.temperature))
+        self.top_k = sub.get(INFERENCE_TOP_K, INFERENCE_TOP_K_DEFAULT)
+        _require(isinstance(self.top_k, int) and self.top_k >= 0,
+                 "{} must be an int >= 0, got {!r}".format(INFERENCE_TOP_K,
+                                                           self.top_k))
+        self.top_p = float(sub.get(INFERENCE_TOP_P, INFERENCE_TOP_P_DEFAULT))
+        _require(0.0 < self.top_p <= 1.0,
+                 "{} must be in (0, 1], got {!r}".format(INFERENCE_TOP_P,
+                                                         self.top_p))
+
+        # ---- paged KV / prefix sharing / chunked prefill -------------
+        self.kv_layout = str(sub.get(INFERENCE_KV_LAYOUT,
+                                     INFERENCE_KV_LAYOUT_DEFAULT)).lower()
+        _require(self.kv_layout in _KV_LAYOUTS,
+                 "{} must be one of {}, got {!r}".format(
+                     INFERENCE_KV_LAYOUT, _KV_LAYOUTS, self.kv_layout))
+
+        self.kv_block_size = sub.get(INFERENCE_KV_BLOCK_SIZE,
+                                     INFERENCE_KV_BLOCK_SIZE_DEFAULT)
+        _require(isinstance(self.kv_block_size, int) and
+                 not isinstance(self.kv_block_size, bool) and
+                 self.kv_block_size >= 1,
+                 "{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_KV_BLOCK_SIZE, self.kv_block_size))
+
+        self.num_pages = sub.get(INFERENCE_NUM_PAGES,
+                                 INFERENCE_NUM_PAGES_DEFAULT)
+        _require(self.num_pages is None or
+                 (isinstance(self.num_pages, int) and
+                  not isinstance(self.num_pages, bool) and
+                  self.num_pages >= 1),
+                 "{} must be an int >= 1 or null, got {!r}".format(
+                     INFERENCE_NUM_PAGES, self.num_pages))
+        _require(not (INFERENCE_NUM_PAGES in sub and
+                      INFERENCE_KV_POOL_FRACTION in sub),
+                 "set {} OR {}, not both (one HBM budget, stated "
+                 "once)".format(INFERENCE_NUM_PAGES,
+                                INFERENCE_KV_POOL_FRACTION))
+        self.kv_pool_fraction = float(
+            sub.get(INFERENCE_KV_POOL_FRACTION,
+                    INFERENCE_KV_POOL_FRACTION_DEFAULT))
+        _require(self.kv_pool_fraction > 0.0,
+                 "{} must be > 0, got {!r}".format(
+                     INFERENCE_KV_POOL_FRACTION, self.kv_pool_fraction))
+
+        self.prefix_caching = bool(sub.get(INFERENCE_PREFIX_CACHING,
+                                           INFERENCE_PREFIX_CACHING_DEFAULT))
+        _require(not (self.prefix_caching and self.kv_layout != "paged"),
+                 "{} requires {} \"paged\" (the slot layout has no pages "
+                 "to share)".format(INFERENCE_PREFIX_CACHING,
+                                    INFERENCE_KV_LAYOUT))
+
+        self.paged_attention_kernel = str(sub.get(
+            INFERENCE_PAGED_ATTENTION_KERNEL,
+            INFERENCE_PAGED_ATTENTION_KERNEL_DEFAULT)).lower()
+        _require(self.paged_attention_kernel in _PAGED_ATTENTION_KERNELS,
+                 "{} must be one of {}, got {!r}".format(
+                     INFERENCE_PAGED_ATTENTION_KERNEL,
+                     _PAGED_ATTENTION_KERNELS,
+                     self.paged_attention_kernel))
+
+        self.prefill_chunk_tokens = sub.get(
+            INFERENCE_PREFILL_CHUNK_TOKENS,
+            INFERENCE_PREFILL_CHUNK_TOKENS_DEFAULT)
+        _require(self.prefill_chunk_tokens is None or
+                 (isinstance(self.prefill_chunk_tokens, int) and
+                  not isinstance(self.prefill_chunk_tokens, bool) and
+                  self.prefill_chunk_tokens >= 1),
+                 "{} must be an int >= 1 or null, got {!r}".format(
+                     INFERENCE_PREFILL_CHUNK_TOKENS,
+                     self.prefill_chunk_tokens))
+
+        # ---- speculative decoding ------------------------------------
+        spec = sub.get(INFERENCE_SPECULATIVE, {})
+        _require(isinstance(spec, dict),
+                 "{} must be a dict, got {}".format(
+                     INFERENCE_SPECULATIVE, type(spec).__name__))
+        unknown = sorted(set(spec) - SPEC_KNOWN_KEYS)
+        _require(not unknown,
+                 "unknown key(s) {} in {!r} (known: {})".format(
+                     unknown, INFERENCE_SPECULATIVE,
+                     sorted(SPEC_KNOWN_KEYS)))
+        self.spec_enabled = bool(spec.get(SPEC_ENABLED, False))
+        self.spec_method = str(spec.get(SPEC_METHOD, "ngram")).lower()
+        _require(self.spec_method in _SPEC_METHODS,
+                 "{}.{} must be one of {}, got {!r}".format(
+                     INFERENCE_SPECULATIVE, SPEC_METHOD, _SPEC_METHODS,
+                     self.spec_method))
+        self.spec_num_draft_tokens = spec.get(SPEC_NUM_DRAFT_TOKENS, 4)
+        _require(isinstance(self.spec_num_draft_tokens, int) and
+                 not isinstance(self.spec_num_draft_tokens, bool) and
+                 self.spec_num_draft_tokens >= 1,
+                 "{}.{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_SPECULATIVE, SPEC_NUM_DRAFT_TOKENS,
+                     self.spec_num_draft_tokens))
+        self.spec_ngram_max = spec.get(SPEC_NGRAM_MAX, 3)
+        self.spec_ngram_min = spec.get(SPEC_NGRAM_MIN, 1)
+        for key, val in ((SPEC_NGRAM_MAX, self.spec_ngram_max),
+                         (SPEC_NGRAM_MIN, self.spec_ngram_min)):
+            _require(isinstance(val, int) and not isinstance(val, bool)
+                     and val >= 1,
+                     "{}.{} must be an int >= 1, got {!r}".format(
+                         INFERENCE_SPECULATIVE, key, val))
+        _require(self.spec_ngram_min <= self.spec_ngram_max,
+                 "{}.{} must be <= {}".format(
+                     INFERENCE_SPECULATIVE, SPEC_NGRAM_MIN, SPEC_NGRAM_MAX))
+
+        # ---- disaggregated serving fleet -----------------------------
+        fleet = sub.get(INFERENCE_FLEET, {})
+        _require(isinstance(fleet, dict),
+                 "{} must be a dict, got {}".format(
+                     INFERENCE_FLEET, type(fleet).__name__))
+        unknown = sorted(set(fleet) - FLEET_KNOWN_KEYS)
+        _require(not unknown,
+                 "unknown key(s) {} in {!r} (known: {})".format(
+                     unknown, INFERENCE_FLEET, sorted(FLEET_KNOWN_KEYS)))
+        # the keys given, so the engine can refuse the section as a whole
+        self.fleet_keys = sorted(fleet)
+        self.fleet_enabled = bool(fleet.get(FLEET_ENABLED, False))
+        self.fleet_role = fleet.get(FLEET_ROLE, None)
+        _require(self.fleet_role is None or
+                 self.fleet_role in _FLEET_ROLES,
+                 "{}.{} must be one of {} or null, got {!r}".format(
+                     INFERENCE_FLEET, FLEET_ROLE, _FLEET_ROLES,
+                     self.fleet_role))
+        _require(not (self.fleet_role is not None and
+                      self.kv_layout != "paged"),
+                 "{}.{} needs {} \"paged\" (page-table slices are the "
+                 "handoff format)".format(INFERENCE_FLEET, FLEET_ROLE,
+                                          INFERENCE_KV_LAYOUT))
+        self.fleet_handoff_quantize = bool(
+            fleet.get(FLEET_HANDOFF_QUANTIZE, False))
+        self.fleet_handoff_block_size = fleet.get(
+            FLEET_HANDOFF_BLOCK_SIZE, 256)
+        _require(isinstance(self.fleet_handoff_block_size, int) and
+                 not isinstance(self.fleet_handoff_block_size, bool) and
+                 self.fleet_handoff_block_size >= 1,
+                 "{}.{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_FLEET, FLEET_HANDOFF_BLOCK_SIZE,
+                     self.fleet_handoff_block_size))
+        for key, attr in ((FLEET_TTFT_SLO_S, "fleet_ttft_slo_s"),
+                          (FLEET_TPOT_SLO_S, "fleet_tpot_slo_s")):
+            val = fleet.get(key, None)
+            _require(val is None or (isinstance(val, (int, float)) and
+                                     not isinstance(val, bool) and
+                                     val > 0),
+                     "{}.{} must be a number > 0 or null, got "
+                     "{!r}".format(INFERENCE_FLEET, key, val))
+            setattr(self, attr, None if val is None else float(val))
+        self.fleet_admit_budget_factor = fleet.get(
+            FLEET_ADMIT_BUDGET_FACTOR, 1.0)
+        _require(isinstance(self.fleet_admit_budget_factor,
+                            (int, float)) and
+                 not isinstance(self.fleet_admit_budget_factor, bool) and
+                 self.fleet_admit_budget_factor > 0,
+                 "{}.{} must be a number > 0, got {!r}".format(
+                     INFERENCE_FLEET, FLEET_ADMIT_BUDGET_FACTOR,
+                     self.fleet_admit_budget_factor))
+        self.fleet_admit_budget_factor = float(
+            self.fleet_admit_budget_factor)
+        self.fleet_max_adapters = fleet.get(FLEET_MAX_ADAPTERS, 0)
+        _require(isinstance(self.fleet_max_adapters, int) and
+                 not isinstance(self.fleet_max_adapters, bool) and
+                 self.fleet_max_adapters >= 0,
+                 "{}.{} must be an int >= 0, got {!r}".format(
+                     INFERENCE_FLEET, FLEET_MAX_ADAPTERS,
+                     self.fleet_max_adapters))
+        self.fleet_adapter_rank = fleet.get(FLEET_ADAPTER_RANK, 8)
+        _require(isinstance(self.fleet_adapter_rank, int) and
+                 not isinstance(self.fleet_adapter_rank, bool) and
+                 self.fleet_adapter_rank >= 1,
+                 "{}.{} must be an int >= 1, got {!r}".format(
+                     INFERENCE_FLEET, FLEET_ADAPTER_RANK,
+                     self.fleet_adapter_rank))
+
+    def resolve_num_pages(self, slots, max_seq_len):
+        """Usable page-pool size for a concrete engine geometry: the
+        explicit ``num_pages``, else ``ceil(kv_pool_fraction * slots *
+        max_seq / kv_block_size)`` — fraction 1.0 = exactly the slot
+        layout's HBM footprint. Always at least one full sequence."""
+        pages_per_seq = -(-max_seq_len // self.kv_block_size)
+        if self.num_pages is not None:
+            n = self.num_pages
+        else:
+            n = -(-int(self.kv_pool_fraction * slots * max_seq_len)
+                  // self.kv_block_size)
+        _require(n >= pages_per_seq,
+                 "page pool of {} pages cannot hold one max_seq_len={} "
+                 "sequence ({} pages of {} tokens)".format(
+                     n, max_seq_len, pages_per_seq, self.kv_block_size))
+        return n
+
+    def resolve_buckets(self, max_seq_len):
+        """Final ascending bucket list for a concrete model max_seq_len:
+        each prefill chunk pads to the smallest bucket that holds it."""
+        if self.prefill_buckets is not None:
+            over = [b for b in self.prefill_buckets if b > max_seq_len]
+            _require(not over,
+                     "prefill_buckets {} exceed max_seq_len {}".format(
+                         over, max_seq_len))
+            buckets = list(self.prefill_buckets)
+        else:
+            buckets, b = [], 64
+            while b < max_seq_len:
+                buckets.append(b)
+                b *= 2
+            buckets.append(max_seq_len)
+        return buckets

@@ -1,0 +1,279 @@
+"""Host-side page management for the paged KV cache.
+
+(A verbatim copy of ``deepspeed_tpu/inference/paging.py``: the port
+imports nothing of the JAX package. ``tests/test_torch_paging.py``
+holds the two copies to the same results.)
+
+The paged layout (inference/kv_cache.py ``PagedKVCache``) splits the KV
+pool into fixed-size pages; what maps a sequence's logical positions
+onto physical pages lives HERE, on the host, because allocation is
+control flow, not math:
+
+  * :class:`PageAllocator` — free list + per-page refcounts. Page 0 is
+    the reserved GARBAGE page: it is never handed out, padded/invalid
+    writes inside the jitted programs are redirected to it, and page
+    tables of retired slots point at it. Refcounts > 1 mean the page is
+    shared (prefix sharing); writes into a shared page must fork it
+    first (:meth:`PageAllocator.fork` + a device-side page copy by the
+    engine) — classic copy-on-write.
+  * :class:`PrefixCache` — hash-matched common prefixes. Keys chain per
+    FULL page (vLLM's block-hash discipline): page j's key hashes
+    (key_{j-1}, page-j tokens), so a hit at depth j certifies the whole
+    prefix. The cache holds its own reference on every registered page,
+    so retiring the sequence that populated it does not free the pages;
+    LRU eviction drops that reference.
+  * :func:`plan_chunks` — chunked-prefill schedule with the slot-layout
+    write-safety guarantee (start + bucket never exceeds max_seq, or the
+    clamped ``dynamic_update_slice`` would shift the write window down
+    over live positions).
+"""
+from collections import OrderedDict
+
+GARBAGE_PAGE = 0
+
+
+class PagePoolExhausted(Exception):
+    """Raised by strict allocation; the scheduler's admission/preemption
+    paths use :meth:`PageAllocator.can_alloc` instead of catching."""
+
+
+class PageAllocator:
+    """Refcounted allocator over physical pages ``1 .. num_pages``.
+
+    ``num_pages`` counts USABLE pages; the physical buffer has one more
+    (the garbage page 0). Invariants (pinned by tests/unit/
+    test_serving.py): a page is either free (refcount 0, in the free
+    list) or held (refcount >= 1); alloc never returns page 0; free of
+    a free page raises; every retire path ends with the sequence's
+    pages back at their pre-admission refcounts.
+    """
+
+    def __init__(self, num_pages):
+        assert num_pages >= 1, "page pool needs at least one usable page"
+        self.num_pages = int(num_pages)
+        # LIFO free list: recently-freed pages are re-used first (their
+        # cache lines / HBM pages are warm)
+        self._free = list(range(self.num_pages, 0, -1))
+        self._refs = [0] * (self.num_pages + 1)
+
+    @property
+    def free_pages(self):
+        return len(self._free)
+
+    @property
+    def pages_in_use(self):
+        return self.num_pages - len(self._free)
+
+    def can_alloc(self, n):
+        return len(self._free) >= n
+
+    def refcount(self, page):
+        return self._refs[page]
+
+    def alloc(self):
+        """-> one fresh page (refcount 1). Raises PagePoolExhausted."""
+        if not self._free:
+            raise PagePoolExhausted(
+                "KV page pool exhausted ({} pages)".format(self.num_pages))
+        page = self._free.pop()
+        assert self._refs[page] == 0
+        self._refs[page] = 1
+        return page
+
+    def ref(self, page):
+        """Add a reference to a held page (prefix sharing / fork source)."""
+        assert page != GARBAGE_PAGE, "cannot reference the garbage page"
+        assert self._refs[page] >= 1, \
+            "ref of unheld page {}".format(page)
+        self._refs[page] += 1
+
+    def free(self, page):
+        """Drop one reference; the page returns to the pool at zero."""
+        if page == GARBAGE_PAGE:
+            return
+        assert self._refs[page] >= 1, \
+            "double free of page {}".format(page)
+        self._refs[page] -= 1
+        if self._refs[page] == 0:
+            self._free.append(page)
+
+    def fork(self, page):
+        """Copy-on-write fork: if ``page`` is shared (refcount > 1),
+        allocate a fresh page, move one reference onto it, and return
+        ``(new_page, True)`` — the CALLER must copy the page's device
+        contents before any write. Unshared pages return unchanged."""
+        if self._refs[page] <= 1:
+            return page, False
+        new = self.alloc()
+        self._refs[page] -= 1
+        return new, True
+
+    def stats(self):
+        return {"num_pages": self.num_pages,
+                "pages_in_use": self.pages_in_use,
+                "occupancy": (self.pages_in_use / self.num_pages
+                              if self.num_pages else 0.0)}
+
+
+class PrefixCache:
+    """Hash-matched shared prompt prefixes at full-page granularity.
+
+    ``match(tokens)`` walks the prompt's full pages left to right
+    through the chained-hash map and returns the longest registered
+    run of pages; ``register(tokens, pages)`` records a prompt's full
+    pages after its prefill. Registered pages carry one cache-owned
+    reference (taken via the allocator) so sequence retirement cannot
+    free them out from under a future hit; eviction (LRU over entries,
+    capped at ``max_entries`` pages total) releases that reference.
+
+    Matching never covers the whole prompt: the caller caps the match
+    so at least one prompt token still runs through the model (logits
+    for the first sampled token have to come from somewhere).
+    """
+
+    def __init__(self, allocator, page_size, max_entries=1024):
+        self.allocator = allocator
+        self.page_size = int(page_size)
+        self.max_entries = int(max_entries)
+        # chain key -> page id, LRU ordered (move_to_end on hit)
+        self._entries = OrderedDict()
+        self.lookups = 0
+        self.hits = 0          # lookups that matched >= 1 page
+        self.hit_pages = 0     # total pages mapped from the cache
+        self.tokens_saved = 0  # prompt tokens NOT re-embedded
+
+    def _chain_keys(self, tokens, namespace=None):
+        """Chained hash per full page of ``tokens``. A non-None
+        ``namespace`` (e.g. a tenant's adapter id) seeds the chain, so
+        namespaced entries never collide with the base chain or with
+        other namespaces — tenants cannot cross-hit each other's
+        prompts."""
+        keys = []
+        key = None if namespace is None else ("ns", namespace)
+        ps = self.page_size
+        for j in range(len(tokens) // ps):
+            key = hash((key, tuple(tokens[j * ps:(j + 1) * ps])))
+            keys.append(key)
+        return keys
+
+    def match(self, tokens, max_tokens, skip_pages=0, count_lookup=True,
+              namespace=None):
+        """-> (new_pages list, new_token_count) for the longest
+        registered full-page prefix of ``tokens`` BEYOND the first
+        ``skip_pages`` pages (already held by the caller), capped at
+        ``max_tokens`` total. Takes ONE allocator reference per
+        returned page (the caller's page table now holds them).
+
+        Two call phases per request: admission (``count_lookup`` — one
+        lookup per request) and first-chunk extension (skip = what
+        admission matched, no second lookup — a same-step burst sibling
+        may have registered more pages in between; a request counts as
+        ONE hit across both phases)."""
+        if count_lookup:
+            self.lookups += 1
+        pages = []
+        cap_pages = max(0, int(max_tokens)) // self.page_size
+        for key in self._chain_keys(tokens,
+                                    namespace=namespace)[:cap_pages]:
+            page = self._entries.get(key)
+            if page is None:
+                break
+            self._entries.move_to_end(key)
+            pages.append(page)
+        new = pages[skip_pages:]
+        for page in new:
+            self.allocator.ref(page)
+        if new:
+            if count_lookup or skip_pages == 0:
+                self.hits += 1
+            self.hit_pages += len(new)
+            self.tokens_saved += len(new) * self.page_size
+        return new, len(new) * self.page_size
+
+    def register(self, tokens, pages, namespace=None):
+        """Record a prompt's full pages. ``pages[j]`` must hold tokens
+        ``[j*ps, (j+1)*ps)``; entries already present are skipped (the
+        existing shared page wins — the new duplicate stays owned by
+        its sequence alone)."""
+        for j, key in enumerate(self._chain_keys(tokens,
+                                                 namespace=namespace)):
+            if j >= len(pages):
+                break
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            self.allocator.ref(pages[j])
+            self._entries[key] = pages[j]
+            while len(self._entries) > self.max_entries:
+                _, evicted = self._entries.popitem(last=False)
+                self.allocator.free(evicted)
+
+    def unmatch(self, pages, counted_lookup=True):
+        """Roll back one :meth:`match` whose admission failed: release
+        the taken page references AND un-count the stats — a pool-full
+        request retried every scheduler step would otherwise inflate
+        hits/tokens_saved with savings that never happened."""
+        for page in pages:
+            self.allocator.free(page)
+        if pages:
+            self.hits -= 1
+            self.hit_pages -= len(pages)
+            self.tokens_saved -= len(pages) * self.page_size
+        if counted_lookup:
+            self.lookups -= 1
+
+    def evict(self, n_needed):
+        """Drop LRU entries (releasing the cache's page references)
+        until the allocator can hand out ``n_needed`` pages or the
+        cache is empty. Pages still referenced by live sequences just
+        lose the cache's claim — they free when their sequences do."""
+        while self._entries and not self.allocator.can_alloc(n_needed):
+            _, page = self._entries.popitem(last=False)
+            self.allocator.free(page)
+
+    @property
+    def hit_rate(self):
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def stats(self):
+        return {"lookups": self.lookups, "hits": self.hits,
+                "hit_rate": round(self.hit_rate, 4),
+                "shared_pages": self.hit_pages,
+                "tokens_saved": self.tokens_saved,
+                "entries": len(self._entries)}
+
+    def clear(self):
+        for page in self._entries.values():
+            self.allocator.free(page)
+        self._entries.clear()
+
+
+def plan_chunks(n_tokens, chunk_tokens, bucket_for, max_seq, start=0,
+                max_chunk=None):
+    """Chunked-prefill schedule: ``[(start, length), ...]`` covering
+    ``[start, start + n_tokens)`` in pieces of at most ``chunk_tokens``.
+    ``max_chunk`` (the largest prefill bucket) caps the chunk size
+    regardless of config: a preemption-resume context longer than every
+    bucket always chunks, whatever ``prefill_chunk_tokens`` says.
+
+    Safety: the slot layout writes each chunk with a
+    ``dynamic_update_slice`` of the full PADDED bucket at ``start`` —
+    XLA clamps an out-of-range start so ``start + bucket > max_seq``
+    would silently shift the write DOWN over live positions. A plan
+    with such a chunk is merged back into one unchunked prefill when a
+    bucket covers the whole span; otherwise the chunked plan stands
+    (the paged layout's per-token masked scatter is safe by
+    construction, and the slot path keeps a LOUD overrun assert)."""
+    if max_chunk is not None:
+        chunk_tokens = min(chunk_tokens or max_chunk, max_chunk)
+    if not chunk_tokens or n_tokens <= chunk_tokens:
+        return [(start, n_tokens)]
+    chunks, pos, violated = [], 0, False
+    while pos < n_tokens:
+        ln = min(chunk_tokens, n_tokens - pos)
+        violated = violated or start + pos + bucket_for(ln) > max_seq
+        chunks.append((start + pos, ln))
+        pos += ln
+    if violated and n_tokens <= (max_chunk or n_tokens):
+        return [(start, n_tokens)]
+    return chunks

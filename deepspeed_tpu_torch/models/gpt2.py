@@ -1,0 +1,401 @@
+"""GPT-2 for serving: configuration, weights and the KV-cached forward.
+
+Port of ``deepspeed_tpu/models/gpt2.py``'s serving path. The weights are
+an :class:`GPT2Model` (``nn.Module``) holding the JAX tree's names
+(``wte``, ``wpe``, ``blocks.{i}.attn.qkv_kernel``, ``ln_f.scale``, ...)
+in the JAX ``(in, out)`` layout, so ``x @ W`` reads as in the reference.
+:func:`init_params` draws from the same ``np.random.RandomState`` stream
+in the same order, so one seed gives the same weights in both packages;
+:func:`params_from_jax` carries a JAX tree across.
+
+The cached forward mirrors the reference function for function. The KV
+caches are mutated IN PLACE (the JAX programs donate those buffers and
+return new ones): ``_cached_attn_ctx`` / ``_paged_attn_ctx`` write the
+new tokens' K/V into the cache they are given and return only the
+attention context. The uncached training forward comes with the
+training slice.
+"""
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.paged_attention import paged_attention, paged_attention_reference
+from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
+
+
+@dataclass
+class GPT2Config:
+    vocab_size: int = 50304        # 50257 padded to a multiple of 128
+    max_seq_len: int = 1024
+    n_layers: int = 12
+    n_heads: int = 12
+    d_model: int = 768
+    dtype: torch.dtype = torch.float32   # param dtype at init
+    # Paged-attention read path: "xla" (the plain gather-back, the
+    # numerics oracle and default) or "pallas" (the CUDA page-walk
+    # kernel, ops/paged_attention). The serving engine sets it on the
+    # DECODE family only; prefill never reads it.
+    paged_attention_kernel: str = "xla"
+
+    @property
+    def d_head(self):
+        return self.d_model // self.n_heads
+
+
+SIZES = {
+    "gpt2_small": dict(n_layers=12, n_heads=12, d_model=768),      # 125M
+    "gpt2_medium": dict(n_layers=24, n_heads=16, d_model=1024),    # 350M
+    "gpt2_large": dict(n_layers=36, n_heads=20, d_model=1280),     # 760M
+    "gpt2_xl": dict(n_layers=48, n_heads=25, d_model=1600),        # 1.5B
+}
+
+
+def config_for(name, **overrides):
+    base = dict(SIZES[name])
+    base.update(overrides)
+    return GPT2Config(**base)
+
+
+# ------------------------------------------------------------- weights
+
+
+def init_block_params(config, rng):
+    """One transformer block as a JAX-shaped dict of float32 numpy
+    arrays, Megatron init: normal(0, 0.02) with the residual output
+    projections scaled by 1/sqrt(2*n_layers). Draws from ``rng`` in the
+    reference's order; float64 draws are cast to float32 in numpy."""
+    std = 0.02
+    proj_std = std / math.sqrt(2.0 * config.n_layers)
+    d = config.d_model
+    norm = lambda *shape, sd=std: (rng.randn(*shape) * sd).astype(np.float32)
+    zeros = lambda *shape: np.zeros(shape, np.float32)
+    ones = lambda *shape: np.ones(shape, np.float32)
+    return {
+        "ln1": {"scale": ones(d), "bias": zeros(d)},
+        "attn": {
+            "qkv_kernel": norm(d, 3 * d),
+            "qkv_bias": zeros(3 * d),
+            "proj_kernel": norm(d, d, sd=proj_std),
+            "proj_bias": zeros(d),
+        },
+        "ln2": {"scale": ones(d), "bias": zeros(d)},
+        "mlp": {
+            "fc_kernel": norm(d, 4 * d),
+            "fc_bias": zeros(4 * d),
+            "proj_kernel": norm(4 * d, d, sd=proj_std),
+            "proj_bias": zeros(d),
+        },
+    }
+
+
+def init_params(config, seed=0):
+    """The whole model as a JAX-shaped tree of float32 numpy arrays,
+    equal bit for bit to the reference ``init_params`` at float32."""
+    rng = np.random.RandomState(seed)
+    std = 0.02
+    d, v, s = config.d_model, config.vocab_size, config.max_seq_len
+    norm = lambda *shape, sd=std: (rng.randn(*shape) * sd).astype(np.float32)
+    blocks = [init_block_params(config, rng) for _ in range(config.n_layers)]
+    return {
+        "wte": norm(v, d),
+        "wpe": norm(s, d, sd=std / 2),
+        "blocks": blocks,
+        "ln_f": {"scale": np.ones(d, np.float32),
+                 "bias": np.zeros(d, np.float32)},
+    }
+
+
+def _param(shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+class _LayerNorm(nn.Module):
+    def __init__(self, d, device, dtype):
+        super().__init__()
+        self.scale = _param((d,), device, dtype)
+        self.bias = _param((d,), device, dtype)
+
+
+class _Attention(nn.Module):
+    def __init__(self, d, device, dtype):
+        super().__init__()
+        self.qkv_kernel = _param((d, 3 * d), device, dtype)
+        self.qkv_bias = _param((3 * d,), device, dtype)
+        self.proj_kernel = _param((d, d), device, dtype)
+        self.proj_bias = _param((d,), device, dtype)
+
+
+class _MLP(nn.Module):
+    def __init__(self, d, device, dtype):
+        super().__init__()
+        self.fc_kernel = _param((d, 4 * d), device, dtype)
+        self.fc_bias = _param((4 * d,), device, dtype)
+        self.proj_kernel = _param((4 * d, d), device, dtype)
+        self.proj_bias = _param((d,), device, dtype)
+
+
+class _Block(nn.Module):
+    def __init__(self, d, device, dtype):
+        super().__init__()
+        self.ln1 = _LayerNorm(d, device, dtype)
+        self.attn = _Attention(d, device, dtype)
+        self.ln2 = _LayerNorm(d, device, dtype)
+        self.mlp = _MLP(d, device, dtype)
+
+
+class GPT2Model(nn.Module):
+    """GPT-2 weights under the JAX tree's names. Construction allocates
+    them uninitialised (``torch.empty``) on ``device`` in ``dtype``
+    (default ``config.dtype``); :func:`make_gpt2_model` fills them."""
+
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        dtype = dtype or config.dtype
+        d = config.d_model
+        self.wte = _param((config.vocab_size, d), device, dtype)
+        self.wpe = _param((config.max_seq_len, d), device, dtype)
+        self.blocks = nn.ModuleList(_Block(d, device, dtype)
+                                    for _ in range(config.n_layers))
+        self.ln_f = _LayerNorm(d, device, dtype)
+
+
+def params_from_jax(tree):
+    """A JAX GPT-2 param tree (nested dicts and the per-layer list, of
+    numpy arrays) -> the port's ``state_dict`` (dotted names -> CPU
+    tensors, the same dtypes)."""
+    state = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for key, child in node.items():
+                walk(prefix + (key,), child)
+        elif isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(prefix + (str(i),), child)
+        else:
+            state[".".join(prefix)] = torch.from_numpy(np.array(node))
+
+    walk((), tree)
+    return state
+
+
+def params_to_jax(state_dict):
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` -> the
+    JAX-shaped tree of numpy arrays."""
+    tree = {}
+    for name, t in state_dict.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().numpy()
+    blocks = tree["blocks"]
+    tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
+    return tree
+
+
+def make_gpt2_model(config=None, size="gpt2_small", seed=0, **overrides):
+    """A :class:`GPT2Model` on the CPU with the reference's seeded
+    Megatron init (``init_params``), cast to ``config.dtype``."""
+    if config is None:
+        config = config_for(size, **overrides)
+    model = GPT2Model(config)
+    model.load_state_dict(params_from_jax(init_params(config, seed=seed)))
+    return model
+
+
+# ------------------------------------------------------ serving forward
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    return fused_layer_norm(x, scale, bias, eps)
+
+
+def _mlp(x, block):
+    h = fused_bias_gelu(x @ block.fc_kernel.to(x.dtype),
+                        block.fc_bias.to(x.dtype))
+    return h @ block.proj_kernel.to(x.dtype) + block.proj_bias.to(x.dtype)
+
+
+def _block_rest(x, ctx, block_params):
+    """Everything after the attention context: proj + residual + MLP
+    (eval only: serving runs no dropout)."""
+    attn = block_params.attn
+    out = ctx @ attn.proj_kernel.to(x.dtype) + attn.proj_bias.to(x.dtype)
+    x = x + out
+    ln2 = _layer_norm(x, block_params.ln2.scale, block_params.ln2.bias)
+    return x + _mlp(ln2, block_params.mlp)
+
+
+def _qkv_for_cache(x, block, config):
+    """Shared QKV projection for the cached attention paths:
+    -> q (b, s, h, dh), k/v (b, h, s, dh) (views of one projection)."""
+    b, s, d = x.shape
+    h, dh = config.n_heads, config.d_head
+    qkv = x @ block.qkv_kernel.to(x.dtype) + block.qkv_bias.to(x.dtype)
+    q, k, v = qkv.split(d, dim=-1)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, h, dh).transpose(1, 2)
+    v = v.reshape(b, s, h, dh).transpose(1, 2)
+    return q, k, v
+
+
+def _attend_cache_rows(q, k_rows, v_rows, positions, dh, valid_lens=None):
+    """Absolute-position causal attention of ``s`` new queries over the
+    full per-slot cache rows (b, h, S, dh), in fp32. The ``k_pos <=
+    q_pos`` mask makes every entry past a slot's live length
+    unreachable, and V is zeroed past the live window (``positions +
+    valid_lens - 1``; default: all ``s`` tokens real) by a select, so
+    stale or NaN rows never reach the weighted sum (``0 * NaN`` would).
+    Shared by the slot and paged layouts, so paged decode is
+    bit-compatible with the slot-cache oracle."""
+    s = q.shape[1]
+    S = k_rows.shape[2]
+    device = q.device
+    qf = q.float() * (1.0 / math.sqrt(dh))
+    scores = torch.einsum("bqhd,bhkd->bhqk", qf, k_rows.float())
+    k_pos = torch.arange(S, device=device)[None, None, None, :]
+    q_pos = (positions.long()[:, None] +
+             torch.arange(s, device=device)[None, :])[:, None, :, None]
+    scores = scores.masked_fill(k_pos > q_pos, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    live = positions.long() + (valid_lens.long() if valid_lens is not None
+                               else s) - 1
+    dead_v = torch.arange(S, device=device)[None, :] > live[:, None]
+    v_rows = v_rows.masked_fill(dead_v[:, None, :, None], 0)
+    return torch.einsum("bhqk,bhkd->bqhd", probs, v_rows.float())
+
+
+def _cached_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
+                     positions):
+    """Incremental attention against the slot-based KV cache.
+
+    ``x`` is the LN'd input for ``s`` NEW tokens per slot (batch row i IS
+    cache row i of ``k_cache``/``v_cache`` (rows, layers, heads, max_seq,
+    d_head)). The new K/V are written IN PLACE at ``positions[i] ..
+    positions[i] + s``, which must lie inside the row (the engine
+    asserts it; the reference instead clamps the write start), then the
+    queries attend over the whole row. Returns the context (b, s, d)."""
+    b, s, d = x.shape
+    q, k, v = _qkv_for_cache(x, block, config)
+    rows = torch.arange(b, device=x.device)[:, None]
+    tok_pos = positions.long()[:, None] + \
+        torch.arange(s, device=x.device)[None, :]                 # (b, s)
+    k_rows, v_rows = k_cache[:, layer_idx], v_cache[:, layer_idx]
+    # advanced (row, position) indices split by the heads slice: the
+    # value layout is (b, s, h, dh)
+    k_rows[rows, :, tok_pos, :] = k.transpose(1, 2).to(k_cache.dtype)
+    v_rows[rows, :, tok_pos, :] = v.transpose(1, 2).to(v_cache.dtype)
+    ctx = _attend_cache_rows(q, k_rows, v_rows, positions, config.d_head)
+    return ctx.to(x.dtype).reshape(b, s, d)
+
+
+def _paged_write_index(positions, page_tables, valid_lens, page_size, s):
+    """Physical (page, offset) of each of the ``s`` new tokens per slot,
+    flattened to (b*s,). Padded tokens (``i >= valid_lens[b]``) and
+    positions past the page-table window go to the garbage page 0, so a
+    bucket-padded prefill never touches another sequence's pages. The
+    same for every layer: the forward computes it once."""
+    max_pages = page_tables.shape[1]
+    ar = torch.arange(s, device=positions.device)
+    tok_pos = positions.long()[:, None] + ar[None, :]             # (b, s)
+    valid = (ar[None, :] < valid_lens.long()[:, None]) & \
+        (tok_pos < max_pages * page_size)
+    logical = (tok_pos // page_size).clamp(0, max_pages - 1)
+    page = torch.gather(page_tables.long(), 1, logical)
+    page = torch.where(valid, page, torch.zeros_like(page))
+    return page.reshape(-1), (tok_pos % page_size).reshape(-1)
+
+
+def _paged_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
+                    positions, page_tables, valid_lens, page_size,
+                    write_index=None):
+    """Incremental attention against the PAGED KV cache.
+
+    The cache is a global pool ``(pages, layers, heads, page_size,
+    d_head)``; ``page_tables`` (b, max_pages) int32 maps each slot's
+    logical page j to a physical page (entry 0 = the reserved garbage
+    page). Token i of row b is written IN PLACE at physical
+    ``(page_tables[b, pos // page_size], pos % page_size)`` by one masked
+    scatter (``write_index``, from :func:`_paged_write_index` when not
+    given). Reads: ``config.paged_attention_kernel == "pallas"`` runs
+    the page-walk kernel (ops/paged_attention), anything else the plain
+    gather-back. The write is shared by both, and lands on the same
+    stream before the read. Returns the context (b, s, d)."""
+    b, s, d = x.shape
+    dh = config.d_head
+    q, k, v = _qkv_for_cache(x, block, config)
+    if write_index is None:
+        write_index = _paged_write_index(positions, page_tables, valid_lens,
+                                         page_size, s)
+    flat_page, flat_off = write_index
+    # advanced (page, offset) indices split by the heads slice: the value
+    # layout is (b*s, h, dh)
+    k_cache[flat_page, layer_idx, :, flat_off, :] = \
+        k.transpose(1, 2).reshape(b * s, -1, dh).to(k_cache.dtype)
+    v_cache[flat_page, layer_idx, :, flat_off, :] = \
+        v.transpose(1, 2).reshape(b * s, -1, dh).to(v_cache.dtype)
+    read = paged_attention if config.paged_attention_kernel == "pallas" \
+        else paged_attention_reference
+    ctx = read(q.contiguous(), k_cache, v_cache, page_tables, positions,
+               valid_lens, layer_idx=layer_idx, page_size=page_size)
+    return ctx.to(x.dtype).reshape(b, s, d)
+
+
+def _forward_hidden_cached(params, input_ids, config, cache, positions,
+                           page_tables=None, valid_lens=None,
+                           page_size=None):
+    """Cache-threaded forward for serving -> final hidden states.
+
+    ``cache`` is ``(k, v)``: the slot layout (rows, layers, heads,
+    max_seq, d_head), or — when ``page_tables`` is given — the paged
+    pool (pages, layers, heads, page_size, d_head) indexed per slot
+    through ``page_tables`` (b, max_pages) int32 with ``valid_lens``
+    (b,) int32 masking padded writes. ``positions`` (b,) int32 is the
+    absolute position of ``input_ids[:, 0]`` per slot. The caches are
+    updated in place."""
+    b, s = input_ids.shape
+    k_cache, v_cache = cache
+    compute_dtype = params.ln_f.scale.dtype
+    tok = params.wte[input_ids]
+    # padded prefill tokens may run past the position table; their rows
+    # only ever feed the garbage page, so clamping them changes nothing
+    pos_ids = (positions.long()[:, None] +
+               torch.arange(s, device=input_ids.device)[None, :]).clamp(
+                   max=params.wpe.shape[0] - 1)
+    x = tok.to(compute_dtype) + params.wpe[pos_ids].to(compute_dtype)
+    write_index = None
+    if page_tables is not None:
+        write_index = _paged_write_index(positions, page_tables, valid_lens,
+                                         page_size, s)
+    for i, bp in enumerate(params.blocks):
+        ln1 = _layer_norm(x, bp.ln1.scale, bp.ln1.bias)
+        if page_tables is not None:
+            ctx = _paged_attn_ctx(ln1, bp.attn, config, k_cache, v_cache, i,
+                                  positions, page_tables, valid_lens,
+                                  page_size, write_index=write_index)
+        else:
+            ctx = _cached_attn_ctx(ln1, bp.attn, config, k_cache, v_cache,
+                                   i, positions)
+        x = _block_rest(x, ctx, bp)
+    return _layer_norm(x, params.ln_f.scale, params.ln_f.bias)
+
+
+def forward_hidden(params, input_ids, config, cache=None, positions=None,
+                   page_tables=None, valid_lens=None, page_size=None):
+    """Embedding + transformer stack -> final hidden states, through the
+    KV cache ``cache`` (see :func:`_forward_hidden_cached`)."""
+    if cache is None:
+        raise NotImplementedError(
+            "the uncached (training) GPT-2 forward comes with the training "
+            "slice of the port; serving passes a KV cache")
+    if positions is None:
+        positions = torch.zeros((input_ids.shape[0],), dtype=torch.int32,
+                                device=input_ids.device)
+    return _forward_hidden_cached(params, input_ids, config, cache,
+                                  positions, page_tables=page_tables,
+                                  valid_lens=valid_lens, page_size=page_size)

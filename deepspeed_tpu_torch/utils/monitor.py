@@ -1,0 +1,119 @@
+"""Serving counters.
+
+Port of ``deepspeed_tpu/utils/monitor.py::ServingMetrics``. The
+TensorBoard/JSONL ``SummaryMonitor`` it can mirror into belongs to the
+telemetry slice and is not ported yet.
+"""
+from collections import deque
+
+import numpy as np
+
+
+class ServingMetrics:
+    """Inference-serving counters: prefill vs decode tokens/s, slot
+    occupancy, queue depth, request latency.
+
+    Filled by the continuous-batching scheduler
+    (inference/scheduler.py) at decode-step granularity."""
+
+    # request-latency samples kept for p50/p95 (bounded so a long-lived
+    # serving engine cannot grow host memory without bound)
+    LATENCY_WINDOW = 4096
+
+    def __init__(self):
+        self.prefill_tokens = 0
+        self.prefill_seconds = 0.0
+        self.prefill_calls = 0
+        self.decode_tokens = 0
+        self.decode_seconds = 0.0
+        self.decode_steps = 0
+        self.schedule_steps = 0
+        self.occupancy_sum = 0.0
+        self.last_queue_depth = 0
+        self.peak_queue_depth = 0
+        # request latency: time-to-first-token and per-output-token
+        self.ttfts = deque(maxlen=self.LATENCY_WINDOW)
+        self.tpots = deque(maxlen=self.LATENCY_WINDOW)
+        self.completed_requests = 0
+        self.completed_tokens = 0       # the goodput numerator
+
+    def record_prefill(self, tokens, seconds):
+        self.prefill_tokens += int(tokens)
+        self.prefill_seconds += float(seconds)
+        self.prefill_calls += 1
+
+    def record_decode(self, tokens, seconds):
+        """One fused decode step: ``tokens`` = tokens EMITTED this step
+        (the live slots)."""
+        self.decode_tokens += int(tokens)
+        self.decode_seconds += float(seconds)
+        self.decode_steps += 1
+
+    def record_ttft(self, seconds):
+        self.ttfts.append(float(seconds))
+
+    def record_completion(self, n_tokens, tpot_seconds):
+        """One retired request: ``tpot_seconds`` is its mean
+        time-per-output-token after the first (None for single-token
+        completions)."""
+        self.completed_requests += 1
+        self.completed_tokens += int(n_tokens)
+        if tpot_seconds is not None:
+            self.tpots.append(float(tpot_seconds))
+
+    def record_schedule(self, occupancy, queue_depth, step):
+        self.schedule_steps += 1
+        self.occupancy_sum += float(occupancy)
+        self.last_queue_depth = int(queue_depth)
+        self.peak_queue_depth = max(self.peak_queue_depth, int(queue_depth))
+
+    @property
+    def prefill_tokens_per_sec(self):
+        return (self.prefill_tokens / self.prefill_seconds
+                if self.prefill_seconds > 0 else 0.0)
+
+    @property
+    def decode_tokens_per_sec(self):
+        return (self.decode_tokens / self.decode_seconds
+                if self.decode_seconds > 0 else 0.0)
+
+    @property
+    def mean_occupancy(self):
+        return (self.occupancy_sum / self.schedule_steps
+                if self.schedule_steps else 0.0)
+
+    @staticmethod
+    def _latency_dist(samples):
+        """{count, mean_s, p50_s, p95_s} over a latency deque — None
+        when no request has produced a sample yet."""
+        if not samples:
+            return None
+        vals = np.asarray(samples, np.float64)
+        return {"count": len(samples),
+                "mean_s": round(float(vals.mean()), 6),
+                "p50_s": round(float(np.percentile(vals, 50)), 6),
+                "p95_s": round(float(np.percentile(vals, 95)), 6)}
+
+    def ttft_dist(self):
+        return self._latency_dist(self.ttfts)
+
+    def tpot_dist(self):
+        return self._latency_dist(self.tpots)
+
+    def snapshot(self):
+        out = {
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_tokens_per_sec": round(self.prefill_tokens_per_sec, 2),
+            "decode_tokens": self.decode_tokens,
+            "decode_steps": self.decode_steps,
+            "decode_tokens_per_sec": round(self.decode_tokens_per_sec, 2),
+            "mean_slot_occupancy": round(self.mean_occupancy, 4),
+            "peak_queue_depth": self.peak_queue_depth,
+            "completed_requests": self.completed_requests,
+            "completed_tokens": self.completed_tokens,
+        }
+        for name, dist in (("ttft", self.ttft_dist()),
+                           ("tpot", self.tpot_dist())):
+            if dist is not None:
+                out[name] = dist
+        return out
