@@ -6,19 +6,28 @@
 Phases, each printing one JSON line (any failure raises and exits non-zero
 with no ``ok`` line):
 
-1. device — the card's name and power limit from ``nvidia-smi``;
-2. build  — every kernel of the path built with nvcc from the checkout's
-   sources, all builds started together;
-3. kernel — each kernel against its plain PyTorch version on the card at
-   the path's shapes (NaN-poisoned pools), with its time, the plain
-   version's, the least time the card could take (``bound_ms``) and a
-   PyTorch library call's where one exists;
-4. serve  — the main path: ``init_inference(...).generate(...)`` serving
-   48 requests with GPT-2-350M (``gpt2_medium``) at full width and depth,
-   bf16, from the paged KV cache, with every kernel's launch count set to
-   0 just before and read just after; then a few all-slot decode steps
-   under torch.profiler (device busy share, costliest kernels);
-5. parity — fp32 greedy streams identical for the slot layout, the paged
+1. device  — the card's name and power limit from ``nvidia-smi``;
+2. build   — every kernel source of the paths built with nvcc from the
+   checkout, all builds started together;
+3. kernel  — each kernel against its plain PyTorch version on the card at
+   its path's shapes, with its time, the plain version's, the least time
+   the card could take (``bound_ms``) and a PyTorch library call's where
+   one exists: paged attention (the serve path's decode shape), the flash
+   forward, dk/dv and dq kernels (b 16, s 1024, h 16, d 64, bf16, causal,
+   q/k/v strided column blocks of one QKV tensor) and Adam (one flat fp32
+   buffer of GPT-2-350M's size);
+4. train   — the training main path: ``initialize(...).train_batch(...)``
+   on GPT-2-350M (``gpt2_medium``) at full width and depth, seq 1024,
+   bf16, ZeRO-2, Adam with fp32 moments, the flash and Adam kernels
+   chosen by "auto"; every kernel's launch count set to 0 just before the
+   timed steps and read just after; then a torch.profiler window;
+5. train-parity — fp32 loss trajectories with the kernels and with the
+   plain versions, at gpt2_medium width with 2 layers;
+6. serve   — the serving main path: ``init_inference(...).generate(...)``
+   serving 48 requests with gpt2_medium at full width and depth, bf16,
+   from the paged KV cache, counts set to 0 just before and read just
+   after; then a few all-slot decode steps under torch.profiler;
+7. parity  — fp32 greedy streams identical for the slot layout, the paged
    layout's plain read path and the paged kernel, on the card;
 
 then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -36,6 +45,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 L2_FLUSH_BYTES = 512 * 2 ** 20   # > the 50 MB L2, and covers launch latency
 SERVE_LAYERS = 24                # gpt2_medium depth
 
@@ -118,7 +128,13 @@ def paged_bound_ms(case):
     nbytes = (2 * n_keys * h * dh * elem + q.numel() * elem +
               q.numel() * 4 + case["page_tables"].numel() * 4 + 2 * b * 4)
     flops = 4 * s * n_keys * h * dh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return bound_ms(nbytes, flops, FP32_FLOPS_PER_S)
+
+
+def bound_ms(nbytes, flops, flops_per_s):
+    """(ms, "bytes" | "operations"): the larger of the bytes' time at the
+    card's memory rate and the operations' time at ``flops_per_s``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -186,6 +202,320 @@ def phase_kernel(flush):
                             "contiguous rows, gather excluded",
             "shape": {"slots": b, "heads": h, "d_head": dh, "page_size": 16,
                       "max_pages": 64, "pool_dtype": "bf16", "s": 1}}
+
+
+# ------------------------------------------------ flash attention and Adam
+
+
+FLASH_SHAPE = dict(b=16, s=1024, h=16, d=64)     # the train path's
+# Per element, |kernel - plain| <= 2**-7 * |plain| + atol: one bf16 ulp of
+# the plain value, plus a floor. The backward kernels round ds at the
+# plain version's points, so their floor is ~0; out's floor is one ulp at
+# |out| in [0.25, 0.5), where a reordered fp32 sum may round the other way.
+FLASH_TOL = {"ulp_rel": 2 ** -7, "out_atol": 2 ** -9, "grad_atol": 1e-6,
+             "lse": 1e-4}
+
+
+def flash_case(device, seed=0):
+    """The train path's attention operands: q, k, v as the column blocks
+    of one (b, s, 3 * h * d) bf16 QKV tensor (row stride 3 * h * d), and
+    an output gradient."""
+    import torch
+    b, s, h, d = (FLASH_SHAPE[k] for k in "bshd")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.split(h * d, dim=-1)
+    dout = torch.randn((b, s, h * d), generator=gen, device=device,
+                       dtype=torch.bfloat16)
+    return q, k, v, dout
+
+
+def flash_bound(q, h, mults, tensors):
+    """Least time for ``mults`` products per (query, key) pair over the
+    causal pairs these inputs need (key <= query), at the bf16 tensor-core
+    rate, against each of ``tensors`` moved once."""
+    b, s, hd = q.shape
+    pairs = b * h * s * (s + 1) // 2
+    flops = 2 * mults * pairs * (hd // h)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+
+
+def _ulp_ratio(got, want, atol):
+    """max over elements of |got - want| / (2**-7 |want| + atol): at most
+    1 when every element is within the per-element bound."""
+    want = want.float()
+    return float(((got.float() - want).abs() /
+                  (FLASH_TOL["ulp_rel"] * want.abs() + atol)).max())
+
+
+def phase_flash(flush):
+    """The three flash kernels against their plain versions, timed."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    device = torch.device("cuda", 0)
+    h = FLASH_SHAPE["h"]
+    q, k, v, dout = flash_case(device)
+    kw = dict(num_heads=h, causal=True)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = fa.attention_delta(out, dout, h)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, None, dout, lse, delta, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, None, dout, lse, delta, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, None, dout, lse,
+                                                 delta, **kw)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, None, dout, lse, delta,
+                                       **kw)
+    torch.cuda.synchronize()
+    abs_err = lambda a, b: float((a.float() - b.float()).abs().max())
+    pairs = {"out": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk),
+             "dv": (dv, ref_dv)}
+    errs = {"lse": abs_err(lse, ref_lse)}
+    for name, (got, want) in pairs.items():
+        atol = FLASH_TOL["out_atol" if name == "out" else "grad_atol"]
+        errs[name + "_abs"] = abs_err(got, want)
+        errs[name + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
+    for t in (out, lse, dq, dk, dv):
+        assert torch.isfinite(t.float()).all(), "non-finite kernel output"
+    assert errs["lse"] <= FLASH_TOL["lse"], errs
+    assert max(errs[n + "_ulp_ratio"] for n in pairs) <= 1.0, errs
+    del ref_out, ref_lse, ref_dk, ref_dv, ref_dq
+
+    times = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+        "flash_bwd_dkdv": (
+            lambda: fa.flash_bwd_dkdv(q, k, v, None, dout, lse, delta, **kw),
+            lambda: fa.flash_bwd_dkdv_reference(q, k, v, None, dout, lse,
+                                                delta, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, None, dout, lse, delta, **kw),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, None, dout, lse,
+                                              delta, **kw)),
+    }
+    bounds = {
+        "flash_fwd": flash_bound(q, h, 2, (q, k, v, out, lse)),
+        "flash_bwd_dkdv": flash_bound(q, h, 4, (q, k, v, dout, lse, delta,
+                                                dk, dv)),
+        "flash_bwd_dq": flash_bound(q, h, 3, (q, k, v, dout, lse, delta,
+                                              dq)),
+    }
+    # yardstick: scaled_dot_product_attention on pre-transposed contiguous
+    # (b, h, s, d) copies (the transposes excluded); its backward is its
+    # forward + backward minus its forward, and computes dq, dk, dv at once
+    heads = lambda t: t.reshape(t.shape[0], t.shape[1], h, -1).transpose(
+        1, 2).contiguous()
+    qh, kh, vh = (heads(t).requires_grad_() for t in (q, k, v))
+    doh = heads(dout)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, flush)
+    lib_fwd_bwd = time_ms(
+        lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), flush)
+    library = {"flash_fwd": lib_fwd,
+               "flash_bwd_dkdv": lib_fwd_bwd - lib_fwd,
+               "flash_bwd_dq": lib_fwd_bwd - lib_fwd}
+    rows = {}
+    for name, (kernel, plain) in times.items():
+        rows[name] = {"kernel_ms": time_ms(kernel, flush),
+                      "plain_ms": time_ms(plain, flush, reps=5),
+                      "bound_ms": bounds[name][0],
+                      "bound_by": bounds[name][1],
+                      "library_ms": library[name]}
+    return {"phase": "kernel", "name": "flash_attention", "errors": errs,
+            "tolerance": FLASH_TOL, "kernels": rows,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+                            "on contiguous (b, h, s, d) copies; the "
+                            "backward's time covers dq, dk and dv together",
+            "shape": dict(FLASH_SHAPE, dtype="bf16", causal=True,
+                          qkv_row_stride=3 * h * FLASH_SHAPE["d"])}
+
+
+def phase_adam(flush):
+    """The Adam kernel against its plain version over one flat fp32
+    buffer of GPT-2-350M's parameter count, timed; bit-exact."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.adam.fused_adam import (
+        bias_corrections, fused_adam, fused_adam_reference)
+    device = torch.device("cuda", 0)
+    n = gpt2.num_params(gpt2.config_for("gpt2_medium"))
+    gen = torch.Generator(device=device).manual_seed(3)
+    new = lambda: torch.randn(n, generator=gen, device=device)
+    g = new()
+    p, m, v = new(), new() * 1e-2, new().abs_() * 1e-4
+    copies = [[t.clone() for t in (p, m, v)] for _ in range(2)]
+    bc1, bc2 = bias_corrections(0.9, 0.999, 7)
+    kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
+              bc1=bc1, bc2=bc2)
+    fused_adam(copies[0][0], g, copies[0][1], copies[0][2], **kw)
+    fused_adam_reference(copies[1][0], g, copies[1][1], copies[1][2], **kw)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(*copies))
+    assert err == 0.0, "fused_adam off its plain version by {}".format(err)
+    del copies
+    kernel_ms = time_ms(lambda: fused_adam(p, g, m, v, **kw), flush)
+    plain_ms = time_ms(lambda: fused_adam_reference(p, g, m, v, **kw),
+                       flush, reps=5)
+    step = torch.tensor(7.0, device=device)
+    library_ms = time_ms(lambda: torch._fused_adam_(
+        [p], [g], [m], [v], [], [step], lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), flush)
+    b_ms, b_by = bound_ms(7 * 4 * n, 18 * n, FP32_FLOPS_PER_S)
+    return {"phase": "kernel", "name": "fused_adam", "elements": n,
+            "max_abs_err": err, "tolerance": 0.0, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library_call": "torch._fused_adam_ over the same flat tensors"}
+
+
+# ------------------------------------------------------------ training path
+
+
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 16, 1024, 2, 10
+TRAIN_REMAT = False       # the peak stays well under 70 GB without it
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 2},
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4,
+                                             "fused_kernel": "auto"}},
+    "transformer": {"flash_attention": "auto"},
+    "steps_per_print": 10 ** 9,
+}
+
+
+def phase_train(launch_counters):
+    """The training main path: gpt2_medium at full width and depth, seq
+    1024, bf16, ZeRO-2, Adam with fp32 moments, through the port's
+    initialize(...).train_batch(...) on one fixed batch."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT)
+    assert cfg.n_layers == 24 and cfg.d_model == 1024
+    t0 = time.perf_counter()
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=TRAIN_CONFIG)
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda"
+    assert engine.flash_attention_backend == "pallas", \
+        engine.flash_attention_backend
+    assert engine.fused_optimizer_kernel == "pallas", \
+        engine.fused_optimizer_kernel
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size,
+                      size=(1, TRAIN_MICRO, TRAIN_SEQ)).astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for counter in launch_counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [engine.train_batch(batch=batch)
+                   for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    losses += [float(x) for x in step_losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert launches[name] == cfg.n_layers * TRAIN_STEPS, launches
+    assert launches["fused_adam"] == TRAIN_STEPS, launches
+    assert engine.flat.check_views()
+    step_s = wall / TRAIN_STEPS
+    tokens = TRAIN_MICRO * TRAIN_SEQ
+    n_params = gpt2.num_params(cfg)
+    flops_per_token = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * \
+        TRAIN_SEQ                                      # bench.py's formula
+    mfu = tokens / step_s * flops_per_token / BF16_FLOPS_PER_S
+    profile = train_profile(engine, batch)
+    return {"phase": "train", "model": "gpt2_medium", "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "seq": TRAIN_SEQ,
+            "micro_batch": TRAIN_MICRO, "dtype": "bf16", "zero_stage": 2,
+            "moments": "fp32", "remat": TRAIN_REMAT, "params": n_params,
+            "engine_init_s": init_s, "steps": TRAIN_STEPS,
+            "step_ms": step_s * 1e3, "tokens_per_sec": tokens / step_s,
+            "mfu": mfu, "mfu_peak": "989 TFLOP/s dense bf16",
+            "losses": losses, "peak_memory_gb": peak_gb,
+            "launches": launches, "train_profile": profile}
+
+
+def train_profile(engine, batch, steps=2):
+    """Where a training step's time goes: ``steps`` train_batch calls
+    under torch.profiler (device busy share, launches per step and the
+    costliest kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": steps, "wall_s_per_step": wall / steps,
+            "device_busy_s_per_step": busy_us * 1e-6 / steps,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "kernel_launches_per_step": sum(e.count for e in kernels) /
+            steps,
+            "top_kernels": [{"name": e.key[:80],
+                             "ms_per_step": e.self_device_time_total * 1e-3 /
+                             steps,
+                             "calls_per_step": e.count / steps}
+                            for e in top]}
+
+
+def phase_train_parity(steps=5, tol=1e-4):
+    """fp32 loss trajectories at gpt2_medium width with 2 layers, TF32
+    off: the kernels ("pallas", "pallas") against the plain versions
+    ("xla", "xla"), from the same init."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
+    runs = {}
+    for backend in ("pallas", "xla"):
+        cfg = gpt2.config_for("gpt2_medium", n_layers=2,
+                              max_seq_len=TRAIN_SEQ, loss_chunk=128,
+                              remat=False)
+        model = gpt2.make_gpt2_model(config=cfg, seed=1)
+        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": 4,
+            "optimizer": {"type": "Adam", "params": {
+                "lr": 1e-4, "fused_kernel": backend}},
+            "transformer": {"flash_attention": backend},
+            "steps_per_print": 10 ** 9})[0]
+        assert engine.flash_attention_backend == backend
+        runs[backend] = [float(engine.train_batch(batch=(ids, ids)))
+                         for _ in range(steps)]
+        del engine, model
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"],
+                                                  runs["xla"]))
+    assert rel <= tol, (rel, runs)
+    return {"phase": "train_parity", "layers": 2, "d_model": 1024,
+            "dtype": "fp32", "steps": steps, "losses": runs,
+            "max_rel_diff": rel, "tolerance": tol}
+
 
 
 # ----------------------------------------------------------- serving path
@@ -336,12 +666,33 @@ def phase_parity():
             "identical": True}
 
 
+KERNELS = [
+    # name, source, the TPU kernel it replaces, the path that launches it
+    ("paged_attention",
+     "deepspeed_tpu_torch/ops/paged_attention/csrc/paged_attention.cu",
+     "deepspeed_tpu/ops/pallas/paged_attention.py:141", "serve"),
+    ("flash_fwd",
+     "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:518", "train"),
+    ("flash_bwd_dkdv",
+     "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:756", "train"),
+    ("flash_bwd_dq",
+     "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:897", "train"),
+    ("fused_adam", "deepspeed_tpu_torch/ops/adam/csrc/fused_adam.cu",
+     "deepspeed_tpu/ops/adam/pallas_adam.py:45", "train"),
+]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
-    from deepspeed_tpu_torch.ops import paged_attention as pa_ops
+    from deepspeed_tpu_torch.ops import cuda_build
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -353,40 +704,63 @@ def main():
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # every kernel of the path: its wrapper (which holds the launch
-    # count) and its build function
-    kernels = [{"name": "paged_attention", "route": "cuda",
-                "source": "deepspeed_tpu_torch/ops/paged_attention/csrc/"
-                          "paged_attention.cu",
-                "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:141",
-                "wrapper": paged_attention, "build": pa_ops.build}]
+    # each kernel's wrapper holds its launch count
+    wrappers = {"paged_attention": paged_attention,
+                "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+                "flash_bwd_dq": fa.flash_bwd_dq, "fused_adam": fused_adam}
+    sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        records = list(pool.map(lambda k: k["build"](), kernels))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        records = list(pool.map(cuda_build.build, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": [{"name": k["name"], "seconds": r.seconds,
+          "sources": [{"source": src, "seconds": r.seconds,
                        "ptxas": [line.strip() for line in r.log.splitlines()
                                  if "registers" in line or "spill" in line]}
-                      for k, r in zip(kernels, records)]})
+                      for src, r in zip(sources, records)]})
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     kernel = phase_kernel(flush)
+    emit(kernel)
+    flash = phase_flash(flush)
+    emit(flash)
+    torch.cuda.empty_cache()
+    adam = phase_adam(flush)
+    emit(adam)
     del flush
     torch.cuda.empty_cache()
-    emit(kernel)
 
-    serve = phase_serve([k["wrapper"] for k in kernels])
+    train_counters = [wrappers[name] for name, _, _, path in KERNELS
+                      if path == "train"]
+    train = phase_train(train_counters)
+    emit(train)
+    torch.cuda.empty_cache()
+    emit(phase_train_parity())
+    torch.cuda.empty_cache()
+
+    serve = phase_serve([wrappers["paged_attention"]])
     emit(serve)
     torch.cuda.empty_cache()
     emit(phase_parity())
 
+    measured = {"paged_attention": dict(
+        kernel, max_abs_err=kernel["max_abs_err"])}
+    for name, row in flash["kernels"].items():
+        err = flash["errors"]["out_abs"] if name == "flash_fwd" else max(
+            flash["errors"][g + "_abs"] for g in (
+                ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)))
+        measured[name] = dict(row, max_abs_err=err)
+    measured["fused_adam"] = adam
+    launches = dict(serve["launches"], **train["launches"])
     emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
-        "launches": serve["launches"]["paged_attention"],
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["kernel_ms"],
-        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}]})
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": measured[name]["max_abs_err"],
+        "ms": measured[name]["kernel_ms"],
+        "plain_ms": measured[name]["plain_ms"],
+        "bound_ms": measured[name]["bound_ms"],
+        "bound_by": measured[name]["bound_by"],
+        "library_ms": measured[name]["library_ms"]}
+        for name, source, replaces, _ in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

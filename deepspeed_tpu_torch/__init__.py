@@ -6,13 +6,55 @@ package's; every kernel the JAX package wrote in Pallas becomes a
 kernel written by hand for Hopper. The port imports nothing of JAX or
 of ``deepspeed_tpu``.
 
-This slice serves GPT-2 from a slot or paged KV cache through
-:func:`init_inference`, with paged-attention decode in a CUDA kernel
-(``ops/paged_attention``). Training comes with a later slice.
+Two entry points, as in the JAX package:
+
+* :func:`initialize` trains a model (GPT-2 through its
+  ``forward(input_ids, labels)`` loss) with ZeRO stages 0-2 at world
+  size 1, bf16/fp16 mixed precision over fp32 master weights and
+  Adam/AdamW; flash attention (``ops/transformer/flash_attention.py``)
+  and the Adam apply (``ops/adam``) run in CUDA kernels;
+* :func:`init_inference` serves GPT-2 from a slot or paged KV cache, with
+  paged-attention decode in a CUDA kernel (``ops/paged_attention``).
 """
 from .version import __version__
 
 from .utils.logging import logger, log_dist
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, device=None):
+    """Initialize the training engine.
+
+    Mirrors ``deepspeed_tpu.initialize``: returns ``(engine, optimizer,
+    None, lr_scheduler)`` with a
+    :class:`deepspeed_tpu_torch.runtime.engine.DeepSpeedEngine`, whose
+    ``train_batch(batch=(ids, labels))`` (or ``engine(ids, labels)``,
+    ``engine.backward(loss)``, ``engine.step()``) trains ``model``, an
+    ``nn.Module`` whose forward returns the loss
+    (``models.gpt2.make_gpt2_model``). ``config`` / ``config_params`` is
+    a ds_config dict or JSON path. ``device`` defaults to the current
+    CUDA device and raises when CUDA is absent; only an explicit
+    ``device="cpu"`` runs on the CPU. The model's parameters move into
+    the engine's flat buffers on that device.
+    """
+    from .runtime.engine import DeepSpeedEngine
+
+    assert model is not None, "deepspeed.initialize requires a model"
+    log_dist("DeepSpeedTPUTorch info: version={}".format(__version__),
+             ranks=[0])
+    if config is None and config_params is not None:
+        config = config_params
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu,
+                             dist_init_required=dist_init_required,
+                             collate_fn=collate_fn, config_params=config,
+                             device=device)
+    return engine, engine.optimizer, engine.training_dataloader, \
+        engine.lr_scheduler
 
 
 def init_inference(model=None, config=None, mp_size=1, mesh=None,

@@ -1,19 +1,33 @@
-"""GPT-2 for serving: configuration, weights and the KV-cached forward.
+"""GPT-2: configuration, weights, the training forward and loss, and the
+KV-cached serving forward.
 
-Port of ``deepspeed_tpu/models/gpt2.py``'s serving path. The weights are
-an :class:`GPT2Model` (``nn.Module``) holding the JAX tree's names
-(``wte``, ``wpe``, ``blocks.{i}.attn.qkv_kernel``, ``ln_f.scale``, ...)
-in the JAX ``(in, out)`` layout, so ``x @ W`` reads as in the reference.
+Port of ``deepspeed_tpu/models/gpt2.py``. The weights are an
+:class:`GPT2Model` (``nn.Module``) holding the JAX tree's names (``wte``,
+``wpe``, ``blocks.{i}.attn.qkv_kernel``, ``ln_f.scale``, ...) in the JAX
+``(in, out)`` layout, so ``x @ W`` reads as in the reference.
 :func:`init_params` draws from the same ``np.random.RandomState`` stream
 in the same order, so one seed gives the same weights in both packages;
-:func:`params_from_jax` carries a JAX tree across.
+:func:`params_from_jax` / :func:`params_to_jax` carry a JAX tree (the
+params, an fp32 master tree, or an Adam moment tree) across, and
+:func:`optimizer_state_from_jax` / :func:`optimizer_state_to_jax` the
+whole Adam state.
 
-The cached forward mirrors the reference function for function. The KV
-caches are mutated IN PLACE (the JAX programs donate those buffers and
-return new ones): ``_cached_attn_ctx`` / ``_paged_attn_ctx`` write the
+Training: ``GPT2Model.forward(input_ids, labels)`` returns :func:`lm_loss`.
+The block is :func:`make_block_fn`'s: on the flash path the fused LN + QKV
++ flash-attention op (``ops/transformer/flash_attention.py``, CUDA
+kernels) runs outside ``torch.utils.checkpoint`` and only
+:func:`_block_rest` is recomputed under ``remat``, as the JAX package's
+``jax.checkpoint`` does; the loss is chunked over the sequence
+(:func:`chunked_causal_lm_loss`, each chunk checkpointed) so the full
+``(b, s, vocab)`` logits never exist. Dropout draws from an explicit
+``torch.Generator``: one seed per layer, so a recomputed block redraws
+the same masks.
+
+Serving: the cached forward mirrors the reference function for function.
+The KV caches are mutated IN PLACE (the JAX programs donate those buffers
+and return new ones): ``_cached_attn_ctx`` / ``_paged_attn_ctx`` write the
 new tokens' K/V into the cache they are given and return only the
-attention context. The uncached training forward comes with the
-training slice.
+attention context.
 """
 import math
 from dataclasses import dataclass
@@ -21,8 +35,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.paged_attention import paged_attention, paged_attention_reference
+from ..ops.transformer.attention import causal_attention
+from ..ops.transformer.flash_attention import fused_ln_qkv_attention
 from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
 
 
@@ -33,6 +50,16 @@ class GPT2Config:
     n_layers: int = 12
     n_heads: int = 12
     d_model: int = 768
+    dropout: float = 0.0
+    remat: bool = True             # activation checkpointing per block
+    remat_policy: str = "full"     # "full" only (see make_block_fn)
+    loss_chunk: int = 128          # CE seq-chunking (0 = dense logits)
+    use_flash_attention: bool = True
+    # Resolved transformer.flash_attention backend: "pallas" (the fused
+    # LN+QKV+flash op: CUDA kernels, or their plain versions on CPU
+    # tensors) or "xla" (the dense reference). None: the flash path when
+    # use_flash_attention and the weights are on CUDA.
+    flash_attention_backend: object = None
     dtype: torch.dtype = torch.float32   # param dtype at init
     # Paged-attention read path: "xla" (the plain gather-back, the
     # numerics oracle and default) or "pallas" (the CUDA page-walk
@@ -162,6 +189,12 @@ class GPT2Model(nn.Module):
                                     for _ in range(config.n_layers))
         self.ln_f = _LayerNorm(d, device, dtype)
 
+    def forward(self, input_ids, labels, generator=None):
+        """The causal-LM loss (:func:`lm_loss`); dropout (when the config
+        has it and the module is training) draws from ``generator``."""
+        return lm_loss(self, input_ids, labels, self.config,
+                       generator=generator, train=self.training)
+
 
 def params_from_jax(tree):
     """A JAX GPT-2 param tree (nested dicts and the per-layer list, of
@@ -198,6 +231,22 @@ def params_to_jax(state_dict):
     return tree
 
 
+def optimizer_state_from_jax(state):
+    """A JAX Adam state ``{"step", "exp_avg": tree, "exp_avg_sq": tree}``
+    -> ``{"step": int, "exp_avg": state_dict, "exp_avg_sq": state_dict}``
+    (dotted names -> fp32 CPU tensors)."""
+    return {"step": int(np.asarray(state["step"])),
+            "exp_avg": params_from_jax(state["exp_avg"]),
+            "exp_avg_sq": params_from_jax(state["exp_avg_sq"])}
+
+
+def optimizer_state_to_jax(state):
+    """The inverse of :func:`optimizer_state_from_jax`."""
+    return {"step": np.int32(state["step"]),
+            "exp_avg": params_to_jax(state["exp_avg"]),
+            "exp_avg_sq": params_to_jax(state["exp_avg_sq"])}
+
+
 def make_gpt2_model(config=None, size="gpt2_small", seed=0, **overrides):
     """A :class:`GPT2Model` on the CPU with the reference's seeded
     Megatron init (``init_params``), cast to ``config.dtype``."""
@@ -208,27 +257,198 @@ def make_gpt2_model(config=None, size="gpt2_small", seed=0, **overrides):
     return model
 
 
-# ------------------------------------------------------ serving forward
+# ------------------------------------------------------------ the block
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
     return fused_layer_norm(x, scale, bias, eps)
 
 
-def _mlp(x, block):
+def _dropout(x, p, generator):
+    """Inverted dropout with keep-probability ``1 - p``, the mask drawn
+    from ``generator`` (as ``jax.random.bernoulli`` + ``where``)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < (1.0 - p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def _mlp(x, block, config=None, rng=None, train=False):
     h = fused_bias_gelu(x @ block.fc_kernel.to(x.dtype),
                         block.fc_bias.to(x.dtype))
-    return h @ block.proj_kernel.to(x.dtype) + block.proj_bias.to(x.dtype)
+    out = h @ block.proj_kernel.to(x.dtype) + block.proj_bias.to(x.dtype)
+    if train and rng is not None and config.dropout > 0.0:
+        out = _dropout(out, config.dropout, rng)
+    return out
 
 
-def _block_rest(x, ctx, block_params):
-    """Everything after the attention context: proj + residual + MLP
-    (eval only: serving runs no dropout)."""
+def _block_rest(x, ctx, block_params, config=None, rng=None, train=False):
+    """Everything after the attention context: proj + residual + MLP.
+    Split out so per-block remat can wrap THIS while the fused attention
+    op stays outside (it saves out/lse and recomputes LN+QKV in its own
+    backward). ``rng`` is a ``torch.Generator`` (dropout) or None."""
     attn = block_params.attn
     out = ctx @ attn.proj_kernel.to(x.dtype) + attn.proj_bias.to(x.dtype)
+    if train and rng is not None and config.dropout > 0.0:
+        out = _dropout(out, config.dropout, rng)
     x = x + out
     ln2 = _layer_norm(x, block_params.ln2.scale, block_params.ln2.bias)
-    return x + _mlp(ln2, block_params.mlp)
+    return x + _mlp(ln2, block_params.mlp, config, rng, train)
+
+
+def _use_fused_attn(config, device):
+    """The fused LN+QKV+flash op on the flash path: backend "pallas"
+    (kernels on CUDA, their plain versions on the CPU), or, with no
+    resolved backend, use_flash_attention on a CUDA device."""
+    if config.flash_attention_backend is not None:
+        return config.flash_attention_backend == "pallas"
+    return config.use_flash_attention and device.type == "cuda"
+
+
+def _fused_attn_ctx(x, block_params, config):
+    return fused_ln_qkv_attention(
+        x, block_params.ln1.scale, block_params.ln1.bias,
+        block_params.attn.qkv_kernel, block_params.attn.qkv_bias,
+        config.n_heads)
+
+
+def _attn_ctx(x, block, config):
+    """QKV projection + attention -> (b, s, d) context, BEFORE the output
+    projection (the unfused path; the reference attention unless the
+    backend is "pallas")."""
+    b, s, d = x.shape
+    h, dh = config.n_heads, config.d_head
+    qkv = x @ block.qkv_kernel.to(x.dtype) + block.qkv_bias.to(x.dtype)
+    q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
+    ctx = causal_attention(q, k, v, use_flash=config.use_flash_attention,
+                           backend=config.flash_attention_backend)
+    return ctx.reshape(b, s, d)
+
+
+def _block(x, block_params, config, rng, train):
+    """Unfused block: LN1 + attention context, then :func:`_block_rest`."""
+    ln1 = _layer_norm(x, block_params.ln1.scale, block_params.ln1.bias)
+    ctx = _attn_ctx(ln1, block_params.attn, config)
+    return _block_rest(x, ctx, block_params, config, rng, train)
+
+
+def _layer_rng(seed, device):
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def make_block_fn(config, train, device):
+    """One transformer block as ``block_fn(x, block_params, seed) -> x``
+    with the config's remat / fused-attention choices, as the JAX
+    package's ``make_block_fn``: on the fused path the attention op runs
+    outside the checkpoint (it keeps out + lse and recomputes LN + QKV in
+    its backward) and ``torch.utils.checkpoint`` wraps only
+    :func:`_block_rest`; otherwise it wraps the whole block. ``seed``
+    (or None) seeds the layer's dropout generator inside the checkpointed
+    function, so the recompute redraws the same masks."""
+    if config.remat and config.remat_policy != "full":
+        raise NotImplementedError(
+            "remat_policy={!r} is not ported yet (only \"full\"): saving "
+            "matmul outputs needs selective checkpointing, a later "
+            "slice".format(config.remat_policy))
+
+    def maybe_remat(fn, *args):
+        if config.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    if _use_fused_attn(config, device):
+        def rest(x, ctx, bp, seed):
+            return _block_rest(x, ctx, bp, config, _layer_rng(seed, x.device),
+                               train)
+
+        return lambda x, bp, seed: maybe_remat(
+            rest, x, _fused_attn_ctx(x, bp, config), bp, seed)
+
+    def block(x, bp, seed):
+        return _block(x, bp, config, _layer_rng(seed, x.device), train)
+
+    return lambda x, bp, seed: maybe_remat(block, x, bp, seed)
+
+
+# --------------------------------------------------------- training loss
+
+
+def _layer_seeds(config, generator, train):
+    if not (train and generator is not None and config.dropout > 0.0):
+        return [None] * config.n_layers
+    return torch.randint(0, 2 ** 62, (config.n_layers,),
+                         generator=generator).tolist()
+
+
+def causal_lm_cross_entropy(logits, labels):
+    """Shifted masked CE; ``labels`` may equal ``input_ids`` (the shift
+    happens here); -100 positions are masked."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    mask = (shift_labels != -100).float()
+    safe = torch.where(shift_labels == -100,
+                       torch.zeros_like(shift_labels), shift_labels)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    return -(token_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_ll(hc, lc, wte):
+    """(sum of token log-likelihoods, token count) of one sequence chunk:
+    the chunk's logits -> lse + one gathered logit, never log_softmax."""
+    logits = (hc @ wte.t()).float()
+    mask = lc != -100
+    safe = torch.where(mask, lc, torch.zeros_like(lc))
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    ll = torch.gather(logits, -1, safe[..., None].long())[..., 0] - lse
+    return (ll * mask).sum(), mask.sum().float()
+
+
+def chunked_causal_lm_loss(hidden, wte, labels, chunk):
+    """Shifted masked CE without the full (b, s, V) logits: each sequence
+    chunk's logits are made, reduced and dropped, and recomputed in the
+    backward (``torch.utils.checkpoint`` per chunk, the JAX package's
+    ``jax.checkpoint(body)`` under ``lax.scan``)."""
+    b, s, d = hidden.shape
+    shift_labels = torch.cat(
+        [labels[:, 1:], torch.full((b, 1), -100, dtype=labels.dtype,
+                                   device=labels.device)], dim=1)
+    wte_c = wte.to(hidden.dtype)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, s, chunk):
+        hc = hidden[:, c0:c0 + chunk]
+        lc = shift_labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            ll, n = checkpoint(_chunk_ll, hc, lc, wte_c, use_reentrant=False)
+        else:
+            ll, n = _chunk_ll(hc, lc, wte_c)
+        tot, cnt = tot + ll, cnt + n
+    return -tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, input_ids, labels, config, generator=None, train=True):
+    """Causal-LM cross-entropy (mean over tokens) with the tied
+    embedding as the head."""
+    hidden = forward_hidden(params, input_ids, config, generator=generator,
+                            train=train)
+    chunk = config.loss_chunk
+    if chunk and hidden.shape[1] % chunk == 0 and hidden.shape[1] > chunk:
+        return chunked_causal_lm_loss(hidden, params.wte, labels, chunk)
+    logits = hidden @ params.wte.to(hidden.dtype).t()
+    return causal_lm_cross_entropy(logits, labels)
+
+
+def num_params(config):
+    d, v, s, L = (config.d_model, config.vocab_size, config.max_seq_len,
+                  config.n_layers)
+    per_block = 12 * d * d + 13 * d
+    return v * d + s * d + L * per_block + 2 * d
+
+
+# ------------------------------------------------------ serving forward
 
 
 def _qkv_for_cache(x, block, config):
@@ -386,16 +606,29 @@ def _forward_hidden_cached(params, input_ids, config, cache, positions,
 
 
 def forward_hidden(params, input_ids, config, cache=None, positions=None,
-                   page_tables=None, valid_lens=None, page_size=None):
-    """Embedding + transformer stack -> final hidden states, through the
-    KV cache ``cache`` (see :func:`_forward_hidden_cached`)."""
-    if cache is None:
-        raise NotImplementedError(
-            "the uncached (training) GPT-2 forward comes with the training "
-            "slice of the port; serving passes a KV cache")
-    if positions is None:
-        positions = torch.zeros((input_ids.shape[0],), dtype=torch.int32,
-                                device=input_ids.device)
-    return _forward_hidden_cached(params, input_ids, config, cache,
-                                  positions, page_tables=page_tables,
-                                  valid_lens=valid_lens, page_size=page_size)
+                   page_tables=None, valid_lens=None, page_size=None,
+                   generator=None, train=False):
+    """Embedding + transformer stack -> final hidden states.
+
+    With ``cache`` (a ``(k, v)`` KV-cache pair) the stack runs the
+    incremental serving path (see :func:`_forward_hidden_cached`);
+    without it, the training stack of :func:`make_block_fn` blocks, with
+    dropout drawn from ``generator`` when ``train``."""
+    if cache is not None:
+        if positions is None:
+            positions = torch.zeros((input_ids.shape[0],),
+                                    dtype=torch.int32,
+                                    device=input_ids.device)
+        return _forward_hidden_cached(params, input_ids, config, cache,
+                                      positions, page_tables=page_tables,
+                                      valid_lens=valid_lens,
+                                      page_size=page_size)
+    s = input_ids.shape[1]
+    compute_dtype = params.ln_f.scale.dtype
+    x = params.wte[input_ids].to(compute_dtype) + \
+        params.wpe[:s].to(compute_dtype)
+    block_fn = make_block_fn(config, train, x.device)
+    for bp, seed in zip(params.blocks, _layer_seeds(config, generator,
+                                                    train)):
+        x = block_fn(x, bp, seed)
+    return _layer_norm(x, params.ln_f.scale, params.ln_f.bias)

@@ -15,6 +15,18 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 * the engine: tiny fp32 GPT-2 greedy streams identical for the slot
   layout and the paged layout read through the kernel, with one launch
   per layer per decode step.
+* flash attention (forward, dk/dv and dq kernels): each against its
+  plain version over d_head 32/64/128, ragged lengths, causal and not,
+  a key bias, fp32/bf16/fp16, q/k/v as strided column blocks of one QKV
+  tensor or separate; outputs written into caller-given views; repeated
+  runs bit-identical; refusals;
+  the (b, s, h, d) op with a key-padding mask against its CPU run.
+* Adam: the kernel against its plain version bit for bit, over odd
+  lengths and misaligned starts, AdamW and L2.
+* training: a tiny fp32 GPT-2 through ``initialize(...).train_batch``, 3
+  steps with the kernels ("pallas") and with the plain versions ("xla"),
+  losses within 1e-5 relative, with one launch of each flash kernel per
+  layer per step and one Adam launch per step.
 """
 import numpy as np
 import pytest
@@ -131,3 +143,238 @@ def test_engine_paged_kernel_streams_equal_slot_streams(cuda):
     assert got == want
     assert paged_attention.launches == metrics.decode_steps * cfg.n_layers
     assert paged.allocator.pages_in_use == 0
+
+
+# ------------------------------------------------------ flash attention
+
+
+def _flash_case(device, dtype, b, s, h, d, seed=0, strided=True,
+                bias=False):
+    """q, k, v as column blocks of one (b, s, 3 * h * d) tensor (the QKV
+    projection's layout) or as separate contiguous tensors; dout; and an
+    optional key bias that drops some keys (-1e9) and shifts others."""
+    rng = np.random.RandomState(seed)
+    to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
+    hd = h * d
+    if strided:
+        qkv = to(rng.randn(b, s, 3 * hd).astype(np.float32))
+        q, k, v = qkv.split(hd, dim=-1)
+    else:
+        q, k, v = (to(rng.randn(b, s, hd).astype(np.float32))
+                   for _ in range(3))
+    dout = to(rng.randn(b, s, hd).astype(np.float32))
+    key_bias = None
+    if bias:
+        kb = rng.randn(b, s).astype(np.float32)
+        kb[rng.rand(b, s) < 0.2] = -1e9
+        kb[:, 0] = 0.0                     # every row keeps a live key
+        key_bias = torch.from_numpy(kb).to(device)
+    return q, k, v, dout, key_bias
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max().clamp_min(1e-30))
+
+
+def _ulp_ratio(got, want, atol):
+    """max over elements of |got - want| / (eps |want| + atol), eps the
+    machine epsilon of ``want``'s dtype (one ulp of the plain value): at
+    most 1 when every element is within the bound."""
+    eps = torch.finfo(want.dtype).eps
+    want = want.float()
+    return float(((got.float() - want).abs() /
+                  (eps * want.abs() + atol)).max())
+
+
+@pytest.mark.parametrize("dtype,d,s,causal,bias,strided", [
+    (torch.float32, 64, 128, True, False, True),
+    (torch.bfloat16, 64, 200, True, False, True),
+    (torch.bfloat16, 32, 80, False, True, True),
+    (torch.float32, 128, 130, True, True, False),
+    (torch.bfloat16, 128, 256, False, False, True),
+    (torch.float16, 64, 67, True, True, False),
+    (torch.float32, 32, 64, False, False, True),
+])
+def test_flash_kernels_match_plain_versions(cuda, dtype, d, s, causal, bias,
+                                            strided):
+    """fp32: out within 1e-5 absolute, dq, dk, dv within 1e-5 of their
+    largest magnitude. bf16/fp16, per element: out within one ulp of the
+    plain value plus eps / 4 (one ulp at |out| in [0.25, 0.5)), dq, dk, dv
+    within one ulp plus 1e-6. lse within 1e-4. Both sides round p and ds
+    at the same points, only sums reorder."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, h = 2, 3
+    q, k, v, dout, kb = _flash_case(cuda, dtype, b, s, h, d, strided=strided,
+                                    bias=bias)
+    kw = dict(num_heads=h, causal=causal)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dkdv.launches,
+              fa.flash_bwd_dq.launches)
+    out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, kb, **kw)
+    delta = fa.attention_delta(out, dout, h)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, kb, dout, lse, delta, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, kb, dout, lse, delta, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, kb, dout, lse,
+                                                 delta, **kw)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, kb, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkdv.launches,
+            fa.flash_bwd_dq.launches) == tuple(c + 1 for c in counts)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    grads = (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))
+    for name, got, want in grads:
+        assert torch.isfinite(got.float()).all(), name
+    if dtype == torch.float32:
+        assert float((out - ref_out).abs().max()) <= 1e-5
+        for name, got, want in grads:
+            assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+        return
+    eps = torch.finfo(dtype).eps
+    assert _ulp_ratio(out, ref_out, eps / 4) <= 1.0, \
+        _ulp_ratio(out, ref_out, eps / 4)
+    for name, got, want in grads:
+        assert _ulp_ratio(got, want, 1e-6) <= 1.0, \
+            (name, _ulp_ratio(got, want, 1e-6))
+
+
+def test_flash_backward_writes_into_the_qkv_gradient_views(cuda):
+    """dq/dk/dv land in the column blocks of one (b, s, 3 * h * d) buffer,
+    equal to the kernels' own fresh outputs; dq is deterministic."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    q, k, v, dout, _ = _flash_case(cuda, torch.bfloat16, 2, 192, 4, 64)
+    out, lse = fa.flash_fwd(q, k, v, num_heads=4)
+    fresh = fa.flash_bwd(q, k, v, None, out, dout, lse, num_heads=4)
+    dqkv = torch.empty((2, 192, 3 * 256), dtype=torch.bfloat16, device=cuda)
+    views = dqkv.split(256, dim=-1)
+    fa.flash_bwd(q, k, v, None, out, dout, lse, num_heads=4, dq=views[0],
+                 dk=views[1], dv=views[2])
+    for got, want in zip(views, fresh):
+        assert torch.equal(got, want)
+
+
+def test_flash_kernels_are_deterministic(cuda):
+    """No atomics: repeated forward and backward runs on the same inputs
+    are bit-identical, fp32 with a key bias and bf16 causal."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    for dtype, causal, bias in ((torch.float32, False, True),
+                                (torch.bfloat16, True, False)):
+        q, k, v, dout, kb = _flash_case(cuda, dtype, 2, 200, 4, 64,
+                                        bias=bias)
+        kw = dict(num_heads=4, causal=causal)
+        runs = []
+        for _ in range(20):
+            out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+            runs.append((out, lse) + fa.flash_bwd(q, k, v, kb, out, dout,
+                                                  lse, **kw))
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for got, want in zip(run, runs[0]):
+                assert torch.equal(got, want), dtype
+
+
+@pytest.mark.parametrize("bad", ["d_head", "strides", "device"])
+def test_flash_kernel_refuses_what_it_cannot_take(cuda, bad):
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    if bad == "d_head":
+        q, k, v, _, _ = _flash_case(cuda, torch.bfloat16, 1, 64, 2, 48)
+        match, h = "d_head", 2
+    elif bad == "strides":
+        q, k, v, _, _ = _flash_case(cuda, torch.bfloat16, 1, 64, 2, 64)
+        k, match, h = k.contiguous(), "stride", 2
+    else:
+        q, k, v, _, _ = _flash_case(cuda, torch.float32, 1, 64, 2, 64)
+        k, match, h = k.cpu(), "is", 2
+    before = fa.flash_fwd.launches
+    with pytest.raises(ValueError, match=match):
+        fa.flash_fwd(q, k, v, num_heads=h)
+    assert fa.flash_fwd.launches == before
+
+
+def test_flash_attention_bshd_mask_bias_grads_match_plain(cuda):
+    """The (b, s, h, d) op with a key-padding mask through the kernels
+    against the same op on CPU copies (the plain versions), fp32."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
+    rng = np.random.RandomState(1)
+    b, s, h, d = 2, 96, 2, 32
+    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays[:3])
+        out = flash_attention_bshd(q, k, v, causal=False,
+                                   mask_bias=torch.from_numpy(mask).to(dev))
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        results.append([t.detach().cpu() for t in (out, q.grad, k.grad,
+                                                  v.grad)])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+        assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+
+
+# ------------------------------------------------------------------ Adam
+
+
+@pytest.mark.parametrize("n,offset,adam_w", [
+    (1, 0, True), (3, 0, False), (4099, 0, True), (4099, 1, False),
+    (1 << 20, 3, True), ((1 << 20) + 7, 0, False)])
+def test_fused_adam_kernel_matches_plain_version(cuda, n, offset, adam_w):
+    """Three steps over odd lengths and misaligned starts (the scalar
+    path): equal to the plain version bit for bit, since both round each
+    operation once in the same order."""
+    from deepspeed_tpu_torch.ops.adam import (bias_corrections, fused_adam,
+                                              fused_adam_reference)
+    rng = np.random.RandomState(n)
+    host = [rng.randn(n + offset).astype(np.float32) for _ in range(2)]
+    host.append(np.abs(rng.randn(n + offset)).astype(np.float32))
+    sides = []
+    for _ in range(2):
+        p, m, v = (torch.from_numpy(a.copy()).to(cuda)[offset:]
+                   for a in host)
+        sides.append([p, m, v])
+    before = fused_adam.launches
+    for step in (1, 2, 3):
+        g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+        bc1, bc2 = bias_corrections(0.9, 0.999, step)
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                  weight_decay=0.01, bc1=bc1, bc2=bc2, adam_w_mode=adam_w)
+        fused_adam(*sides[0][:1], g, *sides[0][1:], **kw)
+        fused_adam_reference(*sides[1][:1], g, *sides[1][1:], **kw)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 3
+    for got, want in zip(*sides):
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# --------------------------------------------------------------- training
+
+
+def test_tiny_training_kernels_match_plain_versions(cuda):
+    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, remat=True, loss_chunk=32)
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, 256, size=(1, 4, 128)).astype(np.int64)
+    runs = {}
+    for backend in ("pallas", "xla"):
+        model = gpt2.make_gpt2_model(config=gpt2.GPT2Config(**cfg), seed=5)
+        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": 4,
+            "optimizer": {"type": "Adam", "params": {
+                "lr": 1e-3, "fused_kernel": backend}},
+            "transformer": {"flash_attention": backend}})[0]
+        assert engine.device.type == "cuda"
+        for fn in (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq,
+                   fused_adam):
+            fn.launches = 0
+        runs[backend] = [float(engine.train_batch(batch=(ids, ids)))
+                         for _ in range(3)]
+        launches = [fn.launches for fn in (fa.flash_fwd, fa.flash_bwd_dkdv,
+                                           fa.flash_bwd_dq, fused_adam)]
+        want = [3 * 2] * 3 + [3] if backend == "pallas" else [0] * 4
+        assert launches == want, (backend, launches)
+    np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
+    assert runs["pallas"][-1] < runs["pallas"][0]

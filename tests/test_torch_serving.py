@@ -392,8 +392,13 @@ def test_unported_features_raise_not_implemented(port_model, probe):
             elif probe == "submit_adapter":
                 ContinuousBatchingScheduler(eng).submit([1, 2], adapter=1)
             else:
+                # the uncached (training) forward exists since the
+                # training slice; its "dots" remat policy does not yet
+                import dataclasses
+                cfg = dataclasses.replace(eng.model_config,
+                                          remat_policy="dots")
                 tgpt2.forward_hidden(eng.params, torch.zeros(1, 2).long(),
-                                     eng.model_config)
+                                     cfg, train=True)
     # a section given but switched off is accepted
     deepspeed_tpu_torch.init_inference(
         config={"inference": inference, "telemetry": {"enabled": False}},
@@ -442,6 +447,18 @@ eng = deepspeed_tpu_torch.init_inference(
                           "kv_layout": "paged", "kv_block_size": 4}})
 out = eng.generate([[1, 2, 3], [4, 5]], max_new_tokens=3)
 assert [len(o) for o in out] == [3, 3], out
+import numpy as np
+import deepspeed_tpu_torch.ops.transformer.attention
+tcfg = gpt2.GPT2Config(vocab_size=64, max_seq_len=32, n_layers=1, n_heads=2,
+                       d_model=64, loss_chunk=8)
+teng = deepspeed_tpu_torch.initialize(
+    model=gpt2.make_gpt2_model(config=tcfg), device="cpu", config_params={
+        "train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+        "zero_optimization": {"stage": 2},
+        "transformer": {"flash_attention": "pallas"},
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})[0]
+ids = np.random.RandomState(0).randint(0, 64, size=(1, 2, 32))
+assert np.isfinite(float(teng.train_batch(batch=(ids, ids))))
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
