@@ -23,11 +23,25 @@ with no ``ok`` line):
    timed steps and read just after; then a torch.profiler window;
 5. train-parity — fp32 loss trajectories with the kernels and with the
    plain versions, at gpt2_medium width with 2 layers;
-6. serve   — the serving main path: ``init_inference(...).generate(...)``
+6. block_sparse_attention kernel phase — the three block-sparse kernels
+   against their plain versions at the long-context train shape (b 2,
+   s 8192, h 16, d 64, bf16, causal), over the train config's shared
+   ``fixed`` layout and the parity config's per-head layout, timed beside
+   their bounds, ``flex_attention`` (torch.compile, same block mask) and
+   ``scaled_dot_product_attention`` with the layout as a dense mask;
+7. train_sparse — the long-context main path: ``initialize(...)
+   .train_batch(...)`` on gpt2_medium at full width and depth, seq 8192,
+   micro batch 2, with the ds_config ``sparse_attention`` section (the
+   documented ``fixed`` layout, unidirectional); counts set to 0 just
+   before the timed steps and read just after; a torch.profiler window;
+8. train_sparse_parity — fp32 loss trajectories through the block-sparse
+   kernels and through their plain versions, a per-head layout, at
+   gpt2_medium width with 2 layers, seq 2048;
+9. serve   — the serving main path: ``init_inference(...).generate(...)``
    serving 48 requests with gpt2_medium at full width and depth, bf16,
    from the paged KV cache, counts set to 0 just before and read just
    after; then a few all-slot decode steps under torch.profiler;
-7. parity  — fp32 greedy streams identical for the slot layout, the paged
+10. parity — fp32 greedy streams identical for the slot layout, the paged
    layout's plain read path and the paged kernel, on the card;
 
 then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -465,13 +479,26 @@ def train_profile(engine, batch, steps=2):
             engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # idle time between consecutive device activities, and the host's
+    # time blocked on a full launch queue (the device is then the limit)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:]) if b[0] > a[1]]
+    blocked = sum(e.self_cpu_time_total for e in averages
+                  if e.key == "Command Buffer Full")
     return {"steps": steps, "wall_s_per_step": wall / steps,
             "device_busy_s_per_step": busy_us * 1e-6 / steps,
             "device_busy_share": busy_us * 1e-6 / wall,
+            "device_gaps_ms_per_step": sum(gaps) * 1e-3 / steps,
+            "device_gaps_over_200us_ms_per_step":
+                sum(g for g in gaps if g > 200) * 1e-3 / steps,
+            "host_blocked_on_full_queue_ms_per_step": blocked * 1e-3 / steps,
             "kernel_launches_per_step": sum(e.count for e in kernels) /
             steps,
             "top_kernels": [{"name": e.key[:80],
@@ -516,6 +543,347 @@ def phase_train_parity(steps=5, tol=1e-4):
             "dtype": "fp32", "steps": steps, "losses": runs,
             "max_rel_diff": rel, "tolerance": tol}
 
+
+# ------------------------------------------- block-sparse attention (slice 3)
+
+
+SPARSE_SOURCE = \
+    "deepspeed_tpu_torch/ops/sparse_attention/csrc/block_sparse_attention.cu"
+# the documented ds_config section (docs/_pages/config-json.md), causal
+SPARSE_TRAIN = {"mode": "fixed", "block": 16,
+                "different_layout_per_head": False, "num_local_blocks": 4,
+                "num_global_blocks": 1, "attention": "unidirectional",
+                "horizontal_global_attention": False,
+                "num_different_global_patterns": 1}
+SPARSE_PARITY = dict(SPARSE_TRAIN, different_layout_per_head=True,
+                     num_different_global_patterns=4)
+SPARSE_SHAPE = dict(b=2, s=8192, h=16, d=64)    # the train_sparse path's
+SPARSE_MICRO, SPARSE_SEQ = 2, 8192
+SPARSE_REMAT = False      # the peak stays under 70 GB without it
+SPARSE_NAMES = ("block_sparse_fwd", "block_sparse_bwd_dq",
+                "block_sparse_bwd_dkdv")
+
+
+def sparse_layout(section, heads, seq):
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        sparsity_config_from_dict)
+    return sparsity_config_from_dict(dict(section), heads).make_layout(seq)
+
+
+def mean_keys_per_query(layout, block):
+    """k-bar: keys a query attends under the layout and the causal rule,
+    averaged over queries and heads."""
+    lay = np.asarray(layout, bool)
+    nb = lay.shape[1]
+    qb, kb = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
+    per_pair = np.where(qb > kb, block * block,
+                        np.where(qb == kb, block * (block + 1) // 2, 0))
+    return float((lay * per_pair[None]).sum() / (lay.shape[0] * nb * block))
+
+
+def sparse_case(device, seed=0):
+    """The train_sparse path's attention operands: q, k, v the (b, h, s,
+    d) views of one (b, s, 3 * h * d) bf16 QKV tensor, and an output
+    gradient in the (b, h, s, d) view of (b, s, h, d) memory."""
+    import torch
+    b, s, h, d = (SPARSE_SHAPE[k] for k in "bshd")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    dout = torch.randn((b, s, h, d), generator=gen, device=device,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    return q, k, v, dout
+
+
+def sparse_library(q, k, v, dout, layout, block, flush):
+    """Yardsticks, never on the port's path: flex_attention under
+    torch.compile with a BlockMask from the layout and the causal rule (it
+    skips the same inactive blocks), and scaled_dot_product_attention with
+    the layout expanded to a dense boolean mask. Each: forward ms and
+    backward ms (forward + backward minus forward, dq, dk, dv together)."""
+    import torch
+    import torch.nn.functional as F
+    b, h, s, d = q.shape
+    qh, kh, vh = (t.contiguous().requires_grad_() for t in (q, k, v))
+    doh = dout.contiguous()
+    lay = torch.from_numpy(np.asarray(layout, bool)).to(q.device)
+    one = lay.shape[0] == 1
+
+    def timed(fn):
+        with torch.no_grad():
+            fwd = time_ms(fn, flush)
+        both = time_ms(lambda: torch.autograd.grad(fn(), (qh, kh, vh), doh),
+                       flush)
+        return fwd, both - fwd
+
+    out = {}
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def mask_mod(bi, hi, qi, ki):
+            hl = 0 if one else hi
+            return lay[hl, qi // block, ki // block] & (qi >= ki)
+
+        mask = create_block_mask(mask_mod, B=None, H=None if one else h,
+                                 Q_LEN=s, KV_LEN=s, device=q.device)
+        flex = torch.compile(flex_attention)
+        out["flex"] = timed(lambda: flex(qh, kh, vh, block_mask=mask))
+        out["flex_error"] = None
+    except Exception as exc:   # a yardstick only: the kernels' checks decide
+        out["flex"] = (None, None)
+        out["flex_error"] = "{}: {}".format(type(exc).__name__, exc)[:400]
+    dense = (lay.repeat_interleave(block, 1).repeat_interleave(block, 2)
+             & torch.ones((s, s), dtype=torch.bool,
+                          device=q.device).tril())[None]
+    out["sdpa"] = timed(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=dense))
+    del dense
+    return out
+
+
+def phase_sparse(flush):
+    """The three block-sparse kernels against their plain versions at the
+    train_sparse shape, for the train config's shared layout (the path of
+    the TPU's packed-heads rows) and the parity config's per-head layout
+    (its per-head rows), timed."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    device = torch.device("cuda", 0)
+    b, s, h, d = (SPARSE_SHAPE[k] for k in "bshd")
+    q, k, v, dout = sparse_case(device)
+    layouts = {}
+    for name, section in (("shared", SPARSE_TRAIN),
+                          ("per_head", SPARSE_PARITY)):
+        layout = sparse_layout(section, h, s)
+        tables = bsa.LayoutTables(layout, section["block"])
+        kw = dict(tables=tables, causal=True)
+        out, lse = bsa.block_sparse_fwd(q, k, v, **kw)
+        delta = bsa.attention_delta(out, dout)
+        args = (q, k, v, None, None, dout, lse, delta)
+        dq = bsa.block_sparse_bwd_dq(*args, **kw)
+        dk, dv = bsa.block_sparse_bwd_dkdv(*args, **kw)
+        ref_out, ref_lse = bsa.block_sparse_fwd_reference(q, k, v, **kw)
+        ref_dq = bsa.block_sparse_bwd_dq_reference(*args, **kw)
+        ref_dk, ref_dv = bsa.block_sparse_bwd_dkdv_reference(*args, **kw)
+        torch.cuda.synchronize()
+        abs_err = lambda a, b: float((a.float() - b.float()).abs().max())
+        pairs = {"out": (out, ref_out), "dq": (dq, ref_dq),
+                 "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+        errs = {"lse": abs_err(lse, ref_lse)}
+        for g, (got, want) in pairs.items():
+            atol = FLASH_TOL["out_atol" if g == "out" else "grad_atol"]
+            errs[g + "_abs"] = abs_err(got, want)
+            errs[g + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
+        for t in (out, lse, dq, dk, dv):
+            assert torch.isfinite(t.float()).all(), "non-finite kernel output"
+        assert errs["lse"] <= FLASH_TOL["lse"], (name, errs)
+        assert max(errs[g + "_ulp_ratio"] for g in pairs) <= 1.0, (name, errs)
+        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+
+        times = {
+            "block_sparse_fwd": (
+                lambda: bsa.block_sparse_fwd(q, k, v, **kw),
+                lambda: bsa.block_sparse_fwd_reference(q, k, v, **kw)),
+            "block_sparse_bwd_dq": (
+                lambda: bsa.block_sparse_bwd_dq(*args, **kw),
+                lambda: bsa.block_sparse_bwd_dq_reference(*args, **kw)),
+            "block_sparse_bwd_dkdv": (
+                lambda: bsa.block_sparse_bwd_dkdv(*args, **kw),
+                lambda: bsa.block_sparse_bwd_dkdv_reference(*args, **kw)),
+        }
+        # operations over active pairs only (the JAX _sparse_cost count):
+        # 2 * mults * b * n_active * block^2 * d; bytes: each input once,
+        # each output once
+        nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+        blk = section["block"]
+        work = lambda mults: 2 * mults * b * tables.n_active * blk * blk * d
+        bounds = {
+            "block_sparse_fwd": bound_ms(nbytes(q, k, v, out, lse), work(2),
+                                         BF16_FLOPS_PER_S),
+            "block_sparse_bwd_dq": bound_ms(
+                nbytes(q, k, v, dout, lse, delta, dq), work(3),
+                BF16_FLOPS_PER_S),
+            "block_sparse_bwd_dkdv": bound_ms(
+                nbytes(q, k, v, dout, lse, delta, dk, dv), work(4),
+                BF16_FLOPS_PER_S),
+        }
+        lib = sparse_library(q, k, v, dout, layout, blk, flush)
+        library = {"block_sparse_fwd": lib["flex"][0],
+                   "block_sparse_bwd_dq": lib["flex"][1],
+                   "block_sparse_bwd_dkdv": lib["flex"][1]}
+        dense_library = {"block_sparse_fwd": lib["sdpa"][0],
+                         "block_sparse_bwd_dq": lib["sdpa"][1],
+                         "block_sparse_bwd_dkdv": lib["sdpa"][1]}
+        rows = {}
+        for kname, (kernel, plain) in times.items():
+            rows[kname] = {"kernel_ms": time_ms(kernel, flush),
+                           "plain_ms": time_ms(plain, flush, reps=5),
+                           "bound_ms": bounds[kname][0],
+                           "bound_by": bounds[kname][1],
+                           "library_ms": library[kname],
+                           "dense_library_ms": dense_library[kname]}
+        nb = tables.nb
+        layouts[name] = {
+            "section": section, "shared": tables.shared,
+            "active_pairs_per_head": tables.n_active // h,
+            "density_of_causal": tables.n_active / h / (nb * (nb + 1) // 2),
+            "walk_steps_per_head": {
+                walk: int((-(-getattr(tables, walk).lengths * blk //
+                             64)).sum()) // tables.layout_heads
+                for walk in ("fwd", "bwd")},
+            "errors": errs, "kernels": rows,
+            "flex_error": lib["flex_error"]}
+        del out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return {"phase": "kernel", "name": "block_sparse_attention",
+            "tolerance": FLASH_TOL, "layouts": layouts,
+            "library_call": "flex_attention (torch.compile) with a BlockMask "
+                            "of the layout and the causal rule; "
+                            "dense_library: scaled_dot_product_attention "
+                            "with the layout as a dense bool mask; "
+                            "backward times cover dq, dk and dv together",
+            "shape": dict(SPARSE_SHAPE, dtype="bf16", causal=True,
+                          qkv="(b, h, s, d) views of one (b, s, 3hd) "
+                              "tensor")}
+
+
+def phase_train_sparse(launch_counters):
+    """The long-context main path: gpt2_medium at full width and depth,
+    seq 8192, micro batch 2, bf16, ZeRO-2, Adam with fp32 moments, the
+    ds_config sparse_attention section, through initialize(...)
+    .train_batch(...) on one fixed batch."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    ds = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=SPARSE_MICRO,
+              sparse_attention=dict(SPARSE_TRAIN))
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=SPARSE_SEQ,
+                          loss_chunk=128, remat=SPARSE_REMAT,
+                          sparse_attention=dict(SPARSE_TRAIN))
+    assert cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
+    t0 = time.perf_counter()
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                     config_params=ds)
+    init_s = time.perf_counter() - t0
+    # the model consumes the engine's parsed section: the two agree
+    assert engine.sparse_attention_config() == SPARSE_TRAIN
+    assert cfg.sparse_attention == engine.sparse_attention_config()
+    assert engine.device.type == "cuda"
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size,
+                      size=(1, SPARSE_MICRO, SPARSE_SEQ)).astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for counter in launch_counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [engine.train_batch(batch=batch)
+                   for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    losses += [float(x) for x in step_losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for name in SPARSE_NAMES:
+        assert launches[name] == cfg.n_layers * TRAIN_STEPS, launches
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert launches[name] == 0, launches
+    assert launches["fused_adam"] == TRAIN_STEPS, launches
+    assert engine.flat.check_views()
+    layout = sparse_layout(SPARSE_TRAIN, cfg.n_heads, SPARSE_SEQ)
+    block = SPARSE_TRAIN["block"]
+    nb = SPARSE_SEQ // block
+    active = int(np.asarray(layout[0]).sum())
+    k_bar = mean_keys_per_query(layout, block)
+    step_s = wall / TRAIN_STEPS
+    tokens = SPARSE_MICRO * SPARSE_SEQ
+    n_params = gpt2.num_params(cfg)
+    flops_per_token = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * \
+        k_bar
+    mfu = tokens / step_s * flops_per_token / BF16_FLOPS_PER_S
+    profile = train_profile(engine, batch)
+    return {"phase": "train_sparse", "model": "gpt2_medium",
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": cfg.n_heads, "seq": SPARSE_SEQ,
+            "micro_batch": SPARSE_MICRO, "dtype": "bf16", "zero_stage": 2,
+            "moments": "fp32", "remat": SPARSE_REMAT, "params": n_params,
+            "sparse_attention": SPARSE_TRAIN,
+            "active_block_pairs_per_head": active,
+            "density_of_causal": active / (nb * (nb + 1) // 2),
+            "mean_keys_per_query": k_bar,
+            "engine_init_s": init_s, "steps": TRAIN_STEPS,
+            "step_ms": step_s * 1e3, "tokens_per_sec": tokens / step_s,
+            "mfu": mfu,
+            "mfu_formula": "tokens/s * (6 N + 12 L d k_bar) / 989e12, "
+                           "k_bar = mean keys a query attends under the "
+                           "layout (bench.py's formula with s -> k_bar)",
+            "losses": losses, "peak_memory_gb": peak_gb,
+            "launches": launches, "train_profile": profile}
+
+
+def phase_train_sparse_parity(steps=5, tol=1e-4, seq=2048):
+    """fp32 loss trajectories at gpt2_medium width with 2 layers, seq
+    2048, a per-head layout (the TPU's per-head rows), TF32 off: through
+    the block-sparse kernels, and through their plain versions (the
+    wrappers' names swapped for the plain functions here, for the
+    comparison only)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 50304, size=(1, 2, seq)).astype(np.int64)
+    kernels = {n: getattr(bsa, n) for n in SPARSE_NAMES}
+    plains = {n: getattr(bsa, n + "_reference") for n in SPARSE_NAMES}
+    runs, launches = {}, {}
+    for route, fns in (("kernels", kernels), ("plain", plains)):
+        for counter in kernels.values():
+            counter.launches = 0
+        for n, fn in fns.items():
+            setattr(bsa, n, fn)
+        try:
+            cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=seq,
+                                  loss_chunk=128, remat=False,
+                                  sparse_attention=dict(SPARSE_PARITY))
+            model = gpt2.make_gpt2_model(config=cfg, seed=1)
+            engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+                "train_micro_batch_size_per_gpu": 2,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                "sparse_attention": dict(SPARSE_PARITY),
+                "steps_per_print": 10 ** 9})[0]
+            runs[route] = [float(engine.train_batch(batch=(ids, ids)))
+                           for _ in range(steps)]
+        finally:
+            for n, fn in kernels.items():
+                setattr(bsa, n, fn)
+        launches[route] = {n: c.launches for n, c in kernels.items()}
+        del engine, model
+        torch.cuda.empty_cache()
+    assert all(v == 2 * steps for v in launches["kernels"].values()), launches
+    assert all(v == 0 for v in launches["plain"].values()), launches
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["kernels"],
+                                                  runs["plain"]))
+    assert rel <= tol, (rel, runs)
+    assert runs["kernels"][-1] < runs["kernels"][0], runs
+    return {"phase": "train_sparse_parity", "layers": 2, "d_model": 1024,
+            "seq": seq, "dtype": "fp32", "sparse_attention": SPARSE_PARITY,
+            "steps": steps, "losses": runs, "launches": launches,
+            "max_rel_diff": rel, "tolerance": tol}
 
 
 # ----------------------------------------------------------- serving path
@@ -682,6 +1050,16 @@ KERNELS = [
      "deepspeed_tpu/ops/transformer/flash_attention.py:897", "train"),
     ("fused_adam", "deepspeed_tpu_torch/ops/adam/csrc/fused_adam.cu",
      "deepspeed_tpu/ops/adam/pallas_adam.py:45", "train"),
+    ("block_sparse_fwd", SPARSE_SOURCE,
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:730 "
+     "(_fwd_pk), :906 (_fwd)", "train_sparse"),
+    ("block_sparse_bwd_dq", SPARSE_SOURCE,
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:770 "
+     "(_bwd_pk, dq call :792), :943 (_bwd, dq call :959)", "train_sparse"),
+    ("block_sparse_bwd_dkdv", SPARSE_SOURCE,
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:770 "
+     "(_bwd_pk, dk/dv call :823), :943 (_bwd, dk/dv call :988)",
+     "train_sparse"),
 ]
 
 
@@ -692,6 +1070,8 @@ def main():
     from deepspeed_tpu_torch.ops import cuda_build
     from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     smi = subprocess.run(
@@ -708,6 +1088,7 @@ def main():
     wrappers = {"paged_attention": paged_attention,
                 "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
                 "flash_bwd_dq": fa.flash_bwd_dq, "fused_adam": fused_adam}
+    wrappers.update((name, getattr(bsa, name)) for name in SPARSE_NAMES)
     sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
@@ -726,6 +1107,9 @@ def main():
     torch.cuda.empty_cache()
     adam = phase_adam(flush)
     emit(adam)
+    torch.cuda.empty_cache()
+    sparse = phase_sparse(flush)
+    emit(sparse)
     del flush
     torch.cuda.empty_cache()
 
@@ -735,6 +1119,16 @@ def main():
     emit(train)
     torch.cuda.empty_cache()
     emit(phase_train_parity())
+    torch.cuda.empty_cache()
+
+    # the long-context path: every training kernel's count, so the flash
+    # kernels are seen not to launch there
+    train_sparse = phase_train_sparse(
+        [wrappers[name] for name, _, _, path in KERNELS
+         if path in ("train", "train_sparse")])
+    emit(train_sparse)
+    torch.cuda.empty_cache()
+    emit(phase_train_sparse_parity())
     torch.cuda.empty_cache()
 
     serve = phase_serve([wrappers["paged_attention"]])
@@ -750,7 +1144,17 @@ def main():
                 ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)))
         measured[name] = dict(row, max_abs_err=err)
     measured["fused_adam"] = adam
+    # rows at the main path's (shared) layout; the error over both layouts
+    grads = {"block_sparse_fwd": ("out",), "block_sparse_bwd_dq": ("dq",),
+             "block_sparse_bwd_dkdv": ("dk", "dv")}
+    for name in SPARSE_NAMES:
+        err = max(lay["errors"][g + "_abs"] for lay in
+                  sparse["layouts"].values() for g in grads[name])
+        measured[name] = dict(sparse["layouts"]["shared"]["kernels"][name],
+                              max_abs_err=err)
     launches = dict(serve["launches"], **train["launches"])
+    launches.update((name, train_sparse["launches"][name])
+                    for name in SPARSE_NAMES)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

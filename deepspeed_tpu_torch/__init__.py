@@ -12,7 +12,10 @@ Two entry points, as in the JAX package:
   ``forward(input_ids, labels)`` loss) with ZeRO stages 0-2 at world
   size 1, bf16/fp16 mixed precision over fp32 master weights and
   Adam/AdamW; flash attention (``ops/transformer/flash_attention.py``)
-  and the Adam apply (``ops/adam``) run in CUDA kernels;
+  and the Adam apply (``ops/adam``) run in CUDA kernels, and with the
+  ds_config ``sparse_attention`` section (``GPT2Config(sparse_attention=
+  engine.sparse_attention_config())``) attention runs block-sparse over
+  the section's layout in CUDA kernels (``ops/sparse_attention``);
 * :func:`init_inference` serves GPT-2 from a slot or paged KV cache, with
   paged-attention decode in a CUDA kernel (``ops/paged_attention``).
 """

@@ -38,6 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.paged_attention import paged_attention, paged_attention_reference
+from ..ops.sparse_attention import SparseSelfAttention
+from ..ops.sparse_attention.sparsity_config import sparsity_config_from_dict
 from ..ops.transformer.attention import causal_attention
 from ..ops.transformer.flash_attention import fused_ln_qkv_attention
 from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
@@ -61,6 +63,11 @@ class GPT2Config:
     # use_flash_attention and the weights are on CUDA.
     flash_attention_backend: object = None
     dtype: torch.dtype = torch.float32   # param dtype at init
+    # Block-sparse attention: the parsed ds_config "sparse_attention" dict
+    # (mode/block/...), e.g. engine.sparse_attention_config(). When set,
+    # _attn_ctx runs the block-sparse kernels (ops/sparse_attention)
+    # instead of flash, causal; no parameter changes.
+    sparse_attention: object = None
     # Paged-attention read path: "xla" (the plain gather-back, the
     # numerics oracle and default) or "pallas" (the CUDA page-walk
     # kernel, ops/paged_attention). The serving engine sets it on the
@@ -298,7 +305,10 @@ def _block_rest(x, ctx, block_params, config=None, rng=None, train=False):
 def _use_fused_attn(config, device):
     """The fused LN+QKV+flash op on the flash path: backend "pallas"
     (kernels on CUDA, their plain versions on the CPU), or, with no
-    resolved backend, use_flash_attention on a CUDA device."""
+    resolved backend, use_flash_attention on a CUDA device. Never with
+    ``sparse_attention``: the block-sparse kernels own the attention."""
+    if config.sparse_attention:
+        return False
     if config.flash_attention_backend is not None:
         return config.flash_attention_backend == "pallas"
     return config.use_flash_attention and device.type == "cuda"
@@ -313,15 +323,45 @@ def _fused_attn_ctx(x, block_params, config):
 
 def _attn_ctx(x, block, config):
     """QKV projection + attention -> (b, s, d) context, BEFORE the output
-    projection (the unfused path; the reference attention unless the
+    projection (the unfused path: the block-sparse kernels when
+    ``sparse_attention`` is set, else the reference attention unless the
     backend is "pallas")."""
     b, s, d = x.shape
     h, dh = config.n_heads, config.d_head
     qkv = x @ block.qkv_kernel.to(x.dtype) + block.qkv_bias.to(x.dtype)
     q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
+    if config.sparse_attention:
+        # (b, h, s, d) views of the projection in; out is a (b, h, s, d)
+        # view of (b, s, h, d) memory, so the reshape back copies nothing
+        attn = _sparse_attn_fn(config, s)
+        ctx = attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        return ctx.transpose(1, 2).reshape(b, s, d)
     ctx = causal_attention(q, k, v, use_flash=config.use_flash_attention,
                            backend=config.flash_attention_backend)
     return ctx.reshape(b, s, d)
+
+
+_SPARSE_ATTN_CACHE = {}          # (config key) -> SparseSelfAttention
+_SPARSE_ATTN_CACHE_MAX = 4       # each holds a layout and its tables
+
+
+def _sparse_attn_fn(config, seq):
+    """The cached block-sparse attention for (config, seq): one
+    SparseSelfAttention per sparsity config and head count (its layout and
+    kernel tables built once), bounded LRU-style; causal."""
+    key = (tuple(sorted((k, str(v))
+                        for k, v in dict(config.sparse_attention).items())),
+           config.n_heads)
+    sa = _SPARSE_ATTN_CACHE.pop(key, None)
+    if sa is None or sa.max_seq_length < seq:
+        sa = SparseSelfAttention(
+            sparsity_config=sparsity_config_from_dict(
+                dict(config.sparse_attention), config.n_heads),
+            max_seq_length=seq, causal=True)
+    _SPARSE_ATTN_CACHE[key] = sa                   # re-insert = LRU touch
+    while len(_SPARSE_ATTN_CACHE) > _SPARSE_ATTN_CACHE_MAX:
+        _SPARSE_ATTN_CACHE.pop(next(iter(_SPARSE_ATTN_CACHE)))
+    return sa._kernel(seq, False, False)
 
 
 def _block(x, block_params, config, rng, train):

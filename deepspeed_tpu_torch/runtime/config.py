@@ -12,8 +12,10 @@ else 1, or the caller's.
 This slice runs ``bf16`` / ``fp16`` / ``amp`` mixed precision,
 ``zero_optimization`` stages 0-2, Adam/AdamW (``optimizer.params``
 including ``fused_kernel``), ``gradient_clipping``,
-``data_types.grad_accum_dtype``, ``steps_per_print`` and
-``transformer.flash_attention``. Every other section the JAX package
+``data_types.grad_accum_dtype``, ``steps_per_print``,
+``transformer.flash_attention`` and ``sparse_attention`` (parsed per mode
+as the JAX package does; the model reads it through
+``engine.sparse_attention_config()``). Every other section the JAX package
 accepts parses here too, but switching it on raises
 ``NotImplementedError`` naming the later slice that brings it
 (:data:`UNPORTED_SECTIONS`).
@@ -41,7 +43,6 @@ TRANSFORMER_FLASH_ATTENTION_MODES = ("auto", "pallas", "xla")
 UNPORTED_SECTIONS = {
     SCHEDULER: "the LR-schedule slice",
     CHECKPOINT: "the checkpoint slice",
-    SPARSE_ATTENTION: "the sparse-attention slice",
     SPARSE_GRADIENTS: "the multi-GPU ZeRO slice",
     PROGRESSIVE_LAYER_DROP: "the BERT slice",
     "elasticity": "the elastic-training slice",
@@ -169,6 +170,75 @@ def get_transformer_flash_attention(param_dict):
     return val.lower()
 
 
+def get_sparse_attention(param_dict):
+    """The ``sparse_attention`` section parsed per its mode into a dict of
+    every key of that mode, defaults filled; None when absent."""
+    if SPARSE_ATTENTION not in param_dict:
+        return None
+    sparsity = param_dict[SPARSE_ATTENTION]
+    mode = get_scalar_param(sparsity, SPARSE_MODE, SPARSE_MODE_DEFAULT)
+    getters = {
+        SPARSE_DENSE_MODE: get_sparse_dense_config,
+        SPARSE_FIXED_MODE: get_sparse_fixed_config,
+        SPARSE_VARIABLE_MODE: get_sparse_variable_config,
+        SPARSE_BIGBIRD_MODE: get_sparse_bigbird_config,
+        SPARSE_BSLONGFORMER_MODE: get_sparse_bslongformer_config,
+        SPARSE_SLIDING_WINDOW_MODE: get_sparse_sliding_window_config,
+    }
+    if mode not in getters:
+        raise NotImplementedError(
+            "Given sparsity mode, {}, has not been implemented yet!".format(
+                mode))
+    return getters[mode](sparsity)
+
+
+def _sparse_params(sparsity, mode, keys):
+    """{mode, key: value or its default} for ``keys`` (constants' names
+    without the SPARSE_ prefix)."""
+    g = globals()
+    out = {SPARSE_MODE: mode}
+    for key in keys:
+        out[g["SPARSE_" + key]] = get_scalar_param(
+            sparsity, g["SPARSE_" + key], g["SPARSE_" + key + "_DEFAULT"])
+    return out
+
+
+def get_sparse_dense_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_DENSE_MODE, ("BLOCK",))
+
+
+def get_sparse_fixed_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_FIXED_MODE, (
+        "BLOCK", "DIFFERENT_LAYOUT_PER_HEAD", "NUM_LOCAL_BLOCKS",
+        "NUM_GLOBAL_BLOCKS", "ATTENTION_TYPE", "HORIZONTAL_GLOBAL_ATTENTION",
+        "NUM_DIFFERENT_GLOBAL_PATTERNS"))
+
+
+def get_sparse_variable_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_VARIABLE_MODE, (
+        "BLOCK", "DIFFERENT_LAYOUT_PER_HEAD", "NUM_RANDOM_BLOCKS",
+        "LOCAL_WINDOW_BLOCKS", "GLOBAL_BLOCK_INDICES",
+        "GLOBAL_BLOCK_END_INDICES", "ATTENTION_TYPE",
+        "HORIZONTAL_GLOBAL_ATTENTION"))
+
+
+def get_sparse_bigbird_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_BIGBIRD_MODE, (
+        "BLOCK", "DIFFERENT_LAYOUT_PER_HEAD", "NUM_RANDOM_BLOCKS",
+        "NUM_SLIDING_WINDOW_BLOCKS", "NUM_GLOBAL_BLOCKS"))
+
+
+def get_sparse_sliding_window_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_SLIDING_WINDOW_MODE, (
+        "BLOCK", "NUM_SLIDING_WINDOW_BLOCKS"))
+
+
+def get_sparse_bslongformer_config(sparsity):
+    return _sparse_params(sparsity, SPARSE_BSLONGFORMER_MODE, (
+        "BLOCK", "DIFFERENT_LAYOUT_PER_HEAD", "NUM_SLIDING_WINDOW_BLOCKS",
+        "GLOBAL_BLOCK_INDICES", "GLOBAL_BLOCK_END_INDICES"))
+
+
 def get_optimizer_name(param_dict):
     if OPTIMIZER in param_dict and TYPE in param_dict[OPTIMIZER]:
         return param_dict[OPTIMIZER][TYPE]
@@ -274,6 +344,7 @@ class DeepSpeedConfig(object):
         self.inference_config = DeepSpeedInferenceConfig(param_dict)
         self.transformer_flash_attention = \
             get_transformer_flash_attention(param_dict)
+        self.sparse_attention = get_sparse_attention(param_dict)
 
         self.gradient_clipping = g(GRADIENT_CLIPPING,
                                    GRADIENT_CLIPPING_DEFAULT)

@@ -317,6 +317,13 @@ class DeepSpeedEngine:
     def steps_per_print(self):
         return self._config.steps_per_print
 
+    def sparse_attention_config(self):
+        """The parsed ds_config "sparse_attention" dict, or None. The engine
+        does not push it into the model: the caller builds
+        ``GPT2Config(sparse_attention=engine.sparse_attention_config())``,
+        as with the JAX package."""
+        return self._config.sparse_attention
+
     def zero_optimization(self):
         return self._config.zero_enabled
 

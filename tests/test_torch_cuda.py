@@ -27,6 +27,13 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   steps with the kernels ("pallas") and with the plain versions ("xla"),
   losses within 1e-5 relative, with one launch of each flash kernel per
   layer per step and one Adam launch per step.
+* block-sparse attention (forward, dq and dk/dv kernels): each against
+  its plain version over blocks 16-128, d_head 32/64/128,
+  fp32/bf16/fp16, shared and per-head layouts of every mode, causal and
+  not, key-padding and score biases, an empty query block; repeated runs
+  bit-identical; refusals; and a tiny fp32 GPT-2 with the ds_config
+  sparse section trained through the kernels and through the plain
+  versions, losses within 1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -378,3 +385,209 @@ def test_tiny_training_kernels_match_plain_versions(cuda):
         assert launches == want, (backend, launches)
     np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
     assert runs["pallas"][-1] < runs["pallas"][0]
+
+
+# ----------------------------------------------- block-sparse attention
+
+
+def _sparse_case(device, dtype, section, h, s, d, seed=0, kpm=False,
+                 bias=False, empty_row=True):
+    """A layout from a ds_config section (one query block emptied), q/k/v
+    as the (b, h, s, d) views of one (b, s, 3 * h * d) tensor, dout, and
+    optional key-padding and score biases."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        block_sparse_attention as bsa, sparsity_config_from_dict)
+    cfg = sparsity_config_from_dict(dict(section), h)
+    layout = cfg.make_layout(s)
+    if empty_row:
+        layout[:, 1] = 0
+    tables = bsa.LayoutTables(layout, cfg.block)
+    rng = np.random.RandomState(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    b = 2
+    qkv = to(rng.randn(b, s, 3 * h * d)).to(dtype)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    dout = to(rng.randn(b, h, s, d)).to(dtype)
+    kpm_t = bias_t = None
+    if kpm:
+        a = rng.randn(b, s)
+        a[rng.rand(b, s) < 0.2] = -1e4
+        kpm_t = to(a)
+    if bias:
+        bias_t = to(rng.randn(s, s))
+    return tables, q, k, v, dout, kpm_t, bias_t
+
+
+FIXED = {"mode": "fixed", "num_local_blocks": 4,
+         "attention": "unidirectional"}
+PER_HEAD = dict(FIXED, different_layout_per_head=True,
+                num_different_global_patterns=4)
+
+
+@pytest.mark.parametrize("section,block,d,dtype,causal,kpm,bias", [
+    (FIXED, 16, 64, torch.bfloat16, True, False, False),
+    (PER_HEAD, 16, 64, torch.bfloat16, True, True, True),
+    (FIXED, 32, 32, torch.float16, False, True, False),
+    (PER_HEAD, 32, 128, torch.float32, True, False, True),
+    ({"mode": "bigbird", "num_random_blocks": 1, "seed": 2}, 64, 64,
+     torch.float32, False, False, False),
+    ({"mode": "bslongformer", "global_block_indices": [0]}, 128, 128,
+     torch.bfloat16, True, True, False),
+    ({"mode": "variable", "different_layout_per_head": True,
+      "num_random_blocks": 1, "seed": 5}, 16, 32, torch.bfloat16, False,
+     False, True),
+    ({"mode": "sliding_window", "num_sliding_window_blocks": 3}, 128, 64,
+     torch.float16, True, False, False),
+])
+def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
+                                                   dtype, causal, kpm, bias):
+    """Each of the three kernels against its plain version, an empty query
+    block included. fp32: out within 1e-5 absolute, dq, dk, dv within 1e-5
+    of their largest magnitude; bf16/fp16, per element: one ulp of the
+    plain value plus eps / 4 (out) or 1e-6 (grads); lse within 1e-4 and
+    NEG_INF exactly where the plain version has it."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    h = 4
+    s = block * 12
+    tables, q, k, v, dout, kpm_t, bias_t = _sparse_case(
+        cuda, dtype, dict(section, block=block), h, s, d, kpm=kpm, bias=bias)
+    kw = dict(tables=tables, causal=causal)
+    names = ("block_sparse_fwd", "block_sparse_bwd_dq",
+             "block_sparse_bwd_dkdv")
+    counts = [getattr(bsa, n).launches for n in names]
+    out, lse = bsa.block_sparse_fwd(q, k, v, kpm_t, bias_t, **kw)
+    delta = bsa.attention_delta(out, dout)
+    args = (q, k, v, kpm_t, bias_t, dout, lse, delta)
+    dq = bsa.block_sparse_bwd_dq(*args, **kw)
+    dk, dv = bsa.block_sparse_bwd_dkdv(*args, **kw)
+    ref_out, ref_lse = bsa.block_sparse_fwd_reference(q, k, v, kpm_t, bias_t,
+                                                      **kw)
+    ref_dq = bsa.block_sparse_bwd_dq_reference(*args, **kw)
+    ref_dk, ref_dv = bsa.block_sparse_bwd_dkdv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(bsa, n).launches for n in names] == \
+        [c + 1 for c in counts]
+    assert out.transpose(1, 2).is_contiguous()      # (b, s, h, d) memory
+    dead = ref_lse <= bsa.NEG_INF
+    assert bool(dead.any()) and torch.equal(lse <= bsa.NEG_INF, dead)
+    assert float((lse - ref_lse)[~dead].abs().max()) <= 1e-4
+    assert float(out[dead].float().abs().max()) == 0.0
+    grads = (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))
+    for name, got, _ in grads + (("out", out, None),):
+        assert torch.isfinite(got.float()).all(), name
+    if dtype == torch.float32:
+        assert float((out - ref_out).abs().max()) <= 1e-5
+        for name, got, want in grads:
+            assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+        return
+    eps = torch.finfo(dtype).eps
+    assert _ulp_ratio(out, ref_out, eps / 4) <= 1.0, \
+        _ulp_ratio(out, ref_out, eps / 4)
+    for name, got, want in grads:
+        assert _ulp_ratio(got, want, 1e-6) <= 1.0, \
+            (name, _ulp_ratio(got, want, 1e-6))
+
+
+def test_block_sparse_kernels_are_deterministic(cuda):
+    """Repeated launches give bit-identical out, lse, dq, dk, dv (no
+    atomics)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    tables, q, k, v, dout, kpm, bias = _sparse_case(
+        cuda, torch.bfloat16, dict(PER_HEAD, block=16), 4, 512, 64,
+        kpm=True)
+    kw = dict(tables=tables, causal=True)
+    runs = []
+    for _ in range(3):
+        out, lse = bsa.block_sparse_fwd(q, k, v, kpm, None, **kw)
+        delta = bsa.attention_delta(out, dout)
+        args = (q, k, v, kpm, None, dout, lse, delta)
+        runs.append((out, lse, bsa.block_sparse_bwd_dq(*args, **kw),
+                     *bsa.block_sparse_bwd_dkdv(*args, **kw)))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_block_sparse_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    tables, q, k, v, dout, _, _ = _sparse_case(
+        cuda, torch.bfloat16, dict(FIXED, block=16), 4, 128, 64)
+    kw = dict(tables=tables, causal=True)
+    with pytest.raises(ValueError, match="k is"):
+        bsa.block_sparse_fwd(q, k.cpu(), v, **kw)          # mixed devices
+    with pytest.raises(ValueError, match="k is"):
+        bsa.block_sparse_fwd(q, k.float(), v, **kw)        # mixed dtypes
+    with pytest.raises(ValueError, match="dtype"):
+        bsa.block_sparse_fwd(q.double(), k.double(), v.double(), **kw)
+    with pytest.raises(ValueError, match="d_head"):
+        bsa.block_sparse_fwd(q[..., :48], k[..., :48], v[..., :48], **kw)
+    with pytest.raises(ValueError, match="must match the layout"):
+        bsa.block_sparse_fwd(q[:, :, :120], k[:, :, :120], v[:, :, :120],
+                             **kw)                         # 120 % 16 != 0
+    with pytest.raises(ValueError, match="must match the layout"):
+        bsa.block_sparse_fwd(q[:, :2], k[:, :2], v[:, :2], **kw)
+    with pytest.raises(ValueError, match="kpm must be"):
+        bsa.block_sparse_fwd(q, k, v, torch.zeros(2, 128), **kw)
+    with pytest.raises(ValueError, match="must be \\(b, h, s, d\\)"):
+        bsa.block_sparse_fwd(q[0], k[0], v[0], **kw)
+    with pytest.raises(ValueError, match="unit stride"):
+        t = q.transpose(2, 3).contiguous().transpose(2, 3)
+        bsa.block_sparse_fwd(t, t, t, **kw)
+    odd = bsa.LayoutTables(np.ones((4, 16, 16), np.int64), 8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bsa.block_sparse_fwd(q, k, v, tables=odd, causal=True)
+    out, lse = bsa.block_sparse_fwd(q, k, v, **kw)
+    with pytest.raises(ValueError, match="lse must be"):
+        bsa.block_sparse_bwd_dq(q, k, v, None, None, dout, lse.double(),
+                                lse, **kw)
+
+
+def test_sparse_training_kernels_match_plain_versions(cuda):
+    """A tiny fp32 GPT-2 with the ds_config sparse section (per-head
+    layout), 3 train_batch steps through the kernels and through their
+    plain versions (names swapped for the comparison): losses within 1e-5
+    relative; one launch of each kernel per layer per step, none of the
+    flash kernels."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    section = dict(PER_HEAD, block=16)
+    names = ("block_sparse_fwd", "block_sparse_bwd_dq",
+             "block_sparse_bwd_dkdv")
+    kernels = {n: getattr(bsa, n) for n in names}
+    ids = np.random.RandomState(3).randint(0, 256, size=(1, 2, 256))
+    runs = {}
+    for route in ("kernels", "plain"):
+        for c in list(kernels.values()) + [fa.flash_fwd]:
+            c.launches = 0
+        if route == "plain":
+            for n in names:
+                setattr(bsa, n, getattr(bsa, n + "_reference"))
+        try:
+            cfg = gpt2.GPT2Config(vocab_size=256, max_seq_len=256,
+                                  n_layers=2, n_heads=4, d_model=256,
+                                  loss_chunk=64, remat=False,
+                                  sparse_attention=section)
+            engine = deepspeed_tpu_torch.initialize(
+                model=gpt2.make_gpt2_model(config=cfg, seed=1),
+                config_params={"train_micro_batch_size_per_gpu": 2,
+                               "optimizer": {"type": "Adam",
+                                             "params": {"lr": 1e-3}},
+                               "sparse_attention": section})[0]
+            runs[route] = [float(engine.train_batch(batch=(ids, ids)))
+                           for _ in range(3)]
+        finally:
+            for n, fn in kernels.items():
+                setattr(bsa, n, fn)
+        if route == "kernels":
+            assert all(c.launches == 2 * 3 for c in kernels.values())
+            assert fa.flash_fwd.launches == 0
+        else:
+            assert all(c.launches == 0 for c in kernels.values())
+    np.testing.assert_allclose(runs["kernels"], runs["plain"], rtol=1e-5)
+    assert runs["kernels"][-1] < runs["kernels"][0]

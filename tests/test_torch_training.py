@@ -5,18 +5,22 @@
 * config: every ds_config dict of tests/unit/test_config.py that this
   slice accepts resolves to the same fields in both packages (world size
   8, the JAX test mesh); bad configs raise alike; sections not ported yet
-  raise ``NotImplementedError``;
+  raise ``NotImplementedError``; the ``sparse_attention`` section parses
+  to the same dict for every mode and the engine hands it back;
 * model: GPT-2's training loss and every gradient against the JAX
   ``lm_loss`` at bench.py's CPU shape (vocab 512, seq 128, 2 layers, 4
   heads, d_model 128), fp32, dense and chunked loss, flash "xla" and
   "pallas" (the port's plain kernel versions against JAX's Pallas
-  interpreter), remat on and off;
+  interpreter), remat on and off; with ``sparse_attention`` set, on a
+  shared and a per-head layout (the JAX package's packed-heads and
+  per-head kernels), at the same tolerances;
 * engine: 5 ``train_batch`` steps from the same init through
   ``deepspeed_tpu.initialize`` (8 virtual CPU devices, so its global batch
   is micro x 8) and ``deepspeed_tpu_torch.initialize`` at world size 1
   with the same global batch, fp32 and bf16, ZeRO stages 0/1/2,
   gradient accumulation 1 and 2: the loss trajectories and the final
-  fp32 master weights;
+  fp32 master weights; and a 3-step fp32 trajectory with the
+  ``sparse_attention`` section on;
 * rules: ``initialize`` needs CUDA unless asked for the CPU, a world size
   above 1 and unported arguments raise ``NotImplementedError``, the
   parameters and gradients stay views of the flat buffers, and the tied
@@ -259,7 +263,6 @@ UNPORTED = {
     "zeropp_qwz": {"zero_optimization": {"stage": 2,
                                          "zero_quantized_gradients": True}},
     "telemetry": {"telemetry": {"enabled": True}},
-    "sparse_attention": {"sparse_attention": {"mode": "fixed"}},
     "checkpoint": {"checkpoint": {"tag_validation": "Fail"}},
     "pld": {"progressive_layer_drop": {"enabled": True}},
     "comm": {"comm": {"collective_matmul": {"enabled": True}}},
@@ -276,6 +279,61 @@ def test_unported_sections_raise_not_implemented(name):
     # switched off, the section is accepted
     off = {"train_batch_size": WORLD, "telemetry": {"enabled": False}}
     tconfig.DeepSpeedConfig(None, param_dict=off, world_size=WORLD)
+
+
+SPARSE_SECTIONS = {
+    "dense": {"mode": "dense", "block": 32},
+    "fixed": {"mode": "fixed", "block": 16, "different_layout_per_head": False,
+              "num_local_blocks": 4, "num_global_blocks": 1,
+              "attention": "unidirectional",
+              "horizontal_global_attention": False,
+              "num_different_global_patterns": 1},
+    "fixed_defaults": {"mode": "fixed"},
+    "variable": {"mode": "variable", "num_random_blocks": 2,
+                 "local_window_blocks": [4, 8],
+                 "global_block_indices": [0, 4],
+                 "global_block_end_indices": [2, 6]},
+    "bigbird": {"mode": "bigbird", "block": 32, "num_random_blocks": 1,
+                "num_sliding_window_blocks": 5},
+    "bslongformer": {"mode": "bslongformer",
+                     "global_block_indices": [3]},
+    "sliding_window": {"mode": "sliding_window",
+                       "num_sliding_window_blocks": 2},
+    "no_mode": {"block": 64},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPARSE_SECTIONS))
+def test_sparse_attention_sections_parse_alike(name):
+    cfg = {"train_batch_size": WORLD, "bf16": {"enabled": True},
+           "sparse_attention": dict(SPARSE_SECTIONS[name])}
+    j = jconfig.DeepSpeedConfig(None, param_dict=dict(cfg))
+    t = tconfig.DeepSpeedConfig(None, param_dict=dict(cfg), world_size=WORLD)
+    assert t.sparse_attention == j.sparse_attention
+    assert t.sparse_attention["mode"] == SPARSE_SECTIONS[name].get(
+        "mode", "fixed")
+    absent = {"train_batch_size": WORLD}
+    assert tconfig.DeepSpeedConfig(None, param_dict=absent,
+                                   world_size=WORLD).sparse_attention is None
+    bad = dict(cfg, sparse_attention={"mode": "strided"})
+    for module, kw in ((jconfig, {}), (tconfig, {"world_size": WORLD})):
+        with pytest.raises(NotImplementedError, match="strided"):
+            module.DeepSpeedConfig(None, param_dict=bad, **kw)
+
+
+def test_engine_returns_the_parsed_sparse_section_and_leaves_the_model():
+    section = SPARSE_SECTIONS["fixed"]
+    model = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE))
+    cfg = _ds("bf16", 2, 1, 2)
+    cfg["sparse_attention"] = dict(section)
+    engine = deepspeed_tpu_torch.initialize(model=model, config_params=cfg,
+                                            device="cpu")[0]
+    assert engine.sparse_attention_config() == section
+    assert model.config.sparse_attention is None   # the caller sets it
+    plain = deepspeed_tpu_torch.initialize(
+        model=tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE)),
+        config_params=_ds("bf16", 2, 1, 2), device="cpu")[0]
+    assert plain.sparse_attention_config() is None
 
 
 # ------------------------------------------------------------------- model
@@ -314,6 +372,55 @@ def test_lm_loss_and_grads_match_jax(backend, chunk, remat):
     tcfg = tgpt2.GPT2Config(**SHAPE, remat=remat, loss_chunk=chunk,
                             flash_attention_backend=backend)
     model = tgpt2.make_gpt2_model(config=tcfg, seed=1)
+    loss = model(torch.from_numpy(ids), torch.from_numpy(labels))
+    loss.backward()
+    assert abs(float(loss.detach()) - float(j_loss)) <= \
+        1e-5 * abs(float(j_loss))
+    grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    for name, want in _leaves(j_grads):
+        got = grads[name]
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        assert err <= 2e-5, (name, err)
+
+
+SPARSE_MODEL = {
+    # shared: the JAX package's packed-heads kernels (4 x 32 % 128 == 0)
+    "shared": {"mode": "fixed", "block": 16, "num_local_blocks": 4,
+               "attention": "unidirectional"},
+    # per head: its per-head kernels
+    "per_head": {"mode": "fixed", "block": 16,
+                 "different_layout_per_head": True, "num_local_blocks": 4,
+                 "attention": "unidirectional",
+                 "num_different_global_patterns": 4},
+}
+
+
+@pytest.mark.parametrize("layout,chunk,remat", [
+    ("shared", 32, False), ("per_head", 0, True)])
+def test_lm_loss_and_grads_with_sparse_attention_match_jax(layout, chunk,
+                                                           remat):
+    """The ds_config sparse section drives both GPT-2s: loss and every
+    gradient at test_lm_loss_and_grads_match_jax's tolerances. The path
+    adds no parameter: the same seed gives the same weights (wpe covers
+    max_seq_len in both)."""
+    sa = SPARSE_MODEL[layout]
+    rng = np.random.RandomState(8)
+    ids = rng.randint(0, SHAPE["vocab_size"], size=(2, 128)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :3] = -100
+    jcfg = jgpt2.GPT2Config(**SHAPE, remat=remat, loss_chunk=chunk,
+                            sparse_attention=sa)
+    jparams = jgpt2.init_params(jcfg, seed=3)
+    j_loss, j_grads = jax.value_and_grad(jgpt2.lm_loss)(
+        jparams, jnp.asarray(ids), jnp.asarray(labels), jcfg, train=True)
+    tcfg = tgpt2.GPT2Config(**SHAPE, remat=remat, loss_chunk=chunk,
+                            sparse_attention=sa)
+    assert not tgpt2._use_fused_attn(tcfg, torch.device("cuda"))
+    model = tgpt2.make_gpt2_model(config=tcfg, seed=3)
+    plain = dict(tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**SHAPE),
+                                       seed=3).named_parameters())
+    for name, p in model.named_parameters():
+        assert torch.equal(p, plain[name]), name
     loss = model(torch.from_numpy(ids), torch.from_numpy(labels))
     loss.backward()
     assert abs(float(loss.detach()) - float(j_loss)) <= \
@@ -450,6 +557,35 @@ def test_engine_trajectory_and_masters_match_jax(prec, stage, gas):
     j_next = float(je.train_batch(batch=(ids, ids)))
     t_next = float(fresh.train_batch(batch=(ids, ids)))
     np.testing.assert_allclose(t_next, j_next, rtol=loss_tol)
+
+
+def test_engine_trajectory_with_sparse_attention_matches_jax():
+    """The parsed section in both GPT2Configs, fp32, 3 steps: the losses
+    at the fp32 engine bound, and each engine hands back what its model
+    was built with."""
+    cfg = _ds("fp32", 0, 1, 1)
+    cfg["sparse_attention"] = {"mode": "fixed", "block": 16,
+                               "num_local_blocks": 2,
+                               "attention": "unidirectional"}
+    parsed = tconfig.get_sparse_attention(cfg)
+    assert parsed == jconfig.get_sparse_attention(cfg)
+    ids = np.random.RandomState(14).randint(
+        0, 256, size=(1, WORLD, 64)).astype(np.int32)
+    losses = []
+    for pkg, gpt2, micro, kw in ((deepspeed_tpu, jgpt2, 1, {}),
+                                 (deepspeed_tpu_torch, tgpt2, WORLD,
+                                  {"device": "cpu"})):
+        model = gpt2.make_gpt2_model(config=gpt2.GPT2Config(
+            **ENGINE_SHAPE, remat=False, loss_chunk=16,
+            sparse_attention=dict(parsed)), seed=5)
+        engine = pkg.initialize(model=model, config_params=dict(
+            cfg, train_micro_batch_size_per_gpu=micro), **kw)[0]
+        assert engine.sparse_attention_config() == \
+            model.config.sparse_attention
+        losses.append([float(engine.train_batch(batch=(ids, ids)))
+                       for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    assert losses[1][-1] < losses[1][0]
 
 
 def test_forward_backward_step_equals_train_batch():
