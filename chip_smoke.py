@@ -14,8 +14,11 @@ with no ``ok`` line):
    the card could take (``bound_ms``) and a PyTorch library call's where
    one exists: paged attention (the serve path's decode shape), the flash
    forward, dk/dv and dq kernels (b 16, s 1024, h 16, d 64, bf16, causal,
-   q/k/v strided column blocks of one QKV tensor) and Adam (one flat fp32
-   buffer of GPT-2-350M's size);
+   q/k/v strided column blocks of one QKV tensor), the same three in the
+   BERT path's mode (``flash_bert``: b 32, s 512, h 16, d 64, bf16,
+   non-causal, the fp32 key bias of the train_bert batch's padded mask,
+   also timed without the bias) and Adam (one flat fp32 buffer of
+   GPT-2-350M's size);
 4. train   — the training main path: ``initialize(...).train_batch(...)``
    on GPT-2-350M (``gpt2_medium``) at full width and depth, seq 1024,
    bf16, ZeRO-2, Adam with fp32 moments, the flash and Adam kernels
@@ -43,6 +46,22 @@ with no ``ok`` line):
    after; then a few all-slot decode steps under torch.profiler;
 10. parity — fp32 greedy streams identical for the slot layout, the paged
    layout's plain read path and the paged kernel, on the card;
+11. flash3d — the JAX package's 3D flash API (``flash_attention``, (b * h,
+   s, d) operands) at (32 * 16, 512, 64) bf16, causal and not: the same
+   op through its autograd against direct kernel calls, the kernels
+   against their plain versions, timed;
+12. lamb — the LAMB stage-1 and apply kernels against their plain
+   versions over one flat fp32 buffer of BERT-large's size with its real
+   segment table (26 parameters, 336,232,258 elements), timed;
+13. train_bert — the BERT main path: ``initialize(...).train_batch(...)``
+   on BERT-large at full width and depth, seq 512, micro batch 32, bf16,
+   ZeRO-2, LAMB with fp32 moments, remat on, dropout 0, a padded
+   key mask (the flash kernels non-causal with a key bias); counts set to
+   0 just before the timed steps and read just after; a torch.profiler
+   window;
+14. train_bert_parity — fp32 loss trajectories with the kernels (flash +
+   LAMB) and with the plain versions (einsum attention + plain LAMB), at
+   BERT-large width with 2 layers, seq 128, the padded mask;
 
 then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
@@ -222,6 +241,7 @@ def phase_kernel(flush):
 
 
 FLASH_SHAPE = dict(b=16, s=1024, h=16, d=64)     # the train path's
+BERT_FLASH_SHAPE = dict(b=32, s=512, h=16, d=64)  # the train_bert path's
 # Per element, |kernel - plain| <= 2**-7 * |plain| + atol: one bf16 ulp of
 # the plain value, plus a floor. The backward kernels round ds at the
 # plain version's points, so their floor is ~0; out's floor is one ulp at
@@ -230,12 +250,12 @@ FLASH_TOL = {"ulp_rel": 2 ** -7, "out_atol": 2 ** -9, "grad_atol": 1e-6,
              "lse": 1e-4}
 
 
-def flash_case(device, seed=0):
-    """The train path's attention operands: q, k, v as the column blocks
-    of one (b, s, 3 * h * d) bf16 QKV tensor (row stride 3 * h * d), and
-    an output gradient."""
+def flash_case(device, shape=FLASH_SHAPE, seed=0):
+    """A path's attention operands: q, k, v as the column blocks of one
+    (b, s, 3 * h * d) bf16 QKV tensor (row stride 3 * h * d), as the
+    layers' QKV projections produce them, and an output gradient."""
     import torch
-    b, s, h, d = (FLASH_SHAPE[k] for k in "bshd")
+    b, s, h, d = (shape[k] for k in "bshd")
     gen = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=device,
                       dtype=torch.bfloat16)
@@ -245,14 +265,16 @@ def flash_case(device, seed=0):
     return q, k, v, dout
 
 
-def flash_bound(q, h, mults, tensors):
+def flash_bound(q, h, mults, tensors, causal=True):
     """Least time for ``mults`` products per (query, key) pair over the
-    causal pairs these inputs need (key <= query), at the bf16 tensor-core
-    rate, against each of ``tensors`` moved once."""
+    pairs these inputs need (key <= query when causal, all pairs
+    otherwise), at the bf16 tensor-core rate, against each of ``tensors``
+    moved once."""
     b, s, hd = q.shape
-    pairs = b * h * s * (s + 1) // 2
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     flops = 2 * mults * pairs * (hd // h)
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
     return bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
 
 
@@ -264,24 +286,24 @@ def _ulp_ratio(got, want, atol):
                   (FLASH_TOL["ulp_rel"] * want.abs() + atol)).max())
 
 
-def phase_flash(flush):
-    """The three flash kernels against their plain versions, timed."""
+def flash_check_and_time(q, k, v, dout, bias, h, causal, flush):
+    """The three flash kernels on packed (b, s, h * d) operands with an
+    optional fp32 (b, s) key ``bias``: out, lse, dq, dk, dv held to the
+    plain versions at FLASH_TOL, then each kernel timed beside its plain
+    version, its bound and SDPA on contiguous (b, h, s, d) copies (the
+    bias as a boolean key mask). Returns (errors, rows by kernel name)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
-    device = torch.device("cuda", 0)
-    h = FLASH_SHAPE["h"]
-    q, k, v, dout = flash_case(device)
-    kw = dict(num_heads=h, causal=True)
-    out, lse = fa.flash_fwd(q, k, v, **kw)
-    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    kw = dict(num_heads=h, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, bias, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, bias, **kw)
     delta = fa.attention_delta(out, dout, h)
-    dk, dv = fa.flash_bwd_dkdv(q, k, v, None, dout, lse, delta, **kw)
-    dq = fa.flash_bwd_dq(q, k, v, None, dout, lse, delta, **kw)
-    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, None, dout, lse,
-                                                 delta, **kw)
-    ref_dq = fa.flash_bwd_dq_reference(q, k, v, None, dout, lse, delta,
-                                       **kw)
+    args = (q, k, v, bias, dout, lse, delta)
+    dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args, **kw)
+    ref_dq = fa.flash_bwd_dq_reference(*args, **kw)
     torch.cuda.synchronize()
     abs_err = lambda a, b: float((a.float() - b.float()).abs().max())
     pairs = {"out": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk),
@@ -298,23 +320,19 @@ def phase_flash(flush):
     del ref_out, ref_lse, ref_dk, ref_dv, ref_dq
 
     times = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
-                      lambda: fa.flash_fwd_reference(q, k, v, **kw)),
-        "flash_bwd_dkdv": (
-            lambda: fa.flash_bwd_dkdv(q, k, v, None, dout, lse, delta, **kw),
-            lambda: fa.flash_bwd_dkdv_reference(q, k, v, None, dout, lse,
-                                                delta, **kw)),
-        "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, None, dout, lse, delta, **kw),
-            lambda: fa.flash_bwd_dq_reference(q, k, v, None, dout, lse,
-                                              delta, **kw)),
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, bias, **kw),
+                      lambda: fa.flash_fwd_reference(q, k, v, bias, **kw)),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args, **kw),
+                           lambda: fa.flash_bwd_dkdv_reference(*args, **kw)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args, **kw),
+                         lambda: fa.flash_bwd_dq_reference(*args, **kw)),
     }
     bounds = {
-        "flash_fwd": flash_bound(q, h, 2, (q, k, v, out, lse)),
-        "flash_bwd_dkdv": flash_bound(q, h, 4, (q, k, v, dout, lse, delta,
-                                                dk, dv)),
-        "flash_bwd_dq": flash_bound(q, h, 3, (q, k, v, dout, lse, delta,
-                                              dq)),
+        "flash_fwd": flash_bound(q, h, 2, (q, k, v, bias, out, lse), causal),
+        "flash_bwd_dkdv": flash_bound(q, h, 4, (q, k, v, bias, dout, lse,
+                                                delta, dk, dv), causal),
+        "flash_bwd_dq": flash_bound(q, h, 3, (q, k, v, bias, dout, lse,
+                                              delta, dq), causal),
     }
     # yardstick: scaled_dot_product_attention on pre-transposed contiguous
     # (b, h, s, d) copies (the transposes excluded); its backward is its
@@ -323,7 +341,9 @@ def phase_flash(flush):
         1, 2).contiguous()
     qh, kh, vh = (heads(t).requires_grad_() for t in (q, k, v))
     doh = heads(dout)
-    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    keep = None if bias is None else (bias == 0)[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep,
+                                                  is_causal=causal)
     with torch.no_grad():
         lib_fwd = time_ms(sdpa, flush)
     lib_fwd_bwd = time_ms(
@@ -338,6 +358,16 @@ def phase_flash(flush):
                       "bound_ms": bounds[name][0],
                       "bound_by": bounds[name][1],
                       "library_ms": library[name]}
+    return errs, rows
+
+
+def phase_flash(flush):
+    """The three flash kernels at the GPT-2 train path's shape (causal, no
+    bias) against their plain versions, timed."""
+    import torch
+    h = FLASH_SHAPE["h"]
+    q, k, v, dout = flash_case(torch.device("cuda", 0))
+    errs, rows = flash_check_and_time(q, k, v, dout, None, h, True, flush)
     return {"phase": "kernel", "name": "flash_attention", "errors": errs,
             "tolerance": FLASH_TOL, "kernels": rows,
             "library_call": "F.scaled_dot_product_attention(is_causal=True) "
@@ -345,6 +375,142 @@ def phase_flash(flush):
                             "backward's time covers dq, dk and dv together",
             "shape": dict(FLASH_SHAPE, dtype="bf16", causal=True,
                           qkv_row_stride=3 * h * FLASH_SHAPE["d"])}
+
+
+def phase_flash_bert(flush):
+    """The three flash kernels in the BERT path's mode: non-causal with
+    the fp32 (b, s) key bias the layer makes (``_expand_mask``) from the
+    train_bert batch's padded mask, at BERT-large's attention shape, q/k/v
+    strided as the layer's QKV projection gives them; held to the plain
+    versions at FLASH_TOL and timed, then timed again without the bias at
+    the same shape, so the bias's cost is a measured difference."""
+    import torch
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer.transformer import _expand_mask
+    device = torch.device("cuda", 0)
+    h = BERT_FLASH_SHAPE["h"]
+    cfg = bert.config_for("bert_large", max_seq_len=BERT_SEQ)
+    keep = torch.from_numpy(bert_batch(cfg, BERT_MICRO, BERT_SEQ,
+                                       seed=0)[2][0]).to(device)
+    bias = _expand_mask(keep, torch.float32)[:, 0, 0, :].contiguous()
+    q, k, v, dout = flash_case(device, BERT_FLASH_SHAPE, seed=1)
+    errs, rows = flash_check_and_time(q, k, v, dout, bias, h, False, flush)
+    kw = dict(num_heads=h, causal=False)
+    out, lse = fa.flash_fwd(q, k, v, None, **kw)
+    args = (q, k, v, None, dout, lse, fa.attention_delta(out, dout, h))
+    no_bias = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, None, **kw),
+                                    flush),
+               "flash_bwd_dkdv": time_ms(lambda: fa.flash_bwd_dkdv(*args,
+                                                                   **kw),
+                                         flush),
+               "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args, **kw),
+                                       flush)}
+    for name, ms in no_bias.items():
+        rows[name]["kernel_ms_without_bias"] = ms
+    return {"phase": "flash_bert", "name": "flash_attention (BERT mode)",
+            "errors": errs, "tolerance": FLASH_TOL, "kernels": rows,
+            "valid_keys": int(keep.sum()), "keys": keep.numel(),
+            "library_call": "F.scaled_dot_product_attention with the keep "
+                            "mask as a boolean (b, 1, 1, s) attn_mask on "
+                            "contiguous (b, h, s, d) copies; the backward's "
+                            "time covers dq, dk and dv together",
+            "shape": dict(BERT_FLASH_SHAPE, dtype="bf16", causal=False,
+                          key_bias="fp32 (b, s), 0 / -1e9",
+                          qkv_row_stride=3 * h * BERT_FLASH_SHAPE["d"])}
+
+
+def phase_flash3d(flush):
+    """Rows 5/6: the JAX package's 3D API, (b * h, s, d) operands on the
+    packed kernels with one head, at BERT-large's attention shape, causal
+    and not. The 3D op (forward, then its backward through autograd)
+    equals direct kernel calls bit for bit; the kernels hold to their
+    plain versions at FLASH_TOL; each timed, with SDPA on the same memory
+    viewed (b, h, s, d) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    device = torch.device("cuda", 0)
+    b, h, s, d = 32, 16, 512, 64
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v, dout = (torch.randn((b * h, s, d), generator=gen, device=device,
+                                 dtype=torch.bfloat16) for _ in range(4))
+    modes = {}
+    for causal in (True, False):
+        kw = dict(num_heads=1, causal=causal)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out3 = fa.flash_attention(qq, kk, vv, causal=causal)
+        out3.backward(dout)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        dq, dk, dv = fa.flash_bwd(q, k, v, None, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in (
+            (out3.detach(), out), (qq.grad, dq), (kk.grad, dk),
+            (vv.grad, dv)))
+        assert same, "the 3D op differs from direct kernel calls"
+        delta = fa.attention_delta(out, dout, 1)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, **kw)
+        ref_dq = fa.flash_bwd_dq_reference(q, k, v, None, dout, lse, delta,
+                                           **kw)
+        ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(q, k, v, None, dout,
+                                                     lse, delta, **kw)
+        abs_err = lambda a, b_: float((a.float() - b_.float()).abs().max())
+        pairs = {"out": (out, ref_out), "dq": (dq, ref_dq),
+                 "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+        errs = {"lse": abs_err(lse, ref_lse)}
+        for name, (got, want) in pairs.items():
+            atol = FLASH_TOL["out_atol" if name == "out" else "grad_atol"]
+            errs[name + "_abs"] = abs_err(got, want)
+            errs[name + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
+        for t in (out, lse, dq, dk, dv):
+            assert torch.isfinite(t.float()).all(), "non-finite kernel output"
+        assert errs["lse"] <= FLASH_TOL["lse"], errs
+        assert max(errs[n + "_ulp_ratio"] for n in pairs) <= 1.0, errs
+        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, qq, kk, vv, out3
+
+        pairs_n = b * h * (s * (s + 1) // 2 if causal else s * s)
+        nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                        causal=causal), flush)
+        plain_fwd = time_ms(lambda: fa.flash_fwd_reference(q, k, v, **kw),
+                            flush, reps=5)
+        dkdv_ms = time_ms(lambda: fa.flash_bwd_dkdv(
+            q, k, v, None, dout, lse, delta, **kw), flush)
+        dq_ms = time_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, None, dout, lse, delta, **kw), flush)
+        plain_bwd = time_ms(lambda: (
+            fa.flash_bwd_dkdv_reference(q, k, v, None, dout, lse, delta, **kw),
+            fa.flash_bwd_dq_reference(q, k, v, None, dout, lse, delta, **kw)),
+            flush, reps=5)
+        view = lambda t: t.view(b, h, s, d)
+        qh, kh, vh = (view(t).detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=causal)
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa, flush)
+        lib_both = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qh, kh, vh), view(dout)), flush)
+        modes["causal" if causal else "non_causal"] = {
+            "errors": errs, "same_as_direct_calls": same,
+            "fwd": {"kernel_ms": fwd_ms, "plain_ms": plain_fwd,
+                    "library_ms": lib_fwd,
+                    "bound": bound_ms(nbytes(q, k, v, out, lse),
+                                      2 * 2 * pairs_n * d, BF16_FLOPS_PER_S)},
+            "bwd": {"kernel_ms": dkdv_ms + dq_ms, "dkdv_ms": dkdv_ms,
+                    "dq_ms": dq_ms, "plain_ms": plain_bwd,
+                    "library_ms": lib_both - lib_fwd,
+                    "bound": bound_ms(nbytes(q, k, v, dout, lse, delta, dq,
+                                             dk, dv),
+                                      2 * 5 * pairs_n * d, BF16_FLOPS_PER_S)}}
+        del out, lse, dq, dk, dv, delta
+    return {"phase": "flash3d", "name": "flash_attention (3D)",
+            "shape": {"batch_heads": b * h, "seq": s, "d_head": d,
+                      "dtype": "bf16"},
+            "tolerance": FLASH_TOL, "modes": modes,
+            "library_call": "F.scaled_dot_product_attention on the same "
+                            "memory viewed (b, h, s, d); backward = fwd+bwd "
+                            "minus fwd, dq, dk, dv together"}
 
 
 def phase_adam(flush):
@@ -886,6 +1052,279 @@ def phase_train_sparse_parity(steps=5, tol=1e-4, seq=2048):
             "max_rel_diff": rel, "tolerance": tol}
 
 
+# --------------------------------------------- BERT + LAMB (slice 4)
+
+
+LAMB_SOURCE = "deepspeed_tpu_torch/ops/lamb/csrc/fused_lamb.cu"
+LAMB_NAMES = ("fused_lamb", "fused_lamb_apply")
+# BERT-large leaves that init_params fills with zeros (biases, LN shifts):
+# at step 1 their trust ratio takes the 1.0 branch
+ZERO_INIT = ("bias", "qkvb", "attn_ob", "attn_nb", "inter_b", "output_b",
+             "norm_b")
+BERT_MICRO, BERT_SEQ, BERT_REMAT = 32, 512, True
+# tests/perf/bert_bench.py:19-40 with fp32 moments (bf16_state=False)
+BERT_CONFIG = {
+    "train_micro_batch_size_per_gpu": BERT_MICRO,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 2},
+    "optimizer": {"type": "Lamb", "params": {"lr": 2e-3,
+                                             "fused_kernel": "auto"}},
+    "transformer": {"flash_attention": "auto"},
+    "steps_per_print": 10 ** 9,
+}
+
+
+def bert_segments(cfg):
+    """(segments, zero-init segment indices, buffer length) of a BERT
+    model's flat partition, laid out as FlatPartition lays it out."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.runtime.zero.partition import ALIGN
+    segments, zero, total = [], [], 0
+    for name, p in bert.BertModel(cfg, device="meta").named_parameters():
+        if name.endswith(ZERO_INIT):
+            zero.append(len(segments))
+        segments.append((total, p.numel()))
+        total += -(-p.numel() // ALIGN) * ALIGN
+    return segments, zero, total
+
+
+def _fp32_steps(got, want):
+    """Largest distance in fp32 representable steps (0 = bit-equal)."""
+    import torch
+    line = lambda t: torch.where(t.view(torch.int32) < 0,
+                                 -(t.view(torch.int32) & 0x7FFFFFFF),
+                                 t.view(torch.int32)).long()
+    return int((line(got) - line(want)).abs().max())
+
+
+def phase_lamb(flush):
+    """The two LAMB kernels against their plain versions over one flat
+    fp32 buffer of BERT-large's size and segment table, step 7; m, v and
+    the trust ratios bit-equal, p within one ulp, two kernel runs
+    bit-identical; timed."""
+    import torch
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.adam.fused_adam import bias_corrections
+    from deepspeed_tpu_torch.ops.lamb import (
+        LambPlan, fused_lamb, fused_lamb_apply, fused_lamb_apply_reference,
+        fused_lamb_reference)
+    device = torch.device("cuda", 0)
+    cfg = bert.config_for("bert_large")
+    segments, zero, total = bert_segments(cfg)
+    n = sum(numel for _, numel in segments)
+    assert n == bert.num_params(cfg) and len(segments) == 26
+    covered = torch.zeros(total, dtype=torch.bool, device=device)
+    for i, (off, numel) in enumerate(segments):
+        covered[off:off + numel] = i not in zero
+    gen = torch.Generator(device=device).manual_seed(7)
+    new = lambda scale: torch.randn(total, generator=gen, device=device) * \
+        scale * covered
+    p, g, m = new(0.02), new(1e-3), new(1e-4)
+    v = new(1e-4) ** 2
+    for i in zero:                   # zero params, live gradients
+        off, numel = segments[i]
+        g[off:off + numel] = torch.randn(numel, generator=gen,
+                                         device=device) * 1e-3
+    plan = LambPlan(segments, device)
+    bc1, bc2 = bias_corrections(0.9, 0.999, 7)
+    sc = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01, bc1=bc1,
+              bc2=bc2)
+    kw = dict(lr=2e-3, eps=1e-8, weight_decay=0.01, bc1=bc1, bc2=bc2)
+    sides, ratios = [], []
+    for route in ("kernel", "kernel", "plain"):
+        pp, mm, vv = p.clone(), m.clone(), v.clone()
+        if route == "kernel":
+            r = fused_lamb(pp, g, mm, vv, plan, **sc)
+            fused_lamb_apply(pp, mm, vv, r, plan, **kw)
+        else:
+            r = fused_lamb_reference(pp, g, mm, vv, plan, **sc)
+            fused_lamb_apply_reference(pp, mm, vv, r, plan, **kw)
+        sides.append((pp, mm, vv))
+        ratios.append(r)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(sides[0], sides[1]))
+    m_equal = torch.equal(sides[0][1], sides[2][1])
+    v_equal = torch.equal(sides[0][2], sides[2][2])
+    ratio_equal = torch.equal(ratios[0], ratios[2])
+    p_steps = _fp32_steps(sides[0][0], sides[2][0])
+    err = max(float((a - b).abs().max()) for a, b in zip(sides[0], sides[2]))
+    assert repeat, "two runs of the LAMB kernels differ"
+    assert m_equal and v_equal, "m or v off the plain version"
+    assert ratio_equal, (ratios[0], ratios[2])
+    assert p_steps <= 1, "p off the plain version by {} ulp".format(p_steps)
+    assert torch.isfinite(sides[0][0]).all()
+    ones = int((ratios[0] == 1.0).sum())
+    assert ones >= len(zero), (ones, len(zero))
+    del sides
+    torch.cuda.empty_cache()
+    ratio = ratios[0]
+    stage1_ms = time_ms(lambda: fused_lamb(p, g, m, v, plan, **sc), flush)
+    apply_ms = time_ms(lambda: fused_lamb_apply(p, m, v, ratio, plan, **kw),
+                       flush)
+    plain_stage1 = time_ms(lambda: fused_lamb_reference(p, g, m, v, plan,
+                                                        **sc), flush, reps=5)
+    plain_apply = time_ms(lambda: fused_lamb_apply_reference(
+        p, m, v, ratio, plan, **kw), flush, reps=5)
+    # bytes: stage 1 reads p, g, m, v and writes m, v; the apply reads p,
+    # m, v and writes p (partials and ratios are < 0.1% more); operations:
+    # ~20 fp32 a element for stage 1 (the TPU kernel's own count), ~10 for
+    # the apply
+    return {"phase": "lamb", "elements": n, "buffer": total,
+            "segments": len(segments), "chunks": plan.n_chunks,
+            "zero_init_segments": len(zero), "ratio_one_segments": ones,
+            "bit_equal": {"m": m_equal, "v": v_equal, "ratio": ratio_equal,
+                          "repeat": repeat},
+            "p_max_ulp": p_steps, "max_abs_err": err,
+            "tolerance": "m, v, ratio bit-equal; p <= 1 ulp",
+            "kernels": {
+                "fused_lamb": dict(
+                    kernel_ms=stage1_ms, plain_ms=plain_stage1,
+                    library_ms=None, max_abs_err=err,
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        24 * n, 20 * n, FP32_FLOPS_PER_S)))),
+                "fused_lamb_apply": dict(
+                    kernel_ms=apply_ms, plain_ms=plain_apply,
+                    library_ms=None, max_abs_err=err,
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        16 * n, 10 * n, FP32_FLOPS_PER_S))))},
+            "step_bound_ms": bound_ms(40 * n, 30 * n, FP32_FLOPS_PER_S)[0],
+            "library_call": None}
+
+
+def bert_batch(cfg, micro, seq, seed):
+    """One pretraining batch, stacked (1, micro, ...): random ids, zero
+    token types, a keep mask of ones up to a seeded valid length in
+    [3/4 seq, seq] and zeros after, MLM labels at a seeded 15% of the valid
+    positions (-100 elsewhere), random NSP labels."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, size=(micro, seq)).astype(np.int64)
+    valid = rng.randint(3 * seq // 4, seq + 1, size=(micro,))
+    mask = (np.arange(seq)[None, :] < valid[:, None]).astype(np.int64)
+    pick = (rng.rand(micro, seq) < 0.15) & (mask == 1)
+    mlm = np.where(pick, ids, -100).astype(np.int64)
+    nsp = rng.randint(0, 2, size=(micro,)).astype(np.int64)
+    return tuple(a[None] for a in (ids, np.zeros_like(ids), mask, mlm, nsp))
+
+
+def phase_train_bert(launch_counters):
+    """The BERT main path: BERT-large at full width and depth, seq 512,
+    micro batch 32, bf16, ZeRO-2, LAMB with fp32 moments, remat on,
+    dropout 0, the padded mask, through initialize(...).train_batch(...)
+    on one fixed batch."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.lamb import FusedLamb
+    cfg = bert.config_for("bert_large", max_seq_len=BERT_SEQ, dropout=0.0,
+                          attn_dropout=0.0, remat=BERT_REMAT)
+    assert cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
+    t0 = time.perf_counter()
+    model = bert.make_bert_model(config=cfg, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=BERT_CONFIG)
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda"
+    assert isinstance(engine.optimizer, FusedLamb)
+    assert engine.fused_optimizer_kernel == "pallas"
+    assert engine.flash_attention_backend == "pallas"
+    assert engine.flat.segments.shape == (26, 2)
+    batch = bert_batch(cfg, BERT_MICRO, BERT_SEQ, seed=0)
+    mask = batch[2][0]
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for counter in launch_counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [engine.train_batch(batch=batch)
+                   for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    losses += [float(x) for x in step_losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    fwd_per_step = cfg.n_layers * (2 if BERT_REMAT else 1)
+    assert launches["flash_fwd"] == fwd_per_step * TRAIN_STEPS, launches
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        assert launches[name] == cfg.n_layers * TRAIN_STEPS, launches
+    for name in LAMB_NAMES:
+        assert launches[name] == TRAIN_STEPS, launches
+    assert launches["fused_adam"] == 0, launches
+    assert engine.flat.check_views()
+    step_s = wall / TRAIN_STEPS
+    tokens = BERT_MICRO * BERT_SEQ
+    n_params = bert.num_params(cfg)
+    flops_per_token = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * \
+        BERT_SEQ                              # tests/perf/bert_bench.py:56-59
+    mfu = tokens / step_s * flops_per_token / BF16_FLOPS_PER_S
+    profile = train_profile(engine, batch)
+    return {"phase": "train_bert", "model": "bert_large",
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": cfg.n_heads, "seq": BERT_SEQ, "micro_batch": BERT_MICRO,
+            "valid_tokens": int(mask.sum()), "dtype": "bf16",
+            "zero_stage": 2, "optimizer": "lamb", "moments": "fp32",
+            "remat": BERT_REMAT, "params": n_params,
+            "engine_init_s": init_s, "steps": TRAIN_STEPS,
+            "step_ms": step_s * 1e3, "tokens_per_sec": tokens / step_s,
+            "samples_per_sec": BERT_MICRO / step_s, "mfu": mfu,
+            "mfu_formula": "tokens/s * (6 N + 12 L d s) / 989e12 "
+                           "(tests/perf/bert_bench.py)",
+            "losses": losses, "peak_memory_gb": peak_gb,
+            "launches": launches, "train_profile": profile}
+
+
+def phase_train_bert_parity(launch_counters, steps=5, tol=1e-4, seq=128):
+    """fp32 loss trajectories at BERT-large width with 2 layers, seq 128,
+    the padded mask, TF32 off: the kernels (flash "pallas", LAMB "pallas")
+    against the plain versions (einsum attention "xla", plain LAMB "xla"),
+    from the same init."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    micro = 8
+    runs, launches = {}, {}
+    for backend in ("pallas", "xla"):
+        cfg = bert.config_for("bert_large", n_layers=2, max_seq_len=seq,
+                              dropout=0.0, attn_dropout=0.0, remat=True)
+        model = bert.make_bert_model(config=cfg, seed=1)
+        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": micro,
+            "optimizer": {"type": "Lamb", "params": {
+                "lr": 2e-3, "fused_kernel": backend}},
+            "transformer": {"flash_attention": backend},
+            "steps_per_print": 10 ** 9})[0]
+        assert engine.flash_attention_backend == backend
+        batch = bert_batch(cfg, micro, seq, seed=3)
+        for counter in launch_counters:
+            counter.launches = 0
+        runs[backend] = [float(engine.train_batch(batch=batch))
+                         for _ in range(steps)]
+        launches[backend] = {c.__name__: c.launches for c in launch_counters}
+        del engine, model
+        torch.cuda.empty_cache()
+    want = {"flash_fwd": 2 * 2 * steps, "flash_bwd_dkdv": 2 * steps,
+            "flash_bwd_dq": 2 * steps, "fused_lamb": steps,
+            "fused_lamb_apply": steps}
+    assert launches["pallas"] == want, launches
+    assert not any(launches["xla"].values()), launches
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"],
+                                                  runs["xla"]))
+    assert rel <= tol, (rel, runs)
+    assert runs["pallas"][-1] < runs["pallas"][0], runs
+    return {"phase": "train_bert_parity", "layers": 2, "d_model": 1024,
+            "seq": seq, "micro_batch": micro, "dtype": "fp32",
+            "steps": steps, "losses": runs, "launches": launches,
+            "max_rel_diff": rel, "tolerance": tol}
+
+
 # ----------------------------------------------------------- serving path
 
 
@@ -1041,13 +1480,18 @@ KERNELS = [
      "deepspeed_tpu/ops/pallas/paged_attention.py:141", "serve"),
     ("flash_fwd",
      "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
-     "deepspeed_tpu/ops/transformer/flash_attention.py:518", "train"),
+     "deepspeed_tpu/ops/transformer/flash_attention.py:518 (_fwd_packed), "
+     ":442 (_fwd)", "train"),
     ("flash_bwd_dkdv",
      "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
-     "deepspeed_tpu/ops/transformer/flash_attention.py:756", "train"),
+     "deepspeed_tpu/ops/transformer/flash_attention.py:756 "
+     "(_bwd_fused_packed), :897 (_bwd_split_packed, dk/dv call :962), "
+     ":471 (_bwd)", "train"),
     ("flash_bwd_dq",
      "deepspeed_tpu_torch/ops/transformer/csrc/flash_attention.cu",
-     "deepspeed_tpu/ops/transformer/flash_attention.py:897", "train"),
+     "deepspeed_tpu/ops/transformer/flash_attention.py:756 "
+     "(_bwd_fused_packed), :897 (_bwd_split_packed, dq call :937), "
+     ":471 (_bwd)", "train"),
     ("fused_adam", "deepspeed_tpu_torch/ops/adam/csrc/fused_adam.cu",
      "deepspeed_tpu/ops/adam/pallas_adam.py:45", "train"),
     ("block_sparse_fwd", SPARSE_SOURCE,
@@ -1060,6 +1504,13 @@ KERNELS = [
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:770 "
      "(_bwd_pk, dk/dv call :823), :943 (_bwd, dk/dv call :988)",
      "train_sparse"),
+    ("fused_lamb", LAMB_SOURCE,
+     "deepspeed_tpu/ops/lamb/pallas_lamb.py:65 (_lamb_stage1_flat, "
+     "pallas_call :74) with stage 2's norms and trust ratio (:120-125)",
+     "train_bert"),
+    ("fused_lamb_apply", LAMB_SOURCE,
+     "deepspeed_tpu/ops/lamb/pallas_lamb.py:127 (stage 2's apply, XLA ops "
+     "after the :74 pallas_call)", "train_bert"),
 ]
 
 
@@ -1069,6 +1520,7 @@ def main():
         sys.exit("chip_smoke: no CUDA device is available")
     from deepspeed_tpu_torch.ops import cuda_build
     from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_attention as bsa
@@ -1087,7 +1539,8 @@ def main():
     # each kernel's wrapper holds its launch count
     wrappers = {"paged_attention": paged_attention,
                 "flash_fwd": fa.flash_fwd, "flash_bwd_dkdv": fa.flash_bwd_dkdv,
-                "flash_bwd_dq": fa.flash_bwd_dq, "fused_adam": fused_adam}
+                "flash_bwd_dq": fa.flash_bwd_dq, "fused_adam": fused_adam,
+                "fused_lamb": fused_lamb, "fused_lamb_apply": fused_lamb_apply}
     wrappers.update((name, getattr(bsa, name)) for name in SPARSE_NAMES)
     sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
@@ -1105,8 +1558,16 @@ def main():
     flash = phase_flash(flush)
     emit(flash)
     torch.cuda.empty_cache()
+    flash_bert = phase_flash_bert(flush)
+    emit(flash_bert)
+    torch.cuda.empty_cache()
+    emit(phase_flash3d(flush))
+    torch.cuda.empty_cache()
     adam = phase_adam(flush)
     emit(adam)
+    torch.cuda.empty_cache()
+    lamb = phase_lamb(flush)
+    emit(lamb)
     torch.cuda.empty_cache()
     sparse = phase_sparse(flush)
     emit(sparse)
@@ -1119,6 +1580,18 @@ def main():
     emit(train)
     torch.cuda.empty_cache()
     emit(phase_train_parity())
+    torch.cuda.empty_cache()
+
+    # the BERT path: every dense-training kernel's count, so Adam is seen
+    # not to launch there
+    bert_counters = [wrappers[name] for name, _, _, path in KERNELS
+                     if path in ("train", "train_bert")]
+    train_bert = phase_train_bert(bert_counters)
+    emit(train_bert)
+    torch.cuda.empty_cache()
+    emit(phase_train_bert_parity(
+        [wrappers[name] for name in ("flash_fwd", "flash_bwd_dkdv",
+                                     "flash_bwd_dq") + LAMB_NAMES]))
     torch.cuda.empty_cache()
 
     # the long-context path: every training kernel's count, so the flash
@@ -1138,12 +1611,16 @@ def main():
 
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}
+    # rows at the GPT-2 train shape; the error over both modes (causal,
+    # and BERT's non-causal with the key bias)
+    grads = {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
+             "flash_bwd_dkdv": ("dk", "dv")}
     for name, row in flash["kernels"].items():
-        err = flash["errors"]["out_abs"] if name == "flash_fwd" else max(
-            flash["errors"][g + "_abs"] for g in (
-                ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)))
+        err = max(mode["errors"][g + "_abs"] for mode in (flash, flash_bert)
+                  for g in grads[name])
         measured[name] = dict(row, max_abs_err=err)
     measured["fused_adam"] = adam
+    measured.update(lamb["kernels"])
     # rows at the main path's (shared) layout; the error over both layouts
     grads = {"block_sparse_fwd": ("out",), "block_sparse_bwd_dq": ("dq",),
              "block_sparse_bwd_dkdv": ("dk", "dv")}
@@ -1155,6 +1632,8 @@ def main():
     launches = dict(serve["launches"], **train["launches"])
     launches.update((name, train_sparse["launches"][name])
                     for name in SPARSE_NAMES)
+    launches.update((name, train_bert["launches"][name])
+                    for name in LAMB_NAMES)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -9,10 +9,12 @@ of ``deepspeed_tpu``.
 Two entry points, as in the JAX package:
 
 * :func:`initialize` trains a model (GPT-2 through its
-  ``forward(input_ids, labels)`` loss) with ZeRO stages 0-2 at world
-  size 1, bf16/fp16 mixed precision over fp32 master weights and
-  Adam/AdamW; flash attention (``ops/transformer/flash_attention.py``)
-  and the Adam apply (``ops/adam``) run in CUDA kernels, and with the
+  ``forward(input_ids, labels)`` loss, BERT through its MLM + NSP
+  pretraining loss, ``models.bert``) with ZeRO stages 0-2 at world size
+  1, bf16/fp16 mixed precision over fp32 master weights and Adam/AdamW or
+  LAMB; flash attention (``ops/transformer/flash_attention.py``, BERT's
+  non-causal with the key-padding mask as a key bias), the Adam apply
+  (``ops/adam``) and LAMB (``ops/lamb``) run in CUDA kernels, and with the
   ds_config ``sparse_attention`` section (``GPT2Config(sparse_attention=
   engine.sparse_attention_config())``) attention runs block-sparse over
   the section's layout in CUDA kernels (``ops/sparse_attention``);
@@ -22,6 +24,7 @@ Two entry points, as in the JAX package:
 from .version import __version__
 
 from .utils.logging import logger, log_dist
+from .models import bert, make_bert_model, make_bert_squad_model
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -36,7 +39,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``train_batch(batch=(ids, labels))`` (or ``engine(ids, labels)``,
     ``engine.backward(loss)``, ``engine.step()``) trains ``model``, an
     ``nn.Module`` whose forward returns the loss
-    (``models.gpt2.make_gpt2_model``). ``config`` / ``config_params`` is
+    (``models.gpt2.make_gpt2_model``, ``models.bert.make_bert_model``).
+    ``config`` / ``config_params`` is
     a ds_config dict or JSON path. ``device`` defaults to the current
     CUDA device and raises when CUDA is absent; only an explicit
     ``device="cpu"`` runs on the CPU. The model's parameters move into

@@ -43,6 +43,8 @@ from ..ops.sparse_attention.sparsity_config import sparsity_config_from_dict
 from ..ops.transformer.attention import causal_attention
 from ..ops.transformer.flash_attention import fused_ln_qkv_attention
 from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
+from . import _tree
+from ._tree import params_from_jax
 
 
 @dataclass
@@ -203,36 +205,10 @@ class GPT2Model(nn.Module):
                        generator=generator, train=self.training)
 
 
-def params_from_jax(tree):
-    """A JAX GPT-2 param tree (nested dicts and the per-layer list, of
-    numpy arrays) -> the port's ``state_dict`` (dotted names -> CPU
-    tensors, the same dtypes)."""
-    state = {}
-
-    def walk(prefix, node):
-        if isinstance(node, dict):
-            for key, child in node.items():
-                walk(prefix + (key,), child)
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(prefix + (str(i),), child)
-        else:
-            state[".".join(prefix)] = torch.from_numpy(np.array(node))
-
-    walk((), tree)
-    return state
-
-
 def params_to_jax(state_dict):
     """The inverse of :func:`params_from_jax`: a ``state_dict`` -> the
-    JAX-shaped tree of numpy arrays."""
-    tree = {}
-    for name, t in state_dict.items():
-        node = tree
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = t.detach().cpu().numpy()
+    JAX-shaped tree of numpy arrays (``blocks`` a list)."""
+    tree = _tree.params_to_jax(state_dict)
     blocks = tree["blocks"]
     tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
     return tree
@@ -242,16 +218,12 @@ def optimizer_state_from_jax(state):
     """A JAX Adam state ``{"step", "exp_avg": tree, "exp_avg_sq": tree}``
     -> ``{"step": int, "exp_avg": state_dict, "exp_avg_sq": state_dict}``
     (dotted names -> fp32 CPU tensors)."""
-    return {"step": int(np.asarray(state["step"])),
-            "exp_avg": params_from_jax(state["exp_avg"]),
-            "exp_avg_sq": params_from_jax(state["exp_avg_sq"])}
+    return _tree.optimizer_state_from_jax(state, params_from_jax)
 
 
 def optimizer_state_to_jax(state):
     """The inverse of :func:`optimizer_state_from_jax`."""
-    return {"step": np.int32(state["step"]),
-            "exp_avg": params_to_jax(state["exp_avg"]),
-            "exp_avg_sq": params_to_jax(state["exp_avg_sq"])}
+    return _tree.optimizer_state_to_jax(state, params_to_jax)
 
 
 def make_gpt2_model(config=None, size="gpt2_small", seed=0, **overrides):

@@ -26,6 +26,9 @@ score per key.
   recomputing LN + QKV in the backward) and :func:`flash_attention_bshd`
   (``(b, s, h, d)`` operands with an optional key ``mask_bias``) are
   ``torch.autograd.Function`` s over them.
+* :func:`flash_attention` is the JAX package's 3D API (``(b * h, s, d)``
+  operands, the TPU's ``_fwd`` / ``_bwd``): the same kernels, each of the
+  ``b * h`` rows one batch entry of one head.
 """
 import ctypes
 import functools
@@ -513,3 +516,26 @@ def flash_attention_bshd(q, k, v, sm_scale=None, causal=True,
             bias = bias[:, 0]
         bias = bias.contiguous()
     return _FlashBSHD.apply(q, k, v, bias, sm_scale, causal)
+
+
+DEFAULT_BLOCK_Q = 512            # the JAX package's defaults (TPU tiling)
+DEFAULT_BLOCK_K = 512
+
+
+def flash_attention(q, k, v, sm_scale=None, causal=True,
+                    block_q=DEFAULT_BLOCK_Q, interpret=False,
+                    block_k=DEFAULT_BLOCK_K):
+    """q/k/v: (batch_heads, seq, d_head) -> (batch_heads, seq, d_head), the
+    JAX package's ``flash_attention``. The operands are viewed as packed
+    (b = batch_heads, s, 1 * d_head) rows on the packed kernels
+    (:func:`flash_attention_bshd` with one head), so any ``seq`` works: the
+    kernels mask keys at or past it, as the TPU path's padded keys.
+    ``block_q``, ``block_k`` and ``interpret`` are the TPU's tiling and
+    interpreter switches; they are accepted and ignored (the kernels tile
+    by 64, and CPU tensors run the plain versions)."""
+    del block_q, block_k, interpret
+    if q.dim() != 3:
+        raise ValueError("flash_attention: q, k, v must be (batch_heads, "
+                         "seq, d_head); got {}".format(tuple(q.shape)))
+    return flash_attention_bshd(q[:, :, None], k[:, :, None], v[:, :, None],
+                                sm_scale, causal)[:, :, 0]

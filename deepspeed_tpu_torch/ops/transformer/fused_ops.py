@@ -1,7 +1,8 @@
 """Elementwise transformer ops.
 
 Port of ``deepspeed_tpu/ops/transformer/fused_ops.py``
-(``fused_layer_norm``, ``fused_bias_gelu``). In the JAX package these
+(``fused_layer_norm``, ``fused_bias_gelu``,
+``fused_bias_dropout_residual``). In the JAX package these
 are compositions that XLA fuses; they are no Pallas kernels, so here
 they are plain PyTorch with the same arithmetic: statistics and the
 tanh GeLU in fp32, the result cast back to the input dtype.
@@ -57,3 +58,17 @@ def fused_bias_gelu(x, bias):
     if torch.is_grad_enabled() and (x.requires_grad or bias.requires_grad):
         return _BiasGelu.apply(x, bias)
     return _gelu((x + bias.to(x.dtype)).float()).to(x.dtype)
+
+
+def fused_bias_dropout_residual(x, bias, residual, rate, generator,
+                                train=True):
+    """(x + bias) -> inverted dropout -> + residual. The keep mask is drawn
+    from ``generator`` (a ``torch.Generator``, as ``jax.random.bernoulli``
+    draws from its key); no dropout when not ``train``, at rate 0 or
+    without a generator."""
+    y = x + bias.to(x.dtype)
+    if train and rate > 0.0 and generator is not None:
+        keep = torch.rand(y.shape, generator=generator, device=y.device,
+                          dtype=torch.float32) < (1.0 - rate)
+        y = torch.where(keep, y / (1.0 - rate), torch.zeros_like(y))
+    return y + residual

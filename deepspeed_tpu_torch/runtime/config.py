@@ -10,8 +10,9 @@ data-parallel world: ``torch.distributed``'s when a process group is up,
 else 1, or the caller's.
 
 This slice runs ``bf16`` / ``fp16`` / ``amp`` mixed precision,
-``zero_optimization`` stages 0-2, Adam/AdamW (``optimizer.params``
+``zero_optimization`` stages 0-2, Adam/AdamW and LAMB (``optimizer.params``
 including ``fused_kernel``), ``gradient_clipping``,
+``progressive_layer_drop`` (the keep-probability schedule),
 ``data_types.grad_accum_dtype``, ``steps_per_print``,
 ``transformer.flash_attention`` and ``sparse_attention`` (parsed per mode
 as the JAX package does; the model reads it through
@@ -44,7 +45,6 @@ UNPORTED_SECTIONS = {
     SCHEDULER: "the LR-schedule slice",
     CHECKPOINT: "the checkpoint slice",
     SPARSE_GRADIENTS: "the multi-GPU ZeRO slice",
-    PROGRESSIVE_LAYER_DROP: "the BERT slice",
     "elasticity": "the elastic-training slice",
     "activation_checkpointing": "the activation-checkpointing slice",
     "flops_profiler": "the observability slice",
@@ -239,6 +239,21 @@ def get_sparse_bslongformer_config(sparsity):
         "GLOBAL_BLOCK_INDICES", "GLOBAL_BLOCK_END_INDICES"))
 
 
+def get_pld_enabled(param_dict):
+    if PROGRESSIVE_LAYER_DROP in param_dict:
+        return get_scalar_param(param_dict[PROGRESSIVE_LAYER_DROP], PLD_ENABLED,
+                                PLD_ENABLED_DEFAULT)
+    return False
+
+
+def get_pld_params(param_dict):
+    if PROGRESSIVE_LAYER_DROP in param_dict:
+        pld_params = dict(param_dict[PROGRESSIVE_LAYER_DROP])
+        pld_params.pop(PLD_ENABLED, None)
+        return pld_params
+    return False
+
+
 def get_optimizer_name(param_dict):
     if OPTIMIZER in param_dict and TYPE in param_dict[OPTIMIZER]:
         return param_dict[OPTIMIZER][TYPE]
@@ -296,6 +311,7 @@ class DeepSpeedConfig(object):
             "zero_quantized_gradients", "strict",
             "param_persistence_threshold"},
         "data_types": {"grad_accum_dtype"},
+        PROGRESSIVE_LAYER_DROP: {PLD_ENABLED, PLD_THETA, PLD_GAMMA},
         TRANSFORMER: {TRANSFORMER_FLASH_ATTENTION},
         INFERENCE: DeepSpeedInferenceConfig.KNOWN_KEYS,
     }
@@ -367,6 +383,8 @@ class DeepSpeedConfig(object):
         self.wall_clock_breakdown = g(WALL_CLOCK_BREAKDOWN,
                                       WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = g(MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT)
+        self.pld_enabled = get_pld_enabled(param_dict)
+        self.pld_params = get_pld_params(param_dict)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size

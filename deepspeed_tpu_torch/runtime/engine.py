@@ -9,24 +9,31 @@ names:
   compute-dtype gradient buffer (every ``.grad`` is a view of it), then
   one ``add_`` folds it into the fp32 accumulator;
 * apply step (``step`` at an accumulation boundary): overflow check,
-  unscale, clip or norm, the Adam update over the flat fp32 master
-  partition (one launch of the CUDA kernel), overflow skip, master ->
-  compute-dtype params, zero the accumulator, loss-scale update;
-* ``train_batch(batch=(ids, labels))``: all micro steps of one global
-  batch, stacked ``(gas, global_batch, ...)`` as the JAX package takes
-  it, then the apply step.
+  unscale, clip or norm, the optimizer update over the flat fp32 master
+  partition (Adam/AdamW: one launch of its CUDA kernel; LAMB: its stage-1
+  and apply kernels, one trust ratio per entry of the partition's segment
+  table, i.e. per parameter), overflow skip, master -> compute-dtype
+  params, zero the accumulator, loss-scale update, and the
+  ``progressive_layer_drop`` schedule when the section is on;
+* ``train_batch(batch=(...))``: all micro steps of one global batch, each
+  input stacked ``(gas, global_batch, ...)`` as the JAX package takes it,
+  then the apply step.
 
 Where the JAX engine keeps the overflow flag on the device and selects the
 old state branchlessly, this engine reads the flag on the host once per
 optimizer step (one small synchronisation) and skips the update.
 
 The model is an ``nn.Module`` whose ``forward(*batch)`` returns the loss
-(``models.gpt2.GPT2Model``; a ``generator`` keyword, when the forward
-takes one, receives the engine's dropout generator). Its parameters
-become views of the engine's flat buffers on ``device``, CUDA unless the
-caller asks for the CPU. Client optimizers and LR schedulers, checkpoints,
-telemetry and world sizes above 1 come with later slices and raise
-``NotImplementedError``.
+(``models.gpt2.GPT2Model``, ``models.bert.BertModel``); a ``generator``
+keyword, when the forward takes one, receives the engine's dropout
+generator, and ``progressive_layer_drop`` / ``pld_theta``, when it takes
+them, the PLD state. Its parameters become views of the engine's flat
+buffers on ``device``, CUDA unless the caller asks for the CPU. The JAX-tree
+methods (``get_master_params``, ``get_optimizer_state``,
+``load_state_from_jax``) use the converters of the model's own module
+(``params_to_jax`` and friends). Client optimizers and LR schedulers,
+checkpoints, telemetry and world sizes above 1 come with later slices and
+raise ``NotImplementedError``.
 """
 import inspect
 import os
@@ -36,12 +43,14 @@ import torch
 
 from ..inference.engine import resolve_device
 from ..ops.adam.fused_adam import FusedAdam
+from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.transformer.attention import resolve_flash_backend
 from ..utils.logging import log_dist, logger
 from . import utils as rt_utils
 from .config import DeepSpeedConfig
-from .constants import ADAM_OPTIMIZER, MAX_GRAD_NORM
+from .constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER, MAX_GRAD_NORM
 from .fp16 import loss_scaler as ls
+from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero.partition import FlatPartition
 
 FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
@@ -49,7 +58,7 @@ FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
 
 class DeepSpeedEngine:
     """Train a module with ZeRO stages 0-2 at world size 1, mixed precision
-    over fp32 master weights and Adam/AdamW."""
+    over fp32 master weights and Adam/AdamW or LAMB."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
@@ -88,11 +97,12 @@ class DeepSpeedEngine:
         self._configure_precision()
         self._apply_transformer_overrides()
         self._configure_optimizer()
+        self._configure_pld()
         self._init_state()
         self._generator = torch.Generator().manual_seed(
             int(os.environ.get("DEEPSPEED_SEED", 42)))
-        self._takes_generator = "generator" in inspect.signature(
-            model.forward).parameters
+        self._forward_kwargs = set(inspect.signature(
+            model.forward).parameters)
         self._pending_backward = False
         self._step_metrics = {}
         self.module.train()
@@ -136,7 +146,8 @@ class DeepSpeedEngine:
         self.flash_attention_backend = resolved
         model_cfg = getattr(self.module, "config", None)
         if hasattr(model_cfg, "flash_attention_backend"):
-            model_cfg.use_flash_attention = resolved != "xla"
+            if hasattr(model_cfg, "use_flash_attention"):
+                model_cfg.use_flash_attention = resolved != "xla"
             model_cfg.flash_attention_backend = resolved
             log_dist("transformer.flash_attention={} resolved to {!r}".format(
                 flash, resolved), ranks=[0])
@@ -146,10 +157,10 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self):
         name = (self._config.optimizer_name or ADAM_OPTIMIZER).lower()
-        if name not in (ADAM_OPTIMIZER, "adamw"):
+        if name not in (ADAM_OPTIMIZER, "adamw", LAMB_OPTIMIZER):
             raise NotImplementedError(
-                "optimizer {!r} is not ported yet: this slice runs Adam and "
-                "AdamW (LAMB comes with the BERT slice, OneBitAdam with the "
+                "optimizer {!r} is not ported yet: this slice runs Adam, "
+                "AdamW and LAMB (OneBitAdam comes with the "
                 "compressed-communication slice)".format(name))
         params = dict(self._config.optimizer_params or {})
         max_grad_norm = params.pop(MAX_GRAD_NORM, None)
@@ -165,12 +176,22 @@ class DeepSpeedEngine:
         self.fused_optimizer_kernel = \
             ("pallas" if self.device.type == "cuda" else "xla") \
             if mode == "auto" else mode
-        if name == "adamw":
-            params.setdefault("adam_w_mode", True)
-        self.optimizer = FusedAdam(
-            use_kernel=self.fused_optimizer_kernel == "pallas", **params)
+        use_kernel = self.fused_optimizer_kernel == "pallas"
+        if name == LAMB_OPTIMIZER:
+            self.optimizer = FusedLamb(use_kernel=use_kernel, **params)
+        else:
+            if name == "adamw":
+                params.setdefault("adam_w_mode", True)
+            self.optimizer = FusedAdam(use_kernel=use_kernel, **params)
         log_dist("Using DeepSpeed optimizer: {} (apply: {})".format(
             name, self.fused_optimizer_kernel), ranks=[0])
+
+    def _configure_pld(self):
+        if self._config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                **(self._config.pld_params or {}))
+        else:
+            self.progressive_layer_drop = None
 
     def _init_state(self):
         accum = torch.bfloat16 if self._config.grad_accum_dtype == "bf16" \
@@ -208,8 +229,13 @@ class DeepSpeedEngine:
         if len(inputs) == 1 and isinstance(inputs[0], (tuple, list)):
             inputs = tuple(inputs[0])
         inputs = tuple(self._to_device(x) for x in inputs)
-        if self._takes_generator and self.module.training:
+        if "generator" in self._forward_kwargs and self.module.training:
             kwargs.setdefault("generator", self._generator)
+        if self.progressive_layer_drop and self.module.training:
+            # as the JAX engine: only the kwargs the forward takes
+            for key, value in self.progressive_layer_drop.get_state().items():
+                if key in self._forward_kwargs:
+                    kwargs.setdefault(key, value)
         if not self.module.training:
             with torch.no_grad():
                 return self.module(*inputs, **kwargs)
@@ -241,7 +267,8 @@ class DeepSpeedEngine:
             self.dp_world_size
 
     def _apply_step(self):
-        """Overflow check, unscale, clip, Adam, params refresh, zero acc."""
+        """Overflow check, unscale, clip, the optimizer, params refresh,
+        zero acc."""
         flat = self.flat
         grads = flat.acc
         if grads.dtype != torch.float32:
@@ -257,7 +284,8 @@ class DeepSpeedEngine:
             grad_norm = rt_utils.get_grad_norm(grads)
         if not overflow:
             self.optimizer.step_flat(flat.master, grads, flat.exp_avg,
-                                     flat.exp_avg_sq, flat.step + 1)
+                                     flat.exp_avg_sq, flat.step + 1,
+                                     segments=flat.segments)
             flat.step += 1
             flat.refresh_params()
         flat.acc.zero_()
@@ -273,6 +301,8 @@ class DeepSpeedEngine:
             self.skipped_steps += 1
             log_dist("OVERFLOW! Skipping step. Attempted loss scale: "
                      "{}".format(metrics["loss_scale"]), ranks=[0])
+        if self.progressive_layer_drop:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self.global_steps += 1
         if self.global_steps % self.steps_per_print() == 0:
             log_dist("step={}, lr={}, loss_scale={}".format(
@@ -349,29 +379,47 @@ class DeepSpeedEngine:
         gn = self._step_metrics.get("grad_norm")
         return float(gn) if gn is not None else None
 
+    def _tree_converters(self):
+        """The model module's JAX-tree converters (``params_to_jax``,
+        ``params_from_jax``, ``optimizer_state_to_jax``,
+        ``optimizer_state_from_jax``), e.g. ``models.gpt2``'s or
+        ``models.bert``'s."""
+        module = inspect.getmodule(type(self.module))
+        names = ("params_to_jax", "params_from_jax", "optimizer_state_to_jax",
+                 "optimizer_state_from_jax")
+        missing = [n for n in names if not hasattr(module, n)]
+        if missing:
+            raise NotImplementedError(
+                "{} has no JAX-tree converters ({}): the model's module must "
+                "define them".format(getattr(module, "__name__", module),
+                                     ", ".join(missing)))
+        return {n: getattr(module, n) for n in names}
+
     def get_master_params(self):
         """The fp32 master weights as the JAX-shaped tree of numpy arrays
-        (``models.gpt2.params_to_jax`` naming)."""
-        from ..models.gpt2 import params_to_jax
-        return params_to_jax(self.flat.tree_of(self.flat.master))
+        (the model module's ``params_to_jax`` naming)."""
+        to_jax = self._tree_converters()["params_to_jax"]
+        return to_jax(self.flat.tree_of(self.flat.master))
 
     def get_optimizer_state(self):
-        """``{"step", "exp_avg", "exp_avg_sq"}`` as JAX-shaped trees."""
-        from ..models.gpt2 import optimizer_state_to_jax
-        return optimizer_state_to_jax({
+        """``{"step", "exp_avg", "exp_avg_sq"}`` as JAX-shaped trees (Adam's
+        and LAMB's state have the same shape)."""
+        to_jax = self._tree_converters()["optimizer_state_to_jax"]
+        return to_jax({
             "step": self.flat.step,
             "exp_avg": self.flat.tree_of(self.flat.exp_avg),
             "exp_avg_sq": self.flat.tree_of(self.flat.exp_avg_sq)})
 
     def load_state_from_jax(self, master=None, optimizer_state=None):
         """Start from a JAX engine's state: an fp32 master tree and/or an
-        Adam state ``{"step", "exp_avg", "exp_avg_sq"}`` (numpy trees)."""
-        from ..models.gpt2 import params_from_jax, optimizer_state_from_jax
+        optimizer state ``{"step", "exp_avg", "exp_avg_sq"}`` (numpy
+        trees)."""
+        conv = self._tree_converters()
         if master is not None:
-            self.flat.load(self.flat.master, params_from_jax(master))
+            self.flat.load(self.flat.master, conv["params_from_jax"](master))
             self.flat.refresh_params()
         if optimizer_state is not None:
-            state = optimizer_state_from_jax(optimizer_state)
+            state = conv["optimizer_state_from_jax"](optimizer_state)
             self.flat.load(self.flat.exp_avg, state["exp_avg"])
             self.flat.load(self.flat.exp_avg_sq, state["exp_avg_sq"])
             self.flat.step = state["step"]

@@ -6,8 +6,9 @@ state over the mesh's ``data`` axis (stage 1: master + optimizer state;
 stage 2: + gradients). Here the state is a few flat buffers:
 
 * one fp32 master buffer, the fp32 gradient accumulator and the fp32
-  Adam moments (``exp_avg`` / ``exp_avg_sq``): the optimizer works on
-  each whole, with one kernel launch;
+  optimizer moments (``exp_avg`` / ``exp_avg_sq``, Adam's or LAMB's):
+  the optimizer works on each whole, with one kernel launch (Adam) or
+  one per pass (LAMB's stage 1 and apply);
 * the compute-dtype parameters: one flat buffer of which every
   ``nn.Parameter`` of the module is a view (at fp32 compute it is the
   master buffer itself);
@@ -17,7 +18,10 @@ stage 2: + gradients). Here the state is a few flat buffers:
   micro-step into the accumulator.
 
 Each parameter starts at a multiple of :data:`ALIGN` elements (padding
-stays zero in every buffer, and Adam maps zeros to zeros). This slice
+stays zero in every buffer: Adam and LAMB map p = g = m = v = 0 to zeros,
+so padding adds nothing to a LAMB norm either). ``segments`` is the
+segment table, one ``(offset, numel)`` per parameter (per JAX leaf):
+LAMB takes one trust ratio per segment. This slice
 runs world size 1, where a rank's partition is the whole buffer; a
 larger world raises ``NotImplementedError``: slicing each buffer into
 per-rank ranges comes with the multi-GPU ZeRO slice, over
@@ -50,6 +54,10 @@ class FlatPartition:
             params.append(p)
             total += -(-p.numel() // ALIGN) * ALIGN
         self.numel = total
+        # (n_params, 2) int64 on the device, built once
+        self.segments = torch.tensor(
+            [[off, p.numel()] for off, p in zip(self.offsets, params)],
+            dtype=torch.int64, device=device).reshape(-1, 2)
         self.master = torch.zeros(total, dtype=torch.float32, device=device)
         for p, off in zip(params, self.offsets):
             self.master[off:off + p.numel()].copy_(p.detach().reshape(-1))

@@ -27,6 +27,13 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   steps with the kernels ("pallas") and with the plain versions ("xla"),
   losses within 1e-5 relative, with one launch of each flash kernel per
   layer per step and one Adam launch per step.
+* LAMB (stage-1 and apply kernels): against the plain versions over
+  aligned and misaligned segment tables, m, v and the trust ratios bit for
+  bit, p within one ulp, repeated runs bit-identical; refusals.
+* the 3D flash API ((b * h, s, d), any s) against its CPU run; the fp32
+  key-mask op repeated over 8 seeds with each error printed.
+* BERT: a tiny fp32 BERT with a padded mask trained with LAMB through the
+  kernels and through the plain versions, losses within 1e-5 relative.
 * block-sparse attention (forward, dq and dk/dv kernels): each against
   its plain version over blocks 16-128, d_head 32/64/128,
   fp32/bf16/fp16, shared and per-head layouts of every mode, causal and
@@ -591,3 +598,187 @@ def test_sparse_training_kernels_match_plain_versions(cuda):
             assert all(c.launches == 0 for c in kernels.values())
     np.testing.assert_allclose(runs["kernels"], runs["plain"], rtol=1e-5)
     assert runs["kernels"][-1] < runs["kernels"][0]
+
+
+# ----------------------------------------------------- LAMB, BERT, 3D flash
+
+
+def _ulp_steps(got, want):
+    """Per-element distance in fp32 representable steps (0 = bit-equal)."""
+    a = got.float().contiguous().view(torch.int32).long()
+    b = want.float().contiguous().view(torch.int32).long()
+    # map the sign-magnitude bit patterns onto a monotone integer line
+    a = torch.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int((a - b).abs().max())
+
+
+LAMB_SEGMENTS = {
+    # a BERT-like table: aligned starts, tiny and multi-chunk segments,
+    # an all-zero segment (the trust ratio's 1.0 branch), an empty one
+    "aligned": [(0, 2), (64, 100_000), (100_032, 17), (100_096, 8192),
+                (108_288, 0), (108_288, 30_000)],
+    # starts that are no multiple of 4: the scalar path
+    "misaligned": [(1, 5000), (5003, 9000), (14_007, 1)],
+}
+
+
+@pytest.mark.parametrize("table,eps_inside_sqrt", [
+    ("aligned", False), ("aligned", True), ("misaligned", False)])
+def test_fused_lamb_kernels_match_plain_versions(cuda, table,
+                                                 eps_inside_sqrt):
+    """Three steps: m and v bit-equal to the plain versions, the trust
+    ratios bit-equal (the plain version sums in the kernel's order), p
+    within one fp32 ulp; two runs of the kernels bit-identical."""
+    from deepspeed_tpu_torch.ops.adam import bias_corrections
+    from deepspeed_tpu_torch.ops.lamb import (
+        LambPlan, fused_lamb, fused_lamb_apply, fused_lamb_apply_reference,
+        fused_lamb_reference)
+    segments = LAMB_SEGMENTS[table]
+    total = max(o + n for o, n in segments) + 64
+    rng = np.random.RandomState(len(segments))
+    covered = np.zeros(total, bool)
+    for off, n in segments:
+        covered[off:off + n] = True
+    if table == "aligned":
+        covered[100_032:100_049] = False       # the all-zero segment
+    p0 = (rng.randn(total) * covered).astype(np.float32)
+    plan = LambPlan(segments, cuda)
+    sides = [[torch.tensor(p0, device=cuda), torch.zeros(total, device=cuda),
+              torch.zeros(total, device=cuda)] for _ in range(3)]
+    for step in (1, 2, 3):
+        g = torch.from_numpy((rng.randn(total) * covered).astype(
+            np.float32)).to(cuda)
+        bc1, bc2 = bias_corrections(0.9, 0.999, step)
+        sc = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                  bc1=bc1, bc2=bc2, eps_inside_sqrt=eps_inside_sqrt)
+        kw = {k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2",
+                                 "eps_inside_sqrt")}
+        ratios = []
+        for i, (p, m, v) in enumerate(sides):
+            if i < 2:
+                r = fused_lamb(p, g, m, v, plan, **sc)
+                fused_lamb_apply(p, m, v, r, plan, lr=2e-3, **kw)
+            else:
+                r = fused_lamb_reference(p, g, m, v, plan, **sc)
+                fused_lamb_apply_reference(p, m, v, r, plan, lr=2e-3, **kw)
+            ratios.append(r)
+        torch.cuda.synchronize()
+        for t0, t1 in zip(sides[0], sides[1]):
+            assert torch.equal(t0, t1)             # deterministic
+        assert torch.equal(ratios[0], ratios[2]), (ratios[0], ratios[2])
+        assert torch.equal(sides[0][1], sides[2][1])
+        assert torch.equal(sides[0][2], sides[2][2])
+        assert _ulp_steps(sides[0][0], sides[2][0]) <= 1
+    if table == "aligned":
+        assert float(ratios[0][2]) == 1.0          # the all-zero segment
+    assert torch.isfinite(sides[0][0]).all()
+
+
+def test_fused_lamb_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.lamb import LambPlan, fused_lamb
+    plan = LambPlan([(0, 100)], cuda)
+    p = torch.zeros(100, device=cuda)
+    sc = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0, bc1=0.1,
+              bc2=0.001)
+    before = fused_lamb.launches
+    with pytest.raises(ValueError, match="plan"):
+        fused_lamb(p, p.clone(), p.clone(), p.clone(),
+                   LambPlan([(0, 100)], "cpu"), **sc)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        fused_lamb(p, p.half(), p.clone(), p.clone(), plan, **sc)
+    assert fused_lamb.launches == before
+
+
+@pytest.mark.parametrize("s,causal", [(128, True), (100, False),
+                                      (200, True)])
+def test_3d_flash_attention_matches_its_cpu_run(cuda, s, causal):
+    """The (b * h, s, d) API through the kernels against the same op on CPU
+    copies (the plain versions), fp32, any s."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    rng = np.random.RandomState(s)
+    arrays = [rng.randn(6, s, 64).astype(np.float32) for _ in range(4)]
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays[:3])
+        before = fa.flash_fwd.launches
+        out = fa.flash_attention(q, k, v, causal=causal)
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        assert fa.flash_fwd.launches - before == (dev.type == "cuda")
+        results.append([t.detach().cpu() for t in (out, q.grad, k.grad,
+                                                  v.grad)])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+        assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_flash_mask_bias_fp32_repeats(cuda, seed):
+    """The fp32 (b, s, h, d) op with a key-padding mask, repeated over
+    seeds at the shape of test_flash_attention_bshd_mask_bias_grads_
+    match_plain: each of out/dq/dk/dv's relative error against the CPU run
+    is printed (run with -s to record it) and held to 1e-5."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
+    rng = np.random.RandomState(100 + seed)
+    b, s, h, d = 2, 96, 2, 32
+    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays[:3])
+        out = flash_attention_bshd(q, k, v, causal=False,
+                                   mask_bias=torch.from_numpy(mask).to(dev))
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        results.append([t.detach().cpu() for t in (out, q.grad, k.grad,
+                                                  v.grad)])
+    errs = {name: _rel_err(got, want) for name, got, want in
+            zip(("out", "dq", "dk", "dv"), *results)}
+    print("flash_mask_bias_fp32 seed={} {}".format(seed, errs))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_tiny_bert_training_kernels_match_plain_versions(cuda):
+    """A tiny fp32 BERT with a padded mask, LAMB, 3 steps, remat on: the
+    flash kernels and the LAMB kernels ("pallas") against the einsum path
+    and the plain LAMB ("xla"), losses within 1e-5 relative; per step the
+    flash forward launches twice a layer (remat recomputes it), each
+    backward kernel once, each LAMB kernel once."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, d_intermediate=256, dropout=0.0,
+               attn_dropout=0.0, remat=True)
+    rng = np.random.RandomState(6)
+    b, s = 4, 128
+    ids = rng.randint(0, 256, size=(b, s))
+    valid = np.array([128, 100, 77, 64])
+    mask = (np.arange(s)[None, :] < valid[:, None]).astype(np.int64)
+    mlm = np.where((rng.rand(b, s) < 0.15) & (mask == 1), ids, -100)
+    mlm[:, 1] = ids[:, 1]
+    batch = tuple(a[None] for a in (ids, np.zeros_like(ids), mask, mlm,
+                                    rng.randint(0, 2, size=(b,))))
+    counters = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq,
+                fused_lamb, fused_lamb_apply, fused_adam)
+    runs = {}
+    for backend in ("pallas", "xla"):
+        model = bert.make_bert_model(config=bert.BertConfig(**cfg), seed=5)
+        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": b,
+            "optimizer": {"type": "Lamb", "params": {
+                "lr": 2e-3, "fused_kernel": backend}},
+            "transformer": {"flash_attention": backend}})[0]
+        assert engine.device.type == "cuda"
+        for fn in counters:
+            fn.launches = 0
+        runs[backend] = [float(engine.train_batch(batch=batch))
+                         for _ in range(3)]
+        launches = [fn.launches for fn in counters]
+        want = [3 * 4, 3 * 2, 3 * 2, 3, 3, 0] if backend == "pallas" \
+            else [0] * 6
+        assert launches == want, (backend, launches)
+    np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
+    assert runs["pallas"][-1] < runs["pallas"][0]

@@ -2,7 +2,8 @@
 
 The same numpy-seeded q/k/v, key bias and output gradient go through the
 JAX Pallas kernels in interpret mode (``_fwd_packed``, ``_bwd_packed``,
-``fused_ln_qkv_attention``, ``flash_attention_bshd``, as
+``fused_ln_qkv_attention``, ``flash_attention_bshd``, the 3D
+``flash_attention`` over ``_fwd`` / ``_bwd``, as
 tests/unit/test_flash_sparse.py runs them) and through the port, whose
 wrappers run their plain PyTorch versions on CPU tensors (the CUDA
 kernels are held against those same plain versions on the card by
@@ -216,6 +217,39 @@ def test_flash_attention_bshd_mask_bias_matches_jax():
         1e-5 * abs(float(j_val))
     for t, want in zip(ts, j_grads):
         assert _max_rel(t.grad.numpy(), want) <= 2e-5
+
+
+@pytest.mark.parametrize("s,causal,block", [
+    (128, True, 512), (128, False, 64), (100, True, 64), (100, False, 64)])
+def test_3d_flash_attention_matches_jax(s, causal, block):
+    """The 3D API (the TPU's ``_fwd`` / ``_bwd``): (b * h, s, d) operands,
+    value and gradients against JAX's ``flash_attention`` in interpret
+    mode; at s 100 with 64-key blocks JAX pads the keys to 128 (``_pad_kv``)
+    and the port's kernels mask keys past s. The port ignores the block
+    sizes (TPU tiling)."""
+    rng = np.random.RandomState(7)
+    q, k, v, w = (rng.randn(B * H, s, D).astype(np.float32)
+                  for _ in range(4))
+
+    def jax_loss(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, None, causal, block, True,
+                                  block)
+        return jnp.sum(out * w)
+
+    j_val, j_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, causal=causal, block_q=block,
+                              interpret=True, block_k=block)
+    assert out.shape == (B * H, s, D)
+    loss = (out * torch.from_numpy(w)).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(j_val)) <= \
+        1e-5 * abs(float(j_val))
+    for t, want in zip(ts, j_grads):
+        assert _max_rel(t.grad.numpy(), want) <= 2e-5
+    with pytest.raises(ValueError, match="batch_heads"):
+        tfa.flash_attention(ts[0][None], ts[1][None], ts[2][None])
 
 
 def test_reference_attention_matches_jax_reference():

@@ -4,9 +4,10 @@
   scaler and the gradient utilities equal the JAX package's originals;
 * config: every ds_config dict of tests/unit/test_config.py that this
   slice accepts resolves to the same fields in both packages (world size
-  8, the JAX test mesh); bad configs raise alike; sections not ported yet
-  raise ``NotImplementedError``; the ``sparse_attention`` section parses
-  to the same dict for every mode and the engine hands it back;
+  8, the JAX test mesh), the BERT path's (LAMB, ``progressive_layer_drop``)
+  too; bad configs raise alike; sections not ported yet raise
+  ``NotImplementedError``; the ``sparse_attention`` section parses to the
+  same dict for every mode and the engine hands it back;
 * model: GPT-2's training loss and every gradient against the JAX
   ``lm_loss`` at bench.py's CPU shape (vocab 512, seq 128, 2 layers, 4
   heads, d_model 128), fp32, dense and chunked loss, flash "xla" and
@@ -181,6 +182,15 @@ ACCEPTED = {
                    "gradient_clipping": 1.0, "steps_per_print": 7,
                    "data_types": {"grad_accum_dtype": "bf16"},
                    "transformer": {"flash_attention": "auto"}},
+    "bert_path": {"train_micro_batch_size_per_gpu": 32,
+                  "gradient_accumulation_steps": 1,
+                  "bf16": {"enabled": True},
+                  "zero_optimization": {"stage": 2},
+                  "optimizer": {"type": "Lamb", "params": {
+                      "lr": 2e-3, "max_coeff": 10.0, "min_coeff": 0.01,
+                      "eps_inside_sqrt": False, "fused_kernel": "auto"}},
+                  "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                             "gamma": 0.001}},
 }
 
 FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
@@ -188,7 +198,8 @@ FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "loss_scale", "initial_dynamic_scale", "dynamic_loss_scale_args",
           "zero_optimization_stage", "zero_enabled", "optimizer_name",
           "optimizer_params", "gradient_clipping", "grad_accum_dtype",
-          "steps_per_print", "transformer_flash_attention")
+          "steps_per_print", "transformer_flash_attention", "pld_enabled",
+          "pld_params")
 
 
 @pytest.mark.parametrize("name", sorted(ACCEPTED))
@@ -264,7 +275,7 @@ UNPORTED = {
                                          "zero_quantized_gradients": True}},
     "telemetry": {"telemetry": {"enabled": True}},
     "checkpoint": {"checkpoint": {"tag_validation": "Fail"}},
-    "pld": {"progressive_layer_drop": {"enabled": True}},
+    "flops_profiler": {"flops_profiler": {"enabled": True}},
     "comm": {"comm": {"collective_matmul": {"enabled": True}}},
     "executor": {"runtime": {"executor": "off"}},
 }
@@ -656,9 +667,9 @@ def test_world_size_above_one_and_unported_arguments_raise(monkeypatch):
             deepspeed_tpu_torch.initialize(
                 model=model, config_params=_ds("bf16", 2, 1, 2),
                 device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="LAMB"):
+    with pytest.raises(NotImplementedError, match="OneBitAdam"):
         cfg = _ds("bf16", 2, 1, 2)
-        cfg["optimizer"]["type"] = "Lamb"
+        cfg["optimizer"]["type"] = "OneBitAdam"
         deepspeed_tpu_torch.initialize(model=model, config_params=cfg,
                                        device="cpu")
 
