@@ -62,8 +62,27 @@ with no ``ok`` line):
 14. train_bert_parity — fp32 loss trajectories with the kernels (flash +
    LAMB) and with the plain versions (einsum attention + plain LAMB), at
    BERT-large width with 2 layers, seq 128, the padded mask;
+15. ring_gemm — the three ring-step kernels of the tensor-parallel path
+   (all-gather-matmul, matmul-reduce-scatter with the add, the dW
+   gather-contract) at gpt2_medium TP 2's shapes (b 16, s 1024, four
+   sites each, bf16, transposed weight views as the backward gives
+   them) against their plain versions, per element, timed beside their
+   bounds and torch.matmul of the same product;
+16. train_tp — the tensor-parallel main path: two spawned ranks sharing
+   this card (gloo, each hop through host memory), each
+   ``initialize(mesh=build_mesh(model=2), ...)`` with the ds_config
+   ``comm.collective_matmul`` section (backend "pallas"), gpt2_medium at
+   full width and depth, seq 1024, micro 16, bf16, ZeRO-2, Adam; counts
+   set to 0 just before the timed steps and read just after, per rank;
+17. train_tp_parity — fp32 loss trajectories at gpt2_medium width with 2
+   layers: TP 2 through the ring kernels and through the plain ring, and
+   the TP 1 engine, from the same init;
 
 then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
+only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
+ring op against the unfused collective + torch.matmul, and the train_tp
+step on both backends.
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
 without a result when CUDA is unavailable.
 """
@@ -632,10 +651,12 @@ def phase_train(launch_counters):
             "launches": launches, "train_profile": profile}
 
 
-def train_profile(engine, batch, steps=2):
+def train_profile(engine, batch, steps=2, span_names=(), kernel_groups=()):
     """Where a training step's time goes: ``steps`` train_batch calls
     under torch.profiler (device busy share, launches per step and the
-    costliest kernels)."""
+    costliest kernels). ``span_names``: record_function spans whose host
+    time a step is reported; ``kernel_groups``: substrings of kernel
+    names whose device time a step is summed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -645,20 +666,32 @@ def train_profile(engine, batch, steps=2):
             engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device activity only: a record_function span (the hop spans, gloo's
+    # own) also has a device-side event covering what it launched, which
+    # the profiler marks as a user annotation and which is no work
+    device = lambda e: e.device_type == torch.autograd.DeviceType.CUDA \
+        and not e.is_user_annotation
     averages = prof.key_averages()
-    kernels = [e for e in averages
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in averages if device(e)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # idle time between consecutive device activities, and the host's
     # time blocked on a full launch queue (the device is then the limit)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in prof.events() if device(e))
     gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:]) if b[0] > a[1]]
     blocked = sum(e.self_cpu_time_total for e in averages
                   if e.key == "Command Buffer Full")
-    return {"steps": steps, "wall_s_per_step": wall / steps,
+    extra = {}
+    if span_names:
+        extra["host_ms_per_step_in_spans"] = {
+            name: sum(e.cpu_time_total for e in averages if e.key == name) *
+            1e-3 / steps for name in span_names}
+    if kernel_groups:
+        extra["kernel_ms_per_step_by_group"] = {
+            g: sum(e.self_device_time_total for e in kernels if g in e.key) *
+            1e-3 / steps for g in kernel_groups}
+    return {"steps": steps, "wall_s_per_step": wall / steps, **extra,
             "device_busy_s_per_step": busy_us * 1e-6 / steps,
             "device_busy_share": busy_us * 1e-6 / wall,
             "device_gaps_ms_per_step": sum(gaps) * 1e-3 / steps,
@@ -1473,6 +1506,525 @@ def phase_parity():
             "identical": True}
 
 
+# ------------------------------------------ tensor-parallel ring GEMMs (slice 5)
+
+
+RING_SOURCE = "deepspeed_tpu_torch/ops/ring_gemm/csrc/ring_gemm.cu"
+RING_NAMES = ("ring_ag_gemm", "ring_rs_gemm_add", "ring_gc_gemm_acc")
+TP, TP_B, TP_S, TP_D = 2, 16, 1024, 1024   # the train_tp path: gpt2_medium
+# The per-step products at gpt2_medium, TP 2, micro 16, seq 1024 (one ring
+# step each; "t" marks a transposed weight view, as the backward passes
+# give it): (rows m, inner k, cols n) in the kernel's own terms.
+RING_SITES = {
+    "ring_ag_gemm": [("qkv", 1024, 1536, ""), ("fc", 1024, 2048, ""),
+                     ("attn_proj_dx", 1024, 512, "t"),
+                     ("mlp_proj_dx", 1024, 2048, "t")],
+    "ring_rs_gemm_add": [("attn_proj", 512, 1024, ""),
+                         ("mlp_proj", 2048, 1024, ""),
+                         ("qkv_dx", 1536, 1024, "t"),
+                         ("fc_dx", 2048, 1024, "t")],
+    "ring_gc_gemm_acc": [("qkv_dw", 1024, 1536, "lhs"),
+                         ("fc_dw", 1024, 2048, "lhs"),
+                         ("attn_proj_dw", 1024, 512, "rhs"),
+                         ("mlp_proj_dw", 1024, 2048, "rhs")],
+}
+# Per element, |kernel - plain| <= rel * |plain| + abs_of_max * max|plain|.
+# bf16 outputs: both sides sum in fp32 (cuBLAS's reduced-precision split-K
+# reduction switched off) in different orders and round once to bf16, so
+# one bf16 ulp (<= 2**-7 relative); the reduce-scatter step rounds twice
+# (the partial, then the sum with what arrived), so two; the floor covers
+# a rounding flip of values near zero. The dW kernel's fp32 sum over
+# K = 8192 rows is held at 2**-16 of its largest entry.
+RING_TOL = {"ring_ag_gemm": {"rel": 2 ** -7, "abs_of_max": 2 ** -16},
+            "ring_rs_gemm_add": {"rel": 2 ** -6, "abs_of_max": 2 ** -16},
+            "ring_gc_gemm_acc": {"rel": 2 ** -7, "abs_of_max": 2 ** -16,
+                                 "acc_abs_of_max": 2 ** -16}}
+
+
+def _ring_err(got, want, tol, key="abs_of_max", rel=None):
+    """(max |got - want|, the largest ratio of the error to its bound)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rel = tol["rel"] if rel is None else rel
+    bound = rel * want.abs() + tol[key] * float(want.abs().max())
+    return float(err.max()), float((err / bound).max())
+
+
+def ring_case(name, k, n, mode, device, gen):
+    """The operands of one site's ring step (bf16, randn): returns
+    (kernel call, plain call, library call, output getter, plain output,
+    flops, bytes)."""
+    import torch
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    b, s_loc = TP_B, TP_S // TP
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device,
+                                     dtype=torch.bfloat16)
+    el = 2
+    if name == "ring_ag_gemm":
+        cur = rnd(b, s_loc, k)
+        w = rnd(n, k).t() if mode == "t" else rnd(k, n)
+        outs = [torch.zeros(b, TP * s_loc, n, device=device,
+                            dtype=torch.bfloat16) for _ in range(2)]
+        kern = lambda: rg.ring_ag_gemm(cur, w, outs[0], 1)
+        plain = lambda: rg.ring_ag_gemm_reference(cur, w, outs[1], 1)
+        lib = lambda: torch.matmul(cur, w)
+        get = lambda i: outs[i][:, s_loc:]
+        m = b * s_loc
+        nbytes = (m * k + k * n + m * n) * el
+    elif name == "ring_rs_gemm_add":
+        x = rnd(b, TP * s_loc, k)
+        w = rnd(n, k).t() if mode == "t" else rnd(k, n)
+        recv = rnd(b, s_loc, n)
+        outs = [torch.empty(b, s_loc, n, device=device,
+                            dtype=torch.bfloat16) for _ in range(2)]
+        kern = lambda: rg.ring_rs_gemm_add(x, w, 0, TP, outs[0], recv)
+        plain = lambda: rg.ring_rs_gemm_add_reference(x, w, 0, TP, outs[1],
+                                                      recv)
+        lib = lambda: torch.matmul(x[:, :s_loc], w)
+        get = lambda i: outs[i]
+        m = b * s_loc
+        nbytes = (m * k + k * n + 2 * m * n) * el
+    else:
+        # dW: rot (b, s_loc, a) against fixed[:, blk] (b, s_loc, c), a = k
+        # and c = n; "lhs" gives (a, c), "rhs" the (c, a) transpose
+        a, c = k, n
+        rot = rnd(b, s_loc, a)
+        fixed = rnd(b, TP * s_loc, c)
+        lhs = mode == "lhs"
+        shape = (a, c) if lhs else (c, a)
+        acc0 = torch.randn(shape, generator=gen, device=device)
+        accs = [acc0, acc0.clone()]
+        outs = [torch.empty(shape, device=device, dtype=torch.bfloat16)
+                for _ in range(2)]
+        kern = lambda: rg.ring_gc_gemm_acc(rot, fixed, 1, accs[0], False,
+                                           outs[0], lhs)
+        plain = lambda: rg.ring_gc_gemm_acc_reference(
+            rot, fixed, 1, accs[1], False, outs[1], lhs)
+        r2, f2 = rot.reshape(-1, a), fixed[:, s_loc:].reshape(-1, c)
+        lib = (lambda: torch.matmul(r2.t(), f2)) if lhs else \
+            (lambda: torch.matmul(f2.t(), r2))
+        get = lambda i: (outs[i], accs[i])
+        m = b * s_loc                       # the contraction length
+        nbytes = (m * a + m * c) * el + a * c * (4 + 4 + el)
+        return kern, plain, lib, get, 2 * m * a * c, nbytes
+    return kern, plain, lib, get, 2 * m * k * n, nbytes
+
+
+def phase_ring_gemm(flush):
+    """The three ring-step kernels at the train_tp path's shapes (bf16)
+    against their plain versions, per element, then timed beside their
+    bounds and torch.matmul of the same product."""
+    import torch
+    device = torch.device("cuda", 0)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device=device).manual_seed(5)
+    kernels = {}
+    try:
+        for name, sites in RING_SITES.items():
+            tol = RING_TOL[name]
+            rows, worst = [], 0.0
+            total = dict(kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                         library_ms=0.0, flops=0, bytes=0)
+            for site, k, n, mode in sites:
+                kern, plain, lib, get, flops, nbytes = ring_case(
+                    name, k, n, mode, device, gen)
+                kern()
+                plain()
+                torch.cuda.synchronize()
+                if name == "ring_gc_gemm_acc":
+                    (o0, a0), (o1, a1) = get(0), get(1)
+                    err, ratio = _ring_err(o0, o1, tol)
+                    acc_err, acc_ratio = _ring_err(a0, a1, tol,
+                                                   "acc_abs_of_max", 0.0)
+                    ratio = max(ratio, acc_ratio)
+                    assert torch.isfinite(o0).all()
+                else:
+                    err, ratio = _ring_err(get(0), get(1), tol)
+                    acc_err = None
+                    assert torch.isfinite(get(0)).all()
+                assert ratio <= 1.0, (name, site, err, ratio)
+                worst = max(worst, err)
+                b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+                row = {"site": site, "k": k, "n": n, "mode": mode,
+                       "max_abs_err": err, "err_over_bound": ratio,
+                       "kernel_ms": time_ms(kern, flush),
+                       "plain_ms": time_ms(plain, flush, reps=5),
+                       "library_ms": time_ms(lib, flush),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                if acc_err is not None:
+                    row["acc_max_abs_err"] = acc_err
+                rows.append(row)
+                for key in ("kernel_ms", "plain_ms", "bound_ms",
+                            "library_ms"):
+                    total[key] += row[key]
+                total["flops"] += flops
+                total["bytes"] += nbytes
+            _, by = bound_ms(total["bytes"], total["flops"],
+                             BF16_FLOPS_PER_S)
+            kernels[name] = dict(total, bound_by=by, max_abs_err=worst,
+                                 sites=rows)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    return {"phase": "kernel", "name": "ring_gemm", "tolerance": RING_TOL,
+            "kernels": kernels,
+            "timing": "each kernel's ms, plain_ms, bound_ms and library_ms "
+                      "are sums over its four sites (one ring step of each "
+                      "of one layer's sites)",
+            "library_call": "torch.matmul of the same bf16 product (the "
+                            "unfused path's per-device GEMM)",
+            "shape": {"b": TP_B, "s": TP_S, "tp": TP, "d_model": TP_D,
+                      "dtype": "bf16"}}
+
+
+TP_CONFIG = {
+    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 2},
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4,
+                                             "fused_kernel": "auto"}},
+    "transformer": {"flash_attention": "auto"},
+    "comm": {"collective_matmul": {"enabled": True, "tensor_parallel": True,
+                                   "backend": "pallas"}},
+    "steps_per_print": 10 ** 9,
+}
+
+
+def _tp_counters():
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    return [rg.ring_ag_gemm, rg.ring_rs_gemm_add, rg.ring_gc_gemm_acc,
+            fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq, fused_adam]
+
+
+def tp_train_rank(rank, world, spec):
+    """One rank of the tensor-parallel main path: gpt2_medium (depth
+    ``spec["layers"]``) through initialize(mesh=build_mesh(model=world))
+    .train_batch(...); counts reset just before the timed steps."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT,
+                          n_layers=spec["layers"])
+    conf = json.loads(json.dumps(TP_CONFIG))
+    conf["comm"]["collective_matmul"]["backend"] = spec["backend"]
+    t0 = time.perf_counter()
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, mesh=build_mesh(model=world), config_params=conf)[0]
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda" and engine._cm_tp
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size,
+                      size=(1, TRAIN_MICRO, TRAIN_SEQ)).astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(spec["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _tp_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [engine.train_batch(batch=batch)
+                   for _ in range(spec["steps"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [float(x) for x in step_losses]
+    profile = tp_profile(engine, batch) if spec.get("profile") else None
+    return {"rank": rank, "losses": losses, "step_ms": wall * 1e3 /
+            spec["steps"], "init_s": init_s, "launches": launches,
+            "peak_memory_gb": peak_gb, "transport": engine.comm_transport,
+            "device": str(engine.device), "views": engine.flat.check_views(),
+            "train_profile": profile}
+
+
+def tp_profile(engine, batch):
+    """One train_tp step under torch.profiler (after the timed steps and
+    the counts): this rank's device busy share and gaps, its ring
+    kernels' device time, and the host time inside the ring hops (the
+    start: staging copies and posting the sends; the wait: the receive
+    and its copy in), marked by spans put around the port's hop functions
+    for this window only."""
+    from torch.profiler import record_function
+    from deepspeed_tpu_torch.ops.ring_gemm import ring_gemm as rgm
+    from deepspeed_tpu_torch.parallel import ring
+    start, wait = rgm.ring_rotate_start, ring.RingHop.wait
+
+    def spanned_start(*args, **kwargs):
+        with record_function("ring_hop_start"):
+            return start(*args, **kwargs)
+
+    def spanned_wait(hop):
+        with record_function("ring_hop_wait"):
+            return wait(hop)
+
+    rgm.ring_rotate_start, ring.RingHop.wait = spanned_start, spanned_wait
+    try:
+        return train_profile(engine, batch, steps=1,
+                             span_names=("ring_hop_start",
+                                         "ring_hop_wait"),
+                             kernel_groups=("ring_", "flash_", "Memcpy"))
+    finally:
+        rgm.ring_rotate_start, ring.RingHop.wait = start, wait
+
+
+TP_LAYERS, TP_WARMUP, TP_STEPS = 24, 2, 10
+
+
+def phase_train_tp(world=TP, layers=TP_LAYERS, steps=TP_STEPS,
+                   backend="pallas"):
+    """The tensor-parallel main path, ``world`` spawned ranks (one card:
+    both on it, over gloo through host memory; one card each: NCCL).
+    Every ring kernel must launch 4 * world times per layer per step on
+    each rank (four sites, world ring steps, forward and backward as
+    allgather/reduce-scatter pairs plus the dW gather-contract)."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    spec = {"layers": layers, "warmup": TP_WARMUP, "steps": steps,
+            "backend": backend, "profile": True}
+    ranks = spawn(tp_train_rank, world, args=(spec,), timeout_s=900)
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          n_layers=layers)
+    per_step = {"ring_ag_gemm": 4 * world * layers,
+                "ring_rs_gemm_add": 4 * world * layers,
+                "ring_gc_gemm_acc": 4 * world * layers,
+                "flash_fwd": layers, "flash_bwd_dkdv": layers,
+                "flash_bwd_dq": layers, "fused_adam": 1}
+    if backend != "pallas":
+        per_step.update((n, 0) for n in RING_NAMES)
+    for r in ranks:
+        losses = r["losses"]
+        assert all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], losses
+        assert r["views"], r
+        for name, n in per_step.items():
+            assert r["launches"][name] == n * steps, (name, r["launches"])
+    assert max(abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                          ranks[-1]["losses"])) == 0.0
+    step_ms = max(r["step_ms"] for r in ranks)
+    tokens = TRAIN_MICRO * TRAIN_SEQ
+    n_params = gpt2.num_params(cfg)
+    flops_per_token = 6.0 * n_params + 12.0 * layers * cfg.d_model * \
+        TRAIN_SEQ
+    return {"phase": "train_tp", "model": "gpt2_medium", "layers": layers,
+            "d_model": cfg.d_model, "seq": TRAIN_SEQ,
+            "micro_batch": TRAIN_MICRO, "tp": world, "dtype": "bf16",
+            "zero_stage": 2, "backend": backend,
+            "transport": ranks[0]["transport"],
+            "devices": [r["device"] for r in ranks], "steps": steps,
+            "step_ms": step_ms, "tokens_per_sec": tokens / step_ms * 1e3,
+            "mfu_all_ranks": tokens / step_ms * 1e3 * flops_per_token /
+            (BF16_FLOPS_PER_S * len({r["device"] for r in ranks})),
+            "launches_per_rank_per_step": per_step,
+            "launches": {name: sum(r["launches"][name] for r in ranks)
+                         for name in per_step},
+            "ranks": ranks}
+
+
+def tp_parity_rank(rank, world, spec):
+    """fp32 losses of one TP engine (2 layers at gpt2_medium width)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _tp_counters()[:3]
+    for c in counters:
+        c.launches = 0
+    cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=False)
+    conf = {"train_micro_batch_size_per_gpu": 4,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "transformer": {"flash_attention": "xla"},
+            "steps_per_print": 10 ** 9}
+    mesh = None
+    if world > 1:
+        conf["comm"] = {"collective_matmul": {"enabled": True,
+                                              "backend": spec["backend"]}}
+        mesh = build_mesh(model=world)
+    engine = deepspeed_tpu_torch.initialize(
+        model=gpt2.make_gpt2_model(config=cfg, seed=1), mesh=mesh,
+        config_params=conf)[0]
+    ids = spec["ids"]
+    losses = [float(engine.train_batch(batch=(ids, ids)))
+              for _ in range(spec["steps"])]
+    return {"losses": losses,
+            "launches": {c.__name__: c.launches for c in counters}}
+
+
+def phase_train_tp_parity(steps=5, tol=1e-5):
+    """fp32 loss trajectories at gpt2_medium width with 2 layers, TF32 off,
+    plain attention: TP 2 with the ring kernels ("pallas") and with the
+    plain ring ("ppermute"), both on the one card over gloo, against the
+    port's TP 1 engine from the same init."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    rng = np.random.RandomState(2)
+    ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
+    runs = {}
+    for backend in ("pallas", "ppermute"):
+        ranks = spawn(tp_parity_rank, 2, args=({"backend": backend,
+                                                "ids": ids,
+                                                "steps": steps},),
+                      timeout_s=600)
+        assert ranks[0]["losses"] == ranks[1]["losses"]
+        live = backend == "pallas"
+        for r in ranks:
+            assert all((n > 0) == live for n in r["launches"].values()), r
+        runs["tp2_" + backend] = ranks[0]["losses"]
+    runs["tp1"] = tp_parity_rank(0, 1, {"ids": ids, "steps": steps})[
+        "losses"]
+    torch.cuda.empty_cache()
+    ref = runs["tp1"]
+    rel = {name: max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+           for name, losses in runs.items() if name != "tp1"}
+    rel["pallas_vs_ppermute"] = max(
+        abs(a - b) / abs(b) for a, b in zip(runs["tp2_pallas"],
+                                            runs["tp2_ppermute"]))
+    assert max(rel.values()) <= tol, (rel, runs)
+    return {"phase": "train_tp_parity", "layers": 2, "d_model": 1024,
+            "dtype": "fp32", "tp": 2, "steps": steps, "losses": runs,
+            "max_rel_diff": rel, "tolerance": tol}
+
+
+def nccl_rank(rank, world, spec):
+    """One rank of the multi-card run: each site's ring op (kernels, and
+    the plain ring) against the unfused reference (all_gather_into_tensor
+    + torch.matmul, or torch.matmul + reduce_scatter_tensor), by CUDA
+    events with a barrier before each timed call; then the TP train step."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    group = dist.group.WORLD
+    device = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device).manual_seed(rank)
+    b, s = TP_B, TP_S
+    s_loc = s // world
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device,
+                                     dtype=torch.bfloat16)
+
+    def timed(fn, reps=10):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def ring_err(got, want):
+        # the same products; the sums of the partials round in bf16 in
+        # another order (the ring adds one a hop, NCCL its own way)
+        err = (got.float() - want.float()).abs()
+        bound = 2 ** -5 * want.float().abs() + \
+            2 ** -10 * float(want.float().abs().max())
+        assert bool((err <= bound).all()), float(err.max())
+
+    ops = {}
+    for site, f in (("qkv", 3 * TP_D), ("fc", 4 * TP_D)):
+        x, w = rnd(b, s_loc, TP_D), rnd(TP_D, f // world)
+        full = torch.empty(b, s, TP_D, device=device, dtype=torch.bfloat16)
+
+        def unfused():
+            dist.all_gather_into_tensor(full.view(world * b, s_loc, TP_D),
+                                        x)
+            return torch.matmul(full.view(world, b, s_loc, TP_D)
+                                .transpose(0, 1).reshape(b, s, TP_D), w)
+        ring_err(rg.ag_matmul(x, w, group), unfused())
+        ops["ag_" + site] = {
+            "kernels_ms": timed(lambda: rg.ag_matmul(x, w, group)),
+            "plain_ring_ms": timed(lambda: rg.ag_matmul(x, w, group,
+                                                        use_kernel=False)),
+            "unfused_ms": timed(unfused)}
+    for site, f in (("attn_proj", TP_D), ("mlp_proj", 4 * TP_D)):
+        x, w = rnd(b, s, f // world), rnd(f // world, TP_D)
+        out = torch.empty(b, s_loc, TP_D, device=device,
+                          dtype=torch.bfloat16)
+
+        def unfused():
+            part = torch.matmul(x, w).view(b, world, s_loc, TP_D) \
+                .transpose(0, 1).contiguous()
+            dist.reduce_scatter_tensor(out, part.view(world * b, s_loc,
+                                                      TP_D))
+            return out
+        ring_err(rg.matmul_rs(x, w, group), unfused())
+        ops["rs_" + site] = {
+            "kernels_ms": timed(lambda: rg.matmul_rs(x, w, group)),
+            "plain_ring_ms": timed(lambda: rg.matmul_rs(x, w, group,
+                                                        use_kernel=False)),
+            "unfused_ms": timed(unfused)}
+    for site, f in (("qkv_dw", 3 * TP_D), ("fc_dw", 4 * TP_D)):
+        x, dy = rnd(b, s_loc, TP_D), rnd(b, s, f // world)
+        full = torch.empty(b, s, TP_D, device=device, dtype=torch.bfloat16)
+
+        def unfused():
+            dist.all_gather_into_tensor(full.view(world * b, s_loc, TP_D),
+                                        x)
+            gathered = full.view(world, b, s_loc, TP_D).transpose(0, 1)
+            return torch.matmul(gathered.reshape(-1, TP_D).t(),
+                                dy.reshape(-1, f // world))
+        ring_err(rg.gather_contract(x, dy, group), unfused())
+        ops["gc_" + site] = {
+            "kernels_ms": timed(lambda: rg.gather_contract(x, dy, group)),
+            "plain_ring_ms": timed(lambda: rg.gather_contract(
+                x, dy, group, use_kernel=False)),
+            "unfused_ms": timed(unfused)}
+    torch.cuda.empty_cache()
+    train = {backend: tp_train_rank(rank, world, dict(spec,
+                                                      backend=backend))
+             for backend in ("pallas", "ppermute")}
+    return {"rank": rank, "ops": ops, "train": train}
+
+
+def main_tp_nccl():
+    """``--tp-nccl``: tensor parallelism with one rank per card over NCCL
+    at TP 2 and TP 4 (needs 4 cards): the ring ops against the unfused
+    collective + matmul, and the train_tp step on both backends."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    count = torch.cuda.device_count()
+    assert count >= 4, "--tp-nccl needs 4 cards, found {}".format(count)
+    spec = {"layers": TP_LAYERS, "warmup": TP_WARMUP, "steps": 5}
+    for world in (2, 4):
+        ranks = spawn(nccl_rank, world, args=(spec,), timeout_s=900)
+        for r in ranks:
+            for backend, t in r["train"].items():
+                assert t["transport"] == "nccl", t
+                assert t["losses"][-1] < t["losses"][0], t
+        emit({"phase": "tp_nccl", "tp": world, "transport": "nccl",
+              "ops_rank0": ranks[0]["ops"],
+              "ops_max_over_ranks": {
+                  op: {k: max(r["ops"][op][k] for r in ranks)
+                       for k in ranks[0]["ops"][op]}
+                  for op in ranks[0]["ops"]},
+              "train_step_ms": {
+                  backend: max(r["train"][backend]["step_ms"]
+                               for r in ranks)
+                  for backend in ("pallas", "ppermute")},
+              "peak_memory_gb": max(r["train"]["pallas"]["peak_memory_gb"]
+                                    for r in ranks),
+              "losses": ranks[0]["train"]["pallas"]["losses"],
+              "launches_rank0": ranks[0]["train"]["pallas"]["launches"],
+              "shape": {"b": TP_B, "s": TP_S, "d_model": TP_D,
+                        "layers": TP_LAYERS, "dtype": "bf16"}})
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, the path that launches it
     ("paged_attention",
@@ -1511,6 +2063,15 @@ KERNELS = [
     ("fused_lamb_apply", LAMB_SOURCE,
      "deepspeed_tpu/ops/lamb/pallas_lamb.py:127 (stage 2's apply, XLA ops "
      "after the :74 pallas_call)", "train_bert"),
+    ("ring_ag_gemm", RING_SOURCE,
+     "deepspeed_tpu/ops/pallas/ring_gemm.py:170 (ag_matmul_pallas, "
+     "pallas_call :188, body _ag_kernel :145)", "train_tp"),
+    ("ring_rs_gemm_add", RING_SOURCE,
+     "deepspeed_tpu/ops/pallas/ring_gemm.py:239 (matmul_rs_pallas, "
+     "pallas_call :258, body _rs_kernel :208)", "train_tp"),
+    ("ring_gc_gemm_acc", RING_SOURCE,
+     "deepspeed_tpu/ops/pallas/ring_gemm.py:303 (gather_contract_pallas, "
+     "pallas_call :321, body _gc_kernel :279)", "train_tp"),
 ]
 
 
@@ -1519,6 +2080,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     from deepspeed_tpu_torch.ops import cuda_build
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
     from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
     from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
@@ -1542,6 +2104,7 @@ def main():
                 "flash_bwd_dq": fa.flash_bwd_dq, "fused_adam": fused_adam,
                 "fused_lamb": fused_lamb, "fused_lamb_apply": fused_lamb_apply}
     wrappers.update((name, getattr(bsa, name)) for name in SPARSE_NAMES)
+    wrappers.update((name, getattr(rg, name)) for name in RING_NAMES)
     sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
@@ -1551,6 +2114,12 @@ def main():
                        "ptxas": [line.strip() for line in r.log.splitlines()
                                  if "registers" in line or "spill" in line]}
                       for src, r in zip(sources, records)]})
+    if "--tp-nccl" in sys.argv[1:]:
+        main_tp_nccl()
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     kernel = phase_kernel(flush)
@@ -1571,6 +2140,9 @@ def main():
     torch.cuda.empty_cache()
     sparse = phase_sparse(flush)
     emit(sparse)
+    torch.cuda.empty_cache()
+    ring = phase_ring_gemm(flush)
+    emit(ring)
     del flush
     torch.cuda.empty_cache()
 
@@ -1608,6 +2180,13 @@ def main():
     emit(serve)
     torch.cuda.empty_cache()
     emit(phase_parity())
+    torch.cuda.empty_cache()
+
+    # the tensor-parallel path: two ranks on this card (gloo), each with
+    # its own counts, reset just before its timed steps
+    train_tp = phase_train_tp()
+    emit(train_tp)
+    emit(phase_train_tp_parity())
 
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}
@@ -1634,6 +2213,11 @@ def main():
                     for name in SPARSE_NAMES)
     launches.update((name, train_bert["launches"][name])
                     for name in LAMB_NAMES)
+    # the ring kernels' rows: sums over one ring step of each of one
+    # layer's four sites; launches over both ranks
+    measured.update(ring["kernels"])
+    launches.update((name, train_tp["launches"][name])
+                    for name in RING_NAMES)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

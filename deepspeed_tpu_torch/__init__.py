@@ -17,7 +17,11 @@ Two entry points, as in the JAX package:
   (``ops/adam``) and LAMB (``ops/lamb``) run in CUDA kernels, and with the
   ds_config ``sparse_attention`` section (``GPT2Config(sparse_attention=
   engine.sparse_attention_config())``) attention runs block-sparse over
-  the section's layout in CUDA kernels (``ops/sparse_attention``);
+  the section's layout in CUDA kernels (``ops/sparse_attention``); with
+  an ``mpu`` or ``mesh`` whose ``model`` axis is > 1 and the
+  ``comm.collective_matmul`` section, GPT-2 trains tensor-parallel with
+  its four TP matmuls as ring GEMMs (``parallel/collective_matmul.py``,
+  per-step CUDA kernels in ``ops/ring_gemm``);
 * :func:`init_inference` serves GPT-2 from a slot or paged KV cache, with
   paged-attention decode in a CUDA kernel (``ops/paged_attention``).
 """
@@ -30,7 +34,7 @@ from .models import bert, make_bert_model, make_bert_squad_model
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None, device=None):
+               config_params=None, device=None, mesh=None):
     """Initialize the training engine.
 
     Mirrors ``deepspeed_tpu.initialize``: returns ``(engine, optimizer,
@@ -45,6 +49,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     CUDA device and raises when CUDA is absent; only an explicit
     ``device="cpu"`` runs on the CPU. The model's parameters move into
     the engine's flat buffers on that device.
+
+    Tensor parallelism: inside a process group (``utils.distributed.
+    init_distributed``, or ``torchrun``), an ``mpu`` with a model-parallel
+    degree n > 1 (Megatron style, or an object with a ``.mesh``) or a
+    ``mesh=parallel.topology.build_mesh(model=n)``, with the ds_config's
+    ``comm.collective_matmul`` on, trains each rank's shard of ``model``
+    (built whole on every rank from one seed) through the ring GEMMs.
     """
     from .runtime.engine import DeepSpeedEngine
 
@@ -59,7 +70,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              lr_scheduler=lr_scheduler, mpu=mpu,
                              dist_init_required=dist_init_required,
                              collate_fn=collate_fn, config_params=config,
-                             device=device)
+                             device=device, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
 

@@ -29,6 +29,7 @@ and return new ones): ``_cached_attn_ctx`` / ``_paged_attn_ctx`` write the
 new tokens' K/V into the cache they are given and return only the
 attention context.
 """
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -43,6 +44,9 @@ from ..ops.sparse_attention.sparsity_config import sparsity_config_from_dict
 from ..ops.transformer.attention import causal_attention
 from ..ops.transformer.flash_attention import fused_ln_qkv_attention
 from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
+from ..parallel.collective_matmul import (gather_rows, sum_across,
+                                          tp_column_matmul, tp_row_matmul)
+from ..parallel.topology import MODEL_AXIS
 from . import _tree
 from ._tree import params_from_jax
 
@@ -75,6 +79,14 @@ class GPT2Config:
     # kernel, ops/paged_attention). The serving engine sets it on the
     # DECODE family only; prefill never reads it.
     paged_attention_kernel: str = "xla"
+    # Tensor parallelism (comm.collective_matmul): a
+    # parallel.collective_matmul.CollectiveMatmulBinding, set on the
+    # shard's own copy of the config when the engine's mesh has a
+    # ``model`` axis > 1. The model is then this rank's shard
+    # (GPT2Model.tensor_parallel_shard), the residual stream holds
+    # this rank's rows of the sequence, and the four TP sites run the ring
+    # ops; None keeps the plain matmuls.
+    collective_matmul: object = None
 
     @property
     def d_head(self):
@@ -156,53 +168,151 @@ class _LayerNorm(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, d, device, dtype):
+    def __init__(self, d, device, dtype, tp=1):
         super().__init__()
-        self.qkv_kernel = _param((d, 3 * d), device, dtype)
-        self.qkv_bias = _param((3 * d,), device, dtype)
-        self.proj_kernel = _param((d, d), device, dtype)
+        self.qkv_kernel = _param((d, 3 * d // tp), device, dtype)
+        self.qkv_bias = _param((3 * d // tp,), device, dtype)
+        self.proj_kernel = _param((d // tp, d), device, dtype)
         self.proj_bias = _param((d,), device, dtype)
 
 
 class _MLP(nn.Module):
-    def __init__(self, d, device, dtype):
+    def __init__(self, d, device, dtype, tp=1):
         super().__init__()
-        self.fc_kernel = _param((d, 4 * d), device, dtype)
-        self.fc_bias = _param((4 * d,), device, dtype)
-        self.proj_kernel = _param((4 * d, d), device, dtype)
+        self.fc_kernel = _param((d, 4 * d // tp), device, dtype)
+        self.fc_bias = _param((4 * d // tp,), device, dtype)
+        self.proj_kernel = _param((4 * d // tp, d), device, dtype)
         self.proj_bias = _param((d,), device, dtype)
 
 
 class _Block(nn.Module):
-    def __init__(self, d, device, dtype):
+    def __init__(self, d, device, dtype, tp=1):
         super().__init__()
         self.ln1 = _LayerNorm(d, device, dtype)
-        self.attn = _Attention(d, device, dtype)
+        self.attn = _Attention(d, device, dtype, tp)
         self.ln2 = _LayerNorm(d, device, dtype)
-        self.mlp = _MLP(d, device, dtype)
+        self.mlp = _MLP(d, device, dtype, tp)
 
 
 class GPT2Model(nn.Module):
     """GPT-2 weights under the JAX tree's names. Construction allocates
     them uninitialised (``torch.empty``) on ``device`` in ``dtype``
-    (default ``config.dtype``); :func:`make_gpt2_model` fills them."""
+    (default ``config.dtype``); :func:`make_gpt2_model` fills them.
 
-    def __init__(self, config, device=None, dtype=None):
+    ``tp_size > 1`` allocates one rank's tensor-parallel shard
+    (:func:`partition_spec_fn`): ``wte`` by vocabulary rows, the qkv and
+    fc kernels and biases by columns, the two proj kernels by rows; the
+    rest whole. :meth:`tensor_parallel_shard` cuts one from a full
+    model."""
+
+    def __init__(self, config, device=None, dtype=None, tp_size=1):
         super().__init__()
         self.config = config
+        self.tp_size = tp_size
         dtype = dtype or config.dtype
         d = config.d_model
-        self.wte = _param((config.vocab_size, d), device, dtype)
+        if tp_size > 1 and (config.n_heads % tp_size or
+                            config.vocab_size % tp_size):
+            raise ValueError(
+                "tensor parallelism {} must divide n_heads {} and "
+                "vocab_size {}".format(tp_size, config.n_heads,
+                                       config.vocab_size))
+        self.wte = _param((config.vocab_size // tp_size, d), device, dtype)
         self.wpe = _param((config.max_seq_len, d), device, dtype)
-        self.blocks = nn.ModuleList(_Block(d, device, dtype)
+        self.blocks = nn.ModuleList(_Block(d, device, dtype, tp_size)
                                     for _ in range(config.n_layers))
         self.ln_f = _LayerNorm(d, device, dtype)
+
+    def tensor_parallel_shard(self, binding):
+        """This rank's shard of this full model for the ring of
+        ``binding`` (a CollectiveMatmulBinding over more than one rank): a
+        new module on the same device whose config is a copy carrying the
+        binding; this model and its config stay as they are."""
+        if self.tp_size != 1:
+            raise ValueError("tensor_parallel_shard: the model is already "
+                             "a shard of {}".format(self.tp_size))
+        rank, size = binding.rank, binding.size
+        if size < 2:
+            raise ValueError("tensor_parallel_shard: a ring of {} rank has "
+                             "nothing to shard".format(size))
+        p = next(self.parameters())
+        shard = GPT2Model(dataclasses.replace(self.config,
+                                              collective_matmul=binding),
+                          device=p.device, dtype=p.dtype, tp_size=size)
+        with torch.no_grad():
+            shard.load_state_dict(tp_shard_state_dict(self.state_dict(),
+                                                      rank, size))
+        return shard
 
     def forward(self, input_ids, labels, generator=None):
         """The causal-LM loss (:func:`lm_loss`); dropout (when the config
         has it and the module is training) draws from ``generator``."""
         return lm_loss(self, input_ids, labels, self.config,
                        generator=generator, train=self.training)
+
+
+# ------------------------------------------------- tensor-parallel layout
+
+
+def partition_spec_fn(path, shape):
+    """The Megatron TP layout on the ``model`` axis, as the JAX package's
+    spec tuples: ``wte`` by vocabulary rows, the qkv/fc kernels by columns
+    and their biases with them, the two proj kernels by rows; None (whole
+    on every rank) for the layer norms, ``wpe`` and the proj biases.
+    ``shape`` is unused (the port has no stacked layer dim)."""
+    if path.endswith("wte"):
+        return (MODEL_AXIS, None)
+    if "qkv_kernel" in path or "fc_kernel" in path:
+        return (None, MODEL_AXIS)
+    if "qkv_bias" in path or "fc_bias" in path:
+        return (MODEL_AXIS,)
+    if "proj_kernel" in path:
+        return (MODEL_AXIS, None)
+    return None
+
+
+def _shard_dim(name):
+    spec = partition_spec_fn(name, None)
+    return None if spec is None else spec.index(MODEL_AXIS)
+
+
+def tp_shard_state_dict(state_dict, rank, size):
+    """Rank ``rank``'s shard of a full ``state_dict`` (the JAX tree's
+    dotted names) for a ring of ``size``. The qkv kernel and bias take
+    columns ``[rank*d/size, (rank+1)*d/size)`` of EACH of q, k and v, so
+    the rank's product splits into its own heads; the JAX package shards
+    the fused (d, 3d) columns contiguously and lets GSPMD reshard after
+    the split, which computes the same numbers."""
+    out = {}
+    for name, t in state_dict.items():
+        dim = _shard_dim(name)
+        if dim is None:
+            out[name] = t
+        elif "qkv" in name:
+            parts = t.reshape(t.shape[:-1] + (3, t.shape[-1] // 3))
+            out[name] = parts.chunk(size, dim=-1)[rank].reshape(
+                t.shape[:-1] + (-1,)).contiguous()
+        else:
+            out[name] = t.chunk(size, dim=dim)[rank].contiguous()
+    return out
+
+
+def tp_gather_state_dicts(shards):
+    """The inverse of :func:`tp_shard_state_dict`: every rank's shard, in
+    rank order -> the full ``state_dict`` (replicated entries from rank
+    0)."""
+    out = {}
+    for name, t in shards[0].items():
+        dim = _shard_dim(name)
+        if dim is None:
+            out[name] = t
+        elif "qkv" in name:
+            parts = [s[name].reshape(t.shape[:-1] + (3, -1)) for s in shards]
+            out[name] = torch.cat(parts, dim=-1).reshape(
+                t.shape[:-1] + (-1,))
+        else:
+            out[name] = torch.cat([s[name] for s in shards], dim=dim)
+    return out
 
 
 def params_to_jax(state_dict):
@@ -251,10 +361,33 @@ def _dropout(x, p, generator):
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
+def _tp_binding(config):
+    """The tensor-parallel binding the engine attached (only on a ring of
+    more than one rank, to a shard's own config), or None."""
+    return getattr(config, "collective_matmul", None)
+
+
+def _column_matmul(x, w, config):
+    """x @ w at a column-parallel site (qkv, fc): the ring all-gather
+    matmul under a binding, the plain matmul otherwise."""
+    binding = _tp_binding(config)
+    return x @ w if binding is None else tp_column_matmul(x, w, binding)
+
+
+def _row_matmul(x, w, config):
+    """x @ w at a row-parallel site (attention proj, mlp proj): the ring
+    matmul-reduce-scatter under a binding (the output leaves
+    sequence-sharded), the plain matmul otherwise."""
+    binding = _tp_binding(config)
+    return x @ w if binding is None else tp_row_matmul(x, w, binding)
+
+
 def _mlp(x, block, config=None, rng=None, train=False):
-    h = fused_bias_gelu(x @ block.fc_kernel.to(x.dtype),
+    h = fused_bias_gelu(_column_matmul(x, block.fc_kernel.to(x.dtype),
+                                       config),
                         block.fc_bias.to(x.dtype))
-    out = h @ block.proj_kernel.to(x.dtype) + block.proj_bias.to(x.dtype)
+    out = _row_matmul(h, block.proj_kernel.to(x.dtype), config) + \
+        block.proj_bias.to(x.dtype)
     if train and rng is not None and config.dropout > 0.0:
         out = _dropout(out, config.dropout, rng)
     return out
@@ -266,7 +399,8 @@ def _block_rest(x, ctx, block_params, config=None, rng=None, train=False):
     op stays outside (it saves out/lse and recomputes LN+QKV in its own
     backward). ``rng`` is a ``torch.Generator`` (dropout) or None."""
     attn = block_params.attn
-    out = ctx @ attn.proj_kernel.to(x.dtype) + attn.proj_bias.to(x.dtype)
+    out = _row_matmul(ctx, attn.proj_kernel.to(x.dtype), config) + \
+        attn.proj_bias.to(x.dtype)
     if train and rng is not None and config.dropout > 0.0:
         out = _dropout(out, config.dropout, rng)
     x = x + out
@@ -279,7 +413,7 @@ def _use_fused_attn(config, device):
     (kernels on CUDA, their plain versions on the CPU), or, with no
     resolved backend, use_flash_attention on a CUDA device. Never with
     ``sparse_attention``: the block-sparse kernels own the attention."""
-    if config.sparse_attention:
+    if config.sparse_attention or _tp_binding(config) is not None:
         return False
     if config.flash_attention_backend is not None:
         return config.flash_attention_backend == "pallas"
@@ -294,13 +428,25 @@ def _fused_attn_ctx(x, block_params, config):
 
 
 def _attn_ctx(x, block, config):
-    """QKV projection + attention -> (b, s, d) context, BEFORE the output
-    projection (the unfused path: the block-sparse kernels when
+    """QKV projection + attention -> (b, s, d_local) context, BEFORE the
+    output projection (the unfused path: the block-sparse kernels when
     ``sparse_attention`` is set, else the reference attention unless the
-    backend is "pallas")."""
-    b, s, d = x.shape
-    h, dh = config.n_heads, config.d_head
-    qkv = x @ block.qkv_kernel.to(x.dtype) + block.qkv_bias.to(x.dtype)
+    backend is "pallas").
+
+    Under tensor parallelism x is this rank's rows (b, s/n, d) and the
+    qkv product is the ring all-gather matmul: the context covers the
+    whole sequence for this rank's n_heads/n heads. The JAX package's
+    fused LN+QKV+flash op ignores the binding (GSPMD gathers its qkv
+    product on the TPU); the port has no GSPMD, so under a live binding
+    the qkv product rides the ring here and the flash kernels run on the
+    local heads: the op that computes qkv differs, the result does
+    not."""
+    b = x.shape[0]
+    dh = config.d_head
+    qkv = _column_matmul(x, block.qkv_kernel.to(x.dtype), config) + \
+        block.qkv_bias.to(x.dtype)
+    s, d = qkv.shape[1], qkv.shape[2] // 3
+    h = d // dh
     q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
     if config.sparse_attention:
         # (b, h, s, d) views of the projection in; out is a (b, h, s, d)
@@ -418,15 +564,18 @@ def _chunk_ll(hc, lc, wte):
     return (ll * mask).sum(), mask.sum().float()
 
 
-def chunked_causal_lm_loss(hidden, wte, labels, chunk):
-    """Shifted masked CE without the full (b, s, V) logits: each sequence
-    chunk's logits are made, reduced and dropped, and recomputed in the
-    backward (``torch.utils.checkpoint`` per chunk, the JAX package's
-    ``jax.checkpoint(body)`` under ``lax.scan``)."""
-    b, s, d = hidden.shape
-    shift_labels = torch.cat(
-        [labels[:, 1:], torch.full((b, 1), -100, dtype=labels.dtype,
-                                   device=labels.device)], dim=1)
+def _shifted_labels(labels):
+    """labels[:, 1:] with -100 in the last position (b, s)."""
+    b = labels.shape[0]
+    return torch.cat([labels[:, 1:],
+                      torch.full((b, 1), -100, dtype=labels.dtype,
+                                 device=labels.device)], dim=1)
+
+
+def _chunked_ll(hidden, wte, shift_labels, chunk):
+    """(sum of token log-likelihoods, token count) over ``hidden``'s rows,
+    chunk by chunk (each chunk checkpointed)."""
+    s = hidden.shape[1]
     wte_c = wte.to(hidden.dtype)
     tot = torch.zeros((), device=hidden.device)
     cnt = torch.zeros((), device=hidden.device)
@@ -438,19 +587,47 @@ def chunked_causal_lm_loss(hidden, wte, labels, chunk):
         else:
             ll, n = _chunk_ll(hc, lc, wte_c)
         tot, cnt = tot + ll, cnt + n
+    return tot, cnt
+
+
+def chunked_causal_lm_loss(hidden, wte, labels, chunk):
+    """Shifted masked CE without the full (b, s, V) logits: each sequence
+    chunk's logits are made, reduced and dropped, and recomputed in the
+    backward (``torch.utils.checkpoint`` per chunk, the JAX package's
+    ``jax.checkpoint(body)`` under ``lax.scan``)."""
+    tot, cnt = _chunked_ll(hidden, wte, _shifted_labels(labels), chunk)
     return -tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_loss(params, input_ids, labels, config, generator=None, train=True):
     """Causal-LM cross-entropy (mean over tokens) with the tied
     embedding as the head."""
-    hidden = forward_hidden(params, input_ids, config, generator=generator,
-                            train=train)
+    binding = _tp_binding(config)
+    hidden, wte = _forward_hidden_train(params, input_ids, config,
+                                        generator, train)
+    if binding is not None:
+        return _tp_lm_loss(hidden, wte, labels, config, binding)
     chunk = config.loss_chunk
     if chunk and hidden.shape[1] % chunk == 0 and hidden.shape[1] > chunk:
         return chunked_causal_lm_loss(hidden, params.wte, labels, chunk)
     logits = hidden @ params.wte.to(hidden.dtype).t()
     return causal_lm_cross_entropy(logits, labels)
+
+
+def _tp_lm_loss(hidden, wte, labels, config, binding):
+    """The loss under tensor parallelism: this rank's rows against the
+    gathered table, their labels cut from the full labels every rank
+    holds (a block's last row takes its label from the next block), the
+    sum all-reduced over the ring and divided by the global count."""
+    shifted = _shifted_labels(labels)
+    local = shifted[:, _local_rows(labels.shape[1], binding)]
+    s_loc, chunk = hidden.shape[1], config.loss_chunk
+    if chunk and s_loc % chunk == 0 and s_loc > chunk:
+        tot, _ = _chunked_ll(hidden, wte, local, chunk)
+    else:
+        tot, _ = _chunk_ll(hidden, local, wte.to(hidden.dtype))
+    cnt = (shifted != -100).sum().float()
+    return -sum_across(tot, binding.group) / torch.clamp(cnt, min=1.0)
 
 
 def num_params(config):
@@ -635,12 +812,42 @@ def forward_hidden(params, input_ids, config, cache=None, positions=None,
                                       positions, page_tables=page_tables,
                                       valid_lens=valid_lens,
                                       page_size=page_size)
+    hidden, _ = _forward_hidden_train(params, input_ids, config,
+                                      generator, train)
+    return hidden
+
+
+def _local_rows(s, binding):
+    """This rank's slice of the sequence (all of it without a live
+    binding)."""
+    if binding is None:
+        return slice(0, s)
+    n, r = binding.size, binding.rank
+    if s % n:
+        raise ValueError("sequence {} must divide the tensor-parallel size "
+                         "{}".format(s, n))
+    return slice(r * (s // n), (r + 1) * (s // n))
+
+
+def _forward_hidden_train(params, input_ids, config, generator, train):
+    """The training stack -> (final hidden states, the embedding table the
+    head uses). Under a live TP binding the hidden states are this rank's
+    rows (b, s/n, d) and the table is the all-gathered ``wte`` (its
+    gradient reduce-scatters back to the vocabulary shards)."""
+    binding = _tp_binding(config)
+    if binding is not None and train and config.dropout > 0.0:
+        raise NotImplementedError(
+            "dropout under tensor parallelism is not ported yet: the "
+            "sequence-sharded masks come with a later slice")
     s = input_ids.shape[1]
+    rows = _local_rows(s, binding)
     compute_dtype = params.ln_f.scale.dtype
-    x = params.wte[input_ids].to(compute_dtype) + \
-        params.wpe[:s].to(compute_dtype)
+    wte = params.wte if binding is None else gather_rows(params.wte,
+                                                         binding.group)
+    x = wte[input_ids[:, rows]].to(compute_dtype) + \
+        params.wpe[rows].to(compute_dtype)
     block_fn = make_block_fn(config, train, x.device)
     for bp, seed in zip(params.blocks, _layer_seeds(config, generator,
                                                     train)):
         x = block_fn(x, bp, seed)
-    return _layer_norm(x, params.ln_f.scale, params.ln_f.bias)
+    return _layer_norm(x, params.ln_f.scale, params.ln_f.bias), wte

@@ -27,6 +27,7 @@ from .constants import *  # noqa: F401,F403
 from .config_utils import (get_scalar_param,
                            dict_raise_error_on_duplicate_keys)
 from .zero.config import DeepSpeedZeroConfig
+from .comm.config import DeepSpeedCommConfig
 from .zero.constants import MAX_STAGE_ZERO_OPTIMIZATION
 from ..inference.config import DeepSpeedInferenceConfig, INFERENCE
 from ..utils.logging import logger
@@ -54,7 +55,6 @@ UNPORTED_SECTIONS = {
     "telemetry": "the observability slice",
     "analysis": "the observability slice",
     "controller": "the observability and control slice",
-    "comm": "the multi-GPU communication slice",
     "runtime": "the offload and executor slice",
 }
 
@@ -385,6 +385,7 @@ class DeepSpeedConfig(object):
         self.memory_breakdown = g(MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT)
         self.pld_enabled = get_pld_enabled(param_dict)
         self.pld_params = get_pld_params(param_dict)
+        self.comm_config = DeepSpeedCommConfig(param_dict)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size

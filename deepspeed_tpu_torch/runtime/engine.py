@@ -31,22 +31,39 @@ them, the PLD state. Its parameters become views of the engine's flat
 buffers on ``device``, CUDA unless the caller asks for the CPU. The JAX-tree
 methods (``get_master_params``, ``get_optimizer_state``,
 ``load_state_from_jax``) use the converters of the model's own module
-(``params_to_jax`` and friends). Client optimizers and LR schedulers,
-checkpoints, telemetry and world sizes above 1 come with later slices and
-raise ``NotImplementedError``.
+(``params_to_jax`` and friends).
+
+Tensor parallelism: with an ``mpu`` (Megatron style, or an object with a
+``.mesh``) or a ``mesh=`` whose ``model`` axis n > 1, and the ds_config
+``comm.collective_matmul`` section on, the engine swaps the module for
+this rank's shard (``tensor_parallel_shard``), whose own copy of the
+config carries a ``CollectiveMatmulBinding`` over the model group; the
+four TP sites of each block then run the ring ops. After the micro steps
+it all-reduces the gradients of the parameters every rank holds whole
+over the group, reduces the overflow flag (max) and the global gradient
+norm (each sharded square once, each replicated one once), so every rank
+takes the same decisions and issues the same hops. The JAX-tree methods
+gather or slice the full tree. Client optimizers and LR schedulers,
+checkpoints, telemetry and data-parallel worlds above 1 come with later
+slices and raise ``NotImplementedError``.
 """
 import inspect
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..inference.engine import resolve_device
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.transformer.attention import resolve_flash_backend
+from ..parallel.collective_matmul import CollectiveMatmulBinding
+from ..parallel.topology import DATA_AXIS, MODEL_AXIS, build_mesh
+from ..utils.distributed import all_gather, all_reduce_
 from ..utils.logging import log_dist, logger
 from . import utils as rt_utils
+from .comm.config import warn_or_raise_noop
 from .config import DeepSpeedConfig
 from .constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER, MAX_GRAD_NORM
 from .fp16 import loss_scaler as ls
@@ -57,18 +74,19 @@ FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
 
 
 class DeepSpeedEngine:
-    """Train a module with ZeRO stages 0-2 at world size 1, mixed precision
+    """Train a module with ZeRO stages 0-2 at data-parallel world size 1,
+    optionally tensor-parallel over a ``model`` group, mixed precision
     over fp32 master weights and Adam/AdamW or LAMB."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, mpu=None, dist_init_required=None,
-                 collate_fn=None, config_params=None, device=None):
+                 collate_fn=None, config_params=None, device=None,
+                 mesh=None):
         for name, value, later in (
                 ("optimizer", optimizer, "a client optimizer"),
                 ("lr_scheduler", lr_scheduler, "the LR-schedule slice"),
                 ("training_data", training_data, "the data-loader slice"),
-                ("mpu", mpu, "the tensor-parallel slice"),
                 ("model_parameters", model_parameters,
                  "a later slice (the module's own parameters are used)")):
             if value is not None:
@@ -83,8 +101,12 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self.training_dataloader = None
         self.lr_scheduler = None
+        self._configure_mesh(mpu, mesh)
+        # the batch triple is checked against the data-parallel world: the
+        # process group's, divided by the model axis
         self._config = DeepSpeedConfig(*self._resolve_config(
-            args, config_params))
+            args, config_params), world_size=self.dp_world_size
+            if self.mp_world_size > 1 else None)
         self.dp_world_size = self._config.world_size
         if self.dp_world_size != 1:
             raise NotImplementedError(
@@ -96,6 +118,7 @@ class DeepSpeedEngine:
         self.fused_optimizer_kernel = None
         self._configure_precision()
         self._apply_transformer_overrides()
+        self._configure_comm()
         self._configure_optimizer()
         self._configure_pld()
         self._init_state()
@@ -126,6 +149,86 @@ class DeepSpeedEngine:
             return args.deepspeed_config, None
         raise AssertionError(
             "DeepSpeed requires --deepspeed_config or a config dict")
+
+    def _configure_mesh(self, mpu, mesh):
+        """The ``(data, model)`` process mesh, as the JAX engine's
+        ``_configure_mesh``: ``mesh=``, else ``mpu.mesh``, else a
+        Megatron-style ``mpu``'s model-parallel degree (and its group when
+        it has one), else all ranks on the data axis."""
+        tp_group = None
+        if mesh is None and mpu is not None and hasattr(mpu, "mesh"):
+            mesh = mpu.mesh
+        if mesh is None and mpu is not None and \
+                hasattr(mpu, "get_model_parallel_world_size"):
+            mp = int(mpu.get_model_parallel_world_size())
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world % mp:
+                raise ValueError("world size {} not divisible by model "
+                                 "parallel size {}".format(world, mp))
+            mesh = build_mesh(data=world // mp, model=mp)
+            if hasattr(mpu, "get_model_parallel_group"):
+                tp_group = mpu.get_model_parallel_group()
+        if mesh is None:
+            mesh = build_mesh()
+        self.mesh = mesh
+        self.dp_world_size = int(mesh.shape.get(DATA_AXIS, 1))
+        self.mp_world_size = int(mesh.shape.get(MODEL_AXIS, 1))
+        self._tp_group = None
+        if self.mp_world_size > 1:
+            self._tp_group = tp_group if tp_group is not None \
+                else mesh.get_group(MODEL_AXIS)
+        self.global_rank = dist.get_rank() if dist.is_initialized() else 0
+
+    def _configure_comm(self):
+        """comm.collective_matmul, as the JAX engine's
+        ``_configure_comm``: with the section on and a ``model`` axis > 1,
+        swap in this rank's shard of the module, bound to a
+        CollectiveMatmulBinding over the model group (the caller's model
+        and config stay unbound). The ZeRO-3 ring
+        gather has no site at stages 0-2. Tensor parallelism runs only
+        through the ring ops here: a ``model`` axis > 1 without the
+        section raises."""
+        cm = self._config.comm_config.collective_matmul
+        self._cm = cm
+        self._cm_tp = False
+        self.comm_transport = None
+        if self.mp_world_size > 1 and not (cm.enabled and
+                                           cm.tensor_parallel):
+            raise NotImplementedError(
+                "a model axis of {} runs through comm.collective_matmul in "
+                "this port: set \"comm\": {{\"collective_matmul\": "
+                "{{\"enabled\": true}}}} (backend \"ppermute\" or "
+                "\"pallas\")".format(self.mp_world_size))
+        if not cm.enabled:
+            return
+        if cm.tensor_parallel and self.mp_world_size > 1:
+            if hasattr(getattr(self.module, "config", None),
+                       "collective_matmul") and \
+                    hasattr(self.module, "tensor_parallel_shard"):
+                self.module = self.module.tensor_parallel_shard(
+                    CollectiveMatmulBinding(
+                        group=self._tp_group, axis=MODEL_AXIS,
+                        chunks=int(cm.chunks), dtype=cm.dtype,
+                        backend=cm.backend))
+                self._cm_tp = True
+                self.comm_transport = dist.get_backend(self._tp_group)
+            else:
+                raise NotImplementedError(
+                    "model {} has no tensor-parallel layout (a "
+                    "collective_matmul config field and "
+                    "tensor_parallel_shard)".format(
+                        type(self.module).__name__))
+        if not self._cm_tp:
+            warn_or_raise_noop(
+                "comm.collective_matmul is enabled but no fusion site is "
+                "live (needs a model mesh axis > 1 on a binding-aware "
+                "model; the ZeRO-3 ring gather needs stage 3)", cm.strict,
+                flag="comm.collective_matmul.strict")
+        else:
+            log_dist("collective_matmul ON: tp_fused=True tp={} chunks={} "
+                     "dtype={} backend={} transport={}".format(
+                         self.mp_world_size, cm.chunks, cm.dtype,
+                         cm.backend, self.comm_transport), ranks=[0])
 
     def _configure_precision(self):
         if self._config.bf16_enabled or self._config.amp_enabled:
@@ -201,10 +304,15 @@ class DeepSpeedEngine:
                 "grad_accum_dtype=bf16 with gradient_accumulation_steps=%d: "
                 "bf16 summation across micro-steps is lossy",
                 self.gradient_accumulation_steps())
+        replicated = ()
+        if self._cm_tp:
+            spec = self._module_fn("partition_spec_fn")
+            replicated = [name for name, p in self.module.named_parameters()
+                          if spec(name, tuple(p.shape)) is None]
         self.flat = FlatPartition(self.module, self.device,
                                   self.compute_dtype,
                                   world_size=self.dp_world_size,
-                                  accum_dtype=accum)
+                                  accum_dtype=accum, replicated=replicated)
         self.scaler = ls.loss_scaler_from_config(self._config)
 
     # ------------------------------------------------------------ training
@@ -270,18 +378,34 @@ class DeepSpeedEngine:
         """Overflow check, unscale, clip, the optimizer, params refresh,
         zero acc."""
         flat = self.flat
+        group = self._tp_group if self._cm_tp else None
+        if group is not None:
+            # the whole-on-every-rank parameters saw only this rank's rows
+            all_reduce_(flat.acc[:flat.replicated_end], group)
         grads = flat.acc
         if grads.dtype != torch.float32:
             grads = grads.float()
-        overflow = bool(rt_utils.CheckOverflow.has_overflow(grads))
+        overflow = rt_utils.CheckOverflow.has_overflow(grads)
+        if group is not None:
+            overflow = all_reduce_(overflow.float().reshape(1), group,
+                                   dist.ReduceOp.MAX)[0] > 0
+        overflow = bool(overflow)
         scale = self.scaler.cur_scale
         if scale != 1.0:
             grads.mul_(1.0 / scale)
+        total_norm = None
+        if group is not None:
+            rep_end = flat.replicated_end
+            sq = grads[rep_end:].pow(2).sum().reshape(1)
+            total_norm = (all_reduce_(sq, group)[0] +
+                          grads[:rep_end].pow(2).sum()).sqrt()
         clip = self.gradient_clipping()
         if clip > 0:
-            grad_norm = rt_utils.clip_grad_norm_(grads, clip)
+            grad_norm = rt_utils.clip_grad_norm_(grads, clip,
+                                                 total_norm=total_norm)
         else:
-            grad_norm = rt_utils.get_grad_norm(grads)
+            grad_norm = total_norm if total_norm is not None \
+                else rt_utils.get_grad_norm(grads)
         if not overflow:
             self.optimizer.step_flat(flat.master, grads, flat.exp_avg,
                                      flat.exp_avg_sq, flat.step + 1,
@@ -395,20 +519,48 @@ class DeepSpeedEngine:
                                      ", ".join(missing)))
         return {n: getattr(module, n) for n in names}
 
+    def _module_fn(self, name):
+        module = inspect.getmodule(type(self.module))
+        if not hasattr(module, name):
+            raise NotImplementedError("{} has no {}".format(
+                getattr(module, "__name__", module), name))
+        return getattr(module, name)
+
+    def _full_tree(self, flat):
+        """A flat buffer -> the full model's ``{dotted name: fp32 CPU
+        tensor}``: under tensor parallelism every rank's buffer is
+        gathered over the group (one all-gather; every rank must call)
+        and the shards joined (the module's ``tp_gather_state_dicts``)."""
+        if not self._cm_tp:
+            return self.flat.tree_of(flat)
+        parts = all_gather(flat.detach(), self._tp_group, dim=0)
+        shards = [self.flat.tree_of(p) for p in
+                  parts.chunk(self.mp_world_size)]
+        return self._module_fn("tp_gather_state_dicts")(shards)
+
+    def _own_shard(self, state):
+        """A full ``state_dict`` -> this rank's shard of it."""
+        if not self._cm_tp:
+            return state
+        return self._module_fn("tp_shard_state_dict")(
+            state, dist.get_rank(self._tp_group), self.mp_world_size)
+
     def get_master_params(self):
         """The fp32 master weights as the JAX-shaped tree of numpy arrays
-        (the model module's ``params_to_jax`` naming)."""
+        (the model module's ``params_to_jax`` naming); under tensor
+        parallelism the full tree, gathered (every rank must call)."""
         to_jax = self._tree_converters()["params_to_jax"]
-        return to_jax(self.flat.tree_of(self.flat.master))
+        return to_jax(self._full_tree(self.flat.master))
 
     def get_optimizer_state(self):
         """``{"step", "exp_avg", "exp_avg_sq"}`` as JAX-shaped trees (Adam's
-        and LAMB's state have the same shape)."""
+        and LAMB's state have the same shape); full trees, as
+        :meth:`get_master_params`."""
         to_jax = self._tree_converters()["optimizer_state_to_jax"]
         return to_jax({
             "step": self.flat.step,
-            "exp_avg": self.flat.tree_of(self.flat.exp_avg),
-            "exp_avg_sq": self.flat.tree_of(self.flat.exp_avg_sq)})
+            "exp_avg": self._full_tree(self.flat.exp_avg),
+            "exp_avg_sq": self._full_tree(self.flat.exp_avg_sq)})
 
     def load_state_from_jax(self, master=None, optimizer_state=None):
         """Start from a JAX engine's state: an fp32 master tree and/or an
@@ -416,10 +568,13 @@ class DeepSpeedEngine:
         trees)."""
         conv = self._tree_converters()
         if master is not None:
-            self.flat.load(self.flat.master, conv["params_from_jax"](master))
+            self.flat.load(self.flat.master,
+                           self._own_shard(conv["params_from_jax"](master)))
             self.flat.refresh_params()
         if optimizer_state is not None:
             state = conv["optimizer_state_from_jax"](optimizer_state)
-            self.flat.load(self.flat.exp_avg, state["exp_avg"])
-            self.flat.load(self.flat.exp_avg_sq, state["exp_avg_sq"])
+            self.flat.load(self.flat.exp_avg,
+                           self._own_shard(state["exp_avg"]))
+            self.flat.load(self.flat.exp_avg_sq,
+                           self._own_shard(state["exp_avg_sq"]))
             self.flat.step = state["step"]

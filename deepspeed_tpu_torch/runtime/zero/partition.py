@@ -21,8 +21,14 @@ Each parameter starts at a multiple of :data:`ALIGN` elements (padding
 stays zero in every buffer: Adam and LAMB map p = g = m = v = 0 to zeros,
 so padding adds nothing to a LAMB norm either). ``segments`` is the
 segment table, one ``(offset, numel)`` per parameter (per JAX leaf):
-LAMB takes one trust ratio per segment. This slice
-runs world size 1, where a rank's partition is the whole buffer; a
+LAMB takes one trust ratio per segment.
+
+Under tensor parallelism each rank's module holds its own shards, and each
+rank keeps one such set of buffers over them. The parameters every rank
+holds whole (``replicated``: layer norms, ``wpe``, the proj biases) are
+laid out first, so ``[0, replicated_end)`` is one slice the engine
+all-reduces over the ring and counts once in the global norm. This slice
+runs a data-parallel world size of 1, where a rank's partition is the whole buffer; a
 larger world raises ``NotImplementedError``: slicing each buffer into
 per-rank ranges comes with the multi-GPU ZeRO slice, over
 ``torch.distributed``.
@@ -37,7 +43,7 @@ class FlatPartition:
     """The flat buffers of one module's parameters and their views."""
 
     def __init__(self, module, device, compute_dtype, world_size=1,
-                 accum_dtype=torch.float32):
+                 accum_dtype=torch.float32, replicated=()):
         if world_size != 1:
             raise NotImplementedError(
                 "ZeRO over {} ranks is not ported yet: partitions across "
@@ -47,12 +53,19 @@ class FlatPartition:
         self.names, self.shapes, self.offsets = [], [], []
         params = []
         total = 0
-        for name, p in module.named_parameters():
+        named = list(module.named_parameters())
+        replicated = set(replicated)
+        named = [(n, p) for n, p in named if n in replicated] + \
+            [(n, p) for n, p in named if n not in replicated]
+        self.replicated_end = 0
+        for name, p in named:
             self.names.append(name)
             self.shapes.append(tuple(p.shape))
             self.offsets.append(total)
             params.append(p)
             total += -(-p.numel() // ALIGN) * ALIGN
+            if name in replicated:
+                self.replicated_end = total
         self.numel = total
         # (n_params, 2) int64 on the device, built once
         self.segments = torch.tensor(

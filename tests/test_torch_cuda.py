@@ -41,6 +41,11 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   bit-identical; refusals; and a tiny fp32 GPT-2 with the ds_config
   sparse section trained through the kernels and through the plain
   versions, losses within 1e-5 relative.
+* ring GEMMs (the all-gather-matmul, matmul-reduce-scatter and dW
+  gather-contract step kernels): each against its plain version over
+  ragged shapes, fp32 and bf16, plain and transposed weights, ring blocks
+  1-4; the reduce-scatter step in place; the dW sum over every ring step;
+  refusals (device, dtype, strides, shapes).
 """
 import numpy as np
 import pytest
@@ -782,3 +787,173 @@ def test_tiny_bert_training_kernels_match_plain_versions(cuda):
         assert launches == want, (backend, launches)
     np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
     assert runs["pallas"][-1] < runs["pallas"][0]
+
+
+# ------------------------------------------------------------ ring GEMMs
+
+
+def _ring_tol(dtype):
+    """fp32: another summation order (1e-5 of the output's scale); bf16:
+    one rounding of an fp32 sum each side, so two bf16 ulps, plus a floor
+    of 2**-14 of the scale for values near zero."""
+    return (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -6, 2 ** -14)
+
+
+def _assert_ring_close(got, want, dtype):
+    rel, floor = _ring_tol(dtype)
+    got, want = got.float(), want.float()
+    bound = rel * want.abs() + floor * float(want.abs().max())
+    assert bool(((got - want).abs() <= bound).all()), \
+        float((got - want).abs().max())
+
+
+def _full_precision_reduction(monkeypatch):
+    """The plain versions' bf16 torch.matmul sums in fp32, as the kernels
+    do (cuBLAS may otherwise reduce split-K partials in bf16); restored
+    after the test."""
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+
+
+def _rnd(gen, device, dtype, *shape):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s_loc,d,f,n,blk,wt", [
+    (2, 40, 72, 24, 2, 1, False), (1, 17, 35, 9, 3, 2, True),
+    (3, 64, 128, 256, 2, 0, True), (2, 130, 136, 200, 4, 3, False)])
+def test_ring_ag_gemm_matches_plain_version(cuda, monkeypatch, dtype, b,
+                                            s_loc, d, f, n, blk, wt):
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    _full_precision_reduction(monkeypatch)
+    gen = torch.Generator(device=cuda).manual_seed(d + f)
+    cur = _rnd(gen, cuda, dtype, b, s_loc, d)
+    w = _rnd(gen, cuda, dtype, f, d).t() if wt else \
+        _rnd(gen, cuda, dtype, d, f)
+    outs = [torch.full((b, n * s_loc, f), 7.0, device=cuda, dtype=dtype)
+            for _ in range(2)]
+    before = rg.ring_ag_gemm.launches
+    rg.ring_ag_gemm(cur, w, outs[0], blk)
+    rg.ring_ag_gemm_reference(cur, w, outs[1], blk)
+    torch.cuda.synchronize()
+    assert rg.ring_ag_gemm.launches == before + 1
+    rows = slice(blk * s_loc, (blk + 1) * s_loc)
+    _assert_ring_close(outs[0][:, rows], outs[1][:, rows], dtype)
+    others = torch.ones(n * s_loc, dtype=torch.bool)
+    others[rows] = False
+    assert bool((outs[0][:, others.to(cuda)] == 7.0).all())
+    again = torch.full_like(outs[0], 7.0)
+    rg.ring_ag_gemm(cur, w, again, blk)
+    assert torch.equal(again, outs[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s_loc,f,d,n,blk,wt,first", [
+    (2, 40, 72, 24, 2, 1, False, False), (1, 17, 35, 9, 3, 2, True, True),
+    (3, 64, 128, 256, 2, 0, True, False),
+    (2, 33, 136, 200, 4, 3, False, False)])
+def test_ring_rs_gemm_add_matches_plain_version(cuda, monkeypatch, dtype, b,
+                                                s_loc, f, d, n, blk, wt,
+                                                first):
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    _full_precision_reduction(monkeypatch)
+    gen = torch.Generator(device=cuda).manual_seed(f + d)
+    x = _rnd(gen, cuda, dtype, b, n * s_loc, f)
+    w = _rnd(gen, cuda, dtype, d, f).t() if wt else \
+        _rnd(gen, cuda, dtype, f, d)
+    recv = None if first else _rnd(gen, cuda, dtype, b, s_loc, d)
+    outs = [torch.empty(b, s_loc, d, device=cuda, dtype=dtype)
+            for _ in range(2)]
+    rg.ring_rs_gemm_add(x, w, blk, n, outs[0], recv)
+    rg.ring_rs_gemm_add_reference(x, w, blk, n, outs[1], recv)
+    torch.cuda.synchronize()
+    _assert_ring_close(outs[0], outs[1], dtype)
+    if recv is not None:
+        # in place: the received accumulator is the output slot
+        slot, plain = recv.clone(), recv.clone()
+        rg.ring_rs_gemm_add(x, w, blk, n, slot, slot)
+        rg.ring_rs_gemm_add_reference(x, w, blk, n, plain, plain)
+        assert torch.equal(slot, outs[0])
+        _assert_ring_close(slot, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_rs_gemm_add_in_place_matches_plain_version(cuda, monkeypatch,
+                                                         dtype):
+    """A middle step of a ring of 4 as matmul_rs runs it: ``out`` is the
+    very tensor ``recv`` (the slot the hop filled), at a shape of many
+    tiles; held to the plain version run the same way."""
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    _full_precision_reduction(monkeypatch)
+    b, s_loc, f, d, n = 2, 192, 256, 320, 4
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _rnd(gen, cuda, dtype, b, n * s_loc, f)
+    w = _rnd(gen, cuda, dtype, f, d)
+    recv = _rnd(gen, cuda, dtype, b, s_loc, d)
+    for blk in range(n):
+        slot, plain = recv.clone(), recv.clone()
+        before = rg.ring_rs_gemm_add.launches
+        assert rg.ring_rs_gemm_add(x, w, blk, n, slot, slot) is slot
+        rg.ring_rs_gemm_add_reference(x, w, blk, n, plain, plain)
+        torch.cuda.synchronize()
+        assert rg.ring_rs_gemm_add.launches == before + 1
+        _assert_ring_close(slot, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s_loc,a,c,n,lhs", [
+    (2, 40, 72, 24, 2, True), (1, 17, 35, 9, 3, False),
+    (4, 128, 64, 192, 2, True), (2, 130, 136, 200, 4, False)])
+def test_ring_gc_gemm_acc_matches_plain_version(cuda, dtype, b, s_loc, a, c,
+                                                n, lhs):
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    gen = torch.Generator(device=cuda).manual_seed(a + c)
+    rot = _rnd(gen, cuda, dtype, b, s_loc, a)
+    fixed = _rnd(gen, cuda, dtype, b, n * s_loc, c)
+    shape = (a, c) if lhs else (c, a)
+    accs = [torch.full(shape, float("nan"), device=cuda) for _ in range(2)]
+    outs = [torch.empty(shape, device=cuda, dtype=dtype) for _ in range(2)]
+    for step in range(n):
+        last = step == n - 1
+        rg.ring_gc_gemm_acc(rot, fixed, step, accs[0], step == 0,
+                            outs[0] if last else None, lhs)
+        rg.ring_gc_gemm_acc_reference(rot, fixed, step, accs[1], step == 0,
+                                      outs[1] if last else None, lhs)
+    torch.cuda.synchronize()
+    _assert_ring_close(accs[0], accs[1], torch.float32)
+    _assert_ring_close(outs[0], outs[1], dtype)
+
+
+def test_ring_gemm_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    cur = torch.zeros(2, 8, 16, device=cuda)
+    w = torch.zeros(16, 8, device=cuda)
+    out = torch.zeros(2, 16, 8, device=cuda)
+    before = (rg.ring_ag_gemm.launches, rg.ring_rs_gemm_add.launches,
+              rg.ring_gc_gemm_acc.launches)
+    with pytest.raises(ValueError, match="every operand"):
+        rg.ring_ag_gemm(cur, w.cpu(), out, 0)                 # device
+    with pytest.raises(ValueError, match="dtype"):
+        rg.ring_ag_gemm(cur.half(), w.half(), out.half(), 0)  # fp16
+    with pytest.raises(ValueError, match="every operand"):
+        rg.ring_ag_gemm(cur, w.bfloat16(), out, 0)            # mixed
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.ring_ag_gemm(cur.transpose(0, 1).contiguous().transpose(0, 1),
+                        w, out, 0)                            # stride
+    with pytest.raises(ValueError, match="unit stride"):
+        rg.ring_ag_gemm(cur, torch.zeros(16, 16, device=cuda)[:, ::2],
+                        out, 0)
+    with pytest.raises(ValueError, match="shapes"):
+        rg.ring_ag_gemm(cur, w, out, 2)                       # block
+    x = torch.zeros(2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.ring_rs_gemm_add(x, w, 0, 2, torch.zeros(2, 8, 8, device=cuda),
+                            torch.zeros(2, 8, 8, device=cuda).transpose(1, 2)
+                            .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shapes"):
+        rg.ring_gc_gemm_acc(cur, x, 0, torch.zeros(16, 16, device=cuda,
+                                                   dtype=torch.bfloat16),
+                            True)                             # acc dtype
+    assert (rg.ring_ag_gemm.launches, rg.ring_rs_gemm_add.launches,
+            rg.ring_gc_gemm_acc.launches) == before

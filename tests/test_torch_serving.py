@@ -409,8 +409,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "deepspeed_tpu"}
 
 
 def _port_sources():
+    # the tensor-parallel test ranks run the port alone, so their module
+    # is held to the same rule
     return sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "tests" / "torch_tp_workers.py"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -427,6 +429,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                             node.lineno, n)
                           for n in names if n.split(".")[0] in FORBIDDEN]
     assert len(_port_sources()) > 10
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("utils/distributed.py", "parallel/topology.py",
+                   "parallel/ring.py", "parallel/collective_matmul.py",
+                   "ops/ring_gemm/ring_gemm.py", "runtime/comm/config.py"):
+        assert "deepspeed_tpu_torch/" + module in scanned, module
     assert not offenders, offenders
 
 

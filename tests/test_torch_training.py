@@ -276,7 +276,7 @@ UNPORTED = {
     "telemetry": {"telemetry": {"enabled": True}},
     "checkpoint": {"checkpoint": {"tag_validation": "Fail"}},
     "flops_profiler": {"flops_profiler": {"enabled": True}},
-    "comm": {"comm": {"collective_matmul": {"enabled": True}}},
+    "comm": {"comm": {"quantized_collectives": {"enabled": True}}},
     "executor": {"runtime": {"executor": "off"}},
 }
 
