@@ -49,10 +49,13 @@ with no ``ok`` line):
 11. flash3d — the JAX package's 3D flash API (``flash_attention``, (b * h,
    s, d) operands) at (32 * 16, 512, 64) bf16, causal and not: the same
    op through its autograd against direct kernel calls, the kernels
-   against their plain versions, timed;
+   against their plain versions, timed; then ``flash_fp32_repeats``: the
+   fp32 key-mask case of the GPU tests (b 2, s 96, h 2, d 32) 60 times,
+   every run bit-identical, the worst element against the CPU run printed;
 12. lamb — the LAMB stage-1 and apply kernels against their plain
    versions over one flat fp32 buffer of BERT-large's size with its real
-   segment table (26 parameters, 336,232,258 elements), timed;
+   segment table (26 parameters, 336,232,258 elements), the per-segment
+   sums (|p|^2, |u|^2) included, timed;
 13. train_bert — the BERT main path: ``initialize(...).train_batch(...)``
    on BERT-large at full width and depth, seq 512, micro batch 32, bf16,
    ZeRO-2, LAMB with fp32 moments, remat on, dropout 0, a padded
@@ -77,6 +80,9 @@ with no ``ok`` line):
 17. train_tp_parity — fp32 loss trajectories at gpt2_medium width with 2
    layers: TP 2 through the ring kernels and through the plain ring, and
    the TP 1 engine, from the same init;
+18. train_tp_lamb — LAMB at TP 2 (ring and LAMB kernels, rank 0's half of
+   every fc kernel scaled x20) against the TP 1 engine, fp32, 2 layers:
+   losses and fc masters;
 
 then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
@@ -321,6 +327,7 @@ def flash_check_and_time(q, k, v, dout, bias, h, causal, flush):
     args = (q, k, v, bias, dout, lse, delta)
     dk, dv = fa.flash_bwd_dkdv(*args, **kw)
     dq = fa.flash_bwd_dq(*args, **kw)
+    again = fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
     ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args, **kw)
     ref_dq = fa.flash_bwd_dq_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -332,11 +339,14 @@ def flash_check_and_time(q, k, v, dout, bias, h, causal, flush):
         atol = FLASH_TOL["out_atol" if name == "out" else "grad_atol"]
         errs[name + "_abs"] = abs_err(got, want)
         errs[name + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
+    errs["bwd_repeat_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(again, (dk, dv, dq)))
     for t in (out, lse, dq, dk, dv):
         assert torch.isfinite(t.float()).all(), "non-finite kernel output"
     assert errs["lse"] <= FLASH_TOL["lse"], errs
     assert max(errs[n + "_ulp_ratio"] for n in pairs) <= 1.0, errs
-    del ref_out, ref_lse, ref_dk, ref_dv, ref_dq
+    assert errs["bwd_repeat_bit_equal"], "two backward runs differ"
+    del ref_out, ref_lse, ref_dk, ref_dv, ref_dq, again
 
     times = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, bias, **kw),
@@ -437,6 +447,79 @@ def phase_flash_bert(flush):
             "shape": dict(BERT_FLASH_SHAPE, dtype="bf16", causal=False,
                           key_bias="fp32 (b, s), 0 / -1e9",
                           qkv_row_stride=3 * h * BERT_FLASH_SHAPE["d"])}
+
+
+def _worst(got, want):
+    """The element where |got - want| is largest: its index and both
+    values, and the relative error max |got - want| / max |want|."""
+    diff = (got.double() - want.double()).abs()
+    at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    return {"index": [int(i) for i in at], "gpu": float(got[at]),
+            "cpu": float(want[at]),
+            "rel_err": float(diff.max() / want.double().abs().max())}
+
+
+def _cpu_model():
+    """The host CPU's model name (the CPU side of a parity check runs
+    there)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
+
+
+def phase_flash_fp32_repeats(repeats=60):
+    """The fp32 key-mask case of tests/test_torch_cuda.py::
+    test_flash_attention_bshd_mask_bias_grads_match_plain (b 2, s 96, h 2,
+    d 32, 25% of keys masked by -1e9), forward and backward through the
+    kernels ``repeats`` times and on the CPU (the plain versions) 5 times:
+    every GPU run bit-identical to the first, every CPU run too, and the
+    worst element of each output against the CPU run printed with both
+    sides' values; held to the test's 1e-5."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
+    rng = np.random.RandomState(1)
+    b, s, h, d = 2, 96, 2, 32
+    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+
+    def run(dev):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays[:3])
+        out = flash_attention_bshd(q, k, v, causal=False,
+                                   mask_bias=torch.from_numpy(mask).to(dev))
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    gpu = [run(torch.device("cuda", 0)) for _ in range(repeats)]
+    cpu = [run(torch.device("cpu")) for _ in range(5)]
+    names = ("out", "dq", "dk", "dv")
+    gpu_varies = {n: sum(not torch.equal(r[i], gpu[0][i]) for r in gpu[1:])
+                  for i, n in enumerate(names)}
+    cpu_varies = {n: sum(not torch.equal(r[i], cpu[0][i]) for r in cpu[1:])
+                  for i, n in enumerate(names)}
+    worst = {n: max((_worst(r[i], cpu[0][i]) for r in gpu),
+                    key=lambda w: w["rel_err"])
+             for i, n in enumerate(names)}
+    rel = max(w["rel_err"] for w in worst.values())
+    result = {"phase": "flash_fp32_repeats", "repeats": repeats,
+              "shape": {"b": b, "s": s, "h": h, "d": d, "dtype": "fp32",
+                        "key_mask": "25% of keys -1e9"},
+              "gpu_runs_differing_from_the_first": gpu_varies,
+              "cpu_runs_differing_from_the_first": cpu_varies,
+              "worst_vs_cpu": worst, "max_rel_err": rel, "tolerance": 1e-5,
+              "cpu": {"model": _cpu_model(),
+                      "capability": torch.backends.cpu.get_cpu_capability(),
+                      "threads": torch.get_num_threads()}}
+    assert not any(gpu_varies.values()), result
+    assert not any(cpu_varies.values()), result
+    assert rel <= 1e-5, result
+    return result
 
 
 def phase_flash3d(flush):
@@ -639,7 +722,7 @@ def phase_train(launch_counters):
     flops_per_token = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * \
         TRAIN_SEQ                                      # bench.py's formula
     mfu = tokens / step_s * flops_per_token / BF16_FLOPS_PER_S
-    profile = train_profile(engine, batch)
+    profile = train_profile(engine, batch, kernel_groups=FLASH_GROUPS)
     return {"phase": "train", "model": "gpt2_medium", "layers": cfg.n_layers,
             "d_model": cfg.d_model, "seq": TRAIN_SEQ,
             "micro_batch": TRAIN_MICRO, "dtype": "bf16", "zero_stage": 2,
@@ -649,6 +732,10 @@ def phase_train(launch_counters):
             "mfu": mfu, "mfu_peak": "989 TFLOP/s dense bf16",
             "losses": losses, "peak_memory_gb": peak_gb,
             "launches": launches, "train_profile": profile}
+
+
+# the flash kernels' device names (profile groups of the train phases)
+FLASH_GROUPS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def train_profile(engine, batch, steps=2, span_names=(), kernel_groups=()):
@@ -688,9 +775,12 @@ def train_profile(engine, batch, steps=2, span_names=(), kernel_groups=()):
             name: sum(e.cpu_time_total for e in averages if e.key == name) *
             1e-3 / steps for name in span_names}
     if kernel_groups:
-        extra["kernel_ms_per_step_by_group"] = {
+        by_group = {
             g: sum(e.self_device_time_total for e in kernels if g in e.key) *
             1e-3 / steps for g in kernel_groups}
+        extra["kernel_ms_per_step_by_group"] = by_group
+        extra["groups_share_of_step"] = sum(by_group.values()) * 1e-3 / \
+            (wall / steps)
     return {"steps": steps, "wall_s_per_step": wall / steps, **extra,
             "device_busy_s_per_step": busy_us * 1e-6 / steps,
             "device_busy_share": busy_us * 1e-6 / wall,
@@ -1133,9 +1223,10 @@ def _fp32_steps(got, want):
 
 def phase_lamb(flush):
     """The two LAMB kernels against their plain versions over one flat
-    fp32 buffer of BERT-large's size and segment table, step 7; m, v and
-    the trust ratios bit-equal, p within one ulp, two kernel runs
-    bit-identical; timed."""
+    fp32 buffer of BERT-large's size and segment table, step 7; m, v, the
+    trust ratios and the per-segment sums (|p|^2, |u|^2) bit-equal (the
+    sums also within 1e-5 of a float64 sum of each segment), p within one
+    ulp, two kernel runs bit-identical; timed."""
     import torch
     from deepspeed_tpu_torch.models import bert
     from deepspeed_tpu_torch.ops.adam.fused_adam import bias_corrections
@@ -1164,22 +1255,31 @@ def phase_lamb(flush):
     sc = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01, bc1=bc1,
               bc2=bc2)
     kw = dict(lr=2e-3, eps=1e-8, weight_decay=0.01, bc1=bc1, bc2=bc2)
-    sides, ratios = [], []
+    sides, ratios, sums = [], [], []
     for route in ("kernel", "kernel", "plain"):
         pp, mm, vv = p.clone(), m.clone(), v.clone()
         if route == "kernel":
-            r = fused_lamb(pp, g, mm, vv, plan, **sc)
+            r, sq = fused_lamb(pp, g, mm, vv, plan, **sc)
             fused_lamb_apply(pp, mm, vv, r, plan, **kw)
         else:
-            r = fused_lamb_reference(pp, g, mm, vv, plan, **sc)
+            r, sq = fused_lamb_reference(pp, g, mm, vv, plan, **sc)
             fused_lamb_apply_reference(pp, mm, vv, r, plan, **kw)
         sides.append((pp, mm, vv))
         ratios.append(r)
+        sums.append(sq)
     torch.cuda.synchronize()
-    repeat = all(torch.equal(a, b) for a, b in zip(sides[0], sides[1]))
+    repeat = all(torch.equal(a, b) for a, b in zip(sides[0], sides[1])) \
+        and torch.equal(sums[0], sums[1])
     m_equal = torch.equal(sides[0][1], sides[2][1])
     v_equal = torch.equal(sides[0][2], sides[2][2])
     ratio_equal = torch.equal(ratios[0], ratios[2])
+    sums_equal = torch.equal(sums[0], sums[2])
+    p_sq = torch.stack([(p[off:off + numel].double() ** 2).sum()
+                        for off, numel in segments])
+    sums_rel = float(((sums[0][:, 0].double() - p_sq).abs() /
+                      p_sq.clamp_min(1e-30)).max())
+    assert sums_equal, "the kernel's per-segment sums differ from plain"
+    assert sums_rel <= 1e-5, sums_rel
     p_steps = _fp32_steps(sides[0][0], sides[2][0])
     err = max(float((a - b).abs().max()) for a, b in zip(sides[0], sides[2]))
     assert repeat, "two runs of the LAMB kernels differ"
@@ -1192,6 +1292,7 @@ def phase_lamb(flush):
     del sides
     torch.cuda.empty_cache()
     ratio = ratios[0]
+    del sums
     stage1_ms = time_ms(lambda: fused_lamb(p, g, m, v, plan, **sc), flush)
     apply_ms = time_ms(lambda: fused_lamb_apply(p, m, v, ratio, plan, **kw),
                        flush)
@@ -1207,9 +1308,11 @@ def phase_lamb(flush):
             "segments": len(segments), "chunks": plan.n_chunks,
             "zero_init_segments": len(zero), "ratio_one_segments": ones,
             "bit_equal": {"m": m_equal, "v": v_equal, "ratio": ratio_equal,
-                          "repeat": repeat},
+                          "sums": sums_equal, "repeat": repeat},
+            "p_sq_rel_err_vs_float64": sums_rel,
             "p_max_ulp": p_steps, "max_abs_err": err,
-            "tolerance": "m, v, ratio bit-equal; p <= 1 ulp",
+            "tolerance": "m, v, ratio, sums bit-equal; p <= 1 ulp; "
+                         "|p|^2 sums 1e-5 of float64",
             "kernels": {
                 "fused_lamb": dict(
                     kernel_ms=stage1_ms, plain_ms=plain_stage1,
@@ -1296,7 +1399,7 @@ def phase_train_bert(launch_counters):
     flops_per_token = 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * \
         BERT_SEQ                              # tests/perf/bert_bench.py:56-59
     mfu = tokens / step_s * flops_per_token / BF16_FLOPS_PER_S
-    profile = train_profile(engine, batch)
+    profile = train_profile(engine, batch, kernel_groups=FLASH_GROUPS)
     return {"phase": "train_bert", "model": "bert_large",
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "heads": cfg.n_heads, "seq": BERT_SEQ, "micro_batch": BERT_MICRO,
@@ -1593,11 +1696,12 @@ def ring_case(name, k, n, mode, device, gen):
         lhs = mode == "lhs"
         shape = (a, c) if lhs else (c, a)
         acc0 = torch.randn(shape, generator=gen, device=device)
-        accs = [acc0, acc0.clone()]
+        accs = [acc0.clone(), acc0.clone()]
         outs = [torch.empty(shape, device=device, dtype=torch.bfloat16)
                 for _ in range(2)]
         kern = lambda: rg.ring_gc_gemm_acc(rot, fixed, 1, accs[0], False,
                                            outs[0], lhs)
+        kern.reset = lambda: accs[0].copy_(acc0)
         plain = lambda: rg.ring_gc_gemm_acc_reference(
             rot, fixed, 1, accs[1], False, outs[1], lhs)
         r2, f2 = rot.reshape(-1, a), fixed[:, s_loc:].reshape(-1, c)
@@ -1640,6 +1744,14 @@ def phase_ring_gemm(flush):
                                                    "acc_abs_of_max", 0.0)
                     ratio = max(ratio, acc_ratio)
                     assert torch.isfinite(o0).all()
+                    # the same bits run to run, from the same acc
+                    first = (a0.clone(), o0.clone())
+                    kern.reset()
+                    kern()
+                    torch.cuda.synchronize()
+                    assert torch.equal(a0, first[0]) and \
+                        torch.equal(o0, first[1]), (site, "two runs differ")
+                    del first
                 else:
                     err, ratio = _ring_err(get(0), get(1), tol)
                     acc_err = None
@@ -1829,21 +1941,44 @@ def phase_train_tp(world=TP, layers=TP_LAYERS, steps=TP_STEPS,
             "ranks": ranks}
 
 
+def _fc_leaves(tree, prefix=""):
+    """The ``fc_kernel`` leaves of a JAX-shaped tree, by dotted name."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)} \
+            if prefix.endswith("fc_kernel.") else {}
+    out = {}
+    for key, child in items:
+        out.update(_fc_leaves(child, "{}{}.".format(prefix, key)))
+    return out
+
+
 def tp_parity_rank(rank, world, spec):
-    """fp32 losses of one TP engine (2 layers at gpt2_medium width)."""
+    """fp32 losses of one TP engine (2 layers at gpt2_medium width); with
+    ``spec["optimizer"]`` "Lamb", the left half of every fc kernel's
+    columns (rank 0's shard at TP 2) scaled by ``spec["scale_fc"]`` before
+    the engine takes the model, and the fc masters returned."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb
     from deepspeed_tpu_torch.parallel.topology import build_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    optimizer = spec.get("optimizer", "Adam")
     counters = _tp_counters()[:3]
+    if optimizer == "Lamb":
+        counters.append(fused_lamb)
     for c in counters:
         c.launches = 0
     cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=TRAIN_SEQ,
                           loss_chunk=128, remat=False)
     conf = {"train_micro_batch_size_per_gpu": 4,
-            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "optimizer": {"type": optimizer,
+                          "params": {"lr": spec.get("lr", 1e-4)}},
             "transformer": {"flash_attention": "xla"},
             "steps_per_print": 10 ** 9}
     mesh = None
@@ -1851,14 +1986,22 @@ def tp_parity_rank(rank, world, spec):
         conf["comm"] = {"collective_matmul": {"enabled": True,
                                               "backend": spec["backend"]}}
         mesh = build_mesh(model=world)
-    engine = deepspeed_tpu_torch.initialize(
-        model=gpt2.make_gpt2_model(config=cfg, seed=1), mesh=mesh,
-        config_params=conf)[0]
+    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    if spec.get("scale_fc"):
+        with torch.no_grad():
+            for name, t in model.state_dict().items():
+                if name.endswith("fc_kernel"):
+                    t[:, :t.shape[1] // 2] *= spec["scale_fc"]
+    engine = deepspeed_tpu_torch.initialize(model=model, mesh=mesh,
+                                            config_params=conf)[0]
     ids = spec["ids"]
     losses = [float(engine.train_batch(batch=(ids, ids)))
               for _ in range(spec["steps"])]
-    return {"losses": losses,
-            "launches": {c.__name__: c.launches for c in counters}}
+    out = {"losses": losses,
+           "launches": {c.__name__: c.launches for c in counters}}
+    if optimizer == "Lamb":
+        out["fc"] = _fc_leaves(engine.get_master_params())
+    return out
 
 
 def phase_train_tp_parity(steps=5, tol=1e-5):
@@ -1894,6 +2037,42 @@ def phase_train_tp_parity(steps=5, tol=1e-5):
     return {"phase": "train_tp_parity", "layers": 2, "d_model": 1024,
             "dtype": "fp32", "tp": 2, "steps": steps, "losses": runs,
             "max_rel_diff": rel, "tolerance": tol}
+
+
+def phase_train_tp_lamb(steps=2, loss_tol=1e-5, master_atol=5e-5,
+                        scale=20.0):
+    """LAMB under tensor parallelism on the card: fp32, gpt2_medium width
+    with 2 layers, TF32 off, plain attention, rank 0's half of every fc
+    kernel scaled x20 (shards of unequal norms), TP 2 through the ring and
+    LAMB kernels (two gloo ranks on this card) against the TP 1 engine:
+    losses and the fc masters, where a ratio taken from one shard's norms
+    shows. Tolerances as the CPU test's (tests/test_torch_tp_training.py)."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
+    spec = {"backend": "pallas", "ids": ids, "steps": steps,
+            "optimizer": "Lamb", "lr": 1e-3, "scale_fc": scale}
+    ranks = spawn(tp_parity_rank, 2, args=(spec,), timeout_s=600)
+    tp1 = tp_parity_rank(0, 1, spec)
+    torch.cuda.empty_cache()
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    for r in ranks:
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+    assert tp1["launches"]["fused_lamb"] == steps, tp1["launches"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                       tp1["losses"]))
+    fc_err = max(float(np.abs(ranks[0]["fc"][name] - w).max())
+                 for name, w in tp1["fc"].items())
+    assert sorted(ranks[0]["fc"]) == sorted(tp1["fc"]) and tp1["fc"]
+    assert loss_rel <= loss_tol and fc_err <= master_atol, \
+        (loss_rel, fc_err)
+    return {"phase": "train_tp_lamb", "layers": 2, "d_model": 1024,
+            "dtype": "fp32", "tp": 2, "steps": steps, "fc_scale": scale,
+            "losses": {"tp2": ranks[0]["losses"], "tp1": tp1["losses"]},
+            "launches_tp2_rank0": ranks[0]["launches"],
+            "loss_max_rel_diff": loss_rel, "fc_master_max_abs_diff": fc_err,
+            "tolerance": {"loss_rel": loss_tol, "master_atol": master_atol}}
 
 
 def nccl_rank(rank, world, spec):
@@ -2132,6 +2311,7 @@ def main():
     torch.cuda.empty_cache()
     emit(phase_flash3d(flush))
     torch.cuda.empty_cache()
+    emit(phase_flash_fp32_repeats())
     adam = phase_adam(flush)
     emit(adam)
     torch.cuda.empty_cache()
@@ -2187,6 +2367,7 @@ def main():
     train_tp = phase_train_tp()
     emit(train_tp)
     emit(phase_train_tp_parity())
+    emit(phase_train_tp_lamb())
 
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}

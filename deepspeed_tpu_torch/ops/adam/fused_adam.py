@@ -226,10 +226,12 @@ class FusedAdam:
                 "beta2": float(self.betas[1]), "eps": float(self.eps),
                 "weight_decay": float(self.weight_decay)}
 
-    def step_flat(self, p, g, m, v, step, segments=None):
+    def step_flat(self, p, g, m, v, step, segments=None, group=None,
+                  sharded_from=0):
         """One step over flat fp32 buffers at optimizer step ``step`` (the
         count after this update). Adam is elementwise: the segment table
-        (``FlatPartition.segments``) does not matter to it."""
+        (``FlatPartition.segments``) and the tensor-parallel layout
+        (``group``, ``sharded_from``) do not matter to it."""
         h = {k: f32(val) for k, val in self.hyperparams().items()}
         bc1, bc2 = bias_corrections(h["beta1"], h["beta2"], step,
                                     self.bias_correction)

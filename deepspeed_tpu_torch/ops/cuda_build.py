@@ -6,7 +6,9 @@ Hopper (``sm_90a``), and ``ctypes`` loads it. No PyTorch header is
 compiled, so a build takes seconds. Libraries land in ``_build/`` next
 to this file (listed in ``.gitignore``), named by a hash of the source
 bytes and the flags, so an edited source rebuilds and an unchanged one
-is reused. A failed build raises with the compiler's output; nothing
+is reused. Sources may include the shared headers of ``include/`` next
+to this file (``#include "sm90_mma.cuh"``); their bytes are part of every
+library's hash. A failed build raises with the compiler's output; nothing
 falls back to another implementation.
 """
 import ctypes
@@ -19,6 +21,7 @@ import time
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -56,8 +59,11 @@ def nvcc_path():
 
 def library_path(source):
     source = Path(source)
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(INCLUDE_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        source.read_bytes() + headers +
+        " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / "{}_{}.so".format(source.stem, digest[:16])
 
 
@@ -73,7 +79,8 @@ def build(source):
     # source never load a half-written library
     tmp = out.with_name("{}.{}.{}.tmp".format(
         out.name, os.getpid(), threading.get_ident()))
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+           str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

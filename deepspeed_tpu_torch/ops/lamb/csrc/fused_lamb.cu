@@ -35,7 +35,10 @@
 //     segment) reduces that segment's partials the same way (thread t sums
 //     chunks t, t + 256, ... in order, then the tree) and writes its ratio.
 //     Which block that is varies from run to run; the order of the sum does
-//     not, so the result is deterministic.
+//     not, so the result is deterministic. That block also writes the
+//     segment's two sums (|p|^2, |u|^2): under tensor parallelism the host
+//     all-reduces a sharded segment's sums over the ring and recomputes its
+//     ratio from the whole leaf's norms, as the reference's GSPMD psum does.
 // u is not stored: the apply recomputes it from p, m' and v' with the same
 // operations, the same bits, and saves a buffer of the partition's size.
 //
@@ -101,8 +104,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int64_t* __restrict__ seg_first,
                        float2* __restrict__ partials,
                        unsigned* __restrict__ tickets,
-                       float* __restrict__ ratio, int vectorized,
-                       LambScalars s) {
+                       float* __restrict__ ratio, float2* __restrict__ sums,
+                       int vectorized, LambScalars s) {
   __shared__ float sp[kThreads];
   __shared__ float su[kThreads];
   __shared__ bool last;
@@ -165,6 +168,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   block_tree(sp, su);
   if (t == 0) {
+    sums[seg] = make_float2(sp[0], su[0]);
     const float pn = __fsqrt_rn(sp[0]), un = __fsqrt_rn(su[0]);
     ratio[seg] = (pn > 0.f && un > 0.f)
                      ? fminf(fmaxf(__fdiv_rn(pn, un), s.min_coeff), s.max_coeff)
@@ -218,14 +222,16 @@ LambScalars scalars(float lr, float beta1, float beta2, float eps,
 
 // chunks: (n_chunks, 3) int64 rows (start, length <= 8192, segment);
 // seg_first: (n_seg + 1) int64; partials: (n_chunks, 2) fp32 scratch;
-// tickets: (n_seg) uint32 scratch, zeroed here; ratio: (n_seg) fp32 out.
+// tickets: (n_seg) uint32 scratch, zeroed here; ratio: (n_seg) fp32 out;
+// sums: (n_seg, 2) fp32 out, each segment's (|p|^2, |u|^2) (a segment of no
+// chunk is not written).
 // vectorized: 1 when p, g, m, v are 16-byte aligned and every chunk starts at
 // a multiple of 4. Returns a cudaError_t; runs on `stream` without a sync.
 extern "C" int fused_lamb_launch(const void* p, const void* g, void* m,
                                  void* v, const void* chunks, int64_t n_chunks,
                                  const void* seg_first, int64_t n_seg,
                                  void* partials, void* tickets, void* ratio,
-                                 int vectorized, float beta1, float beta2,
+                                 void* sums, int vectorized, float beta1, float beta2,
                                  float eps, float weight_decay, float bc1,
                                  float bc2, float max_coeff, float min_coeff,
                                  int eps_inside_sqrt, void* stream) {
@@ -239,7 +245,8 @@ extern "C" int fused_lamb_launch(const void* p, const void* g, void* m,
       static_cast<float*>(m), static_cast<float*>(v),
       static_cast<const int64_t*>(chunks),
       static_cast<const int64_t*>(seg_first), static_cast<float2*>(partials),
-      static_cast<unsigned*>(tickets), static_cast<float*>(ratio), vectorized,
+      static_cast<unsigned*>(tickets), static_cast<float*>(ratio),
+      static_cast<float2*>(sums), vectorized,
       scalars(0.f, beta1, beta2, eps, weight_decay, bc1, bc2, max_coeff,
               min_coeff, eps_inside_sqrt));
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,8 @@ per parameter, ``FlatPartition.segments``) into chunks of
 :data:`CHUNK` elements, one CUDA block each.
 
 * :func:`fused_lamb` (stage 1) updates ``m`` and ``v`` in place and returns
-  the per-segment trust ratios: on CUDA tensors it launches
+  the per-segment trust ratios and each segment's ``(|p|^2, |u|^2)``: on
+  CUDA tensors it launches
   ``csrc/fused_lamb.cu``'s ``lamb_stage1_kernel`` (one launch for the whole
   partition) and adds one to ``fused_lamb.launches``;
   :func:`fused_lamb_apply` applies ``p -= (lr * ratio) * u`` with its own
@@ -26,7 +27,10 @@ per parameter, ``FlatPartition.segments``) into chunks of
 * :func:`lamb_init` / :func:`lamb_update` are the pytree (dict of tensors)
   forms, as in the JAX package; :class:`FusedLamb` holds the mutable
   hyperparameters and the backend choice, and the engine drives it over its
-  flat buffers (:meth:`FusedLamb.step_flat`).
+  flat buffers (:meth:`FusedLamb.step_flat`). Under tensor parallelism a
+  rank holds a shard of some parameters: the step all-reduces those
+  segments' sums over the ring and takes their ratios from the whole
+  leaf's norms (:func:`ring_ratios`), as the reference's GSPMD psum does.
 
 The norms sum up to 10^8 squares in another order than the JAX package (per
 leaf padded to (rows, 128), or XLA's reduce), so the trust ratio may differ
@@ -42,6 +46,7 @@ import torch.nn.functional as F
 
 from .. import cuda_build
 from ..adam.fused_adam import bias_corrections, f32, _tree_map
+from ...utils.distributed import all_reduce_
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_lamb.cu"
 
@@ -65,7 +70,7 @@ def _library():
     ptr, i64, i32, flt = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_float)
     lib.fused_lamb_launch.argtypes = [ptr] * 5 + [i64, ptr, i64] + \
-        [ptr] * 3 + [i32] + [flt] * 8 + [i32, ptr]
+        [ptr] * 4 + [i32] + [flt] * 8 + [i32, ptr]
     lib.fused_lamb_launch.restype = i32
     lib.fused_lamb_apply_launch.argtypes = [ptr] * 4 + [i64, ptr, i32] + \
         [flt] * 5 + [i32, ptr]
@@ -106,6 +111,15 @@ class LambPlan:
                                     device=self.device)
         self.tickets = torch.zeros(self.n_seg, dtype=torch.int32,
                                    device=self.device)
+        self._sharded = None
+
+    def sharded_index(self, start):
+        """The indices (int64, on the plan's device) of the segments
+        whose offset is at or past ``start``, built on first use."""
+        if self._sharded is None or self._sharded[0] != start:
+            idx = np.flatnonzero(self.offsets >= start)
+            self._sharded = (start, torch.from_numpy(idx).to(self.device))
+        return self._sharded[1]
 
     def extent(self):
         """One past the last element any segment covers."""
@@ -149,8 +163,9 @@ def fused_lamb(p, g, m, v, plan, *, beta1, beta2, eps, weight_decay, bc1,
                bc2, max_coeff=10.0, min_coeff=0.01, eps_inside_sqrt=False):
     """LAMB stage 1 over the segments of flat fp32 ``p``, ``g``, ``m``,
     ``v``: ``m`` and ``v`` updated in place; returns the (n_seg,) fp32
-    trust ratios. On CUDA the kernel runs on the current stream, without a
-    synchronise."""
+    trust ratios and the (n_seg, 2) fp32 sums ``(|p|^2, |u|^2)`` they were
+    taken from (zeros for a segment of no element). On CUDA the kernel
+    runs on the current stream, without a synchronise."""
     _check(p, plan, ("g", g), ("m", m), ("v", v))
     sc = _scalars(beta1=beta1, beta2=beta2, eps=eps,
                   weight_decay=weight_decay, bc1=bc1, bc2=bc2,
@@ -159,20 +174,22 @@ def fused_lamb(p, g, m, v, plan, *, beta1, beta2, eps, weight_decay, bc1,
         return fused_lamb_reference(p, g, m, v, plan,
                                     eps_inside_sqrt=eps_inside_sqrt, **sc)
     ratio = torch.ones(plan.n_seg, dtype=torch.float32, device=p.device)
+    sums = torch.zeros((plan.n_seg, 2), dtype=torch.float32, device=p.device)
     if plan.n_chunks == 0:
-        return ratio
+        return ratio, sums
     lib = _library()
     err = lib.fused_lamb_launch(
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
         plan.chunks.data_ptr(), plan.n_chunks, plan.seg_first.data_ptr(),
         plan.n_seg, plan.partials.data_ptr(), plan.tickets.data_ptr(),
-        ratio.data_ptr(), _vectorized(plan, p, g, m, v), sc["beta1"],
+        ratio.data_ptr(), sums.data_ptr(), _vectorized(plan, p, g, m, v),
+        sc["beta1"],
         sc["beta2"], sc["eps"], sc["weight_decay"], sc["bc1"], sc["bc2"],
         sc["max_coeff"], sc["min_coeff"], int(bool(eps_inside_sqrt)),
         torch.cuda.current_stream(p.device).cuda_stream)
     _raise_if(err, lib, "fused_lamb")
     fused_lamb.launches += 1
-    return ratio
+    return ratio, sums
 
 
 fused_lamb.launches = 0
@@ -264,28 +281,49 @@ def fused_lamb_reference(p, g, m, v, plan, *, beta1, beta2, eps,
                          weight_decay, bc1, bc2, max_coeff=10.0,
                          min_coeff=0.01, eps_inside_sqrt=False):
     """The plain PyTorch stage 1, in place on ``m`` and ``v``; returns the
-    trust ratios. Any device."""
+    trust ratios and the per-segment sums, as :func:`fused_lamb`. Any
+    device."""
     one = np.float32(1.0)
     m.copy_(f32(beta1) * m + f32(one - np.float32(beta1)) * g)
     v.copy_(f32(beta2) * v + f32(one - np.float32(beta2)) * (g * g))
-    ratios = []
-    for off, n in zip(plan.offsets.tolist(), plan.numels.tolist()):
+    sums = torch.zeros((plan.n_seg, 2), dtype=torch.float32, device=p.device)
+    for i, (off, n) in enumerate(zip(plan.offsets.tolist(),
+                                     plan.numels.tolist())):
         if n == 0:
-            ratios.append(torch.ones((), device=p.device))
             continue
         sl = slice(off, off + n)
         u = _direction(p[sl], m[sl], v[sl], eps=eps,
                        weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                        eps_inside_sqrt=eps_inside_sqrt)
-        p_norm = torch.sqrt(_segment_total(_chunk_partials(p[sl] * p[sl])))
-        u_norm = torch.sqrt(_segment_total(_chunk_partials(u * u)))
-        ratios.append(torch.where(
-            (p_norm > 0) & (u_norm > 0),
-            torch.clamp(p_norm / u_norm, f32(min_coeff), f32(max_coeff)),
-            torch.ones_like(p_norm)))
-    if not ratios:
-        return torch.ones(0, dtype=torch.float32, device=p.device)
-    return torch.stack(ratios).float()
+        sums[i, 0] = _segment_total(_chunk_partials(p[sl] * p[sl]))
+        sums[i, 1] = _segment_total(_chunk_partials(u * u))
+    return trust_ratios(sums, max_coeff, min_coeff), sums
+
+
+def trust_ratios(sums, max_coeff, min_coeff):
+    """(n_seg, 2) sums ``(|p|^2, |u|^2)`` -> the (n_seg,) fp32 ratios
+    ``clip(|p| / |u|, min_coeff, max_coeff)`` where both norms are > 0,
+    else 1: the kernel's closing operations, each rounded once in fp32."""
+    p_norm, u_norm = torch.sqrt(sums[:, 0]), torch.sqrt(sums[:, 1])
+    return torch.where(
+        (p_norm > 0) & (u_norm > 0),
+        torch.clamp(p_norm / u_norm, f32(min_coeff), f32(max_coeff)),
+        torch.ones_like(p_norm))
+
+
+def ring_ratios(ratio, sums, plan, group, sharded_from, max_coeff,
+                min_coeff):
+    """The trust ratios of a tensor-parallel rank's step: the segments at
+    or past offset ``sharded_from`` hold this rank's shard of a leaf, so
+    their sums are all-reduced over ``group`` (one collective) and their
+    ratios recomputed from the whole leaf's norms; the segments before it
+    (whole on every rank) keep their own."""
+    sharded = plan.sharded_index(sharded_from)
+    if sharded.numel() == 0:
+        return ratio
+    whole = all_reduce_(sums.index_select(0, sharded), group)
+    return ratio.index_copy(0, sharded,
+                            trust_ratios(whole, max_coeff, min_coeff))
 
 
 def fused_lamb_apply_reference(p, m, v, ratio, plan, *, lr, eps,
@@ -314,10 +352,15 @@ def lamb_init(params):
             "exp_avg_sq": _tree_map(zeros, params)}
 
 
-def _step(p, g, m, v, plan, use_kernel, lr, eps_inside_sqrt, **sc):
+def _step(p, g, m, v, plan, use_kernel, lr, eps_inside_sqrt, group=None,
+          sharded_from=0, **sc):
     stage1, apply = (fused_lamb, fused_lamb_apply) if use_kernel else \
         (fused_lamb_reference, fused_lamb_apply_reference)
-    ratio = stage1(p, g, m, v, plan, eps_inside_sqrt=eps_inside_sqrt, **sc)
+    ratio, sums = stage1(p, g, m, v, plan, eps_inside_sqrt=eps_inside_sqrt,
+                         **sc)
+    if group is not None:
+        ratio = ring_ratios(ratio, sums, plan, group, sharded_from,
+                            sc["max_coeff"], sc["min_coeff"])
     apply(p, m, v, ratio, plan, lr=lr, eps_inside_sqrt=eps_inside_sqrt,
           **{k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2")})
     return ratio
@@ -394,11 +437,16 @@ class FusedLamb:
             self._plan = (segments, LambPlan(segments, device))
         return self._plan[1]
 
-    def step_flat(self, p, g, m, v, step, segments):
+    def step_flat(self, p, g, m, v, step, segments, group=None,
+                  sharded_from=0):
         """One step over flat fp32 buffers at optimizer step ``step`` (the
         count after this update), one trust ratio per ``(offset, numel)``
         of ``segments`` (``FlatPartition.segments``; the plan built from it
-        is kept while the same table comes back)."""
+        is kept while the same table comes back). ``group``: a
+        tensor-parallel ring of more than one rank, whose segments at or
+        past offset ``sharded_from`` (``FlatPartition.replicated_end``) are
+        shards of a leaf (:func:`ring_ratios`); None where the rank holds
+        every leaf whole."""
         h = {k: f32(val) for k, val in self.hyperparams().items()}
         bc1, bc2 = bias_corrections(h["beta1"], h["beta2"], step,
                                     self.bias_correction)
@@ -406,4 +454,5 @@ class FusedLamb:
               h["lr"], self.eps_inside_sqrt, beta1=h["beta1"],
               beta2=h["beta2"], eps=h["eps"], weight_decay=h["weight_decay"],
               bc1=bc1, bc2=bc2, max_coeff=self.max_coeff,
-              min_coeff=self.min_coeff)
+              min_coeff=self.min_coeff, group=group,
+              sharded_from=sharded_from)

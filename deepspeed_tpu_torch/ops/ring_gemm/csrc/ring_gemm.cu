@@ -26,17 +26,35 @@
 // view (w.T in the backward passes).
 //
 // Bound on the H100: operations at the main path's shapes (K = 512 to 8192,
-// M = 8192 rows; ~1000 flops per byte moved). What this first design does
-// about it: bf16 operands go through the tensor cores with mma.sync m16n8k16
-// (fp32 accumulators), 128 x 128 output tiles of 8 warps (64 x 64 of 4 warps
-// for the dW products, whose small outputs would otherwise leave most SMs
-// idle), 16-byte global loads where the layout allows. No wgmma, TMA or
-// multi-stage pipeline yet: the tiles are loaded, synchronised and consumed
-// in turn. fp32 operands take a plain FMA path (the parity runs).
+// M = 8192 rows; ~1000 flops per byte moved).
+//
+// ag and rs (the first design): bf16 operands go through the tensor cores
+// with mma.sync m16n8k16 (fp32 accumulators), 128 x 128 output tiles of 8
+// warps, 16-byte global loads where the layout allows, one stage: the tiles
+// are loaded, synchronised and consumed in turn.
+//
+// gc (bf16, redesigned for Hopper): both dW operands arrive k-major (the
+// contraction index is the row index, M or N contiguous), so the tiles are
+// staged as they lie: 16-byte cp.async copies of 64 k-rows into a ring of
+// three shared-memory stages (rows padded by 16 bytes, so the fragment
+// loads meet no bank conflict; each thread's row offsets advance by
+// additions, no division in the loop), fragments read with ldmatrix.trans,
+// mma.sync m16n8k16 over 128 x 128 output tiles of 8 warps (64 x 32 each).
+// On the H100 it runs at ~190 TFLOP/s a site, bound by latency rather than
+// bytes: more stages, 32-deep steps and 4-warp blocks ran no faster
+// (probes/kernel_probe.py). The host splits K so that the tiles fill the
+// card (gc_plan in ring_gemm.py): each split writes its fp32 partial tile
+// to a workspace, and the split that arrives last at a tile (a ticket per
+// tile) folds acc + partial 0 + partial 1 + ... in split order, so the
+// result has the same bits run to run.
+//
+// fp32 operands take a plain FMA path (the parity runs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -307,6 +325,212 @@ __global__ void __launch_bounds__(WM* WN * 32)
   });
 }
 
+// ------------------------------------------- the dW kernel (bf16, Hopper)
+
+constexpr int kGcBM = 128, kGcBN = 128, kGcBK = 64, kGcStages = 3;
+constexpr int kGcWM = 2, kGcWN = 4;  // warps along M and N
+constexpr int kGcThreads = kGcWM * kGcWN * 32;
+
+// A staged k-row of a 128-column tile, padded by 16 bytes (the fragment
+// loads meet no bank conflict), and the shared memory of both operands'
+// stages.
+constexpr int kGcLd = kGcBM + 8;
+constexpr size_t kGcSmem =
+    sizeof(__nv_bfloat16) * kGcStages * kGcBK * 2 * kGcLd;  // 102 KB
+
+// The k-rows one thread copies into every stage of a 128-column tile (rows
+// kk0 + kStep j of the stage, at its one 16-byte column): their offsets,
+// advanced a stage at a time without a division (the ring block wraps at
+// rpb rows).
+struct GcRows {
+  static constexpr int kChunks = kGcBM / 8;           // 16-byte chunks a row
+  static constexpr int kStep = kGcThreads / kChunks;  // rows a pass
+  static constexpr int kRows = kGcBK / kStep;         // rows a thread
+  int k;  // row j is k + kStep j
+  int r[kRows];
+  int64_t off[kRows];
+
+  __device__ __forceinline__ void init(const RowSplit& rows, int kb) {
+    k = kb + threadIdx.x / kChunks;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      r[j] = (k + j * kStep) % rows.rpb;
+      off[j] = rows.off(k + j * kStep);
+    }
+  }
+  __device__ __forceinline__ void advance(const RowSplit& rows) {
+    k += kGcBK;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      r[j] += kGcBK;
+      off[j] += kGcBK * rows.sr;
+      while (r[j] >= rows.rpb) {
+        r[j] -= rows.rpb;
+        off[j] += rows.sb - static_cast<int64_t>(rows.rpb) * rows.sr;
+      }
+    }
+  }
+
+  // The next kGcBK rows (below k1) of a k-major operand, columns [c0, c0 +
+  // 128) of its extent E, into a stage s[kk][c] (zero outside): 16-byte
+  // cp.async copies when the operand allows them (vec), else plain loads
+  // stored directly. Then advance.
+  __device__ __forceinline__ void stage(__nv_bfloat16* s,
+                                        const Operand<__nv_bfloat16>& op,
+                                        int k1, int c0, int E) {
+    const int kk0 = threadIdx.x / kChunks;
+    const int cc = (threadIdx.x % kChunks) * 8, gc = c0 + cc;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int gk = k + j * kStep;
+      __nv_bfloat16* dst = s + (kk0 + j * kStep) * kGcLd + cc;
+      if (op.vec) {
+        const bool ok = gk < k1 && gc < E;  // E % 8 == 0 under vec
+        sm90::cp_async16(dst, ok ? op.ptr + off[j] + gc : op.ptr,
+                         ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (gk < k1 && gc + e < E) ? op.ptr[off[j] + gc + e]
+                                           : zero_of<__nv_bfloat16>();
+      }
+    }
+    advance(op.rows);
+  }
+};
+
+// acc (M x N fp32) (+)= sum_k A[k][m] B[k][n] over this split's rows of K
+// (blockIdx.z: rows [z * k_split, (z + 1) * k_split)) for one 128 x 128
+// output tile, 8 warps of 64 x 32; out = acc.to(bf16) when given. splits >
+// 1: partials through ws (splits x M x N), folded in split order by the
+// tile's last-arriving split.
+__global__ void __launch_bounds__(kGcThreads, 2)
+    ring_gc_gemm_acc_bf16_kernel(Operand<__nv_bfloat16> A,
+                                 Operand<__nv_bfloat16> B, int M, int N, int K,
+                                 int k_split, float* __restrict__ acc,
+                                 int first, __nv_bfloat16* __restrict__ out,
+                                 float* __restrict__ ws,
+                                 unsigned* __restrict__ tickets) {
+  constexpr int BN = kGcBN, LA = kGcLd, LB = kGcLd;
+  constexpr int MT = kGcBM / kGcWM / 16, NT = BN / kGcWN / 8;
+  extern __shared__ __align__(16) unsigned char gc_smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(gc_smem);
+  __nv_bfloat16* Bs = As + kGcStages * kGcBK * LA;
+  const int m0 = blockIdx.y * kGcBM, n0 = blockIdx.x * BN;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int kb = split * k_split, ke = min(K, kb + k_split);
+  const int nk = (ke - kb + kGcBK - 1) / kGcBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / kGcWN) * (kGcBM / kGcWM);
+  const int wn0 = (warp % kGcWN) * (BN / kGcWN);
+  const int g = lane >> 2, tg = lane & 3;
+  // ldmatrix.trans row addresses: matrix lane / 8 of each x4
+  const int mat = lane >> 3, r8 = lane & 7;
+  const int a_k = r8 + (mat >> 1) * 8, a_m = (mat & 1) * 8;
+  const int b_k = r8 + (mat & 1) * 8, b_n = (mat >> 1) * 8;
+
+  float c[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+
+  GcRows a_rows, b_rows;
+  a_rows.init(A.rows, kb);
+  b_rows.init(B.rows, kb);
+#pragma unroll
+  for (int st = 0; st < kGcStages - 1; ++st) {
+    if (st < nk) {
+      a_rows.stage(As + st * kGcBK * LA, A, ke, m0, M);
+      b_rows.stage(Bs + st * kGcBK * LB, B, ke, n0, N);
+    }
+    sm90::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    sm90::cp_async_wait<kGcStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free
+    const int nt = kt + kGcStages - 1;
+    if (nt < nk) {
+      const int st = nt % kGcStages;
+      a_rows.stage(As + st * kGcBK * LA, A, ke, m0, M);
+      b_rows.stage(Bs + st * kGcBK * LB, B, ke, n0, N);
+    }
+    sm90::cp_async_commit();
+    const __nv_bfloat16* as = As + (kt % kGcStages) * kGcBK * LA;
+    const __nv_bfloat16* bs = Bs + (kt % kGcStages) * kGcBK * LB;
+#pragma unroll
+    for (int kk = 0; kk < kGcBK; kk += 16) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        sm90::ldmatrix_x4_trans(a[i],
+                                as + (kk + a_k) * LA + wm0 + i * 16 + a_m);
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t r[4];
+        sm90::ldmatrix_x4_trans(r, bs + (kk + b_k) * LB + wn0 + jj * 16 + b_n);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sm90::mma16816<__nv_bfloat16>(c[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // element (i, j, e) of this thread: row m0 + wm0 + 16 i + g (+8 for e >=
+  // 2), column n0 + wn0 + 8 j + 2 tg + (e & 1)
+#define GC_FOR_EACH(body)                                                   \
+  _Pragma("unroll") for (int i = 0; i < MT; ++i)                          \
+  _Pragma("unroll") for (int j = 0; j < NT; ++j)                          \
+  _Pragma("unroll") for (int e = 0; e < 4; ++e) {                         \
+    const int m = m0 + wm0 + i * 16 + g + (e >> 1) * 8;                    \
+    const int n = n0 + wn0 + j * 8 + 2 * tg + (e & 1);                     \
+    if (m < M && n < N) {                                                  \
+      const int64_t at = static_cast<int64_t>(m) * N + n;                  \
+      body                                                                 \
+    }                                                                      \
+  }
+
+  if (splits == 1) {
+    GC_FOR_EACH({
+      const float v = first ? c[i][j][e] : acc[at] + c[i][j][e];
+      acc[at] = v;
+      if (out != nullptr) out[at] = __float2bfloat16_rn(v);
+    })
+    return;
+  }
+  const int64_t mn = static_cast<int64_t>(M) * N;
+  GC_FOR_EACH({ ws[split * mn + at] = c[i][j][e]; })
+  __threadfence();  // the partial is visible before the ticket is
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(&tickets[blockIdx.y * gridDim.x + blockIdx.x], 1u) + 1u ==
+           static_cast<unsigned>(splits);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  GC_FOR_EACH({
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      // this split's own partial from its registers: the same bits
+      const float part = z == split ? c[i][j][e] : __ldcg(ws + z * mn + at);
+      v = z == 0 ? (first ? part : acc[at] + part) : v + part;
+    }
+    acc[at] = v;
+    if (out != nullptr) out[at] = __float2bfloat16_rn(v);
+  })
+#undef GC_FOR_EACH
+}
+
 template <typename T>
 Operand<T> operand(const void* ptr, int rpb, int64_t sb, int64_t sr,
                    int kcontig, int vec) {
@@ -373,24 +597,39 @@ extern "C" int ring_rs_gemm_add_launch(int dtype, OPERAND_ARGS, int M, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// small_tiles: 64 x 64 tiles of 4 warps (the wrapper picks them when the
-// 128 x 128 grid would not cover the card's SMs).
+// bf16: the Hopper kernel above on 128 x 128 output tiles, both operands
+// k-major (kcontig 0), K cut into `splits` runs of k_split rows; ws ((splits, M, N) fp32) and tickets (one uint32 per output tile,
+// zeroed here) are needed when splits > 1.
+// fp32: the FMA tiles, 64 x 64 of 4 warps when small_tiles (the wrapper
+// picks them when the 128 x 128 grid would not cover the card's SMs).
 extern "C" int ring_gc_gemm_acc_launch(int dtype, OPERAND_ARGS, int M, int N,
                                        int K, float* acc, int first,
-                                       void* out, int small_tiles,
+                                       void* out, int small_tiles, int splits,
+                                       int k_split, float* ws, void* tickets,
                                        void* stream) {
   if (bad_sizes(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    auto o = static_cast<__nv_bfloat16*>(out);
-    if (small_tiles)
-      ring_gc_gemm_acc_kernel<__nv_bfloat16, 64, 64, 2, 2>
-          <<<grid_of(M, N, 64, 64), 128, 0, s>>>(OPERANDS(__nv_bfloat16), M,
-                                                 N, K, acc, first, o);
-    else
-      ring_gc_gemm_acc_kernel<__nv_bfloat16, 128, 128, 4, 2>
-          <<<grid_of(M, N, 128, 128), 256, 0, s>>>(OPERANDS(__nv_bfloat16),
-                                                   M, N, K, acc, first, o);
+    if (a_kcontig || b_kcontig || splits < 1 || k_split <= 0 ||
+        static_cast<int64_t>(splits - 1) * k_split >= K ||
+        static_cast<int64_t>(splits) * k_split < K ||
+        (splits > 1 && (ws == nullptr || tickets == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = ring_gc_gemm_acc_bf16_kernel;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kGcSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>((N + kGcBN - 1) / kGcBN),
+                    static_cast<unsigned>((M + kGcBM - 1) / kGcBM),
+                    static_cast<unsigned>(splits));
+    if (splits > 1) {
+      err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * grid.x * grid.y, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, kGcThreads, kGcSmem, s>>>(
+        OPERANDS(__nv_bfloat16), M, N, K, k_split, acc, first,
+        static_cast<__nv_bfloat16*>(out), ws, static_cast<unsigned*>(tickets));
   } else {
     auto o = static_cast<float*>(out);
     if (small_tiles)
@@ -404,6 +643,11 @@ extern "C" int ring_gc_gemm_acc_launch(int dtype, OPERAND_ARGS, int M, int N,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dW kernel's bf16 output tile rows and k step, so the host's plan
+// (gc_plan) and this file cannot disagree.
+extern "C" int ring_gc_tile() { return kGcBM; }
+extern "C" int ring_gc_k_step() { return kGcBK; }
 
 extern "C" const char* ring_gemm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -43,9 +43,39 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ring_gemm.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-# below this many 128 x 128 output tiles the dW kernel takes 64 x 64 tiles
-# (the H100 has 132 SMs)
+# below this many 128 x 128 output tiles the fp32 dW kernel takes 64 x 64
+# tiles (the H100 has 132 SMs)
 _SMALL_TILE_BELOW = 132
+GC_TILE = 128          # the bf16 dW kernel's output tile edge (kGcBM)
+GC_K_STEP = 64         # its k step (kGcBK): split lengths are multiples
+GC_MIN_SPLIT_K = 1024  # the shortest run of K a split is given
+H100_SMS = 132
+
+
+def gc_plan(M, N, K, sm_count=H100_SMS):
+    """The bf16 dW kernel's launch plan for an (M, N) output over K rows:
+    ``{"tiles": 128 x 128 output tiles, "splits": runs of K, "k_split":
+    rows a run (a multiple of GC_K_STEP; the last run takes the rest)}``.
+
+    One block a tile and split. Where the tiles alone leave more than a
+    tenth of the SMs idle, K is split until the grid covers ``sm_count``
+    SMs, each split keeping at least GC_MIN_SPLIT_K rows, so the fp32
+    partials each split writes and the last one reads (``splits * M * N *
+    4`` bytes each way) stay small beside the product's operands. At
+    gpt2_medium TP 2 (K = 8192): qkv dW (1024, 1536) 96 tiles -> 2 splits;
+    fc and mlp proj dW 128 tiles -> 1; attn proj dW (512, 1024) 32 tiles
+    -> 5."""
+    tiles = _ceil_div(M, GC_TILE) * _ceil_div(N, GC_TILE)
+    splits = 1
+    if 10 * tiles < 9 * sm_count:
+        splits = max(1, min(_ceil_div(sm_count, tiles), K // GC_MIN_SPLIT_K))
+    k_split = _ceil_div(_ceil_div(K, splits), GC_K_STEP) * GC_K_STEP
+    return {"tiles": tiles, "splits": _ceil_div(K, k_split),
+            "k_split": k_split}
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
 
 
 def build():
@@ -68,13 +98,18 @@ def _library():
     lib.ring_rs_gemm_add_launch.argtypes = [ctypes.c_int] + _OPERAND + \
         sizes + [ctypes.c_void_p] * 3
     lib.ring_gc_gemm_acc_launch.argtypes = [ctypes.c_int] + _OPERAND + \
-        sizes + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_void_p]
+        sizes + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     for fn in (lib.ring_ag_gemm_launch, lib.ring_rs_gemm_add_launch,
                lib.ring_gc_gemm_acc_launch):
         fn.restype = ctypes.c_int
     lib.ring_gemm_error_string.argtypes = [ctypes.c_int]
     lib.ring_gemm_error_string.restype = ctypes.c_char_p
+    if (lib.ring_gc_tile(), lib.ring_gc_k_step()) != (GC_TILE, GC_K_STEP):
+        raise RuntimeError("ring_gemm.cu's dW tile and k step are {}, the "
+                           "wrapper's {}".format(
+                               (lib.ring_gc_tile(), lib.ring_gc_k_step()),
+                               (GC_TILE, GC_K_STEP)))
     return lib
 
 
@@ -147,6 +182,15 @@ def _raise_if(err, name):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -------------------------------------------------------- step kernels
@@ -238,7 +282,9 @@ def ring_gc_gemm_acc(cur, fixed, blk, acc, first, out=None, rot_is_lhs=True):
     (b, s_loc) rows, in fp32 (``acc =`` on the first step), or its
     transpose when ``rot_is_lhs`` is False; with ``out`` given, also
     ``out = acc.to(out.dtype)`` (the last step). cur (b, s_loc, a) and
-    fixed (b, n*s_loc, c) contiguous; acc fp32 (a, c) or (c, a)."""
+    fixed (b, n*s_loc, c) contiguous; acc fp32 (a, c) or (c, a). bf16
+    runs the Hopper kernel on :func:`gc_plan`'s tiles and splits (the
+    workspace of a split K allocated here); fp32 the FMA tiles."""
     b, s_loc, a = cur.shape
     c = fixed.shape[2]
     shape = (a, c) if rot_is_lhs else (c, a)
@@ -264,11 +310,19 @@ def ring_gc_gemm_acc(cur, fixed, blk, acc, first, out=None, rot_is_lhs=True):
     fix = _rows(fixed, blk * s_loc * c, s_loc, S * c, c, False, c)
     a_op, b_op = (rot, fix) if rot_is_lhs else (fix, rot)
     M, N = shape
-    tiles = -(-M // 128) * -(-N // 128)
+    K = b * s_loc
+    plan = gc_plan(M, N, K, _sm_count(cur.device))
+    ws = tickets = None
+    if cur.dtype == torch.bfloat16 and plan["splits"] > 1:
+        ws = torch.empty((plan["splits"], M, N), dtype=torch.float32,
+                         device=cur.device)
+        tickets = torch.empty(plan["tiles"], dtype=torch.int32,
+                              device=cur.device)
     err = _library().ring_gc_gemm_acc_launch(
-        _DTYPES[cur.dtype], *a_op, *b_op, M, N, b * s_loc, acc.data_ptr(),
+        _DTYPES[cur.dtype], *a_op, *b_op, M, N, K, acc.data_ptr(),
         int(bool(first)), None if out is None else out.data_ptr(),
-        int(tiles < _SMALL_TILE_BELOW), _stream(cur))
+        int(plan["tiles"] < _SMALL_TILE_BELOW), plan["splits"],
+        plan["k_split"], _ptr(ws), _ptr(tickets), _stream(cur))
     _raise_if(err, "ring_gc_gemm_acc")
     ring_gc_gemm_acc.launches += 1
     return acc

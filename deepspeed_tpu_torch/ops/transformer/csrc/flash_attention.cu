@@ -27,22 +27,47 @@
 //
 // Bound on the H100 at the training shape (b 16, s 1024, h 16, d 64, bf16,
 // causal): the forward is bound by bytes by a small margin (135 MB against
-// 34 GFLOP), the backward by operations. These kernels are the simple first
-// version: every product runs on the CUDA cores in fp32 FMA from tiles staged
-// in shared memory, with a 4x4 register tile per thread and float4 shared
-// loads, so they run well above the tensor-core bound. Left for later work:
-// wgmma/mma.sync tensor-core products, cp.async/TMA double-buffering of the
-// next tile, and smaller tile transposes.
+// 34 GFLOP), the backward by operations.
 //
-// Tiles: 64 query rows (fwd, dq) or 64 keys (dk/dv) per block of 256 threads
-// (16 x 16); each thread owns 4 rows x 4 columns of a 64 x 64 score tile and
-// 4 rows x d/16 columns of the output tile. Causal tiles above the diagonal
-// are skipped, not masked.
+// The forward, and the backward at fp32 (the parity runs: TF32 would break
+// them) and fp16, are the simple first version: every product on the CUDA
+// cores in fp32 FMA from tiles staged in shared memory, a 4x4 register tile
+// per thread and float4 shared loads, well above the tensor-core bound.
+// Tiles: 64 query rows (fwd, dq) or 64 keys (dk/dv) per block of 256
+// threads (16 x 16); each thread owns 4 rows x 4 columns of a 64 x 64 score
+// tile and 4 rows x d/16 columns of the output tile. (fp16 stays here: on
+// the tensor cores its results missed the plain versions' where P and dS
+// fall into fp16's subnormal range, whatever the rounding-edge bound; bf16
+// has fp32's exponent range.)
+//
+// The backward at bf16 (the training paths) is redesigned for Hopper's
+// tensor cores (flash_bwd_dkdv_tc_kernel, flash_bwd_dq_tc_kernel): blocks of
+// 4 warps, each warp owning 16 rows of the block's 64 (keys for dk/dv,
+// queries for dq), so no sum crosses warps and nothing needs atomics. The
+// resident operands (K, V for dk/dv; Q, dO for dq) stay in shared memory in
+// bf16; the streamed ones (Q, dO, lse, delta; K, V, bias) are
+// double-buffered with 16-byte cp.async. Every product is mma.sync m16n8k16
+// with fp32 accumulators, its fragments read with ldmatrix (ldmatrix.trans
+// where the contraction runs along the rows: dO and Q for dV and dK, K for
+// dQ); the score-side results (P^T, dS^T; dS) stay in registers and become
+// the A operand of the next product, rounded to bf16 there: the plain
+// versions' rounding points, with each pair's P and dS at the plain
+// versions' bits (below: the tensor cores sum S and dP in another order, so
+// pairs near a rounding edge are summed again in the plain order). Rows are
+// padded to d + 8 elements, so the fragment loads meet no bank conflict.
+// The split design recomputes S and dP in both kernels (~1.4x the
+// arithmetic of one fused backward).
+//
+// Causal tiles above the diagonal are skipped, not masked.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -514,6 +539,617 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- tensor-core backward (bf16)
+
+constexpr int kTcThreads = 128;  // 4 warps x 16 rows of the block's 64
+constexpr int kTcRows = 64;      // keys (dk/dv) or queries (dq) per block
+
+template <int D>
+struct TcTile {
+  static constexpr int ld = D + 8;                 // padded smem row
+  static constexpr int bq = 32;  // dk/dv query tile: three blocks an SM
+};
+
+// The plain versions round P and dS to bf16 from fp32 S and dP that
+// cuBLAS sums over d in ascending order, one fp32 rounding per product
+// (exact for bf16 inputs). The tensor cores sum in another order, so a P or
+// dS lying near a bf16 rounding edge could round the other way, and one
+// term of a sum then moves by an ulp of the term: more than an ulp of a sum
+// that cancels. So each pair's P and dS come from the tensor-core S and dP
+// through the plain versions' operations, and where a bound on the
+// difference to the plain values reaches a rounding edge, S and dP are
+// summed again in the plain order (seq_dots) for that pair. The bound:
+// |S_tc - S_plain| <= 6 * 2^-24 |q| |k| (row norms, the tile's largest);
+// measured on the H100 at the train shape, at most 2.93 * 2^-24 |q| |k|.
+// One to two pairs in a hundred take the second sum: the flagged pairs of
+// a warp's tile are listed in shared memory, up to kTcList at a time, and
+// shared out over its lanes.
+constexpr float kProductSlack = 6.f * 5.9604645e-8f;  // 6 * 2^-24
+constexpr int kTcList = 64;  // flagged pairs a warp re-sums at a time
+
+// S and dP of one pair as the plain version sums them: ascending over d,
+// one fp32 rounding per step (rows in shared memory, 16-byte aligned).
+template <typename T, int D>
+__device__ __forceinline__ float2 seq_dots(const T* a1, const T* b1,
+                                           const T* a2, const T* b2) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < D; i += 8) {
+    const uint4 w[4] = {*reinterpret_cast<const uint4*>(a1 + i),
+                        *reinterpret_cast<const uint4*>(b1 + i),
+                        *reinterpret_cast<const uint4*>(a2 + i),
+                        *reinterpret_cast<const uint4*>(b2 + i)};
+    const T* x = reinterpret_cast<const T*>(w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s1 = fmaf(to_f(x[j]), to_f(x[8 + j]), s1);
+      s2 = fmaf(to_f(x[16 + j]), to_f(x[24 + j]), s2);
+    }
+  }
+  return make_float2(s1, s2);
+}
+
+// |row| of a D-long row in shared memory (16-byte aligned); a bound's
+// input, so the order of the sum does not matter.
+template <typename T, int D>
+__device__ __forceinline__ float row_norm(const T* a) {
+  float acc[8] = {};
+#pragma unroll
+  for (int i = 0; i < D; i += 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(a + i);
+    const T* x = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = fmaf(to_f(x[j]), to_f(x[j]), acc[j]);
+  }
+  return sqrtf(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
+               ((acc[4] + acc[5]) + (acc[6] + acc[7])));
+}
+
+struct PairTerms {
+  float p, ds, x, d1;
+};
+
+// P = exp(S * scale + bias - lse) and dS = P (dP - delta) scale in the
+// plain versions' order of fp32 operations (and x, dP - delta).
+__device__ __forceinline__ PairTerms pair_terms(float s, float dp, float scale,
+                                                float bias, float lse,
+                                                float delta) {
+  const float x = __fsub_rn(__fadd_rn(__fmul_rn(s, scale), bias), lse);
+  const float p = expf(x);
+  const float d1 = __fsub_rn(dp, delta);
+  return {p, __fmul_rn(__fmul_rn(p, d1), scale), x, d1};
+}
+
+// The distance from y's fp32 bits to bf16's rounding midpoint (low 16 bits
+// 0x8000), in fp32 ulps of y; each such ulp is at least |y| 2^-24.
+__device__ __forceinline__ float bf16_edge_ulps(float y) {
+  return static_cast<float>(
+      abs(static_cast<int>(__float_as_uint(y) & 0xFFFFu) - 0x8000));
+}
+
+// The bound of one check, fixed for a row (or column) of pairs over a tile:
+// ex bounds |x - x_plain| for x = S scale + bias - lse (S within es of the
+// plain S, a rounding of each of the three operations); tp is the relative
+// bound on |P - P_plain| (and the other roundings of dS) in fp32 ulps; ed
+// the part of dS's bound from dP within edp of the plain dP.
+struct EdgeBound {
+  float ex, tp, ed;
+};
+__device__ __forceinline__ EdgeBound edge_bound(float es, float sx_max,
+                                                float bias, float lse_max,
+                                                float edp, float scale) {
+  const float ex = es * scale + 1.2e-7f * (3.f * sx_max + 2.f * fabsf(bias) +
+                                           lse_max);
+  // expf of two arguments ex apart, each within two ulps: e^ex - 1 <=
+  // ex (1 + ex) for ex <= 1, and past that P is flagged anyway
+  const float rel = ex * (1.f + ex) + 4.8e-7f;
+  return {ex, rel * 16777216.f + 10.f, (1.f + rel) * edp * 16777216.f};
+}
+
+// Could P or dS of a pair (x its exponent, d1 = dP - delta), taken from S
+// and dP within the bound b of the plain version's, round to bf16
+// otherwise than the plain version's? P: its distance to the edge against
+// tp; dS = P d1 scale: against tp |d1| + ed, both sides divided by P scale.
+__device__ __forceinline__ bool near_plain_edge(PairTerms t, float x,
+                                                float d1, EdgeBound b) {
+  if (x + b.ex < -110.f) return false;  // both P underflow to 0
+  if (bf16_edge_ulps(t.p) <= b.tp) return true;
+  return (bf16_edge_ulps(t.ds) - b.tp) * fabsf(d1) <= b.ed;
+}
+
+// The largest of v over a warp's lanes.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 16-byte loads are possible when the base, the row stride and the head
+// offset keep every row's start on 16 bytes.
+template <typename T>
+__device__ __forceinline__ bool rows_aligned(const T* base, int64_t ss) {
+  return (reinterpret_cast<uintptr_t>(base) % 16 == 0) &&
+         ((ss * static_cast<int64_t>(sizeof(T))) % 16 == 0);
+}
+
+// Rows [r0, r0 + R) of a (rows x D) slice with row stride ss into dst[r][c]
+// (row pitch ld), rows at or past `limit` zero: cp.async when vec, else
+// plain loads stored directly.
+template <typename T, int D, int R>
+__device__ __forceinline__ void tc_rows(T* dst, int ld, const T* src,
+                                       int64_t ss, int r0, int limit,
+                                       bool vec) {
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const int row = r0 + r;
+    T* d = dst + r * ld + c;
+    if (vec) {
+      sm90::cp_async16(d, row < limit ? src + row * ss + c : src,
+                       row < limit ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = row < limit ? src[row * ss + c + j] : from_f<T>(0.f);
+    }
+  }
+}
+
+// c[j] (16 rows x 8 columns each, j < N/8) = A (16 x D, rows of `a` at
+// pitch ld) . B^T, B's N rows at pitch ld in `b`: both read as they lie
+// ([row][d], d contiguous).
+template <typename T, int D, int N>
+__device__ __forceinline__ void tc_abt(float (&c)[N / 8][4], const T* a,
+                                       const T* b, int ld, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kd = 0; kd < D; kd += 16) {
+    uint32_t af[4];
+    sm90::ldmatrix_x4(af, a + (lane & 15) * ld + kd + (lane >> 4) * 8);
+#pragma unroll
+    for (int nn = 0; nn < N / 16; ++nn) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4(bf, b + (nn * 16 + r8 + (mat >> 1) * 8) * ld + kd +
+                                (mat & 1) * 8);
+      sm90::mma16816<T>(c[2 * nn], af, bf[0], bf[1]);
+      sm90::mma16816<T>(c[2 * nn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[j] (16 x 8 each, j < D/8) += P (16 x K, C tiles p[K/8], rounded to T
+// here) . B (K x D, rows of `b` at pitch ld, read transposed).
+template <typename T, int D, int K>
+__device__ __forceinline__ void tc_pb(float (&acc)[D / 8][4],
+                                      const float (&p)[K / 8][4], const T* b,
+                                      int ld, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t af[4];
+    sm90::pack_c_to_a<T>(af, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4_trans(bf, b + (kk * 16 + r8 + (mat & 1) * 8) * ld +
+                                      nd * 16 + (mat >> 1) * 8);
+      sm90::mma16816<T>(acc[2 * nd], af, bf[0], bf[1]);
+      sm90::mma16816<T>(acc[2 * nd + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// 16 rows x D of fp32 accumulators (C tiles) -> rows `row0 + g (+8)` of a
+// packed gradient, rows at or past s skipped.
+template <typename T, int D>
+__device__ __forceinline__ void tc_store(T* dst, int64_t ss, int row0, int s,
+                                         const float (&acc)[D / 8][4],
+                                         int lane) {
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + half * 8;
+    if (row >= s) continue;
+    T* r = dst + row * ss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      r[j * 8 + 2 * tg] = from_f<T>(acc[j][2 * half]);
+      r[j * 8 + 2 * tg + 1] = from_f<T>(acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// dk and dv for one (batch, head, 64-key tile), walking the query tiles of
+// BQ rows from the diagonal down; warp w owns keys k0 + 16 w .. + 15.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkdv_tc_kernel(const FlashParams p) {
+  constexpr int LD = TcTile<D>::ld, BQ = TcTile<D>::bq;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* ks = reinterpret_cast<T*>(tc_smem);      // [64][LD]
+  T* vs = ks + kTcRows * LD;                  // [64][LD]
+  T* qs = vs + kTcRows * LD;                  // [2][BQ][LD]
+  T* dos = qs + 2 * BQ * LD;                  // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
+  float* qn_s = delta_s + 2 * BQ;   // [BQ] |q| of the tile's rows
+  float* dn_s = qn_s + BQ;          // [BQ] |dO|
+  float* kb_s = dn_s + BQ;          // [64] the keys' bias
+  constexpr int NPOS = BQ / 2;      // a thread's pairs a tile (j * 4 + e)
+  float2* wr = reinterpret_cast<float2*>(kb_s + kTcRows) +
+               threadIdx.x / 32 * kTcList;  // this warp's re-summed pairs
+  unsigned short* wl = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<float2*>(kb_s + kTcRows) + 4 * kTcList) +
+      threadIdx.x / 32 * kTcList;           // and their (lane, position)
+
+  const int kj = blockIdx.x, head = blockIdx.y, bi = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int s = p.s;
+  const int k0 = kj * kTcRows;
+  const int64_t base = bi * p.qkv_sb + head * D;
+  const T* qb = static_cast<const T*>(p.q) + base;
+  const T* kb = static_cast<const T*>(p.k) + base;
+  const T* vb = static_cast<const T*>(p.v) + base;
+  const T* db = static_cast<const T*>(p.dout) + bi * p.out_sb + head * D;
+  const bool vec_qkv = rows_aligned(qb, p.qkv_ss) &&
+                       rows_aligned(kb, p.qkv_ss) && rows_aligned(vb, p.qkv_ss);
+  const bool vec_do = rows_aligned(db, p.out_ss);
+  const int64_t rows_at = static_cast<int64_t>(bi) * s;  // lse/delta row 0
+
+  // this thread's two keys (rows g, g + 8 of the warp's 16) and their bias
+  const int key0 = k0 + warp * 16 + g;
+  for (int i = threadIdx.x; i < kTcRows; i += kTcThreads)
+    kb_s[i] = (p.bias != nullptr && k0 + i < s) ? p.bias[bi * p.bias_sb + k0 + i]
+                                                : 0.f;
+  float kbias[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int key = key0 + h2 * 8;
+    kbias[h2] = (p.bias != nullptr && key < s) ? p.bias[bi * p.bias_sb + key]
+                                               : 0.f;
+  }
+
+  const int nq = (s + BQ - 1) / BQ;
+  const int first = p.causal ? k0 / BQ : 0;
+  const int n = nq - first;
+  auto stage = [&](int it) {
+    const int q0 = (first + it) * BQ, st = it & 1;
+    tc_rows<T, D, BQ>(qs + st * BQ * LD, LD, qb, p.qkv_ss, q0, s, vec_qkv);
+    tc_rows<T, D, BQ>(dos + st * BQ * LD, LD, db, p.out_ss, q0, s, vec_do);
+    for (int i = threadIdx.x; i < BQ; i += kTcThreads) {
+      const int row = q0 + i;
+      const int64_t at = (rows_at + row) * p.h + head;
+      lse_s[st * BQ + i] = row < s ? p.lse_in[at] : 0.f;
+      delta_s[st * BQ + i] = row < s ? p.delta[at] : 0.f;
+    }
+  };
+  tc_rows<T, D, kTcRows>(ks, LD, kb, p.qkv_ss, k0, s, vec_qkv);
+  tc_rows<T, D, kTcRows>(vs, LD, vb, p.qkv_ss, k0, s, vec_qkv);
+  stage(0);
+  sm90::cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  float kn[2], vn[2];  // |k|, |v| of this thread's two keys
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) stage(it + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // tile it (and K, V) landed
+    const int q0 = (first + it) * BQ, st = it & 1;
+    const T* q_t = qs + st * BQ * LD;
+    const T* do_t = dos + st * BQ * LD;
+    if (it == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        kn[h2] = row_norm<T, D>(ks + (warp * 16 + g + h2 * 8) * LD);
+        vn[h2] = row_norm<T, D>(vs + (warp * 16 + g + h2 * 8) * LD);
+      }
+    }
+    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
+      if (i < BQ)
+        qn_s[i] = row_norm<T, D>(q_t + i * LD);
+      else
+        dn_s[i - BQ] = row_norm<T, D>(do_t + (i - BQ) * LD);
+    }
+    __syncthreads();  // the tile's row norms
+    // the check's bounds for this thread's two keys over the tile
+    float qmax = 0.f, dmax = 0.f, lmax = 0.f;
+    for (int i = lane; i < BQ; i += 32) {
+      qmax = fmaxf(qmax, qn_s[i]);
+      dmax = fmaxf(dmax, dn_s[i]);
+      lmax = fmaxf(lmax, fabsf(lse_s[st * BQ + i]));
+    }
+    qmax = warp_max(qmax);
+    dmax = warp_max(dmax);
+    lmax = warp_max(lmax);
+    EdgeBound eb[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      eb[h2] = edge_bound(kProductSlack * kn[h2] * qmax,
+                          qmax * kn[h2] * p.scale, kbias[h2], lmax,
+                          kProductSlack * vn[h2] * dmax, p.scale);
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
+    float sc[BQ / 8][4], dp[BQ / 8][4];
+    tc_abt<T, D, BQ>(sc, ks + warp * 16 * LD, q_t, LD, lane);
+    tc_abt<T, D, BQ>(dp, vs + warp * 16 * LD, do_t, LD, lane);
+    uint32_t flags = 0;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1, key = key0 + h2 * 8;
+        const int qc = j * 8 + 2 * tg + (e & 1), query = q0 + qc;
+        const bool ok = key < s && query < s && (!p.causal || query >= key);
+        PairTerms t{0.f, 0.f, 0.f, 0.f};
+        if (ok) {
+          t = pair_terms(sc[j][e], dp[j][e], p.scale, kbias[h2],
+                         lse_s[st * BQ + qc], delta_s[st * BQ + qc]);
+          if (near_plain_edge(t, t.x, t.d1, eb[h2]))
+            flags |= 1u << (j * 4 + e);
+        }
+        sc[j][e] = t.p;   // P^T, rounded to T as the dV product's A operand
+        dp[j][e] = t.ds;  // dS^T, likewise for dK
+      }
+    // the flagged pairs of the warp, listed kTcList at a time (each lane's
+    // after the lanes before it) and shared out over its lanes
+    while (__any_sync(0xffffffffu, flags)) {
+      const int cnt = __popc(flags);
+      int base = cnt;  // inclusive prefix sum over the lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, base, o);
+        if (lane >= o) base += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, base, 31);
+      base -= cnt;
+      int k = base;
+      for (uint32_t f = flags; f != 0u && k < kTcList; f &= f - 1u, ++k)
+        wl[k] = static_cast<unsigned short>(lane << 8 | (__ffs(f) - 1));
+      __syncwarp();
+      for (int i = lane; i < min(total, kTcList); i += 32) {
+        const int owner = wl[i] >> 8, pos = wl[i] & 255;
+        const int qc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+        const int kl = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+        const float2 sd = seq_dots<T, D>(q_t + qc * LD, ks + kl * LD,
+                                         do_t + qc * LD, vs + kl * LD);
+        const PairTerms t = pair_terms(sd.x, sd.y, p.scale, kb_s[kl],
+                                       lse_s[st * BQ + qc],
+                                       delta_s[st * BQ + qc]);
+        wr[i] = make_float2(t.p, t.ds);
+      }
+      __syncwarp();
+      k = base;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (flags >> (j * 4 + e) & 1u) {
+            if (k < kTcList) {
+            sc[j][e] = wr[k].x;
+            dp[j][e] = wr[k].y;
+              flags &= ~(1u << (j * 4 + e));
+            }
+            ++k;
+          }
+      __syncwarp();
+    }
+    tc_pb<T, D, BQ>(dv, sc, do_t, LD, lane);  // dV += P^T dO
+    tc_pb<T, D, BQ>(dk, dp, q_t, LD, lane);   // dK += dS^T Q
+    __syncthreads();  // every warp is done with stage st
+  }
+  sm90::cp_async_wait<0>();
+
+  const int64_t gbase = bi * p.grad_sb + head * D;
+  tc_store<T, D>(static_cast<T*>(p.dk) + gbase, p.grad_ss, k0 + warp * 16, s,
+                 dk, lane);
+  tc_store<T, D>(static_cast<T*>(p.dv) + gbase, p.grad_ss, k0 + warp * 16, s,
+                 dv, lane);
+}
+
+// dq for one (batch, head, 64-query tile), walking the key tiles of 64; warp
+// w owns queries q0 + 16 w .. + 15. The heaviest causal tiles (the last
+// queries) are scheduled first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_tc_kernel(const FlashParams p) {
+  constexpr int LD = TcTile<D>::ld;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);      // [64][LD]
+  T* dos = qs + kTcRows * LD;                 // [64][LD]
+  T* ks = dos + kTcRows * LD;                 // [2][64][LD]
+  T* vs = ks + 2 * kTcRows * LD;              // [2][64][LD]
+  float* bias_s = reinterpret_cast<float*>(vs + 2 * kTcRows * LD);  // [2][64]
+  float* kn_s = bias_s + 2 * kTcRows;  // [64] |k| of the tile's keys
+  float* vn_s = kn_s + kTcRows;        // [64] |v|
+  float* lq_s = vn_s + kTcRows;        // [64] lse of the block's queries
+  float* dq_s = lq_s + kTcRows;        // [64] delta
+  constexpr int NPOS = kTcRows / 2;    // a thread's pairs a tile
+  float* wr = dq_s + kTcRows +
+              threadIdx.x / 32 * kTcList;  // this warp's re-summed dS
+  unsigned short* wl = reinterpret_cast<unsigned short*>(
+      dq_s + kTcRows + 4 * kTcList) + threadIdx.x / 32 * kTcList;
+
+  const int s = p.s;
+  const int nq = (s + kTcRows - 1) / kTcRows;
+  const int qi = p.causal ? nq - 1 - blockIdx.x : blockIdx.x;
+  const int head = blockIdx.y, bi = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int q0 = qi * kTcRows;
+  const int64_t base = bi * p.qkv_sb + head * D;
+  const T* qb = static_cast<const T*>(p.q) + base;
+  const T* kb = static_cast<const T*>(p.k) + base;
+  const T* vb = static_cast<const T*>(p.v) + base;
+  const T* db = static_cast<const T*>(p.dout) + bi * p.out_sb + head * D;
+  const float* biasb = p.bias ? p.bias + bi * p.bias_sb : nullptr;
+  const bool vec_qkv = rows_aligned(qb, p.qkv_ss) &&
+                       rows_aligned(kb, p.qkv_ss) && rows_aligned(vb, p.qkv_ss);
+  const bool vec_do = rows_aligned(db, p.out_ss);
+
+  // this thread's two queries (rows g, g + 8 of the warp's 16)
+  const int row0 = q0 + warp * 16 + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int row = row0 + h2 * 8;
+    const int64_t at = (static_cast<int64_t>(bi) * s + row) * p.h + head;
+    lse_r[h2] = row < s ? p.lse_in[at] : 0.f;
+    delta_r[h2] = row < s ? p.delta[at] : 0.f;
+  }
+  for (int i = threadIdx.x; i < kTcRows; i += kTcThreads) {
+    const int row = q0 + i;
+    const int64_t at = (static_cast<int64_t>(bi) * s + row) * p.h + head;
+    lq_s[i] = row < s ? p.lse_in[at] : 0.f;
+    dq_s[i] = row < s ? p.delta[at] : 0.f;
+  }
+
+  const int nk = (s + kTcRows - 1) / kTcRows;
+  const int n = p.causal ? min(qi + 1, nk) : nk;
+  auto stage = [&](int kt) {
+    const int k0 = kt * kTcRows, st = kt & 1;
+    tc_rows<T, D, kTcRows>(ks + st * kTcRows * LD, LD, kb, p.qkv_ss, k0, s,
+                           vec_qkv);
+    tc_rows<T, D, kTcRows>(vs + st * kTcRows * LD, LD, vb, p.qkv_ss, k0, s,
+                           vec_qkv);
+    for (int i = threadIdx.x; i < kTcRows; i += kTcThreads)
+      bias_s[st * kTcRows + i] =
+          (biasb != nullptr && k0 + i < s) ? biasb[k0 + i] : 0.f;
+  };
+  tc_rows<T, D, kTcRows>(qs, LD, qb, p.qkv_ss, q0, s, vec_qkv);
+  tc_rows<T, D, kTcRows>(dos, LD, db, p.out_ss, q0, s, vec_do);
+  stage(0);
+  sm90::cp_async_commit();
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  float qn[2], dn[2];  // |q|, |dO| of this thread's two queries
+  for (int kt = 0; kt < n; ++kt) {
+    if (kt + 1 < n) stage(kt + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * kTcRows, st = kt & 1;
+    const T* k_t = ks + st * kTcRows * LD;
+    const T* v_t = vs + st * kTcRows * LD;
+    if (kt == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        qn[h2] = row_norm<T, D>(qs + (warp * 16 + g + h2 * 8) * LD);
+        dn[h2] = row_norm<T, D>(dos + (warp * 16 + g + h2 * 8) * LD);
+      }
+    }
+    for (int i = threadIdx.x; i < 2 * kTcRows; i += kTcThreads) {
+      if (i < kTcRows)
+        kn_s[i] = row_norm<T, D>(k_t + i * LD);
+      else
+        vn_s[i - kTcRows] = row_norm<T, D>(v_t + (i - kTcRows) * LD);
+    }
+    __syncthreads();  // the tile's row norms
+    // the check's bounds for this thread's two queries over the tile
+    float kmax = 0.f, vmax = 0.f;
+    for (int i = lane; i < kTcRows; i += 32) {
+      kmax = fmaxf(kmax, kn_s[i]);
+      vmax = fmaxf(vmax, vn_s[i]);
+    }
+    kmax = warp_max(kmax);
+    vmax = warp_max(vmax);
+    EdgeBound eb[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      eb[h2] = edge_bound(kProductSlack * qn[h2] * kmax,
+                          qn[h2] * kmax * p.scale, 0.f, fabsf(lse_r[h2]),
+                          kProductSlack * dn[h2] * vmax, p.scale);
+    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
+    float sc[kTcRows / 8][4], dp[kTcRows / 8][4];
+    tc_abt<T, D, kTcRows>(sc, qs + warp * 16 * LD, k_t, LD, lane);
+    tc_abt<T, D, kTcRows>(dp, dos + warp * 16 * LD, v_t, LD, lane);
+    uint32_t flags = 0;
+#pragma unroll
+    for (int j = 0; j < kTcRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1, row = row0 + h2 * 8;
+        const int kc = j * 8 + 2 * tg + (e & 1), key = k0 + kc;
+        const bool ok = row < s && key < s && (!p.causal || row >= key);
+        float ds = 0.f;
+        if (ok) {
+          const float bias = bias_s[st * kTcRows + kc];
+          const PairTerms t = pair_terms(sc[j][e], dp[j][e], p.scale, bias,
+                                         lse_r[h2], delta_r[h2]);
+          EdgeBound b = eb[h2];
+          if (bias != 0.f)
+            b = edge_bound(kProductSlack * qn[h2] * kmax,
+                           qn[h2] * kmax * p.scale, bias, fabsf(lse_r[h2]),
+                           kProductSlack * dn[h2] * vmax, p.scale);
+          if (near_plain_edge(t, t.x, t.d1, b)) flags |= 1u << (j * 4 + e);
+          ds = t.ds;
+        }
+        dp[j][e] = ds;  // dS, rounded to T as the dQ product's A operand
+      }
+    // the flagged pairs of the warp, listed kTcList at a time (each lane's
+    // after the lanes before it) and shared out over its lanes
+    while (__any_sync(0xffffffffu, flags)) {
+      const int cnt = __popc(flags);
+      int base = cnt;  // inclusive prefix sum over the lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, base, o);
+        if (lane >= o) base += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, base, 31);
+      base -= cnt;
+      int k = base;
+      for (uint32_t f = flags; f != 0u && k < kTcList; f &= f - 1u, ++k)
+        wl[k] = static_cast<unsigned short>(lane << 8 | (__ffs(f) - 1));
+      __syncwarp();
+      for (int i = lane; i < min(total, kTcList); i += 32) {
+        const int owner = wl[i] >> 8, pos = wl[i] & 255;
+        const int kc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+        const int ql = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+        const float2 sd = seq_dots<T, D>(qs + ql * LD, k_t + kc * LD,
+                                         dos + ql * LD, v_t + kc * LD);
+        wr[i] = pair_terms(sd.x, sd.y, p.scale, bias_s[st * kTcRows + kc],
+                           lq_s[ql], dq_s[ql]).ds;
+      }
+      __syncwarp();
+      k = base;
+#pragma unroll
+      for (int j = 0; j < kTcRows / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (flags >> (j * 4 + e) & 1u) {
+            if (k < kTcList) {
+            dp[j][e] = wr[k];
+              flags &= ~(1u << (j * 4 + e));
+            }
+            ++k;
+          }
+      __syncwarp();
+    }
+    tc_pb<T, D, kTcRows>(dq, dp, k_t, LD, lane);  // dQ += dS K
+    __syncthreads();
+  }
+  sm90::cp_async_wait<0>();
+
+  tc_store<T, D>(static_cast<T*>(p.dq) + bi * p.grad_sb + head * D,
+                 p.grad_ss, q0 + warp * 16, s, dq, lane);
+}
+
 // dk/dv query tile: 64 rows, or 32 at d = 128 (shared memory holds 227 KB)
 template <int D>
 struct DkdvTile {
@@ -534,33 +1170,60 @@ constexpr size_t dkdv_smem() {
                           2 * BQ * kLd + kTile);
 }
 
+template <int D>
+constexpr size_t dkdv_tc_smem() {
+  return sizeof(__nv_bfloat16) * (2 * kTcRows + 4 * TcTile<D>::bq) *
+             TcTile<D>::ld +
+         sizeof(float) * (6 * TcTile<D>::bq + kTcRows) +
+         (sizeof(float2) + sizeof(unsigned short)) * 4 * kTcList;
+}
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return sizeof(__nv_bfloat16) * 6 * kTcRows * TcTile<D>::ld +
+         sizeof(float) * 6 * kTcRows +
+         (sizeof(float) + sizeof(unsigned short)) * 4 * kTcList;
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const FlashParams& p,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   const FlashParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
 
+// fp32 and fp16: the FMA kernels; bf16: the forward's FMA kernel, the
+// backward's tensor-core kernels.
 template <typename T, int D>
 cudaError_t dispatch(Which which, const FlashParams& p, cudaStream_t st) {
   const int nq = (p.s + kTile - 1) / kTile;
   const dim3 grid(nq, p.h, p.b);
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<T, D>, grid, fwd_smem<D>(), p, st);
+      return launch(flash_fwd_kernel<T, D>, grid, kThreads, fwd_smem<D>(), p,
+                    st);
     case kDq:
-      return launch(flash_bwd_dq_kernel<T, D>, grid, dq_smem<D>(), p, st);
-    default: {
-      constexpr int BQ = DkdvTile<D>::value;
-      return launch(flash_bwd_dkdv_kernel<T, D, BQ>, grid, dkdv_smem<D, BQ>(),
-                    p, st);
-    }
+      if constexpr (tc)
+        return launch(flash_bwd_dq_tc_kernel<T, D>, grid, kTcThreads,
+                      dq_tc_smem<D>(), p, st);
+      else
+        return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads, dq_smem<D>(),
+                      p, st);
+    default:
+      if constexpr (tc) {
+        return launch(flash_bwd_dkdv_tc_kernel<T, D>, grid, kTcThreads,
+                      dkdv_tc_smem<D>(), p, st);
+      } else {
+        constexpr int BQ = DkdvTile<D>::value;
+        return launch(flash_bwd_dkdv_kernel<T, D, BQ>, grid, kThreads,
+                      dkdv_smem<D, BQ>(), p, st);
+      }
   }
 }
 

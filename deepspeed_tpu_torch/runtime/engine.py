@@ -409,7 +409,8 @@ class DeepSpeedEngine:
         if not overflow:
             self.optimizer.step_flat(flat.master, grads, flat.exp_avg,
                                      flat.exp_avg_sq, flat.step + 1,
-                                     segments=flat.segments)
+                                     segments=flat.segments, group=group,
+                                     sharded_from=flat.replicated_end)
             flat.step += 1
             flat.refresh_params()
         flat.acc.zero_()

@@ -31,6 +31,7 @@ from deepspeed_tpu.parallel.collective_matmul import (
     tp_row_matmul as j_row)
 from deepspeed_tpu.runtime.comm import config as jcomm
 from deepspeed_tpu_torch.ops import ring_gemm as rg
+from deepspeed_tpu_torch.ops.ring_gemm import ring_gemm as rgm
 from deepspeed_tpu_torch.parallel import collective_matmul as tcm
 from deepspeed_tpu_torch.runtime.comm import config as tcomm
 from deepspeed_tpu_torch.utils.distributed import SpawnError, spawn
@@ -293,3 +294,45 @@ def test_unknown_collective_matmul_key_warns(caplog):
     finally:
         logger.removeHandler(handler)
     assert any("bogus" in m and "NO effect" in m for m in seen)
+
+
+# gpt2_medium TP 2's dW sites (chip_smoke.RING_SITES): (M, N) of the
+# output over K = b * s_loc = 16 * 512 rows, and the splits the design
+# gives them: the attention-projection and qkv outputs leave SMs idle
+GC_SITES = {"qkv_dw": ((1024, 1536), 2), "fc_dw": ((1024, 2048), 1),
+            "attn_proj_dw": ((512, 1024), 5),
+            "mlp_proj_dw": ((2048, 1024), 1)}
+
+
+@pytest.mark.parametrize("M,N,K,sm", [
+    (1024, 1536, 8192, 132), (512, 1024, 8192, 132), (100, 70, 8192, 132),
+    (64, 64, 777, 132), (130, 260, 5000, 132), (4096, 4096, 8192, 132),
+    (512, 1024, 8192, 16), (300, 300, 1, 132), (128, 128, 3000, 132),
+    (600, 700, 1000, 132)])
+def test_gc_plan_splits_cover_k_and_fill_the_card(M, N, K, sm):
+    """The bf16 dW kernel's plan: its splits cover K exactly in runs of a
+    multiple of the k step (the last takes the rest, never empty); no
+    split where the tiles fill nine tenths of the SMs, else as many as
+    cover them, unless a run would fall under GC_MIN_SPLIT_K rows."""
+    plan = rgm.gc_plan(M, N, K, sm)
+    splits, k_split, tiles = plan["splits"], plan["k_split"], plan["tiles"]
+    assert tiles == -(-M // rgm.GC_TILE) * -(-N // rgm.GC_TILE)
+    assert k_split % rgm.GC_K_STEP == 0 and splits >= 1
+    assert (splits - 1) * k_split < K <= splits * k_split
+    runs = [min(k_split, K - z * k_split) for z in range(splits)]
+    assert sum(runs) == K and min(runs) > 0
+    assert splits == 1 or min(runs[:-1]) >= rgm.GC_MIN_SPLIT_K
+    if 10 * tiles >= 9 * sm:              # the tiles alone fill the card
+        assert splits == 1
+    else:                                 # split until the grid covers it
+        want = max(1, min(-(-sm // tiles), K // rgm.GC_MIN_SPLIT_K))
+        assert want - 1 <= splits <= want   # runs rounded to the k step
+        assert tiles * splits >= sm or splits == want
+
+
+@pytest.mark.parametrize("site", sorted(GC_SITES))
+def test_gc_plan_at_the_tensor_parallel_dw_sites(site):
+    (M, N), splits = GC_SITES[site]
+    plan = rgm.gc_plan(M, N, 16 * 512, rgm.H100_SMS)
+    assert plan["splits"] == splits, plan
+    assert plan["tiles"] * plan["splits"] >= rgm.H100_SMS * 0.9

@@ -293,6 +293,64 @@ def test_flash_kernels_are_deterministic(cuda):
                 assert torch.equal(got, want), dtype
 
 
+@pytest.mark.parametrize("causal,bias", [(True, False), (True, True),
+                                         (False, False), (False, True)])
+@pytest.mark.parametrize("s", [96, 1000, 1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_tensor_core_backward_matches_plain_versions(cuda, d, s,
+                                                           causal, bias):
+    """The bf16 backward kernels (mma.sync on the tensor cores, P and dS
+    rounded to bf16 at the plain versions' points and bits) against the
+    plain versions: dq, dk, dv per element within one ulp of the plain
+    value plus 1e-6 (FLASH_TOL in chip_smoke.py); s need not be a multiple
+    of the 64-row tiles; a second run bit-identical. (fp16 keeps the FMA
+    kernels: test_flash_kernels_match_plain_versions.)"""
+    dtype = torch.bfloat16
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, h = 1, 2
+    q, k, v, dout, kb = _flash_case(cuda, dtype, b, s, h, d, seed=s + d,
+                                    bias=bias)
+    kw = dict(num_heads=h, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+    delta = fa.attention_delta(out, dout, h)
+    args = (q, k, v, kb, dout, lse, delta)
+    counts = (fa.flash_bwd_dkdv.launches, fa.flash_bwd_dq.launches)
+    runs = [fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+            for _ in range(2)]
+    want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
+        (fa.flash_bwd_dq_reference(*args, **kw),)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkdv.launches, fa.flash_bwd_dq.launches) == \
+        (counts[0] + 2, counts[1] + 2)
+    for name, got, again, ref in zip(("dk", "dv", "dq"), runs[0], runs[1],
+                                     want):
+        assert torch.isfinite(got.float()).all(), name
+        assert torch.equal(got, again), name
+        assert _ulp_ratio(got, ref, 1e-6) <= 1.0, \
+            (name, _ulp_ratio(got, ref, 1e-6))
+
+
+def test_flash_tensor_core_backward_is_bit_stable_over_repeats(cuda):
+    """20 runs of the bf16 backward kernels at a ragged length with a key
+    bias, causal and not: the same bits every time (no atomics; each
+    warp owns its rows)."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    q, k, v, dout, kb = _flash_case(cuda, torch.bfloat16, 2, 1000, 4, 64,
+                                    bias=True)
+    for causal in (True, False):
+        kw = dict(num_heads=4, causal=causal)
+        out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+        delta = fa.attention_delta(out, dout, 4)
+        args = (q, k, v, kb, dout, lse, delta)
+        runs = [fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args,
+                                                                 **kw),)
+                for _ in range(20)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for got, want in zip(run, runs[0]):
+                assert torch.equal(got, want), causal
+
+
 @pytest.mark.parametrize("bad", ["d_head", "strides", "device"])
 def test_flash_kernel_refuses_what_it_cannot_take(cuda, bad):
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
@@ -331,6 +389,40 @@ def test_flash_attention_bshd_mask_bias_grads_match_plain(cuda):
                                                   v.grad)])
     for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
         assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+
+
+def test_flash_attention_bshd_mask_bias_bit_stable_over_repeats(cuda):
+    """The case of test_flash_attention_bshd_mask_bias_grads_match_plain
+    run 50 times through the kernels: every run bit-identical to the
+    first, and each held to the CPU run at the same 1e-5 (run with -s to
+    print the worst element of each output and both sides' values)."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
+    rng = np.random.RandomState(1)
+    b, s, h, d = 2, 96, 2, 32
+    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+
+    def run(dev):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays[:3])
+        out = flash_attention_bshd(q, k, v, causal=False,
+                                   mask_bias=torch.from_numpy(mask).to(dev))
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    want = run(torch.device("cpu"))
+    runs = [run(cuda) for _ in range(50)]
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        errs = [_rel_err(r[i], want[i]) for r in runs]
+        worst = max(range(len(runs)), key=errs.__getitem__)
+        diff = (runs[worst][i] - want[i]).abs()
+        at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+        print("repeats {}: worst run {} rel {} at {}: gpu {} cpu {}".format(
+            name, worst, errs[worst], at, float(runs[worst][i][at]),
+            float(want[i][at])))
+        assert all(torch.equal(r[i], runs[0][i]) for r in runs), name
+        assert max(errs) <= 1e-5, (name, max(errs))
 
 
 # ------------------------------------------------------------------ Adam
@@ -633,8 +725,9 @@ LAMB_SEGMENTS = {
 def test_fused_lamb_kernels_match_plain_versions(cuda, table,
                                                  eps_inside_sqrt):
     """Three steps: m and v bit-equal to the plain versions, the trust
-    ratios bit-equal (the plain version sums in the kernel's order), p
-    within one fp32 ulp; two runs of the kernels bit-identical."""
+    ratios and the per-segment sums (|p|^2, |u|^2) bit-equal (the plain
+    version sums in the kernel's order), p within one fp32 ulp; two runs
+    of the kernels bit-identical."""
     from deepspeed_tpu_torch.ops.adam import bias_corrections
     from deepspeed_tpu_torch.ops.lamb import (
         LambPlan, fused_lamb, fused_lamb_apply, fused_lamb_apply_reference,
@@ -659,19 +752,22 @@ def test_fused_lamb_kernels_match_plain_versions(cuda, table,
                   bc1=bc1, bc2=bc2, eps_inside_sqrt=eps_inside_sqrt)
         kw = {k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2",
                                  "eps_inside_sqrt")}
-        ratios = []
+        ratios, sums = [], []
         for i, (p, m, v) in enumerate(sides):
             if i < 2:
-                r = fused_lamb(p, g, m, v, plan, **sc)
+                r, sq = fused_lamb(p, g, m, v, plan, **sc)
                 fused_lamb_apply(p, m, v, r, plan, lr=2e-3, **kw)
             else:
-                r = fused_lamb_reference(p, g, m, v, plan, **sc)
+                r, sq = fused_lamb_reference(p, g, m, v, plan, **sc)
                 fused_lamb_apply_reference(p, m, v, r, plan, lr=2e-3, **kw)
             ratios.append(r)
+            sums.append(sq)
         torch.cuda.synchronize()
         for t0, t1 in zip(sides[0], sides[1]):
             assert torch.equal(t0, t1)             # deterministic
+        assert torch.equal(sums[0], sums[1])
         assert torch.equal(ratios[0], ratios[2]), (ratios[0], ratios[2])
+        assert torch.equal(sums[0], sums[2]), (sums[0], sums[2])
         assert torch.equal(sides[0][1], sides[2][1])
         assert torch.equal(sides[0][2], sides[2][2])
         assert _ulp_steps(sides[0][0], sides[2][0]) <= 1
@@ -923,6 +1019,60 @@ def test_ring_gc_gemm_acc_matches_plain_version(cuda, dtype, b, s_loc, a, c,
     torch.cuda.synchronize()
     _assert_ring_close(accs[0], accs[1], torch.float32)
     _assert_ring_close(outs[0], outs[1], dtype)
+
+
+# (b, s_loc, a, c, ring n, lhs): K = b * s_loc rows; ragged M, N and K
+# (some not multiples of 8: the plain-load staging), and the planner's
+# split counts 1, 2, 4, 5 and 8 (checked in the test)
+GC_BF16_CASES = [
+    ((2, 40, 72, 24, 2, True), 1), ((3, 100, 37, 53, 2, False), 1),
+    ((1, 3000, 35, 9, 3, True), 2), ((4, 1024, 100, 70, 2, False), 4),
+    ((2, 4096, 1024, 512, 2, False), 5), ((8, 1024, 1024, 1536, 2, True), 2),
+    ((1, 8292, 72, 40, 2, True), 8), ((16, 512, 2048, 1024, 2, True), 1),
+    ((2, 4096, 600, 700, 2, True), 5)]
+
+
+@pytest.mark.parametrize("first,with_out", [(True, True), (False, False),
+                                            (False, True)])
+@pytest.mark.parametrize("case,splits", GC_BF16_CASES)
+def test_ring_gc_gemm_acc_bf16_kernel_matches_plain_version(
+        cuda, monkeypatch, case, splits, first, with_out):
+    """The bf16 dW kernel (k-major tiles staged by cp.async, ldmatrix.trans
+    fragments, split K folded in split order) against its plain version:
+    acc within 2**-16 of its largest entry and out within two bf16 ulps
+    (RING_TOL's and _ring_tol's bounds), lhs and rhs modes, ``first`` or
+    accumulating, ``out`` given or not; a second run from the same acc
+    bit-identical."""
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    from deepspeed_tpu_torch.ops.ring_gemm import ring_gemm as rgm
+    _full_precision_reduction(monkeypatch)
+    b, s_loc, a, c, n, lhs = case
+    shape = (a, c) if lhs else (c, a)
+    plan = rgm.gc_plan(shape[0], shape[1], b * s_loc,
+                       torch.cuda.get_device_properties(cuda)
+                       .multi_processor_count)
+    assert plan["splits"] == splits, plan
+    gen = torch.Generator(device=cuda).manual_seed(a + c + s_loc)
+    rot = _rnd(gen, cuda, torch.bfloat16, b, s_loc, a)
+    fixed = _rnd(gen, cuda, torch.bfloat16, b, n * s_loc, c)
+    acc0 = torch.randn(shape, generator=gen, device=cuda)
+    accs = [acc0.clone() for _ in range(3)]
+    outs = [torch.empty(shape, device=cuda, dtype=torch.bfloat16)
+            if with_out else None for _ in range(3)]
+    before = rg.ring_gc_gemm_acc.launches
+    for i in range(2):
+        rg.ring_gc_gemm_acc(rot, fixed, n - 1, accs[i], first, outs[i], lhs)
+    rg.ring_gc_gemm_acc_reference(rot, fixed, n - 1, accs[2], first, outs[2],
+                                  lhs)
+    torch.cuda.synchronize()
+    assert rg.ring_gc_gemm_acc.launches == before + 2
+    assert torch.equal(accs[0], accs[1])
+    want = accs[2]
+    err = (accs[0] - want).abs().max()
+    assert float(err) <= 2 ** -16 * float(want.abs().max()), float(err)
+    if with_out:
+        assert torch.equal(outs[0], outs[1])
+        _assert_ring_close(outs[0], outs[2], torch.bfloat16)
 
 
 def test_ring_gemm_wrappers_refuse_what_the_kernels_cannot_take(cuda):

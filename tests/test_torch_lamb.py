@@ -210,9 +210,10 @@ def test_wrappers_run_their_plain_versions_on_cpu_tensors():
     sc = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.0, bc1=0.1,
               bc2=0.001)
     before = fused_lamb.launches, fused_lamb_apply.launches
-    r0 = fused_lamb(*sides[0], plan, **sc)
-    r1 = fused_lamb_reference(*sides[1], plan, **sc)
+    r0, s0 = fused_lamb(*sides[0], plan, **sc)
+    r1, s1 = fused_lamb_reference(*sides[1], plan, **sc)
     assert torch.equal(r0, r1) and r0.shape == (len(SEGMENTS),)
+    assert torch.equal(s0, s1) and s0.shape == (len(SEGMENTS), 2)
     assert float(r0[3]) == 1.0                 # the empty segment
     kw = {k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2")}
     fused_lamb_apply(sides[0][0], sides[0][2], sides[0][3], r0, plan,
@@ -244,7 +245,38 @@ def test_fused_lamb_handle_options():
     g = torch.ones(64)
     m, v = torch.zeros(64), torch.zeros(64)
     plan = LambPlan([(0, 64)], "cpu")
-    ratio = fused_lamb_reference(p, g, m, v, plan, beta1=0.8, beta2=0.99,
-                                 eps=1e-8, weight_decay=0.0, bc1=0.2,
-                                 bc2=0.01, max_coeff=2.0, min_coeff=0.5)
+    ratio, _ = fused_lamb_reference(p, g, m, v, plan, beta1=0.8,
+                                    beta2=0.99, eps=1e-8, weight_decay=0.0,
+                                    bc1=0.2, bc2=0.01, max_coeff=2.0,
+                                    min_coeff=0.5)
     assert float(ratio[0]) == 0.5
+
+
+def test_plain_stage1_sums_are_each_segments_sums():
+    """Stage 1's per-segment ``(|p|^2, |u|^2)`` are the sums over each
+    segment (the kernel's order bit for bit, within 1e-6 of float64), zero
+    for the empty segment, and give back the ratios it returns; tensor
+    parallelism all-reduces them (``ring_ratios``)."""
+    total = 19200 + 8192
+    p, g = _flat_case(3, SEGMENTS, total)
+    plan = LambPlan(SEGMENTS, "cpu")
+    pt, gt = torch.from_numpy(p), torch.from_numpy(g)
+    m, v = torch.zeros(total), torch.zeros(total)
+    sc = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01, bc1=0.1,
+              bc2=0.001)
+    ratio, sums = fused_lamb_reference(pt, gt, m, v, plan, **sc)
+    assert sums.shape == (len(SEGMENTS), 2) and sums.dtype == torch.float32
+    for i, (off, n) in enumerate(SEGMENTS):
+        sl = slice(off, off + n)
+        u = tl._direction(pt[sl], m[sl], v[sl], eps=sc["eps"],
+                          weight_decay=sc["weight_decay"], bc1=sc["bc1"],
+                          bc2=sc["bc2"], eps_inside_sqrt=False)
+        for j, x in enumerate((pt[sl], u)):
+            want = float((x.double() ** 2).sum())
+            assert abs(float(sums[i, j]) - want) <= 1e-6 * want, (i, j)
+            if n:
+                assert float(sums[i, j]) == float(
+                    tl._segment_total(tl._chunk_partials(x * x)))
+    assert sums[3].tolist() == [0.0, 0.0]
+    assert torch.equal(tl.trust_ratios(sums, 10.0, 0.01), ratio)
+    assert plan.sharded_index(17152).tolist() == [2, 3, 4]

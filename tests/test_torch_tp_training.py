@@ -14,7 +14,10 @@ there: an Adam step moves an element by up to lr in either direction
 when its gradient is rounding noise); the gathered master tree and
 optimizer state after loading the JAX engine's, bit for bit; the next
 loss from that state; TP 2 and TP 4 against TP 1 in the port (losses
-1e-5 relative, masters 5e-5 absolute).
+1e-5 relative, masters 5e-5 absolute); LAMB at TP 2 with shards of unequal
+norms (rank 0's half of every ``fc_kernel`` scaled x20: a trust ratio
+taken from one shard's norms is off by up to ~3e-4 there) against TP 1
+and the JAX engine, at the same tolerances.
 """
 import numpy as np
 import pytest
@@ -36,6 +39,8 @@ MODEL = dict(vocab_size=128, max_seq_len=32, n_layers=2, n_heads=2,
              d_model=64, remat=False, loss_chunk=0)
 MODEL4 = dict(MODEL, n_heads=4, loss_chunk=8)
 STEPS = 3
+LAMB_STEPS = 2
+FC_SCALE = 20.0
 LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-4}
 MASTER_ATOL = 5e-5
 
@@ -56,10 +61,10 @@ def _leaves(tree, prefix=""):
         yield prefix[:-1], np.asarray(tree)
 
 
-def _ds(prec, tp, backend="pallas"):
+def _ds(prec, tp, backend="pallas", optimizer="Adam"):
     conf = {"train_micro_batch_size_per_gpu": 2,
             "gradient_accumulation_steps": 1,
-            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+            "optimizer": {"type": optimizer, "params": {"lr": 1e-3}},
             "steps_per_print": 10 ** 9}
     if tp:
         conf["comm"] = {"collective_matmul": {"enabled": True,
@@ -88,34 +93,53 @@ def jax_runs():
         opt = jax.tree_util.tree_map(np.asarray, eng.state["opt"])
         out[prec] = dict(losses=losses, master=master, opt=opt,
                          next_loss=float(eng.train_batch(batch=(ids, ids))))
+    model = jgpt2.make_gpt2_model(config=jgpt2.GPT2Config(
+        **MODEL, use_flash_attention=False))
+    model.params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x.at[..., :x.shape[-1] // 2].multiply(FC_SCALE)
+        if jax.tree_util.keystr(path).endswith("['fc_kernel']") else x,
+        model.params)
+    eng = JEngine(model=model, mesh=j_build_mesh(model=2),
+                  config_params=_ds("fp32", True, optimizer="Lamb"))
+    assert eng._cm_tp
+    out["lamb"] = dict(
+        losses=[float(eng.train_batch(batch=(ids, ids)))
+                for _ in range(LAMB_STEPS)],
+        master=jax.tree_util.tree_map(np.asarray, eng.get_master_params()))
     return out
 
 
-def _spec(prec, backend="pallas", model=MODEL, load=None):
-    return dict(model=model, seed=0, prec=prec, backend=backend, micro=2,
-                ids=_ids().astype(np.int64), steps=STEPS, load=load)
+def _spec(prec, backend="pallas", model=MODEL, load=None, **extra):
+    return dict(dict(model=model, seed=0, prec=prec, backend=backend,
+                     micro=2, ids=_ids().astype(np.int64), steps=STEPS,
+                     load=load), **extra)
 
 
 @pytest.fixture(scope="module")
 def port_runs(jax_runs):
     """world -> per-rank results of workers.tp_engine: at world 2 fp32 and
-    bf16 (each then loading the JAX engine's state) and fp32 on the plain
-    ring; at world 4 fp32."""
+    bf16 (each then loading the JAX engine's state), fp32 on the plain
+    ring and fp32 LAMB with unequal shards; at world 4 fp32."""
     specs2 = [_spec(p, load=(jax_runs[p]["master"], jax_runs[p]["opt"]))
-              for p in ("fp32", "bf16")] + [_spec("fp32", "ppermute")]
+              for p in ("fp32", "bf16")] + [_spec("fp32", "ppermute")] + \
+        [_spec("fp32", steps=LAMB_STEPS, optimizer="Lamb",
+               scale_fc=FC_SCALE)]
     return {2: spawn(workers.tp_engine, 2, args=(specs2,), timeout_s=150),
             4: spawn(workers.tp_engine, 4, args=([_spec("fp32",
                                                         model=MODEL4)],),
                      timeout_s=150)}
 
 
-def _tp1(model):
+def _tp1(model, optimizer="Adam", steps=STEPS, scale_fc=None):
     """The port's engine without tensor parallelism, fp32."""
+    module = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**model))
+    if scale_fc:
+        workers.scale_fc_left_half(module, scale_fc)
     eng = deepspeed_tpu_torch.initialize(
-        model=tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**model)),
-        config_params=_ds("fp32", False), device="cpu")[0]
+        model=module, config_params=_ds("fp32", False, optimizer=optimizer),
+        device="cpu")[0]
     ids = _ids().astype(np.int64)
-    losses = [float(eng.train_batch(batch=(ids, ids))) for _ in range(STEPS)]
+    losses = [float(eng.train_batch(batch=(ids, ids))) for _ in range(steps)]
     return losses, eng.get_master_params()
 
 
@@ -170,6 +194,26 @@ def test_tp_matches_the_single_rank_engine(port_runs, world):
     for name, w in _leaves(master):
         err = float(np.abs(got[name] - w).max())
         assert err <= MASTER_ATOL, (name, err)
+
+
+def test_tp2_lamb_with_unequal_shards_matches_tp1_and_the_jax_engine(
+        jax_runs, port_runs):
+    """Each trust ratio comes from the whole leaf's norms: the sharded
+    segments' sums are all-reduced over the ring."""
+    losses, master = _tp1(MODEL, "Lamb", LAMB_STEPS, FC_SCALE)
+    want = jax_runs["lamb"]
+    np.testing.assert_allclose(losses, want["losses"], rtol=1e-5)
+    for rank in port_runs[2]:
+        res = rank[3]
+        np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(res["losses"], want["losses"], rtol=1e-5)
+        assert res["opt_step"] == LAMB_STEPS
+        got = dict(_leaves(res["master"]))
+        tp1 = dict(_leaves(master))
+        for name, w in _leaves(want["master"]):
+            for ref in (w, tp1[name]):
+                err = float(np.abs(got[name] - ref).max())
+                assert err <= MASTER_ATOL, (name, err)
 
 
 def test_plain_ring_and_kernel_backend_agree(port_runs):

@@ -75,7 +75,8 @@ def ring_ops(rank, world, cases):
 def _train_config(spec):
     conf = {"train_micro_batch_size_per_gpu": spec["micro"],
             "gradient_accumulation_steps": 1,
-            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+            "optimizer": {"type": spec.get("optimizer", "Adam"),
+                          "params": {"lr": 1e-3}},
             "steps_per_print": 10 ** 9}
     if spec["backend"] is not None:
         conf["comm"] = {"collective_matmul": {"enabled": True,
@@ -86,9 +87,19 @@ def _train_config(spec):
     return conf
 
 
+def scale_fc_left_half(model, factor):
+    """Scale the left half of the columns of every ``fc_kernel`` (rank
+    0's shard at TP 2) by ``factor``, in place: shards of unequal norms."""
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("fc_kernel"):
+                t[:, :t.shape[1] // 2] *= factor
+
+
 def tp_engine(rank, world, specs):
     """Per spec: train a TP engine over the whole group from the seeded
-    full init; return the losses, the gathered master tree, and, after
+    full init (its fc kernels' left halves scaled by ``scale_fc`` where
+    given); return the losses, the gathered master tree, and, after
     loading the given JAX state, the gathered master again and the next
     loss."""
     import deepspeed_tpu_torch
@@ -97,8 +108,11 @@ def tp_engine(rank, world, specs):
     results = []
     for spec in specs:
         cfg = gpt2.GPT2Config(**spec["model"])
+        model = gpt2.make_gpt2_model(config=cfg, seed=spec["seed"])
+        if spec.get("scale_fc"):
+            scale_fc_left_half(model, spec["scale_fc"])
         engine = deepspeed_tpu_torch.initialize(
-            model=gpt2.make_gpt2_model(config=cfg, seed=spec["seed"]),
+            model=model,
             mesh=build_mesh(model=world), config_params=_train_config(spec),
             device="cpu")[0]
         assert engine.mp_world_size == world and engine._cm_tp
