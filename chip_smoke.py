@@ -14,7 +14,8 @@ with no ``ok`` line):
    the card could take (``bound_ms``) and a PyTorch library call's where
    one exists: paged attention (the serve path's decode shape), the flash
    forward, dk/dv and dq kernels (b 16, s 1024, h 16, d 64, bf16, causal,
-   q/k/v strided column blocks of one QKV tensor), the same three in the
+   q/k/v strided column blocks of one QKV tensor; two runs of each
+   bit-identical), the same three in the
    BERT path's mode (``flash_bert``: b 32, s 512, h 16, d 64, bf16,
    non-causal, the fp32 key bias of the train_bert batch's padded mask,
    also timed without the bias) and Adam (one flat fp32 buffer of
@@ -52,6 +53,11 @@ with no ``ok`` line):
    against their plain versions, timed; then ``flash_fp32_repeats``: the
    fp32 key-mask case of the GPU tests (b 2, s 96, h 2, d 32) 60 times,
    every run bit-identical, the worst element against the CPU run printed;
+   then ``flash_fp16``: the fp16 forward, dk/dv and dq (tensor cores)
+   against their plain versions at probes/kernel_probe.py fp16_backward's
+   cases (d 32 / 128, s 96 / 1000, causal or not, a key bias dropping 20%
+   of keys) and one whose P and dS fall into fp16's subnormal range, each
+   within one fp16 ulp of the plain value plus 1e-6 (eps / 4 for out);
 12. lamb — the LAMB stage-1 and apply kernels against their plain
    versions over one flat fp32 buffer of BERT-large's size with its real
    segment table (26 parameters, 336,232,258 elements), the per-segment
@@ -69,8 +75,9 @@ with no ``ok`` line):
    (all-gather-matmul, matmul-reduce-scatter with the add, the dW
    gather-contract) at gpt2_medium TP 2's shapes (b 16, s 1024, four
    sites each, bf16, transposed weight views as the backward gives
-   them) against their plain versions, per element, timed beside their
-   bounds and torch.matmul of the same product;
+   them) against their plain versions, per element (ag and gc also bit
+   for bit over two runs), timed beside their bounds and torch.matmul of
+   the same product;
 16. train_tp — the tensor-parallel main path: two spawned ranks sharing
    this card (gloo, each hop through host memory), each
    ``initialize(mesh=build_mesh(model=2), ...)`` with the ds_config
@@ -328,6 +335,7 @@ def flash_check_and_time(q, k, v, dout, bias, h, causal, flush):
     dk, dv = fa.flash_bwd_dkdv(*args, **kw)
     dq = fa.flash_bwd_dq(*args, **kw)
     again = fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+    fwd_again = fa.flash_fwd(q, k, v, bias, **kw)
     ref_dk, ref_dv = fa.flash_bwd_dkdv_reference(*args, **kw)
     ref_dq = fa.flash_bwd_dq_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -341,12 +349,15 @@ def flash_check_and_time(q, k, v, dout, bias, h, causal, flush):
         errs[name + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
     errs["bwd_repeat_bit_equal"] = all(
         torch.equal(a, b) for a, b in zip(again, (dk, dv, dq)))
+    errs["fwd_repeat_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(fwd_again, (out, lse)))
     for t in (out, lse, dq, dk, dv):
         assert torch.isfinite(t.float()).all(), "non-finite kernel output"
     assert errs["lse"] <= FLASH_TOL["lse"], errs
     assert max(errs[n + "_ulp_ratio"] for n in pairs) <= 1.0, errs
     assert errs["bwd_repeat_bit_equal"], "two backward runs differ"
-    del ref_out, ref_lse, ref_dk, ref_dv, ref_dq, again
+    assert errs["fwd_repeat_bit_equal"], "two forward runs differ"
+    del ref_out, ref_lse, ref_dk, ref_dv, ref_dq, again, fwd_again
 
     times = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, bias, **kw),
@@ -519,6 +530,81 @@ def phase_flash_fp32_repeats(repeats=60):
     assert not any(gpu_varies.values()), result
     assert not any(cpu_varies.values()), result
     assert rel <= 1e-5, result
+    return result
+
+
+# The fp16 cases (b, h, d, s, causal, q and k scale): probes/kernel_probe.py
+# fp16_backward's, and one with q and k scaled by 3 so that P and dS fall
+# into fp16's subnormal range and below its rounding to 0 (2**-25).
+FP16_CASES = [(2, 3, d, s, causal, 1.0) for d in (32, 128) for s in (96, 1000)
+              for causal in (True, False)] + \
+    [(2, 2, 64, 333, causal, 3.0) for causal in (True, False)]
+
+
+def fp16_case(device, b, h, d, s, qk_scale=1.0):
+    """fp16 q, k, v (column blocks of one QKV tensor), dout and a key bias
+    dropping 20% of keys (-1e9) and shifting the others, from numpy's
+    generator seeded with s + d (the probe's and the GPU tests' recipe)."""
+    import torch
+    rng = np.random.RandomState(s + d)
+    to = lambda a: torch.from_numpy(a).to(device, torch.float16)
+    qkv = to(rng.randn(b, s, 3 * h * d).astype(np.float32))
+    q, k, v = qkv.split(h * d, -1)
+    dout = to(rng.randn(b, s, h * d).astype(np.float32))
+    bias = rng.randn(b, s).astype(np.float32)
+    bias[rng.rand(b, s) < 0.2] = -1e9
+    bias[:, 0] = 0.0
+    q.mul_(qk_scale)    # in place: q, k, v stay column blocks of one tensor
+    k.mul_(qk_scale)
+    return q, k, v, dout, torch.from_numpy(bias).to(device)
+
+
+def phase_flash_fp16():
+    """fp16 on the tensor-core kernels: forward, dk/dv and dq against their
+    plain versions at FP16_CASES, each output per element within one fp16
+    ulp of the plain value plus 1e-6 (the gradients) or eps / 4 (out), lse
+    within 1e-4, with the share of the pairs whose P or dS is an fp16
+    subnormal."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    device = torch.device("cuda", 0)
+    eps = torch.finfo(torch.float16).eps
+    ratio = lambda got, want, atol: float(
+        ((got.float() - want.float()).abs() /
+         (eps * want.float().abs() + atol)).max())
+    cases, worst = [], 0.0
+    for b, h, d, s, causal, qk_scale in FP16_CASES:
+        q, k, v, dout, bias = fp16_case(device, b, h, d, s, qk_scale)
+        kw = dict(num_heads=h, causal=causal)
+        out, lse = fa.flash_fwd(q, k, v, bias, **kw)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, bias, **kw)
+        delta = fa.attention_delta(out, dout, h)
+        args = (q, k, v, bias, dout, lse, delta)
+        got = fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+        want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
+            (fa.flash_bwd_dq_reference(*args, **kw),)
+        _, _, _, p, ds = fa._bwd_terms(q, k, v, bias, dout, lse, delta, h,
+                                       causal, d ** -0.5)
+        torch.cuda.synchronize()
+        sub = lambda t: float(((t != 0) & (t.float().abs() < 2 ** -14))
+                              .float().mean())
+        row = {"b": b, "h": h, "d": d, "s": s, "causal": causal,
+               "qk_scale": qk_scale, "lse_abs": float((lse - ref_lse).abs()
+                                                     .max()),
+               "out_ulp_ratio": ratio(out, ref_out, eps / 4),
+               "subnormal_share": {"p": sub(p.half()), "ds": sub(ds)}}
+        for name, g, w in zip(("dk", "dv", "dq"), got, want):
+            assert torch.isfinite(g.float()).all(), (row, name)
+            row[name + "_ulp_ratio"] = ratio(g, w, 1e-6)
+        cases.append(row)
+        worst = max(worst, row["out_ulp_ratio"], row["dk_ulp_ratio"],
+                    row["dv_ulp_ratio"], row["dq_ulp_ratio"])
+        assert row["lse_abs"] <= FLASH_TOL["lse"], row
+        del p, ds, got, want
+    result = {"phase": "flash_fp16", "cases": cases, "worst_ulp_ratio": worst,
+              "bound": "one fp16 ulp of the plain value + 1e-6 (dq, dk, dv) "
+                       "or + eps / 4 (out); lse 1e-4"}
+    assert worst <= 1.0, result
     return result
 
 
@@ -1756,6 +1842,14 @@ def phase_ring_gemm(flush):
                     err, ratio = _ring_err(get(0), get(1), tol)
                     acc_err = None
                     assert torch.isfinite(get(0)).all()
+                    if name == "ring_ag_gemm":
+                        # the same bits run to run (no split K)
+                        first = get(0).clone()
+                        kern()
+                        torch.cuda.synchronize()
+                        assert torch.equal(get(0), first), \
+                            (site, "two runs differ")
+                        del first
                 assert ratio <= 1.0, (name, site, err, ratio)
                 worst = max(worst, err)
                 b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
@@ -2312,6 +2406,8 @@ def main():
     emit(phase_flash3d(flush))
     torch.cuda.empty_cache()
     emit(phase_flash_fp32_repeats())
+    emit(phase_flash_fp16())
+    torch.cuda.empty_cache()
     adam = phase_adam(flush)
     emit(adam)
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the port's CUDA kernels (sm_90a):
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulators), ldmatrix
+// mma.sync m16n8k16 (bf16 or fp16 operands, fp32 accumulators), ldmatrix
 // fragment loads (plain and transposing) and 16-byte cp.async copies.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -55,7 +56,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-// c += a . b for one m16n8k16 tile (T: __nv_bfloat16).
+// c += a . b for one m16n8k16 tile (T: __nv_bfloat16 or __half).
 template <typename T>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1);
@@ -70,12 +71,27 @@ __device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&c)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 // (lo, hi) rounded to nearest even into T and packed, lo in the low half.
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi);
 template <>
 __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 // The A fragment of a 16-deep product from two neighbouring C tiles c0

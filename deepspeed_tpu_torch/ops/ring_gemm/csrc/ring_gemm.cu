@@ -28,25 +28,32 @@
 // Bound on the H100: operations at the main path's shapes (K = 512 to 8192,
 // M = 8192 rows; ~1000 flops per byte moved).
 //
-// ag and rs (the first design): bf16 operands go through the tensor cores
-// with mma.sync m16n8k16 (fp32 accumulators), 128 x 128 output tiles of 8
-// warps, 16-byte global loads where the layout allows, one stage: the tiles
-// are loaded, synchronised and consumed in turn.
+// rs (the first design): bf16 operands go through the tensor cores with
+// mma.sync m16n8k16 (fp32 accumulators), 128 x 128 output tiles of 8 warps,
+// 16-byte global loads where the layout allows, one stage: the tiles are
+// loaded, synchronised and consumed in turn (gemm_tile), a scalar epilogue.
 //
-// gc (bf16, redesigned for Hopper): both dW operands arrive k-major (the
-// contraction index is the row index, M or N contiguous), so the tiles are
-// staged as they lie: 16-byte cp.async copies of 64 k-rows into a ring of
-// three shared-memory stages (rows padded by 16 bytes, so the fragment
-// loads meet no bank conflict; each thread's row offsets advance by
-// additions, no division in the loop), fragments read with ldmatrix.trans,
+// gc and ag (bf16, redesigned for Hopper) share one main loop: 16-byte
+// cp.async copies of 64-deep k steps into a ring of three shared-memory
+// stages (rows padded by 16 bytes, so the fragment loads meet no bank
+// conflict; each thread's row offsets computed once and advanced by
+// additions, no division in the loop), fragments read with ldmatrix, and
 // mma.sync m16n8k16 over 128 x 128 output tiles of 8 warps (64 x 32 each).
-// On the H100 it runs at ~190 TFLOP/s a site, bound by latency rather than
-// bytes: more stages, 32-deep steps and 4-warp blocks ran no faster
-// (probes/kernel_probe.py). The host splits K so that the tiles fill the
-// card (gc_plan in ring_gemm.py): each split writes its fp32 partial tile
-// to a workspace, and the split that arrives last at a tile (a ticket per
-// tile) folds acc + partial 0 + partial 1 + ... in split order, so the
-// result has the same bits run to run.
+// gc's operands both arrive k-major (the contraction index is the row
+// index, M or N contiguous), so its tiles are staged as they lie and read
+// with ldmatrix.trans. On the H100 it runs at ~190 TFLOP/s a site, bound by
+// latency rather than bytes: more stages, 32-deep steps and 4-warp blocks
+// ran no faster (probes/kernel_probe.py). The host splits K so that the
+// tiles fill the card (gc_plan in ring_gemm.py): each split writes its fp32
+// partial tile to a workspace, and the split that arrives last at a tile (a
+// ticket per tile) folds acc + partial 0 + partial 1 + ... in split order,
+// so the result has the same bits run to run. ag's A (the chunk) is
+// k-contiguous and read with plain ldmatrix; its B is the weight w
+// (n-contiguous, staged as k rows, ldmatrix.trans) or, in the backward, the
+// w^T view (k-contiguous, staged like A); the kernel is built for both
+// (ring_ag_gemm_bf16_kernel<KC>). Its M = 8192 rows give 256-1024 tiles, so
+// K is never split; each fp32 sum rounds to bf16 once, and neighbouring
+// columns are stored as one 32-bit word into the ring block.
 //
 // fp32 operands take a plain FMA path (the parity runs).
 
@@ -531,6 +538,181 @@ __global__ void __launch_bounds__(kGcThreads, 2)
 #undef GC_FOR_EACH
 }
 
+// ------------------------------ the all-gather step kernel (bf16, Hopper)
+
+// The rows one thread copies into every stage of a 128-row tile of a
+// k-contiguous operand (A; B when kcontig): rows r0 + kStep j of the tile
+// at its one 16-byte chunk of the stage's 64 k, their offsets computed once
+// (rows past R read as zeros) and the column advanced a stage at a time.
+struct KcRows {
+  static constexpr int kChunks = kGcBK / 8;            // 16-byte chunks a row
+  static constexpr int kStep = kGcThreads / kChunks;   // rows a pass
+  static constexpr int kRows = kGcBM / kStep;          // rows a thread
+  static constexpr int kLd = kGcBK + 8;                // padded stage row
+  int k;  // this thread's column
+  int64_t off[kRows];
+  bool in[kRows];
+
+  __device__ __forceinline__ void init(const RowSplit& rows, int r0, int R) {
+    k = (threadIdx.x % kChunks) * 8;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = r0 + threadIdx.x / kChunks + j * kStep;
+      in[j] = r < R;
+      off[j] = in[j] ? rows.off(r) : 0;
+    }
+  }
+
+  // The next kGcBK columns (below K) into a stage s[r][kk], zero outside:
+  // 16-byte cp.async copies when the operand allows them (vec: K % 8 == 0),
+  // else plain loads stored directly. Then advance.
+  __device__ __forceinline__ void stage(__nv_bfloat16* s,
+                                        const Operand<__nv_bfloat16>& op,
+                                        int K) {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      __nv_bfloat16* dst = s + (threadIdx.x / kChunks + j * kStep) * kLd +
+                           threadIdx.x % kChunks * 8;
+      if (op.vec) {
+        const bool ok = in[j] && k < K;
+        sm90::cp_async16(dst, ok ? op.ptr + off[j] + k : op.ptr, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (in[j] && k + e < K) ? op.ptr[off[j] + k + e]
+                                        : zero_of<__nv_bfloat16>();
+      }
+    }
+    k += kGcBK;
+  }
+};
+
+// Shared memory of the ag kernel's stages: A [128][72] and B [128][72]
+// (kcontig) or [64][136] (n-contiguous) each stage.
+template <bool KC>
+constexpr size_t ag_smem() {
+  return sizeof(__nv_bfloat16) * kGcStages *
+         (kGcBM * KcRows::kLd + (KC ? kGcBN * KcRows::kLd : kGcBK * kGcLd));
+}
+
+// out[m][n] = sum_k A[m][k] B[k][n] for one 128 x 128 output tile, 8 warps
+// of 64 x 32, on the dW kernel's main loop: 64-deep k steps staged by
+// cp.async into a ring of three stages, fragments by ldmatrix (A, and B
+// when KC: k-contiguous, the w^T view; ldmatrix.trans for an n-contiguous
+// w), mma.sync m16n8k16; then each fp32 sum rounded to bf16 once and the
+// pairs of neighbouring columns stored as 32-bit words into the ring block
+// through `o`. No split K: the result has the same bits run to run.
+template <bool KC>
+__global__ void __launch_bounds__(kGcThreads, 2)
+    ring_ag_gemm_bf16_kernel(Operand<__nv_bfloat16> A,
+                             Operand<__nv_bfloat16> B, int M, int N, int K,
+                             __nv_bfloat16* __restrict__ out, RowSplit o) {
+  constexpr int LA = KcRows::kLd;
+  constexpr int LB = KC ? KcRows::kLd : kGcLd;
+  constexpr int SA = kGcBM * LA, SB = KC ? kGcBN * LB : kGcBK * LB;
+  constexpr int MT = kGcBM / kGcWM / 16, NT = kGcBN / kGcWN / 8;
+  extern __shared__ __align__(16) unsigned char ag_smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(ag_smem_raw);
+  __nv_bfloat16* Bs = As + kGcStages * SA;
+  const int m0 = blockIdx.y * kGcBM, n0 = blockIdx.x * kGcBN;
+  const int nk = (K + kGcBK - 1) / kGcBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / kGcWN) * (kGcBM / kGcWM);
+  const int wn0 = (warp % kGcWN) * (kGcBN / kGcWN);
+  const int g = lane >> 2, tg = lane & 3;
+  const int mat = lane >> 3, r8 = lane & 7;
+
+  float c[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+
+  KcRows a_rows;
+  a_rows.init(A.rows, m0, M);
+  KcRows b_kc;   // B when KC
+  GcRows b_kr;   // B when n-contiguous (its rows are the k index)
+  if constexpr (KC)
+    b_kc.init(B.rows, n0, N);
+  else
+    b_kr.init(B.rows, 0);
+  auto load = [&](int st) {
+    a_rows.stage(As + st * SA, A, K);
+    if constexpr (KC)
+      b_kc.stage(Bs + st * SB, B, K);
+    else
+      b_kr.stage(Bs + st * SB, B, K, n0, N);
+  };
+#pragma unroll
+  for (int st = 0; st < kGcStages - 1; ++st) {
+    if (st < nk) load(st);
+    sm90::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    sm90::cp_async_wait<kGcStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free
+    const int nt = kt + kGcStages - 1;
+    if (nt < nk) load(nt % kGcStages);
+    sm90::cp_async_commit();
+    const __nv_bfloat16* as = As + (kt % kGcStages) * SA;
+    const __nv_bfloat16* bs = Bs + (kt % kGcStages) * SB;
+#pragma unroll
+    for (int kk = 0; kk < kGcBK; kk += 16) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        sm90::ldmatrix_x4(a[i], as + (wm0 + i * 16 + (lane & 15)) * LA + kk +
+                                    (lane >> 4) * 8);
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t r[4];
+        if constexpr (KC)
+          sm90::ldmatrix_x4(r, bs + (wn0 + jj * 16 + r8 + (mat >> 1) * 8) * LB +
+                                   kk + (mat & 1) * 8);
+        else
+          sm90::ldmatrix_x4_trans(r, bs + (kk + r8 + (mat & 1) * 8) * LB +
+                                         wn0 + jj * 16 + (mat >> 1) * 8);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sm90::mma16816<__nv_bfloat16>(c[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // rows m0 + wm0 + 16 i + g (+8), columns n0 + wn0 + 8 j + 2 tg (+1)
+  const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
+                     o.sr % 2 == 0 && o.sb % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + i * 16 + g + h * 8;
+      if (m >= M) continue;
+      __nv_bfloat16* row = out + o.off(m);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wn0 + j * 8 + 2 * tg;
+        const float v0 = c[i][j][2 * h], v1 = c[i][j][2 * h + 1];
+        if (pairs && n + 1 < N) {
+          *reinterpret_cast<uint32_t*>(row + n) =
+              sm90::pack2<__nv_bfloat16>(v0, v1);
+        } else {
+          if (n < N) row[n] = __float2bfloat16_rn(v0);
+          if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+}
+
 template <typename T>
 Operand<T> operand(const void* ptr, int rpb, int64_t sb, int64_t sr,
                    int kcontig, int vec) {
@@ -565,10 +747,17 @@ extern "C" int ring_ag_gemm_launch(int dtype, OPERAND_ARGS, int M, int N,
   const RowSplit o{o_rpb, o_sb, o_sr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    ring_ag_gemm_kernel<__nv_bfloat16, 128, 128, 4, 2>
-        <<<grid_of(M, N, 128, 128), 256, 0, s>>>(
-            OPERANDS(__nv_bfloat16), M, N, K,
-            static_cast<__nv_bfloat16*>(out), o);
+    if (!a_kcontig) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = b_kcontig ? ring_ag_gemm_bf16_kernel<true>
+                            : ring_ag_gemm_bf16_kernel<false>;
+    const size_t smem = b_kcontig ? ag_smem<true>() : ag_smem<false>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid_of(M, N, kGcBM, kGcBN), kGcThreads, smem, s>>>(
+        OPERANDS(__nv_bfloat16), M, N, K, static_cast<__nv_bfloat16*>(out),
+        o);
   } else {
     ring_ag_gemm_kernel<float, 128, 128, 4, 2>
         <<<grid_of(M, N, 128, 128), 256, 0, s>>>(

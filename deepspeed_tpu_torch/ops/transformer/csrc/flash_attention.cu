@@ -2,13 +2,15 @@
 // two kernels (dk/dv, then dq).
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py:
-//   flash_fwd_kernel       <- _fwd_packed (pallas_call at :540 resident, :566
-//                             streaming)
-//   flash_bwd_dkdv_kernel  <- _bwd_fused_packed (:795, :816) and the dk/dv
-//   flash_bwd_dq_kernel       half (:962) and dq half (:937) of
-//                             _bwd_split_packed: both TPU functions compute the
-//                             same (dq, dk, dv), which these two kernels
-//                             compute without atomics, so dq is deterministic
+//   forward (flash_fwd_tc_kernel for bf16 and fp16, flash_fwd_kernel for
+//     fp32) <- _fwd_packed (pallas_call at :540 resident, :566 streaming)
+//     and, one head per (b * h) row, _fwd (:452)
+//   dk/dv (flash_bwd_dkdv_tc_kernel; flash_bwd_dkdv_kernel for fp32) and
+//   dq (flash_bwd_dq_tc_kernel; flash_bwd_dq_kernel for fp32)
+//     <- _bwd_fused_packed (:795, :816), the dk/dv half (:962) and dq half
+//     (:937) of _bwd_split_packed, and _bwd (:483): the TPU functions
+//     compute the same (dq, dk, dv), which these kernels compute without
+//     atomics, so dq is deterministic
 //
 // Layout: q, k, v, out, dout, dq, dk, dv are (b, s, h*d) "packed" rows, read
 // through strides, never transposed to (b, h, s, d): q/k/v are usually the
@@ -29,34 +31,36 @@
 // causal): the forward is bound by bytes by a small margin (135 MB against
 // 34 GFLOP), the backward by operations.
 //
-// The forward, and the backward at fp32 (the parity runs: TF32 would break
-// them) and fp16, are the simple first version: every product on the CUDA
-// cores in fp32 FMA from tiles staged in shared memory, a 4x4 register tile
-// per thread and float4 shared loads, well above the tensor-core bound.
-// Tiles: 64 query rows (fwd, dq) or 64 keys (dk/dv) per block of 256
-// threads (16 x 16); each thread owns 4 rows x 4 columns of a 64 x 64 score
-// tile and 4 rows x d/16 columns of the output tile. (fp16 stays here: on
-// the tensor cores its results missed the plain versions' where P and dS
-// fall into fp16's subnormal range, whatever the rounding-edge bound; bf16
-// has fp32's exponent range.)
-//
-// The backward at bf16 (the training paths) is redesigned for Hopper's
-// tensor cores (flash_bwd_dkdv_tc_kernel, flash_bwd_dq_tc_kernel): blocks of
-// 4 warps, each warp owning 16 rows of the block's 64 (keys for dk/dv,
-// queries for dq), so no sum crosses warps and nothing needs atomics. The
-// resident operands (K, V for dk/dv; Q, dO for dq) stay in shared memory in
-// bf16; the streamed ones (Q, dO, lse, delta; K, V, bias) are
+// bf16 and fp16 run on Hopper's tensor cores (flash_fwd_tc_kernel,
+// flash_bwd_dkdv_tc_kernel, flash_bwd_dq_tc_kernel): blocks of 4 warps,
+// each warp owning 16 rows of the block's 64 (queries for the forward and
+// dq, keys for dk/dv), so no sum crosses warps and nothing needs atomics;
+// the forward's row max and row sum cross only the 4 lanes of a quad. The
+// resident operands (Q; K, V for dk/dv; Q, dO for dq) stay in shared memory
+// in the input type; the streamed ones (K, V, bias; Q, dO, lse, delta) are
 // double-buffered with 16-byte cp.async. Every product is mma.sync m16n8k16
 // with fp32 accumulators, its fragments read with ldmatrix (ldmatrix.trans
-// where the contraction runs along the rows: dO and Q for dV and dK, K for
-// dQ); the score-side results (P^T, dS^T; dS) stay in registers and become
-// the A operand of the next product, rounded to bf16 there: the plain
-// versions' rounding points, with each pair's P and dS at the plain
-// versions' bits (below: the tensor cores sum S and dP in another order, so
-// pairs near a rounding edge are summed again in the plain order). Rows are
-// padded to d + 8 elements, so the fragment loads meet no bank conflict.
-// The split design recomputes S and dP in both kernels (~1.4x the
-// arithmetic of one fused backward).
+// where the contraction runs along the rows: V for P.V, dO and Q for dV and
+// dK, K for dQ); the score-side results (P; P^T, dS^T; dS) stay in
+// registers and become the A operand of the next product, rounded to the
+// input type there: the plain versions' rounding points, with each pair's
+// P and dS at the plain versions' bits (below: the tensor cores sum S and
+// dP in another order, so pairs near a rounding edge of the input type,
+// fp16's own edges included, subnormal range and all, are summed again in
+// the plain order; the forward also takes its running max exactly). Rows
+// are padded to d + 8 elements, so the fragment loads meet no bank
+// conflict. The split backward recomputes S and dP in both kernels (~1.4x
+// the arithmetic of one fused backward). What holds them back on this card
+// is that exactness work: about half of each backward kernel's time and
+// ~40% of the forward's at the train shape, where they execute far more
+// scalar instructions a pair than the products need.
+//
+// fp32 (the parity runs: TF32 would break them) keeps the simple first
+// version: every product on the CUDA cores in fp32 FMA from tiles staged in
+// shared memory, a 4x4 register tile per thread and float4 shared loads.
+// Tiles: 64 query rows (fwd, dq) or 64 keys (dk/dv) per block of 256
+// threads (16 x 16); each thread owns 4 rows x 4 columns of a 64 x 64 score
+// tile and 4 rows x d/16 columns of the output tile.
 //
 // Causal tiles above the diagonal are skipped, not masked.
 
@@ -539,10 +543,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- tensor-core backward (bf16)
+// ------------------------------------- tensor-core kernels (bf16, fp16)
 
 constexpr int kTcThreads = 128;  // 4 warps x 16 rows of the block's 64
-constexpr int kTcRows = 64;      // keys (dk/dv) or queries (dq) per block
+constexpr int kTcRows = 64;      // keys (dk/dv) or queries (fwd, dq) a block
 
 template <int D>
 struct TcTile {
@@ -550,10 +554,10 @@ struct TcTile {
   static constexpr int bq = 32;  // dk/dv query tile: three blocks an SM
 };
 
-// The plain versions round P and dS to bf16 from fp32 S and dP that
-// cuBLAS sums over d in ascending order, one fp32 rounding per product
-// (exact for bf16 inputs). The tensor cores sum in another order, so a P or
-// dS lying near a bf16 rounding edge could round the other way, and one
+// The plain versions round P and dS to T from fp32 S and dP that cuBLAS
+// sums over d in ascending order, one fp32 rounding per product (exact for
+// bf16 and fp16 inputs). The tensor cores sum in another order, so a P or
+// dS lying near a rounding edge of T could round the other way, and one
 // term of a sum then moves by an ulp of the term: more than an ulp of a sum
 // that cancels. So each pair's P and dS come from the tensor-core S and dP
 // through the plain versions' operations, and where a bound on the
@@ -561,9 +565,9 @@ struct TcTile {
 // summed again in the plain order (seq_dots) for that pair. The bound:
 // |S_tc - S_plain| <= 6 * 2^-24 |q| |k| (row norms, the tile's largest);
 // measured on the H100 at the train shape, at most 2.93 * 2^-24 |q| |k|.
-// One to two pairs in a hundred take the second sum: the flagged pairs of
-// a warp's tile are listed in shared memory, up to kTcList at a time, and
-// shared out over its lanes.
+// One to two pairs in a hundred take the second sum at bf16 (fp16's edges
+// lie 8x closer): the flagged pairs of a warp's tile are listed in shared
+// memory, up to kTcList at a time, and shared out over its lanes.
 constexpr float kProductSlack = 6.f * 5.9604645e-8f;  // 6 * 2^-24
 constexpr int kTcList = 64;  // flagged pairs a warp re-sums at a time
 
@@ -589,6 +593,21 @@ __device__ __forceinline__ float2 seq_dots(const T* a1, const T* b1,
   return make_float2(s1, s2);
 }
 
+// S alone, in the same order (the forward).
+template <typename T, int D>
+__device__ __forceinline__ float seq_dot(const T* a, const T* b) {
+  float s = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < D; i += 8) {
+    const uint4 w[2] = {*reinterpret_cast<const uint4*>(a + i),
+                        *reinterpret_cast<const uint4*>(b + i)};
+    const T* x = reinterpret_cast<const T*>(w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s = fmaf(to_f(x[j]), to_f(x[8 + j]), s);
+  }
+  return s;
+}
+
 // |row| of a D-long row in shared memory (16-byte aligned); a bound's
 // input, so the order of the sum does not matter.
 template <typename T, int D>
@@ -605,6 +624,12 @@ __device__ __forceinline__ float row_norm(const T* a) {
                ((acc[4] + acc[5]) + (acc[6] + acc[7])));
 }
 
+// The score sc = S scale + bias in the plain version's order of fp32
+// operations.
+__device__ __forceinline__ float score_of(float s, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(s, scale), bias);
+}
+
 struct PairTerms {
   float p, ds, x, d1;
 };
@@ -614,24 +639,101 @@ struct PairTerms {
 __device__ __forceinline__ PairTerms pair_terms(float s, float dp, float scale,
                                                 float bias, float lse,
                                                 float delta) {
-  const float x = __fsub_rn(__fadd_rn(__fmul_rn(s, scale), bias), lse);
+  const float x = __fsub_rn(score_of(s, scale, bias), lse);
   const float p = expf(x);
   const float d1 = __fsub_rn(dp, delta);
   return {p, __fmul_rn(__fmul_rn(p, d1), scale), x, d1};
 }
 
-// The distance from y's fp32 bits to bf16's rounding midpoint (low 16 bits
-// 0x8000), in fp32 ulps of y; each such ulp is at least |y| 2^-24.
-__device__ __forceinline__ float bf16_edge_ulps(float y) {
+// The distance from y to the nearest value where rounding to T changes (a
+// midpoint between two neighbouring T values), in fp32 ulps of y; each such
+// ulp is at least |y| 2^-24. bf16 has fp32's exponent range and drops the
+// low 16 bits. fp16 drops 13 bits down to 2^-14; below it its step is a
+// fixed 2^-24 (the subnormals), so the dropped bits grow as the exponent
+// falls, and below 2^-24 the only edge left is 2^-25, between 0 and 2^-24.
+// Just above a power of two the nearest edge may be the one below it, in
+// the binade below (half the step, or the same step among the subnormals).
+// fp16 counts it here. For bf16 it is at least kFarEdge = 0x4000 ulps
+// away, and the checks count it instead (a bound of kFarEdge or more flags
+// the pair): edge_ulps<bf16> is the distance within the value's binade,
+// one operation fewer on the backward's path (~0.08 ms of the dq kernel
+// at the train shape).
+template <typename T>
+__device__ __forceinline__ float edge_ulps(float y);
+template <>
+__device__ __forceinline__ float edge_ulps<__nv_bfloat16>(float y) {
   return static_cast<float>(
       abs(static_cast<int>(__float_as_uint(y) & 0xFFFFu) - 0x8000));
+}
+template <typename T>
+constexpr float kFarEdge = 3.4e38f;  // edge_ulps<T> counts every edge
+template <>
+constexpr float kFarEdge<__nv_bfloat16> = 16384.f;
+template <>
+__device__ __forceinline__ float edge_ulps<__half>(float y) {
+  const uint32_t a = __float_as_uint(y) & 0x7FFFFFFFu;
+  const int e = static_cast<int>(a >> 23) - 127;  // -127: 0 or subnormal
+  if (e >= -24) {
+    const int drop = e >= -14 ? 13 : -1 - e;  // 13 .. 23 bits
+    const int half = 1 << (drop - 1);
+    const int v = static_cast<int>(a & ((1u << drop) - 1u));
+    return static_cast<float>(
+        min(abs(v - half), v + (e > -14 ? half / 2 : half)));
+  }
+  return ldexpf(fabsf(fabsf(y) - 0x1p-25f), 23 - max(e, -126));
+}
+
+// Is y within t fp32 ulps of a rounding edge of T? The bound is prepared
+// once (a row's, in the forward): for bf16 the test is then one unsigned
+// compare of the low 16 bits, |v - 0x8000| <= t as (unsigned)(v - 0x8000 +
+// t) <= 2 t, and from t = kFarEdge on everything is flagged.
+template <typename T>
+struct NearEdge;
+template <>
+struct NearEdge<__nv_bfloat16> {
+  int off;
+  unsigned span;
+  __device__ __forceinline__ explicit NearEdge(float t) {
+    const int ti = static_cast<int>(fminf(t, 65536.f));
+    off = ti - 0x8000;
+    span = ti >= 0x4000 ? 0xFFFFFFFFu : 2u * static_cast<unsigned>(ti);
+  }
+  __device__ __forceinline__ bool operator()(float y) const {
+    return static_cast<unsigned>(
+               static_cast<int>(__float_as_uint(y) & 0xFFFFu) + off) <= span;
+  }
+};
+template <>
+struct NearEdge<__half> {
+  float t;
+  __device__ __forceinline__ explicit NearEdge(float bound) : t(bound) {}
+  __device__ __forceinline__ bool operator()(float y) const {
+    return edge_ulps<__half>(y) <= t;
+  }
+};
+
+// Below this x (P = exp(x), x moved by at most the bound's ex), P rounds to
+// 0 in T on both sides: bf16 keeps fp32's range, where exp underflows to 0
+// below -103.98 and so does dS = P d1 scale; fp16 rounds P <= 2^-25 to 0
+// (ln 2^-25 = -17.33), while dS may still be a subnormal fp16: it is
+// checked on.
+template <typename T>
+__device__ __forceinline__ float p_zero_below();
+template <>
+__device__ __forceinline__ float p_zero_below<__nv_bfloat16>() {
+  return -110.f;
+}
+template <>
+__device__ __forceinline__ float p_zero_below<__half>() {
+  return -17.4f;
 }
 
 // The bound of one check, fixed for a row (or column) of pairs over a tile:
 // ex bounds |x - x_plain| for x = S scale + bias - lse (S within es of the
-// plain S, a rounding of each of the three operations); tp is the relative
-// bound on |P - P_plain| (and the other roundings of dS) in fp32 ulps; ed
-// the part of dS's bound from dP within edp of the plain dP.
+// plain S, a rounding of each of the three operations; in the forward lse
+// is the running max); tp is the relative bound on |P - P_plain| (and the
+// other roundings of dS) in fp32 ulps; ed the part of dS's bound from dP
+// within edp of the plain dP.
 struct EdgeBound {
   float ex, tp, ed;
 };
@@ -646,15 +748,20 @@ __device__ __forceinline__ EdgeBound edge_bound(float es, float sx_max,
   return {ex, rel * 16777216.f + 10.f, (1.f + rel) * edp * 16777216.f};
 }
 
-// Could P or dS of a pair (x its exponent, d1 = dP - delta), taken from S
-// and dP within the bound b of the plain version's, round to bf16
-// otherwise than the plain version's? P: its distance to the edge against
-// tp; dS = P d1 scale: against tp |d1| + ed, both sides divided by P scale.
-__device__ __forceinline__ bool near_plain_edge(PairTerms t, float x,
-                                                float d1, EdgeBound b) {
-  if (x + b.ex < -110.f) return false;  // both P underflow to 0
-  if (bf16_edge_ulps(t.p) <= b.tp) return true;
-  return (bf16_edge_ulps(t.ds) - b.tp) * fabsf(d1) <= b.ed;
+// Could P or dS of a pair (t.x the exponent, t.d1 = dP - delta), taken from
+// S and dP within the bound b of the plain version's, round to T otherwise
+// than the plain version's? P: its distance to the edge against tp; dS = P
+// d1 scale: against tp |d1| + ed, both sides divided by P scale (and the
+// edge kFarEdge away against the same bound).
+template <typename T>
+__device__ __forceinline__ bool near_plain_edge(PairTerms t, EdgeBound b) {
+  const bool p_zero = t.x + b.ex < p_zero_below<T>();
+  if (!p_zero && NearEdge<T>(b.tp)(t.p)) return true;
+  if (std::is_same<T, __nv_bfloat16>::value && p_zero)
+    return false;  // dS = 0 as well
+  const float d1 = fabsf(t.d1);
+  return (edge_ulps<T>(t.ds) - b.tp) * d1 <= b.ed ||
+         (kFarEdge<T> - b.tp) * d1 <= b.ed;
 }
 
 // The largest of v over a warp's lanes.
@@ -663,6 +770,59 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The largest of v over the 4 lanes of a quad (the lanes sharing C rows).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The flagged pairs of a warp's 16 x 8 NJ C tiles (bit j * 4 + e of each
+// lane's flags) are listed in shared memory (wl) kTcList at a time, each
+// lane's after the lanes before it, and shared out over the warp's lanes:
+// value(owner lane, position j * 4 + e) computes each into wr, and the
+// owner takes it back through apply(j, e, taken, value), called for every
+// position without a branch (taken: the value is this pair's).
+template <int NJ, typename V, typename Value, typename Apply>
+__device__ __forceinline__ void resolve_flagged(uint32_t flags, V* wr,
+                                                unsigned short* wl, int lane,
+                                                Value value, Apply apply) {
+  while (__any_sync(0xffffffffu, flags)) {
+    const int cnt = __popc(flags);
+    int base = cnt;  // inclusive prefix sum over the lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, base, o);
+      if (lane >= o) base += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, base, 31);
+    base -= cnt;
+    int k = base;
+    for (uint32_t f = flags; f != 0u && k < kTcList; f &= f - 1u, ++k)
+      wl[k] = static_cast<unsigned short>(lane << 8 | (__ffs(f) - 1));
+    __syncwarp();
+    for (int i = lane; i < min(total, kTcList); i += 32)
+      wr[i] = value(wl[i] >> 8, wl[i] & 255);
+    __syncwarp();
+    k = base;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool mine = flags >> (j * 4 + e) & 1u;
+        const bool done = mine && k < kTcList;
+        apply(j, e, done, wr[min(k, kTcList - 1)]);
+        k += mine;
+      }
+    // the pairs listed this round (each lane's lowest flags) are done
+    for (int i = base; i < min(base + cnt, kTcList); ++i) flags &= flags - 1u;
+    __syncwarp();
+  }
 }
 
 // 16-byte loads are possible when the base, the row stride and the head
@@ -723,7 +883,14 @@ __device__ __forceinline__ void tc_abt(float (&c)[N / 8][4], const T* a,
 }
 
 // acc[j] (16 x 8 each, j < D/8) += P (16 x K, C tiles p[K/8], rounded to T
-// here) . B (K x D, rows of `b` at pitch ld, read transposed).
+// here) . B (K x D, rows of `b` at pitch ld, read transposed). At fp16 each
+// 16-deep product starts from zero and is added to acc with a rounded fp32
+// add: the tensor cores align an accumulator to the largest term and drop
+// the bits below, so a long chain through them drifts, and at fp16's finer
+// ulp that showed (one dV element over 1000 queries two fp16 ulps off a
+// cancelling sum, every P and dS at the plain bits); the plain version's
+// sums round to nearest. bf16's ulp is 8x wider: its chain runs through
+// the accumulator, ~0.1 ms less a backward kernel at the train shape.
 template <typename T, int D, int K>
 __device__ __forceinline__ void tc_pb(float (&acc)[D / 8][4],
                                       const float (&p)[K / 8][4], const T* b,
@@ -738,19 +905,32 @@ __device__ __forceinline__ void tc_pb(float (&acc)[D / 8][4],
       uint32_t bf[4];
       sm90::ldmatrix_x4_trans(bf, b + (kk * 16 + r8 + (mat & 1) * 8) * ld +
                                       nd * 16 + (mat >> 1) * 8);
-      sm90::mma16816<T>(acc[2 * nd], af, bf[0], bf[1]);
-      sm90::mma16816<T>(acc[2 * nd + 1], af, bf[2], bf[3]);
+      if constexpr (std::is_same<T, __half>::value) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        sm90::mma16816<T>(t0, af, bf[0], bf[1]);
+        sm90::mma16816<T>(t1, af, bf[2], bf[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * nd][e] = __fadd_rn(acc[2 * nd][e], t0[e]);
+          acc[2 * nd + 1][e] = __fadd_rn(acc[2 * nd + 1][e], t1[e]);
+        }
+      } else {
+        sm90::mma16816<T>(acc[2 * nd], af, bf[0], bf[1]);
+        sm90::mma16816<T>(acc[2 * nd + 1], af, bf[2], bf[3]);
+      }
     }
   }
 }
 
 // 16 rows x D of fp32 accumulators (C tiles) -> rows `row0 + g (+8)` of a
-// packed gradient, rows at or past s skipped.
+// packed output, rows at or past s skipped; two neighbouring columns a
+// 32-bit store when the row stride and the base allow it.
 template <typename T, int D>
 __device__ __forceinline__ void tc_store(T* dst, int64_t ss, int row0, int s,
                                          const float (&acc)[D / 8][4],
                                          int lane) {
   const int g = lane >> 2, tg = lane & 3;
+  const bool pairs = reinterpret_cast<uintptr_t>(dst) % 4 == 0 && ss % 2 == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + g + half * 8;
@@ -758,16 +938,284 @@ __device__ __forceinline__ void tc_store(T* dst, int64_t ss, int row0, int s,
     T* r = dst + row * ss;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      r[j * 8 + 2 * tg] = from_f<T>(acc[j][2 * half]);
-      r[j * 8 + 2 * tg + 1] = from_f<T>(acc[j][2 * half + 1]);
+      const float lo = acc[j][2 * half], hi = acc[j][2 * half + 1];
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(r + j * 8 + 2 * tg) =
+            sm90::pack2<T>(lo, hi);
+      } else {
+        r[j * 8 + 2 * tg] = from_f<T>(lo);
+        r[j * 8 + 2 * tg + 1] = from_f<T>(hi);
+      }
     }
   }
+}
+
+// out and lse for one (batch, head, 64-query tile), walking the key tiles
+// of 64 in ascending order (the plain version's tiles: its running max
+// changes at the same keys); warp w owns queries q0 + 16 w .. + 15, so the
+// row max and sum cross only the 4 lanes of a quad. The heaviest causal
+// tiles (the last queries) are scheduled first.
+//
+// P = exp(sc - m_new) is rounded to T before P.V, so P must have the plain
+// version's bits, and so must the running max m_new, which the plain
+// version takes over its own scores. Each tile: the tensor-core scores sc
+// (S within es of the plain S, so sc within e of the plain sc); the pairs
+// that may hold the plain tile max (sc + e reaches both the best sc - e of
+// the row and the running max: none in most later tiles) are summed again
+// in the plain order, and their exact scores give m_new exactly; then each
+// pair's P, and the pairs whose P lies within the bound of a rounding edge
+// of T are summed again. Both re-sums are done by the lane that holds the
+// pair: about ten a warp tile of 1024 pairs, where the backward's shared
+// list cost more than the sums (probes/kernel_probe.py fwd_variants). BIAS
+// switches the key bias's terms off at compile time (none on GPT-2's
+// path); at d <= 64, 168 registers keep three blocks on an SM.
+template <typename T, int D, bool BIAS>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
+    flash_fwd_tc_kernel(const FlashParams p) {
+  constexpr int LD = TcTile<D>::ld, NJ = kTcRows / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);       // [64][LD]
+  T* ks = qs + kTcRows * LD;                   // [2][64][LD]
+  T* vs = ks + 2 * kTcRows * LD;               // [2][64][LD]
+  float* bias_s = reinterpret_cast<float*>(vs + 2 * kTcRows * LD);  // [2][64]
+  float* kn_s = bias_s + 2 * kTcRows;  // [64] |k| of the tile's keys
+  float* pw = kn_s + kTcRows + threadIdx.x * 33;  // [128][33] exact P slots
+
+  const int s = p.s;
+  const int nq = (s + kTcRows - 1) / kTcRows;
+  const int qi = p.causal ? nq - 1 - blockIdx.x : blockIdx.x;
+  const int head = blockIdx.y, bi = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int q0 = qi * kTcRows;
+  const int64_t base = bi * p.qkv_sb + head * D;
+  const T* qb = static_cast<const T*>(p.q) + base;
+  const T* kb = static_cast<const T*>(p.k) + base;
+  const T* vb = static_cast<const T*>(p.v) + base;
+  const float* biasb = p.bias ? p.bias + bi * p.bias_sb : nullptr;
+  const bool vec = rows_aligned(qb, p.qkv_ss) && rows_aligned(kb, p.qkv_ss) &&
+                   rows_aligned(vb, p.qkv_ss);
+
+  auto stage = [&](int kt) {
+    const int k0 = kt * kTcRows, st = kt & 1;
+    tc_rows<T, D, kTcRows>(ks + st * kTcRows * LD, LD, kb, p.qkv_ss, k0, s,
+                           vec);
+    tc_rows<T, D, kTcRows>(vs + st * kTcRows * LD, LD, vb, p.qkv_ss, k0, s,
+                           vec);
+    for (int i = threadIdx.x; i < kTcRows; i += kTcThreads)
+      bias_s[st * kTcRows + i] =
+          (biasb != nullptr && k0 + i < s) ? biasb[k0 + i] : 0.f;
+  };
+  tc_rows<T, D, kTcRows>(qs, LD, qb, p.qkv_ss, q0, s, vec);
+  stage(0);
+  sm90::cp_async_commit();
+
+  // this thread's two queries (rows g, g + 8 of the warp's 16)
+  const int row0 = q0 + warp * 16 + g;
+  const T* qw = qs + warp * 16 * LD;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, qn[2];
+
+  const int nk = (s + kTcRows - 1) / kTcRows;
+  const int n = p.causal ? min(qi + 1, nk) : nk;
+  for (int kt = 0; kt < n; ++kt) {
+    if (kt + 1 < n) stage(kt + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // tile kt (and Q) landed
+    const int k0 = kt * kTcRows, st = kt & 1;
+    const T* k_t = ks + st * kTcRows * LD;
+    const T* v_t = vs + st * kTcRows * LD;
+    const float* b_t = bias_s + st * kTcRows;
+    if (kt == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        qn[h2] = row_norm<T, D>(qw + (g + h2 * 8) * LD);
+    }
+    for (int i = threadIdx.x; i < kTcRows; i += kTcThreads)
+      kn_s[i] = row_norm<T, D>(k_t + i * LD);
+    __syncthreads();  // the tile's key norms
+    float kmax = 0.f;
+    for (int i = lane; i < kTcRows; i += 32) kmax = fmaxf(kmax, kn_s[i]);
+    kmax = warp_max(kmax);
+    // per row: a bound on |sc - sc_plain| before the key's bias term
+    // (S within es of the plain S, two roundings a side), |S scale|, and
+    // the last live key of the tile (past s, or above the row when causal;
+    // none for rows past s)
+    float err0[2], sx[2], es_s[2];
+    int lim[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      sx[h2] = qn[h2] * kmax * p.scale;
+      es_s[h2] = kProductSlack * qn[h2] * kmax * p.scale;
+      err0[h2] = es_s[h2] + 2.4e-7f * sx[h2];
+      const int row = row0 + h2 * 8;
+      lim[h2] = row >= s ? -1 : (p.causal ? min(row, s - 1) : s - 1) - k0;
+    }
+
+    // the tensor-core scores of this warp's 16 queries x 64 keys; hi and lo
+    // bound the plain tile max of each row from above and below
+    float sc[NJ][4];
+    tc_abt<T, D, kTcRows>(sc, qw, k_t, LD, lane);
+    uint32_t live = 0;
+    float hi[2] = {kNegInf, kNegInf}, lo[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1, kc = j * 8 + 2 * tg + (e & 1);
+        const bool ok = kc <= lim[h2];
+        live |= ok ? 1u << (j * 4 + e) : 0u;
+        if constexpr (BIAS) {
+          const float bias = b_t[kc];
+          const float err = err0[h2] + 1.2e-7f * fabsf(bias);
+          sc[j][e] = ok ? score_of(sc[j][e], p.scale, bias) : kNegInf;
+          hi[h2] = fmaxf(hi[h2], ok ? sc[j][e] + err : kNegInf);
+          lo[h2] = fmaxf(lo[h2], ok ? sc[j][e] - err : kNegInf);
+        } else {
+          sc[j][e] = ok ? __fmul_rn(sc[j][e], p.scale) : kNegInf;
+          hi[h2] = fmaxf(hi[h2], sc[j][e]);
+        }
+      }
+    // the pairs that may hold the plain tile max where it may pass the
+    // running max m (none when hi < m): the plain max is at least lo, so
+    // no pair whose sc + err is below max(lo, m) matters; their scores
+    // summed again in the plain order give the tile max, and m_new, exactly
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      if constexpr (BIAS) {
+        hi[h2] = quad_max(hi[h2]);
+        lo[h2] = fmaxf(quad_max(lo[h2]), m[h2]);
+      } else {
+        const float mx = quad_max(hi[h2]);
+        hi[h2] = mx > kNegInf ? mx + err0[h2] : kNegInf;
+        lo[h2] = fmaxf(mx - err0[h2], m[h2]);
+      }
+    }
+    uint32_t cand = 0;
+    if (hi[0] >= m[0] || hi[1] >= m[1]) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h2 = e >> 1;
+          const float err =
+              BIAS ? err0[h2] +
+                         1.2e-7f * fabsf(b_t[j * 8 + 2 * tg + (e & 1)])
+                   : err0[h2];
+          if (hi[h2] >= m[h2] && sc[j][e] + err >= lo[h2])
+            cand |= live & 1u << (j * 4 + e);
+        }
+    }
+    float mt[2] = {kNegInf, kNegInf};
+    for (uint32_t f = cand; f != 0u; f &= f - 1u) {
+      const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
+      const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
+      const float v = score_of(
+          seq_dot<T, D>(qw + (g + h2 * 8) * LD, k_t + kc * LD), p.scale,
+          BIAS ? b_t[kc] : 0.f);
+      mt[0] = h2 ? mt[0] : fmaxf(mt[0], v);
+      mt[1] = h2 ? fmaxf(mt[1], v) : mt[1];
+    }
+    float m_new[2], corr[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      m_new[h2] = fmaxf(m[h2], quad_max(mt[h2]));
+      corr[h2] = expf(__fsub_rn(m[h2], m_new[h2]));
+    }
+
+    // P at the plain bits: the candidates, and the pairs whose P lies
+    // within the bound of a rounding edge of T (edge_bound's ex and tp,
+    // with each key's bias), are summed again
+    float exb[2];
+    NearEdge<T> near[2] = {NearEdge<T>(0.f), NearEdge<T>(0.f)};
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      exb[h2] = es_s[h2] + 1.2e-7f * (3.f * sx[h2] + fabsf(m_new[h2]));
+      near[h2] = NearEdge<T>((exb[h2] * (1.f + exb[h2]) + 4.8e-7f) *
+                                 16777216.f + 10.f);
+    }
+    uint32_t flags = cand;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1, bit = j * 4 + e;
+        const float x = __fsub_rn(sc[j][e], m_new[h2]);
+        const float pr = live >> bit & 1u ? expf(x) : 0.f;
+        bool near_edge;
+        if constexpr (BIAS) {
+          const float ex =
+              exb[h2] + 2.4e-7f * fabsf(b_t[j * 8 + 2 * tg + (e & 1)]);
+          near_edge = x + ex >= p_zero_below<T>() &&
+                      NearEdge<T>((ex * (1.f + ex) + 4.8e-7f) * 16777216.f +
+                                  10.f)(pr);
+        } else {
+          near_edge = x + exb[h2] >= p_zero_below<T>() && near[h2](pr);
+        }
+        if ((live >> bit & 1u) && near_edge) flags |= 1u << bit;
+        sc[j][e] = pr;  // P, rounded to T as the P.V product's A operand
+      }
+    // each lane sums its own flagged pairs again (a few a warp tile: one
+    // lane seldom holds more than one), through its slots in shared memory
+    for (uint32_t f = flags; f != 0u; f &= f - 1u) {
+      const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
+      const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
+      const float v = score_of(
+          seq_dot<T, D>(qw + (g + h2 * 8) * LD, k_t + kc * LD), p.scale,
+          BIAS ? b_t[kc] : 0.f);
+      pw[pos] = expf(__fsub_rn(v, h2 ? m_new[1] : m_new[0]));
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (flags >> (j * 4 + e) & 1u) sc[j][e] = pw[j * 4 + e];
+
+    // the online softmax: l and acc rescaled, then += P . V
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        rs += sc[j][2 * h2] + sc[j][2 * h2 + 1];
+      l[h2] = l[h2] * corr[h2] + quad_sum(rs);
+      m[h2] = m_new[h2];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    tc_pb<T, D, kTcRows>(acc, sc, v_t, LD, lane);
+    __syncthreads();  // every warp is done with stage st
+  }
+  sm90::cp_async_wait<0>();
+
+  float ls[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    ls[h2] = l[h2] == 0.f ? 1.f : l[h2];
+    const int row = row0 + h2 * 8;
+    if (tg == 0 && row < s)
+      p.lse[(static_cast<int64_t>(bi) * s + row) * p.h + head] =
+          m[h2] + logf(ls[h2]);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fdiv_rn(acc[j][e], ls[e >> 1]);
+  tc_store<T, D>(static_cast<T*>(p.out) + bi * p.out_sb + head * D, p.out_ss,
+                 q0 + warp * 16, s, acc, lane);
 }
 
 // dk and dv for one (batch, head, 64-key tile), walking the query tiles of
 // BQ rows from the diagonal down; warp w owns keys k0 + 16 w .. + 15.
 template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     flash_bwd_dkdv_tc_kernel(const FlashParams p) {
   constexpr int LD = TcTile<D>::ld, BQ = TcTile<D>::bq;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -895,55 +1343,27 @@ __global__ void __launch_bounds__(kTcThreads)
         if (ok) {
           t = pair_terms(sc[j][e], dp[j][e], p.scale, kbias[h2],
                          lse_s[st * BQ + qc], delta_s[st * BQ + qc]);
-          if (near_plain_edge(t, t.x, t.d1, eb[h2]))
-            flags |= 1u << (j * 4 + e);
+          if (near_plain_edge<T>(t, eb[h2])) flags |= 1u << (j * 4 + e);
         }
         sc[j][e] = t.p;   // P^T, rounded to T as the dV product's A operand
         dp[j][e] = t.ds;  // dS^T, likewise for dK
       }
-    // the flagged pairs of the warp, listed kTcList at a time (each lane's
-    // after the lanes before it) and shared out over its lanes
-    while (__any_sync(0xffffffffu, flags)) {
-      const int cnt = __popc(flags);
-      int base = cnt;  // inclusive prefix sum over the lanes
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, base, o);
-        if (lane >= o) base += v;
-      }
-      const int total = __shfl_sync(0xffffffffu, base, 31);
-      base -= cnt;
-      int k = base;
-      for (uint32_t f = flags; f != 0u && k < kTcList; f &= f - 1u, ++k)
-        wl[k] = static_cast<unsigned short>(lane << 8 | (__ffs(f) - 1));
-      __syncwarp();
-      for (int i = lane; i < min(total, kTcList); i += 32) {
-        const int owner = wl[i] >> 8, pos = wl[i] & 255;
-        const int qc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
-        const int kl = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
-        const float2 sd = seq_dots<T, D>(q_t + qc * LD, ks + kl * LD,
-                                         do_t + qc * LD, vs + kl * LD);
-        const PairTerms t = pair_terms(sd.x, sd.y, p.scale, kb_s[kl],
-                                       lse_s[st * BQ + qc],
-                                       delta_s[st * BQ + qc]);
-        wr[i] = make_float2(t.p, t.ds);
-      }
-      __syncwarp();
-      k = base;
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (flags >> (j * 4 + e) & 1u) {
-            if (k < kTcList) {
-            sc[j][e] = wr[k].x;
-            dp[j][e] = wr[k].y;
-              flags &= ~(1u << (j * 4 + e));
-            }
-            ++k;
-          }
-      __syncwarp();
-    }
+    resolve_flagged<BQ / 8>(
+        flags, wr, wl, lane,
+        [&](int owner, int pos) {
+          const int qc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+          const int kl = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+          const float2 sd = seq_dots<T, D>(q_t + qc * LD, ks + kl * LD,
+                                           do_t + qc * LD, vs + kl * LD);
+          const PairTerms t = pair_terms(sd.x, sd.y, p.scale, kb_s[kl],
+                                         lse_s[st * BQ + qc],
+                                         delta_s[st * BQ + qc]);
+          return make_float2(t.p, t.ds);
+        },
+        [&](int j, int e, bool taken, float2 v) {
+          sc[j][e] = taken ? v.x : sc[j][e];
+          dp[j][e] = taken ? v.y : dp[j][e];
+        });
     tc_pb<T, D, BQ>(dv, sc, do_t, LD, lane);  // dV += P^T dO
     tc_pb<T, D, BQ>(dk, dp, q_t, LD, lane);   // dK += dS^T Q
     __syncthreads();  // every warp is done with stage st
@@ -961,7 +1381,7 @@ __global__ void __launch_bounds__(kTcThreads)
 // w owns queries q0 + 16 w .. + 15. The heaviest causal tiles (the last
 // queries) are scheduled first.
 template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     flash_bwd_dq_tc_kernel(const FlashParams p) {
   constexpr int LD = TcTile<D>::ld;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -1096,51 +1516,24 @@ __global__ void __launch_bounds__(kTcThreads)
             b = edge_bound(kProductSlack * qn[h2] * kmax,
                            qn[h2] * kmax * p.scale, bias, fabsf(lse_r[h2]),
                            kProductSlack * dn[h2] * vmax, p.scale);
-          if (near_plain_edge(t, t.x, t.d1, b)) flags |= 1u << (j * 4 + e);
+          if (near_plain_edge<T>(t, b)) flags |= 1u << (j * 4 + e);
           ds = t.ds;
         }
         dp[j][e] = ds;  // dS, rounded to T as the dQ product's A operand
       }
-    // the flagged pairs of the warp, listed kTcList at a time (each lane's
-    // after the lanes before it) and shared out over its lanes
-    while (__any_sync(0xffffffffu, flags)) {
-      const int cnt = __popc(flags);
-      int base = cnt;  // inclusive prefix sum over the lanes
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, base, o);
-        if (lane >= o) base += v;
-      }
-      const int total = __shfl_sync(0xffffffffu, base, 31);
-      base -= cnt;
-      int k = base;
-      for (uint32_t f = flags; f != 0u && k < kTcList; f &= f - 1u, ++k)
-        wl[k] = static_cast<unsigned short>(lane << 8 | (__ffs(f) - 1));
-      __syncwarp();
-      for (int i = lane; i < min(total, kTcList); i += 32) {
-        const int owner = wl[i] >> 8, pos = wl[i] & 255;
-        const int kc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
-        const int ql = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
-        const float2 sd = seq_dots<T, D>(qs + ql * LD, k_t + kc * LD,
-                                         dos + ql * LD, v_t + kc * LD);
-        wr[i] = pair_terms(sd.x, sd.y, p.scale, bias_s[st * kTcRows + kc],
-                           lq_s[ql], dq_s[ql]).ds;
-      }
-      __syncwarp();
-      k = base;
-#pragma unroll
-      for (int j = 0; j < kTcRows / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (flags >> (j * 4 + e) & 1u) {
-            if (k < kTcList) {
-            dp[j][e] = wr[k];
-              flags &= ~(1u << (j * 4 + e));
-            }
-            ++k;
-          }
-      __syncwarp();
-    }
+    resolve_flagged<kTcRows / 8>(
+        flags, wr, wl, lane,
+        [&](int owner, int pos) {
+          const int kc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+          const int ql = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+          const float2 sd = seq_dots<T, D>(qs + ql * LD, k_t + kc * LD,
+                                           dos + ql * LD, v_t + kc * LD);
+          return pair_terms(sd.x, sd.y, p.scale, bias_s[st * kTcRows + kc],
+                            lq_s[ql], dq_s[ql]).ds;
+        },
+        [&](int j, int e, bool taken, float v) {
+          dp[j][e] = taken ? v : dp[j][e];
+        });
     tc_pb<T, D, kTcRows>(dq, dp, k_t, LD, lane);  // dQ += dS K
     __syncthreads();
   }
@@ -1183,6 +1576,11 @@ constexpr size_t dq_tc_smem() {
          sizeof(float) * 6 * kTcRows +
          (sizeof(float) + sizeof(unsigned short)) * 4 * kTcList;
 }
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(__nv_bfloat16) * 5 * kTcRows * TcTile<D>::ld +
+         sizeof(float) * (3 * kTcRows + kTcThreads * 33);
+}
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
@@ -1197,17 +1595,23 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
 
-// fp32 and fp16: the FMA kernels; bf16: the forward's FMA kernel, the
-// backward's tensor-core kernels.
+// bf16 and fp16: the tensor-core kernels; fp32: the FMA kernels (the
+// parity runs: TF32 would break them). Static: nothing falls back.
 template <typename T, int D>
 cudaError_t dispatch(Which which, const FlashParams& p, cudaStream_t st) {
   const int nq = (p.s + kTile - 1) / kTile;
   const dim3 grid(nq, p.h, p.b);
-  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool tc = !std::is_same<T, float>::value;
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<T, D>, grid, kThreads, fwd_smem<D>(), p,
-                    st);
+      if constexpr (tc)
+        return p.bias ? launch(flash_fwd_tc_kernel<T, D, true>, grid,
+                               kTcThreads, fwd_tc_smem<D>(), p, st)
+                      : launch(flash_fwd_tc_kernel<T, D, false>, grid,
+                               kTcThreads, fwd_tc_smem<D>(), p, st);
+      else
+        return launch(flash_fwd_kernel<T, D>, grid, kThreads, fwd_smem<D>(),
+                      p, st);
     case kDq:
       if constexpr (tc)
         return launch(flash_bwd_dq_tc_kernel<T, D>, grid, kTcThreads,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Measurements behind the designs of the bf16 flash backward and the dW
-ring GEMM (``ring_gc_gemm_acc``) on one H100; not a test and on no path
-of the package.
+"""Measurements behind the designs of the tensor-core flash kernels and the
+ring GEMMs (``ring_gc_gemm_acc``, ``ring_ag_gemm``) on one H100; not a test
+and on no path of the package.
 
     python3 probes/kernel_probe.py SECTION [SECTION ...]
 
@@ -16,16 +16,32 @@ prints one JSON line:
   that difference flips;
 * ``cublas_order``: whether cuBLAS's fp32 S is the ascending sequential
   sum over d (the order the kernels' re-sum repeats);
-* ``flash_parts``: the dk/dv and dq kernels at the train shape as built
-  and with their exact-rounding work switched off in patched copies
-  (results wrong, time only): no re-sum (flagged pairs left as they are),
-  no check, no row norms;
+* ``flash_parts``: the forward, dk/dv and dq kernels at the train shape as
+  built and with their exact-rounding work switched off in patched copies
+  (results wrong, time only): no re-sum (flagged pairs left as they are;
+  the forward's running max from the tensor-core scores), no check, no row
+  norms;
 * ``flash_flags``: pairs flagged for the re-sum per warp tile at the train
-  shape (a patched copy counts them);
+  shape and in the BERT path's mode (non-causal, the padded mask's key
+  bias): the forward's running-max candidates and rounding-edge pairs, and
+  the backward's (a patched copy counts them);
 * ``gc_variants``: the dW kernel at the four TP 2 sites with other k
   steps, stage counts and warp layouts (patched copies);
-* ``fp16_backward``: the fp16 backward (the FMA kernels) against its plain
-  versions with a key bias, at short and long sequences.
+* ``fp16_backward``: the fp16 backward against its plain versions with a
+  key bias, at short and long sequences: the tensor-core kernels as built,
+  with no rounding-edge check, and with every pair summed again in the
+  plain order (P and dS at the plain bits; the count of pairs whose
+  tensor-core P or dS would round otherwise, and of those the check missed);
+  and the FMA kernels that fp16 ran before, as they were and with the plain
+  versions' order of operations for P and dS;
+* ``ag_variants``: ``ring_ag_gemm`` at the four TP 2 sites (both weight
+  layouts) beside torch.matmul;
+* ``fwd_variants[:names]``: the flash kernels' times at the train shape and
+  their worst errors (fp16 cases, bf16 forward) per patched variant of the
+  source (FWD_VARIANTS), with ptxas's register counts of the forward;
+* ``flash_times``: the flash kernels and ring_ag_gemm timed on the tree
+  this script sits in (a copy run from a checkout of another commit times
+  that commit in the same call: parent, change, change, parent).
 
 Patched copies are written under ``probes/_build/`` (git-ignored).
 """
@@ -65,6 +81,52 @@ def _patched(module, name, replacements):
     PATCHED.mkdir(parents=True, exist_ok=True)
     path = PATCHED / "{}_{}.cu".format(Path(module.SOURCE).stem, name)
     path.write_text(text)
+    return path
+
+
+# device counters a patched copy adds to the flash source, read back
+# through ds_probe_read
+COUNTERS = ("#include \"sm90_mma.cuh\"\n",
+            "#include \"sm90_mma.cuh\"\n__device__ unsigned long long "
+            "ds_probe[16];\n")
+COUNTERS_READ = """
+extern "C" int ds_probe_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, ds_probe,
+                                                sizeof(ds_probe)));
+}
+extern "C" int ds_probe_zero() {
+  static const unsigned long long zeros[16] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(ds_probe, zeros,
+                                              sizeof(zeros)));
+}
+"""
+
+
+def _counters(zero=False):
+    lib = fa._library()
+    if zero:
+        assert lib.ds_probe_zero() == 0
+        return None
+    out = (ctypes.c_ulonglong * 16)()
+    torch.cuda.synchronize()
+    assert lib.ds_probe_read(out) == 0
+    return list(out)
+
+
+def _count(flags, idx):
+    """Source text that adds a warp's flagged pairs to counter idx and one
+    warp tile to idx + 1."""
+    return ("    {{ const unsigned n_ = __reduce_add_sync(0xffffffffu, "
+            "__popc({0})); if (lane == 0) {{ atomicAdd(&ds_probe[{1}], "
+            "(unsigned long long)n_); atomicAdd(&ds_probe[{2}], 1ull); }} }}\n"
+            .format(flags, idx, idx + 1))
+
+
+def _patched_counting(name, replacements):
+    """A patched flash source with the counters and ``replacements``."""
+    path = _patched(fa, name, [COUNTERS] + replacements)
+    if path is not None:
+        path.write_text(path.read_text() + COUNTERS_READ)
     return path
 
 
@@ -128,6 +190,11 @@ def s_order():
 
 
 def cublas_order():
+    """Share of cuBLAS's fp32 products equal to the ascending sequential sum
+    over d: the backward's (s, d) x (d, s) S and dP at the train shape, and
+    the forward's per-64-key-block batched S ((b, h, s, d) x (b, h, d, 64),
+    as flash_fwd_reference takes it) at d 32, 64 and 128, bf16 and fp16
+    inputs."""
     q, k, v, dout = cs.flash_case(DEV)
     out = {}
     for name, (a, b) in (("S", (q, k)), ("dP", (dout, v))):
@@ -138,26 +205,49 @@ def cublas_order():
         for i in range(A.shape[1]):       # exact products, ascending d
             acc = acc + A[:, i:i + 1] * B[:, i:i + 1].T
         out[name] = float((acc == ref).float().mean())
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (32, 64, 128):
+            A = torch.randn((2, 4, 1000, d), generator=gen, device=DEV,
+                            dtype=dtype).float()
+            B = torch.randn((2, 4, 64, d), generator=gen, device=DEV,
+                            dtype=dtype).float()
+            ref = A @ B.transpose(-1, -2)
+            acc = torch.zeros_like(ref)
+            for i in range(d):
+                acc = acc + A[..., i:i + 1] * B[..., i:i + 1].transpose(-1,
+                                                                      -2)
+            out["S_fwd_block_{}_d{}".format(str(dtype)[6:], d)] = float(
+                (acc == ref).float().mean())
     return {"share_equal_to_the_ascending_sum": out}
 
 
+FWD_MAX_FROM_TC = [
+    ("m_new[h2] = fmaxf(m[h2], quad_max(mt[h2]));",
+     "m_new[h2] = fmaxf(m[h2], hi[h2]);"),
+    ("cand |= live & 1u << (j * 4 + e);", ";")]
 FLASH_PARTS = {
-    "no_resum": [("flags |= 1u << (j * 4 + e);", ";")],
-    "no_check": [("flags |= 1u << (j * 4 + e);", ";"),
-                 ("if (near_plain_edge(", "if (false && near_plain_edge(")],
-    "no_norms": [("flags |= 1u << (j * 4 + e);", ";"),
-                 ("if (near_plain_edge(", "if (false && near_plain_edge("),
-                 ("  return sqrtf(((acc[0]",
-                  "  return 1.f; return sqrtf(((acc[0]")],
+    "no_resum": FWD_MAX_FROM_TC + [("flags |= 1u << (j * 4 + e);", ";"),
+                                   ("flags |= 1u << bit;", ";")],
+    "no_check": FWD_MAX_FROM_TC + [
+        ("flags |= 1u << (j * 4 + e);", ";"), ("flags |= 1u << bit;", ";"),
+        ("if (near_plain_edge<T>(", "if (false && near_plain_edge<T>("),
+        ("if (hi[h2] >= m[h2] && ", "if (false && "),
+        ("if ((live >> bit & 1u) && near_edge)", "if (false && near_edge)")],
 }
+FLASH_PARTS["no_norms"] = FLASH_PARTS["no_check"] + [
+    ("  return sqrtf(((acc[0]", "  return 1.f; return sqrtf(((acc[0]")]
 
 
 def flash_parts():
     args, kw = _train_backward_args()
+    q, k, v = args[:3]
     flush = _flush()
 
     def timed():
-        return {"dkdv_ms": cs.time_ms(lambda: fa.flash_bwd_dkdv(*args, **kw),
+        return {"fwd_ms": cs.time_ms(lambda: fa.flash_fwd(q, k, v, **kw),
+                                     flush),
+                "dkdv_ms": cs.time_ms(lambda: fa.flash_bwd_dkdv(*args, **kw),
                                       flush),
                 "dq_ms": cs.time_ms(lambda: fa.flash_bwd_dq(*args, **kw),
                                     flush)}
@@ -170,30 +260,58 @@ def flash_parts():
     return res
 
 
+FLAG_SITES = [("    float mt[2] = {kNegInf, kNegInf};\n", "cand", 0),
+              ("    // each lane sums its own flagged pairs again", "flags", 2),
+              ("    resolve_flagged<BQ / 8>(", "flags", 4),
+              ("    resolve_flagged<kTcRows / 8>(", "flags", 6)]
+
+
 def flash_flags():
-    anchor = "    while (__any_sync(0xffffffffu, flags)) {"
-    count = ("    { const unsigned n_flagged = __reduce_add_sync(0xffffffffu, "
-             "__popc(flags)); if (lane == 0) { atomicAdd(const_cast<float*>("
-             "p.delta), (float)n_flagged); atomicAdd(const_cast<float*>("
-             "p.delta) + 1, 1.f); } }\n")
-    path = _patched(fa, "count", [(anchor, count + anchor)])
+    """Flagged pairs per warp tile (16 rows x 64 keys for the forward and
+    dq, 16 keys x 32 queries for dk/dv) at the train shape (causal, random
+    q/k) and in the BERT mode (non-causal, the train_bert batch's key
+    bias)."""
+    path = _patched_counting("count", [(anchor, _count(var, idx) + anchor)
+                                       for anchor, var, idx in FLAG_SITES])
     if path is None:
         return "source changed"
 
+    def mode(args, kw):
+        q, k, v = args[:3]
+        out = {}
+        # the forward's edge count is its flagged pairs less the candidates
+        for name, call, idx in (
+                ("fwd_max_candidates", lambda: fa.flash_fwd(q, k, v, args[3],
+                                                            **kw), 0),
+                ("fwd_edges", None, 2),
+                ("dkdv", lambda: fa.flash_bwd_dkdv(*args, **kw), 4),
+                ("dq", lambda: fa.flash_bwd_dq(*args, **kw), 6)):
+            if call is not None:
+                _counters(zero=True)
+                call()
+                got = _counters()
+            n = got[idx] - (got[0] if name == "fwd_edges" else 0)
+            out[name] = {"flagged": n, "warp_tiles": got[idx + 1],
+                         "per_warp_tile": n / max(got[idx + 1], 1)}
+        return out
+
     def run():
         args, kw = _train_backward_args()
-        out = {}
-        for name, fn in (("dkdv", fa.flash_bwd_dkdv),
-                         ("dq", fa.flash_bwd_dq)):
-            delta = args[6].clone()
-            before = delta.flatten()[:2].clone()
-            fn(*args[:6], delta, **kw)
-            torch.cuda.synchronize()
-            got = delta.flatten()[:2] - before
-            out[name] = {"flagged": float(got[0]),
-                         "warp_tiles": float(got[1]),
-                         "per_warp_tile": float(got[0] / got[1])}
-        return out
+        res = {"train": mode(args, kw)}
+        from deepspeed_tpu_torch.models import bert
+        from deepspeed_tpu_torch.ops.transformer.transformer import \
+            _expand_mask
+        cfg = bert.config_for("bert_large", max_seq_len=cs.BERT_SEQ)
+        keep = torch.from_numpy(cs.bert_batch(cfg, cs.BERT_MICRO, cs.BERT_SEQ,
+                                              seed=0)[2][0]).to(DEV)
+        bias = _expand_mask(keep, torch.float32)[:, 0, 0, :].contiguous()
+        q, k, v, dout = cs.flash_case(DEV, cs.BERT_FLASH_SHAPE, seed=1)
+        h = cs.BERT_FLASH_SHAPE["h"]
+        kw = dict(num_heads=h, causal=False)
+        out, lse = fa.flash_fwd(q, k, v, bias, **kw)
+        delta = fa.attention_delta(out, dout, h)
+        res["bert"] = mode((q, k, v, bias, dout, lse, delta), kw)
+        return res
 
     return _with_source(fa, path, run)
 
@@ -245,54 +363,304 @@ def gc_variants():
     return out
 
 
-def fp16_backward():
-    """The fp16 backward (the FMA kernels) against its plain versions, b 2,
-    h 3, a key bias dropping 20% of keys: the largest error over an fp16
-    ulp of the plain value plus 1e-6 (the GPU tests' bound; 1 passes)."""
-    res = []
-    for d in (32, 128):
-        for s in (96, 1000):
-            for causal in (True, False):
-                rng = np.random.RandomState(s + d)
-                b, h = 2, 3
-                to = lambda a: torch.from_numpy(a).to(DEV, torch.float16)
-                qkv = to(rng.randn(b, s, 3 * h * d).astype(np.float32))
-                q, k, v = qkv.split(h * d, -1)
-                dout = to(rng.randn(b, s, h * d).astype(np.float32))
-                bias = rng.randn(b, s).astype(np.float32)
-                bias[rng.rand(b, s) < 0.2] = -1e9
-                bias[:, 0] = 0.0
-                bias = torch.from_numpy(bias).to(DEV)
-                kw = dict(num_heads=h, causal=causal)
-                out, lse = fa.flash_fwd(q, k, v, bias, **kw)
-                delta = fa.attention_delta(out, dout, h)
-                args = (q, k, v, bias, dout, lse, delta)
-                got = fa.flash_bwd_dkdv(*args, **kw) + \
-                    (fa.flash_bwd_dq(*args, **kw),)
-                want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
-                    (fa.flash_bwd_dq_reference(*args, **kw),)
-                eps = torch.finfo(torch.float16).eps
-                ratio = {name: float(((g.float() - w.float()).abs() /
-                                      (eps * w.float().abs() + 1e-6)).max())
-                         for name, g, w in zip(("dk", "dv", "dq"), got, want)}
-                res.append({"d": d, "s": s, "causal": causal,
-                            "ulp_ratio": ratio})
+# fp16 through the FMA kernels, as before the tensor-core route took it
+FP16_ON_FMA = [("constexpr bool tc = !std::is_same<T, float>::value;",
+                "constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;")]
+# ... with P and dS in the plain versions' order of fp32 operations (no
+# contraction of S scale + bias into one fused multiply-add)
+FMA_PLAIN_ORDER = [
+    ("expf(sc[i][j] * p.scale + bs[tx * 4 + j] - lse_r[i])",
+     "expf(__fsub_rn(__fadd_rn(__fmul_rn(sc[i][j], p.scale), "
+     "bs[tx * 4 + j]), lse_r[i]))"),
+    ("pr * (dp[i][j] - delta_r[i]) * p.scale",
+     "__fmul_rn(__fmul_rn(pr, __fsub_rn(dp[i][j], delta_r[i])), p.scale)"),
+    ("expf(st[i][j] * p.scale + bs[ty * 4 + i] - lse_c[j])",
+     "expf(__fsub_rn(__fadd_rn(__fmul_rn(st[i][j], p.scale), "
+     "bs[ty * 4 + i]), lse_c[j]))"),
+    ("pr * (dpt[i][j] - delta_c[j]) * p.scale",
+     "__fmul_rn(__fmul_rn(pr, __fsub_rn(dpt[i][j], delta_c[j])), p.scale)")]
+# every live pair summed again in the plain order, counting the pairs whose
+# tensor-core P or dS rounds otherwise (0, 1: dk/dv's P, dS; 2: dq's dS)
+# and those of them the check did not flag (3, 4)
+ALL_RESUMMED = [
+    ("    uint32_t flags = 0;\n",
+     "    uint32_t flags = 0;\n    unsigned long long real_ = 0;\n"),
+    ("          if (near_plain_edge<T>(t, eb[h2])) flags |= 1u << (j * 4 + e);",
+     "          if (near_plain_edge<T>(t, eb[h2])) real_ |= 1ull << (j * 4 + e);"
+     " flags |= 1u << (j * 4 + e);"),
+    ("          if (near_plain_edge<T>(t, b)) flags |= 1u << (j * 4 + e);",
+     "          if (near_plain_edge<T>(t, b)) real_ |= 1ull << (j * 4 + e);"
+     " flags |= 1u << (j * 4 + e);"),
+    ("        [&](int j, int e, bool taken, float2 v) {\n",
+     "        [&](int j, int e, bool taken, float2 v) {\n"
+     "          if (taken) { const bool fp_ = round_to<T>(sc[j][e]) != "
+     "round_to<T>(v.x), fd_ = round_to<T>(dp[j][e]) != round_to<T>(v.y); "
+     "if (fp_) atomicAdd(&ds_probe[0], 1ull); "
+     "if (fd_) atomicAdd(&ds_probe[1], 1ull); "
+     "if ((fp_ || fd_) && !(real_ >> (j * 4 + e) & 1ull)) "
+     "atomicAdd(&ds_probe[3], 1ull); }\n"),
+    ("        [&](int j, int e, bool taken, float v) {\n"
+     "          dp[j][e] = taken ? v : dp[j][e];",
+     "        [&](int j, int e, bool taken, float v) {\n"
+     "          if (taken && round_to<T>(dp[j][e]) != round_to<T>(v)) { "
+     "atomicAdd(&ds_probe[2], 1ull); if (!(real_ >> (j * 4 + e) & 1ull)) "
+     "atomicAdd(&ds_probe[4], 1ull); }\n"
+     "          dp[j][e] = taken ? v : dp[j][e];")]
+FP16_VARIANTS = {
+    "tc_as_built": None,
+    "tc_no_check": [("flags |= 1u << (j * 4 + e);", ";"),
+                    ("flags |= 1u << bit;", ";")],
+    "tc_all_resummed": ALL_RESUMMED,
+    "fma_as_before": FP16_ON_FMA,
+    "fma_plain_order": FP16_ON_FMA + FMA_PLAIN_ORDER,
+}
+
+
+def fp16_backward(names=None):
+    """The fp16 backward against its plain versions at the cases of
+    chip_smoke.py's FP16_CASES (b 2, h 3, d 32 / 128, s 96 / 1000, causal
+    or not, a key bias dropping 20% of keys; and d 64, s 333 with q, k
+    scaled by 3): the largest error over an fp16 ulp of the plain value
+    plus 1e-6 (the GPU tests' bound; 1 passes), per variant of the kernels
+    (FP16_VARIANTS). Each variant's forward gives its own out and lse."""
+    def cases(counting):
+        rows = []
+        for b, h, d, s, causal, qk_scale in cs.FP16_CASES:
+            q, k, v, dout, bias = cs.fp16_case(DEV, b, h, d, s, qk_scale)
+            kw = dict(num_heads=h, causal=causal)
+            out, lse = fa.flash_fwd(q, k, v, bias, **kw)
+            delta = fa.attention_delta(out, dout, h)
+            args = (q, k, v, bias, dout, lse, delta)
+            if counting:
+                _counters(zero=True)
+            got = fa.flash_bwd_dkdv(*args, **kw) + \
+                (fa.flash_bwd_dq(*args, **kw),)
+            want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
+                (fa.flash_bwd_dq_reference(*args, **kw),)
+            eps = torch.finfo(torch.float16).eps
+            row = {"d": d, "s": s, "causal": causal, "qk_scale": qk_scale,
+                   "ulp_ratio": {
+                       name: float(((g.float() - w.float()).abs() /
+                                    (eps * w.float().abs() + 1e-6)).max())
+                       for name, g, w in zip(("dk", "dv", "dq"), got,
+                                             want)},
+                   "grads": [g.cpu() for g in got]}
+            if counting:
+                c = _counters()
+                row["flips"] = {"dkdv_p": c[0], "dkdv_ds": c[1],
+                                "dq_ds": c[2], "missed_by_check_dkdv": c[3],
+                                "missed_by_check_dq": c[4]}
+            rows.append(row)
+        return rows
+
+    res = {}
+    for name, reps in FP16_VARIANTS.items():
+        if names and name not in names:
+            continue
+        if reps is None:
+            res[name] = cases(False)
+            continue
+        counting = reps is ALL_RESUMMED
+        path = (_patched_counting if counting else
+                lambda n, r: _patched(fa, n, r))("fp16_" + name, reps)
+        res[name] = "source changed" if path is None else \
+            _with_source(fa, path, lambda: cases(counting))
+    built = res.get("tc_as_built")
+    for name, rows in res.items():
+        if isinstance(rows, str) or built is None:
+            continue
+        for row, ref in zip(rows, built):
+            row["bit_equal_to_as_built"] = all(
+                torch.equal(a, b) for a, b in zip(row["grads"], ref["grads"]))
+    for rows in res.values():
+        if not isinstance(rows, str):
+            for row in rows:
+                del row["grads"]
     return res
+
+
+TC_PB_FRESH = """        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        sm90::mma16816<T>(t0, af, bf[0], bf[1]);
+        sm90::mma16816<T>(t1, af, bf[2], bf[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * nd][e] = __fadd_rn(acc[2 * nd][e], t0[e]);
+          acc[2 * nd + 1][e] = __fadd_rn(acc[2 * nd + 1][e], t1[e]);
+        }
+"""
+TC_PB_CHAINED = """        sm90::mma16816<T>(acc[2 * nd], af, bf[0], bf[1]);
+        sm90::mma16816<T>(acc[2 * nd + 1], af, bf[2], bf[3]);
+"""
+FWD_VARIANTS = {
+    "as_built": [],
+    "cand_only": [("flags |= 1u << bit;", ";")],
+    "edges_only": FWD_MAX_FROM_TC,
+    "cand_only_no_resum": [("    uint32_t flags = cand;",
+                            "    uint32_t flags = 0;"),
+                           ("flags |= 1u << bit;", ";")],
+    "cheap_dot": [("__device__ __forceinline__ float seq_dot(const T* a, "
+                   "const T* b) {\n  float s = 0.f;",
+                   "__device__ __forceinline__ float seq_dot(const T* a, "
+                   "const T* b) {\n  if (a != nullptr) return to_f(a[0]) * "
+                   "to_f(b[0]);\n  float s = 0.f;")],
+    # dS's check without the edge below a power of two
+    "no_far_edge": [(
+        "  return (edge_ulps<T>(t.ds) - b.tp) * d1 <= b.ed ||\n"
+        "         (kFarEdge<T> - b.tp) * d1 <= b.ed;",
+        "  return (edge_ulps<T>(t.ds) - b.tp) * d1 <= b.ed;")],
+    "check_only": [("    for (uint32_t f = flags; f != 0u; f &= f - 1u) {",
+                    "    if (flags == 0x7fffffffu) pw[0] = 0.f;\n"
+                    "    for (uint32_t f = 0; f != 0u; f &= f - 1u) {")],
+    "fwd_2_blocks": [("__launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)\n"
+                      "    flash_fwd_tc_kernel",
+                      "__launch_bounds__(kTcThreads)\n    flash_fwd_tc_kernel")],
+    "fwd_4_blocks": [("__launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)\n"
+                      "    flash_fwd_tc_kernel",
+                      "__launch_bounds__(kTcThreads, D <= 64 ? 4 : 2)\n"
+                      "    flash_fwd_tc_kernel")],
+    # fp16's products chained through the accumulator, as bf16's are
+    "fp16_chained": [(TC_PB_FRESH, TC_PB_CHAINED)],
+    # fp16: one partial product a call (a 32- or 64-deep chain from zero),
+    # added to acc with rounded adds
+    "fp16_partial": [
+        ("    sm90::pack_c_to_a<T>(af, p[2 * kk], p[2 * kk + 1]);",
+         "    sm90::pack_c_to_a<T>(af, p[2 * kk], p[2 * kk + 1]);\n"
+         "    float (&part)[D / 8][4] = part_;"),
+        ("  const int mat = lane >> 3, r8 = lane & 7;\n#pragma unroll\n"
+         "  for (int kk = 0; kk < K / 16; ++kk) {\n    uint32_t af[4];",
+         "  const int mat = lane >> 3, r8 = lane & 7;\n"
+         "  float part_[D / 8][4] = {};\n#pragma unroll\n"
+         "  for (int kk = 0; kk < K / 16; ++kk) {\n    uint32_t af[4];"),
+        (TC_PB_FRESH,
+         "        sm90::mma16816<T>(part[2 * nd], af, bf[0], bf[1]);\n"
+         "        sm90::mma16816<T>(part[2 * nd + 1], af, bf[2], bf[3]);\n"),
+        ("    }\n  }\n}\n\n// 16 rows x D of fp32 accumulators",
+         "    }\n  }\n  if constexpr (std::is_same<T, __half>::value) {\n"
+         "#pragma unroll\n  for (int j = 0; j < D / 8; ++j)\n"
+         "#pragma unroll\n    for (int e = 0; e < 4; ++e) acc[j][e] = "
+         "__fadd_rn(acc[j][e], part_[j][e]);\n  }\n}\n\n"
+         "// 16 rows x D of fp32 accumulators")],
+}
+
+
+def fwd_variants(names=None):
+    """The kernels at the train shape (fwd, dk/dv, dq ms) per variant of the
+    source (FWD_VARIANTS; patched copies), with the worst error over
+    FP16_CASES (out and the gradients, fp16 ulps + floor) and over the
+    train shape's forward (bf16 ulps + 2**-9)."""
+    args, kw = _train_backward_args()
+    q, k, v = args[:3]
+    flush = _flush()
+
+    def measure():
+        row = {"fwd_ms": cs.time_ms(lambda: fa.flash_fwd(q, k, v, **kw),
+                                    flush),
+               "dkdv_ms": cs.time_ms(lambda: fa.flash_bwd_dkdv(*args, **kw),
+                                     flush),
+               "dq_ms": cs.time_ms(lambda: fa.flash_bwd_dq(*args, **kw),
+                                   flush)}
+        out, _ = fa.flash_fwd(q, k, v, **kw)
+        ref, _ = fa.flash_fwd_reference(q, k, v, **kw)
+        row["bf16_train_out_ratio"] = cs._ulp_ratio(out, ref,
+                                                    cs.FLASH_TOL["out_atol"])
+        try:
+            row["fp16_worst"] = cs.phase_flash_fp16()["worst_ulp_ratio"]
+        except AssertionError as err:
+            row["fp16_worst"] = "over: " + str(err)[-300:]
+        return row
+
+    res = {}
+    for name, reps in FWD_VARIANTS.items():
+        if names and name not in names:
+            continue
+        path = _patched(fa, "fwd_" + name, reps) if reps else \
+            Path(fa.SOURCE)
+        if path is None:
+            res[name] = "source changed"
+            continue
+        regs = {kernel: _registers(path, kernel) for kernel in (
+            "flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+            "flash_bwd_dq_tc_kernel")}
+        res[name] = _with_source(fa, path, measure)
+        res[name]["registers"] = regs
+    return res
+
+
+def _registers(path, kernel, logs={}):
+    """{template arguments: registers} of ``kernel``'s builds, from ptxas's
+    lines in the build log (built once more for its log)."""
+    if path not in logs:
+        cuda_build.library_path(path).unlink(missing_ok=True)
+        logs[path] = cuda_build.build(path).log.splitlines()
+    log = logs[path]
+    out = {}
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and kernel + "I" in line:
+            key = line.split(kernel + "I", 1)[1].split("EEEv")[0]
+            for later in log[i + 1:i + 6]:
+                if "registers" in later:
+                    out[key] = later.split("Used", 1)[1].split(",")[0].strip()
+    return out
+
+
+def flash_times():
+    """The three flash kernels at the train shape (bf16, causal) and
+    ring_ag_gemm summed over its four TP 2 sites, ms, on the tree this
+    script's parent directory holds (run a copy of it from another tree's
+    probes/ to time that tree in the same call)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args, kw = _train_backward_args()
+    q, k, v = args[:3]
+    flush = _flush()
+    res = {"tree": str(ROOT),
+           "fwd_ms": cs.time_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush),
+           "dkdv_ms": cs.time_ms(lambda: fa.flash_bwd_dkdv(*args, **kw),
+                                 flush),
+           "dq_ms": cs.time_ms(lambda: fa.flash_bwd_dq(*args, **kw), flush)}
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    res["ag_ms"] = sum(
+        cs.time_ms(cs.ring_case("ring_ag_gemm", k_, n, mode, DEV, gen)[0],
+                   flush)
+        for _, k_, n, mode in cs.RING_SITES["ring_ag_gemm"])
+    return res
+
+
+def ag_variants():
+    """ring_ag_gemm at its four TP 2 sites against torch.matmul, per site."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    flush = _flush()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    rows = {}
+    for site, k, n, mode in cs.RING_SITES["ring_ag_gemm"]:
+        kern, plain, lib, get, flops, nbytes = cs.ring_case(
+            "ring_ag_gemm", k, n, mode, DEV, gen)
+        ms = cs.time_ms(kern, flush)
+        rows[site] = {"ms": ms, "matmul_ms": cs.time_ms(lib, flush),
+                      "tflops": flops / ms / 1e9}
+    rows["sum_ms"] = sum(r["ms"] for r in rows.values())
+    return rows
 
 
 SECTIONS = {"s_order": s_order, "cublas_order": cublas_order,
             "flash_parts": flash_parts, "flash_flags": flash_flags,
-            "gc_variants": gc_variants, "fp16_backward": fp16_backward}
+            "gc_variants": gc_variants, "fp16_backward": fp16_backward,
+            "ag_variants": ag_variants, "fwd_variants": fwd_variants,
+            "flash_times": flash_times}
 
 
 def main():
+    """SECTION[:a,b] runs a section on the named variants only (the
+    sections taking ``names``)."""
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device is available")
     names = sys.argv[1:] or list(SECTIONS)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
-    for name in names:
-        print(json.dumps({"section": name, "result": SECTIONS[name]()},
-                         default=str), flush=True)
+    for arg in names:
+        name, _, only = arg.partition(":")
+        fn = SECTIONS[name]
+        result = fn(only.split(",")) if only else fn()
+        print(json.dumps({"section": name, "result": result}, default=str),
+              flush=True)
 
 
 if __name__ == "__main__":

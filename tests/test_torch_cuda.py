@@ -18,8 +18,9 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 * flash attention (forward, dk/dv and dq kernels): each against its
   plain version over d_head 32/64/128, ragged lengths, causal and not,
   a key bias, fp32/bf16/fp16, q/k/v as strided column blocks of one QKV
-  tensor or separate; outputs written into caller-given views; repeated
-  runs bit-identical; refusals;
+  tensor or separate; the fp16 backward at long sequences with a key bias
+  and with P and dS in fp16's subnormal range; outputs written into
+  caller-given views; repeated runs bit-identical; refusals;
   the (b, s, h, d) op with a key-padding mask against its CPU run.
 * Adam: the kernel against its plain version bit for bit, over odd
   lengths and misaligned starts, AdamW and L2.
@@ -303,8 +304,8 @@ def test_flash_tensor_core_backward_matches_plain_versions(cuda, d, s,
     rounded to bf16 at the plain versions' points and bits) against the
     plain versions: dq, dk, dv per element within one ulp of the plain
     value plus 1e-6 (FLASH_TOL in chip_smoke.py); s need not be a multiple
-    of the 64-row tiles; a second run bit-identical. (fp16 keeps the FMA
-    kernels: test_flash_kernels_match_plain_versions.)"""
+    of the 64-row tiles; a second run bit-identical. (fp16 at the same
+    bound: test_flash_fp16_backward_matches_plain_versions.)"""
     dtype = torch.bfloat16
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     b, h = 1, 2
@@ -349,6 +350,118 @@ def test_flash_tensor_core_backward_is_bit_stable_over_repeats(cuda):
         for run in runs[1:]:
             for got, want in zip(run, runs[0]):
                 assert torch.equal(got, want), causal
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [96, 1000])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_fp16_backward_matches_plain_versions(cuda, d, s, causal):
+    """The fp16 backward (tensor-core kernels; P and dS at the plain
+    versions' bits through fp16's own rounding edges) at the cases of
+    probes/kernel_probe.py fp16_backward: b 2, h 3, a key bias dropping 20%
+    of keys. dq, dk, dv per element within one fp16 ulp of the plain value
+    plus 1e-6; a second run bit-identical."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, h, dtype = 2, 3, torch.float16
+    q, k, v, dout, kb = _flash_case(cuda, dtype, b, s, h, d, seed=s + d,
+                                    bias=True)
+    kw = dict(num_heads=h, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+    delta = fa.attention_delta(out, dout, h)
+    args = (q, k, v, kb, dout, lse, delta)
+    runs = [fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+            for _ in range(2)]
+    want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
+        (fa.flash_bwd_dq_reference(*args, **kw),)
+    torch.cuda.synchronize()
+    for name, got, again, ref in zip(("dk", "dv", "dq"), runs[0], runs[1],
+                                     want):
+        assert torch.isfinite(got.float()).all(), name
+        assert torch.equal(got, again), name
+        assert _ulp_ratio(got, ref, 1e-6) <= 1.0, \
+            (name, _ulp_ratio(got, ref, 1e-6))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fp16_backward_in_the_subnormal_range(cuda, causal):
+    """fp16 with q and k scaled by 3 (scores spread ~9 wide at d 64), so
+    that many P = exp(x) and dS fall into fp16's subnormal range (below
+    2**-14, spacing 2**-24) and below its rounding to 0 (2**-25): the
+    backward still within one fp16 ulp of the plain value plus 1e-6, the
+    forward within one ulp plus eps / 4 and lse within 1e-4."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, s, h, d, dtype = 2, 333, 2, 64, torch.float16
+    q, k, v, dout, kb = _flash_case(cuda, dtype, b, s, h, d, seed=11,
+                                    bias=True)
+    q.mul_(3)       # in place: q, k, v stay column blocks of one tensor
+    k.mul_(3)
+    kw = dict(num_heads=h, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, kb, **kw)
+    delta = fa.attention_delta(out, dout, h)
+    args = (q, k, v, kb, dout, lse, delta)
+    got = fa.flash_bwd_dkdv(*args, **kw) + (fa.flash_bwd_dq(*args, **kw),)
+    want = fa.flash_bwd_dkdv_reference(*args, **kw) + \
+        (fa.flash_bwd_dq_reference(*args, **kw),)
+    _, _, _, p, ds = fa._bwd_terms(q, k, v, kb, dout, lse, delta, h, causal,
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    sub = lambda t: int(((t.float().abs() > 0) &
+                         (t.float().abs() < 2 ** -14)).sum())
+    tiny = int(((p > 0) & (p < 2 ** -25)).sum())
+    assert min(sub(p.half()), sub(ds), tiny) >= 1000, \
+        (sub(p.half()), sub(ds), tiny)
+    eps = torch.finfo(dtype).eps
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    assert _ulp_ratio(out, ref_out, eps / 4) <= 1.0
+    for name, g, w in zip(("dk", "dv", "dq"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _ulp_ratio(g, w, 1e-6) <= 1.0, (name, _ulp_ratio(g, w, 1e-6))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tensor_core_forward_matches_plain_version(cuda, dtype, d,
+                                                         bias):
+    """The forward on the tensor cores (P at the plain version's bits,
+    its running max taken exactly) against flash_fwd_reference, causal and
+    not, s not a multiple of the 64-row tiles, q/k/v strided column blocks
+    of one QKV tensor: out per element within one ulp of the plain value
+    plus eps / 4 (FLASH_TOL's 2**-9 at bf16), lse within 1e-4, and one
+    launch a call."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, h = 2, 3
+    for s, causal in ((200, True), (1000, False), (77, False), (130, True)):
+        q, k, v, _, kb = _flash_case(cuda, dtype, b, s, h, d, seed=s + d,
+                                     bias=bias)
+        kw = dict(num_heads=h, causal=causal)
+        before = fa.flash_fwd.launches
+        out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, kb, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_fwd.launches == before + 1
+        assert torch.isfinite(out.float()).all() and \
+            torch.isfinite(lse).all()
+        assert float((lse - ref_lse).abs().max()) <= 1e-4, (s, causal)
+        eps = torch.finfo(dtype).eps
+        assert _ulp_ratio(out, ref_out, eps / 4) <= 1.0, \
+            (s, causal, _ulp_ratio(out, ref_out, eps / 4))
+
+
+def test_flash_tensor_core_forward_is_bit_stable_over_repeats(cuda):
+    """20 runs of the forward at a ragged length with a key bias, bf16 and
+    fp16, causal and not: out and lse the same bits every time."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, _, kb = _flash_case(cuda, dtype, 2, 1000, 4, 64, bias=True)
+        for causal in (True, False):
+            runs = [fa.flash_fwd(q, k, v, kb, num_heads=4, causal=causal)
+                    for _ in range(20)]
+            torch.cuda.synchronize()
+            for out, lse in runs[1:]:
+                assert torch.equal(out, runs[0][0]), (dtype, causal)
+                assert torch.equal(lse, runs[0][1]), (dtype, causal)
 
 
 @pytest.mark.parametrize("bad", ["d_head", "strides", "device"])
@@ -918,9 +1031,17 @@ def _rnd(gen, device, dtype, *shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s_loc,d,f,n,blk,wt", [
     (2, 40, 72, 24, 2, 1, False), (1, 17, 35, 9, 3, 2, True),
-    (3, 64, 128, 256, 2, 0, True), (2, 130, 136, 200, 4, 3, False)])
+    (3, 64, 128, 256, 2, 0, True), (2, 130, 136, 200, 4, 3, False),
+    # M, N and K off the 128 x 128 tiles and the 64-deep k steps, both
+    # layouts of w (the n-contiguous weight, the k-contiguous w^T view),
+    # with K and N multiples of 8 (16-byte copies) and not (plain loads)
+    (2, 200, 1000, 300, 2, 1, False), (2, 200, 1000, 300, 2, 0, True),
+    (1, 333, 517, 270, 3, 2, False), (1, 333, 517, 270, 3, 1, True),
+    (4, 256, 1024, 1536, 2, 1, False), (4, 256, 1024, 520, 2, 0, True)])
 def test_ring_ag_gemm_matches_plain_version(cuda, monkeypatch, dtype, b,
                                             s_loc, d, f, n, blk, wt):
+    """One all-gather step against its plain version within _ring_tol,
+    only the step's ring block written, and a second run bit-identical."""
     from deepspeed_tpu_torch.ops import ring_gemm as rg
     _full_precision_reduction(monkeypatch)
     gen = torch.Generator(device=cuda).manual_seed(d + f)
