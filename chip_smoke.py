@@ -30,8 +30,9 @@ with no ``ok`` line):
 6. block_sparse_attention kernel phase — the three block-sparse kernels
    against their plain versions at the long-context train shape (b 2,
    s 8192, h 16, d 64, bf16, causal), over the train config's shared
-   ``fixed`` layout and the parity config's per-head layout, timed beside
-   their bounds, ``flex_attention`` (torch.compile, same block mask) and
+   ``fixed`` layout and the parity config's per-head layout (the two
+   backward kernels also bit for bit over two runs), timed beside their
+   bounds, ``flex_attention`` (torch.compile, same block mask) and
    ``scaled_dot_product_attention`` with the layout as a dense mask;
 7. train_sparse — the long-context main path: ``initialize(...)
    .train_batch(...)`` on gpt2_medium at full width and depth, seq 8192,
@@ -75,7 +76,7 @@ with no ``ok`` line):
    (all-gather-matmul, matmul-reduce-scatter with the add, the dW
    gather-contract) at gpt2_medium TP 2's shapes (b 16, s 1024, four
    sites each, bf16, transposed weight views as the backward gives
-   them) against their plain versions, per element (ag and gc also bit
+   them) against their plain versions, per element (all three also bit
    for bit over two runs), timed beside their bounds and torch.matmul of
    the same product;
 16. train_tp — the tensor-parallel main path: two spawned ranks sharing
@@ -1041,6 +1042,8 @@ def phase_sparse(flush):
         args = (q, k, v, None, None, dout, lse, delta)
         dq = bsa.block_sparse_bwd_dq(*args, **kw)
         dk, dv = bsa.block_sparse_bwd_dkdv(*args, **kw)
+        again = (bsa.block_sparse_bwd_dq(*args, **kw),
+                 *bsa.block_sparse_bwd_dkdv(*args, **kw))
         ref_out, ref_lse = bsa.block_sparse_fwd_reference(q, k, v, **kw)
         ref_dq = bsa.block_sparse_bwd_dq_reference(*args, **kw)
         ref_dk, ref_dv = bsa.block_sparse_bwd_dkdv_reference(*args, **kw)
@@ -1055,9 +1058,12 @@ def phase_sparse(flush):
             errs[g + "_ulp_ratio"] = _ulp_ratio(got, want, atol)
         for t in (out, lse, dq, dk, dv):
             assert torch.isfinite(t.float()).all(), "non-finite kernel output"
+        errs["bwd_repeat_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
         assert errs["lse"] <= FLASH_TOL["lse"], (name, errs)
         assert max(errs[g + "_ulp_ratio"] for g in pairs) <= 1.0, (name, errs)
-        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+        assert errs["bwd_repeat_bit_equal"], (name, "two backward runs differ")
+        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, again
 
         times = {
             "block_sparse_fwd": (
@@ -1842,7 +1848,7 @@ def phase_ring_gemm(flush):
                     err, ratio = _ring_err(get(0), get(1), tol)
                     acc_err = None
                     assert torch.isfinite(get(0)).all()
-                    if name == "ring_ag_gemm":
+                    if name in ("ring_ag_gemm", "ring_rs_gemm_add"):
                         # the same bits run to run (no split K)
                         first = get(0).clone()
                         kern()

@@ -28,17 +28,13 @@
 // Bound on the H100: operations at the main path's shapes (K = 512 to 8192,
 // M = 8192 rows; ~1000 flops per byte moved).
 //
-// rs (the first design): bf16 operands go through the tensor cores with
-// mma.sync m16n8k16 (fp32 accumulators), 128 x 128 output tiles of 8 warps,
-// 16-byte global loads where the layout allows, one stage: the tiles are
-// loaded, synchronised and consumed in turn (gemm_tile), a scalar epilogue.
+// bf16 (all three, designed for Hopper) runs one main loop: 16-byte cp.async
+// copies of 64-deep k steps into a ring of three shared-memory stages (rows
+// padded by 16 bytes, so the fragment loads meet no bank conflict; each
+// thread's row offsets computed once and advanced by additions, no division
+// in the loop), fragments read with ldmatrix, and mma.sync m16n8k16 (fp32
+// accumulators) over 128 x 128 output tiles of 8 warps (64 x 32 each).
 //
-// gc and ag (bf16, redesigned for Hopper) share one main loop: 16-byte
-// cp.async copies of 64-deep k steps into a ring of three shared-memory
-// stages (rows padded by 16 bytes, so the fragment loads meet no bank
-// conflict; each thread's row offsets computed once and advanced by
-// additions, no division in the loop), fragments read with ldmatrix, and
-// mma.sync m16n8k16 over 128 x 128 output tiles of 8 warps (64 x 32 each).
 // gc's operands both arrive k-major (the contraction index is the row
 // index, M or N contiguous), so its tiles are staged as they lie and read
 // with ldmatrix.trans. On the H100 it runs at ~190 TFLOP/s a site, bound by
@@ -47,13 +43,21 @@
 // tiles fill the card (gc_plan in ring_gemm.py): each split writes its fp32
 // partial tile to a workspace, and the split that arrives last at a tile (a
 // ticket per tile) folds acc + partial 0 + partial 1 + ... in split order,
-// so the result has the same bits run to run. ag's A (the chunk) is
-// k-contiguous and read with plain ldmatrix; its B is the weight w
-// (n-contiguous, staged as k rows, ldmatrix.trans) or, in the backward, the
-// w^T view (k-contiguous, staged like A); the kernel is built for both
-// (ring_ag_gemm_bf16_kernel<KC>). Its M = 8192 rows give 256-1024 tiles, so
-// K is never split; each fp32 sum rounds to bf16 once, and neighbouring
-// columns are stored as one 32-bit word into the ring block.
+// so the result has the same bits run to run.
+//
+// ag and rs share the k-contiguous A form of the loop (tc_kc_main_loop): A
+// (the chunk for ag, the ring block of x for rs) is read with plain
+// ldmatrix; B is the weight w (n-contiguous, staged as k rows,
+// ldmatrix.trans) or, in the backward, the w^T view (k-contiguous, staged
+// like A); each kernel is built for both (template KC). Their M = 8192 rows
+// give 256-1024 tiles, so K is never split and the result has the same bits
+// run to run. The epilogues differ: ag rounds each fp32 sum to bf16 once
+// and stores neighbouring columns as one 32-bit word into its ring block;
+// rs rounds the sum to bf16 (the partial), adds what arrived (recv, absent
+// on the first ring step) in fp32 and rounds again, writing neighbouring
+// columns as 32-bit words where out allows it. out may be recv:
+// each element is read, then written, by the one thread that owns it, and
+// neither pointer is __restrict__.
 //
 // fp32 operands take a plain FMA path (the parity runs).
 
@@ -66,35 +70,10 @@
 namespace {
 
 constexpr int kBK = 32;
+constexpr int kLdF = kBK + 1;  // the fp32 tiles' 33-word rows
 
-template <typename T>
-struct Pad;
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int value = 8;  // 80-byte rows: conflict-free fragments
-};
-template <>
-struct Pad<float> {
-  static constexpr int value = 1;  // 33-word rows
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <typename T>
-__device__ __forceinline__ T zero_of() {
-  return from_f<T>(0.f);
+__device__ __forceinline__ __nv_bfloat16 bf16_zero() {
+  return __float2bfloat16_rn(0.f);
 }
 
 // The offset of row i: (i / rpb) * sb + (i % rpb) * sr.
@@ -119,14 +98,14 @@ struct Operand {
 
 // s[r][kk] = op(r0 + r, k0 + kk) for a ROWS x kBK tile, zero outside
 // (R, K). Consecutive threads read consecutive addresses in either layout.
-template <typename T, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(T (*s)[kBK + Pad<T>::value],
-                                          const Operand<T>& op, int r0,
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(float (*s)[kLdF],
+                                          const Operand<float>& op, int r0,
                                           int k0, int R, int K) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 4;
   union Vec {
     uint4 u;
-    T e[V];
+    float e[V];
   };
   if (op.kcontig) {
     constexpr int CPR = kBK / V;  // chunks per row
@@ -143,7 +122,7 @@ __device__ __forceinline__ void load_tile(T (*s)[kBK + Pad<T>::value],
         for (int j = 0; j < V; ++j)
           s[r][kk + j] = (gr < R && gk + j < K)
                              ? op.ptr[op.rows.off(gr) + gk + j]
-                             : zero_of<T>();
+                             : 0.f;
       }
     }
   } else {
@@ -161,93 +140,15 @@ __device__ __forceinline__ void load_tile(T (*s)[kBK + Pad<T>::value],
         for (int j = 0; j < V; ++j)
           s[r + j][kk] = (gk < K && gr + j < R)
                              ? op.ptr[op.rows.off(gk) + gr + j]
-                             : zero_of<T>();
+                             : 0.f;
       }
     }
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// C[M, N] = sum_k A(m, k) B(k, n) in fp32 for this block's BM x BN tile;
-// `epi(m, n, value)` is called once for every in-bounds element.
-// bf16: WM x WN warps, each a (BM/WM) x (BN/WN) tile of m16n8k16 products.
-template <int BM, int BN, int WM, int WN, typename Epi>
-__device__ __forceinline__ void gemm_tile(const Operand<__nv_bfloat16>& A,
-                                          const Operand<__nv_bfloat16>& B,
-                                          int M, int N, int K, Epi epi) {
-  constexpr int THREADS = WM * WN * 32;
-  constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
-  constexpr int P = Pad<__nv_bfloat16>::value;
-  __shared__ __align__(16) __nv_bfloat16 As[BM][kBK + P];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][kBK + P];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
-  const int g = lane >> 2, tg = lane & 3;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_tile<__nv_bfloat16, BM, THREADS>(As, A, m0, k0, M, K);
-    load_tile<__nv_bfloat16, BN, THREADS>(Bs, B, n0, k0, N, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm0 + i * 16 + g;
-        af[i][0] = ld32(&As[r][kk + 2 * tg]);
-        af[i][1] = ld32(&As[r + 8][kk + 2 * tg]);
-        af[i][2] = ld32(&As[r][kk + 2 * tg + 8]);
-        af[i][3] = ld32(&As[r + 8][kk + 2 * tg + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = wn0 + j * 8 + g;
-        bfr[j][0] = ld32(&Bs[c][kk + 2 * tg]);
-        bfr[j][1] = ld32(&Bs[c][kk + 2 * tg + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_bf16(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
-                   bfr[j][0], bfr[j][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm0 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn0 + j * 8 + 2 * tg + (e & 1);
-        if (m < M && n < N) epi(m, n, acc[i][j][e]);
-      }
-}
-
-// fp32: the same tiles, each thread an (BM/TY) x (BN/16) strided block of
+// C[M, N] = sum_k A(m, k) B(k, n) for this block's BM x BN tile of fp32
+// operands (the parity runs); `epi(m, n, value)` is called once for every
+// in-bounds element. Each thread owns an (BM/TY) x (BN/16) strided block of
 // FMA sums (rows ty + TY*i, columns tx + 16*j: conflict-free smem reads).
 template <int BM, int BN, int WM, int WN, typename Epi>
 __device__ __forceinline__ void gemm_tile(const Operand<float>& A,
@@ -256,9 +157,8 @@ __device__ __forceinline__ void gemm_tile(const Operand<float>& A,
   constexpr int THREADS = WM * WN * 32;
   constexpr int TX = 16, TY = THREADS / TX;
   constexpr int RM = BM / TY, RN = BN / TX;
-  constexpr int P = Pad<float>::value;
-  __shared__ float As[BM][kBK + P];
-  __shared__ float Bs[BN][kBK + P];
+  __shared__ float As[BM][kLdF];
+  __shared__ float Bs[BN][kLdF];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   float acc[RM][RN];
@@ -267,8 +167,8 @@ __device__ __forceinline__ void gemm_tile(const Operand<float>& A,
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_tile<float, BM, THREADS>(As, A, m0, k0, M, K);
-    load_tile<float, BN, THREADS>(Bs, B, n0, k0, N, K);
+    load_tile<BM, THREADS>(As, A, m0, k0, M, K);
+    load_tile<BN, THREADS>(Bs, B, n0, k0, N, K);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
@@ -293,42 +193,40 @@ __device__ __forceinline__ void gemm_tile(const Operand<float>& A,
     }
 }
 
-// ------------------------------------------------------------- kernels
+// ------------------------------------------------------ fp32 kernels
 
-template <typename T, int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(WM* WN * 32)
-    ring_ag_gemm_kernel(Operand<T> A, Operand<T> B, int M, int N, int K,
-                        T* __restrict__ out, RowSplit o) {
+    ring_ag_gemm_fp32_kernel(Operand<float> A, Operand<float> B, int M, int N,
+                             int K, float* __restrict__ out, RowSplit o) {
   gemm_tile<BM, BN, WM, WN>(A, B, M, N, K, [&](int m, int n, float v) {
-    out[o.off(m) + n] = from_f<T>(v);
+    out[o.off(m) + n] = v;
   });
 }
 
-template <typename T, int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(WM* WN * 32)
-    ring_rs_gemm_add_kernel(Operand<T> A, Operand<T> B, int M, int N, int K,
-                            T* out, const T* recv) {
+    ring_rs_gemm_add_fp32_kernel(Operand<float> A, Operand<float> B, int M,
+                                 int N, int K, float* out, const float* recv) {
   // out may be recv (the ring loop adds into the slot that arrived): no
   // __restrict__ on either; each element is read, then written, by the
   // one thread that owns it.
   gemm_tile<BM, BN, WM, WN>(A, B, M, N, K, [&](int m, int n, float v) {
     const int64_t i = static_cast<int64_t>(m) * N + n;
-    T part = from_f<T>(v);  // the partial rounds to T before the add
-    if (recv != nullptr) part = from_f<T>(to_f(recv[i]) + to_f(part));
-    out[i] = part;
+    out[i] = recv != nullptr ? recv[i] + v : v;
   });
 }
 
-template <typename T, int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(WM* WN * 32)
-    ring_gc_gemm_acc_kernel(Operand<T> A, Operand<T> B, int M, int N, int K,
-                            float* __restrict__ acc, int first,
-                            T* __restrict__ out) {
+    ring_gc_gemm_acc_fp32_kernel(Operand<float> A, Operand<float> B, int M,
+                                 int N, int K, float* __restrict__ acc,
+                                 int first, float* __restrict__ out) {
   gemm_tile<BM, BN, WM, WN>(A, B, M, N, K, [&](int m, int n, float v) {
     const int64_t i = static_cast<int64_t>(m) * N + n;
     const float a = first ? v : acc[i] + v;
     acc[i] = a;
-    if (out != nullptr) out[i] = from_f<T>(a);
+    if (out != nullptr) out[i] = a;
   });
 }
 
@@ -399,7 +297,7 @@ struct GcRows {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           dst[e] = (gk < k1 && gc + e < E) ? op.ptr[off[j] + gc + e]
-                                           : zero_of<__nv_bfloat16>();
+                                           : bf16_zero();
       }
     }
     advance(op.rows);
@@ -580,49 +478,47 @@ struct KcRows {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           dst[e] = (in[j] && k + e < K) ? op.ptr[off[j] + k + e]
-                                        : zero_of<__nv_bfloat16>();
+                                        : bf16_zero();
       }
     }
     k += kGcBK;
   }
 };
 
-// Shared memory of the ag kernel's stages: A [128][72] and B [128][72]
-// (kcontig) or [64][136] (n-contiguous) each stage.
+// Shared memory of the ag and rs kernels' stages: A [128][72] and B
+// [128][72] (kcontig) or [64][136] (n-contiguous) each stage.
 template <bool KC>
-constexpr size_t ag_smem() {
+constexpr size_t kc_smem() {
   return sizeof(__nv_bfloat16) * kGcStages *
          (kGcBM * KcRows::kLd + (KC ? kGcBN * KcRows::kLd : kGcBK * kGcLd));
 }
 
-// out[m][n] = sum_k A[m][k] B[k][n] for one 128 x 128 output tile, 8 warps
-// of 64 x 32, on the dW kernel's main loop: 64-deep k steps staged by
-// cp.async into a ring of three stages, fragments by ldmatrix (A, and B
-// when KC: k-contiguous, the w^T view; ldmatrix.trans for an n-contiguous
-// w), mma.sync m16n8k16; then each fp32 sum rounded to bf16 once and the
-// pairs of neighbouring columns stored as 32-bit words into the ring block
-// through `o`. No split K: the result has the same bits run to run.
+constexpr int kKcMT = kGcBM / kGcWM / 16, kKcNT = kGcBN / kGcWN / 8;
+
+// c = sum_k A[m][k] B[k][n] (fp32) for one 128 x 128 output tile at (m0,
+// n0), 8 warps of 64 x 32, A k-contiguous: 64-deep k steps staged by
+// cp.async into a ring of three stages of `smem`, fragments by ldmatrix
+// (A, and B when KC: k-contiguous, the w^T view; ldmatrix.trans for an
+// n-contiguous w), mma.sync m16n8k16. Element (i, j, e) of a thread is row
+// m0 + wm0 + 16 i + g (+8 for e >= 2), column n0 + wn0 + 8 j + 2 tg + (e &
+// 1), with wm0, wn0 its warp's offsets.
 template <bool KC>
-__global__ void __launch_bounds__(kGcThreads, 2)
-    ring_ag_gemm_bf16_kernel(Operand<__nv_bfloat16> A,
-                             Operand<__nv_bfloat16> B, int M, int N, int K,
-                             __nv_bfloat16* __restrict__ out, RowSplit o) {
+__device__ __forceinline__ void tc_kc_main_loop(
+    const Operand<__nv_bfloat16>& A, const Operand<__nv_bfloat16>& B, int M,
+    int N, int K, int m0, int n0, unsigned char* smem,
+    float (&c)[kKcMT][kKcNT][4]) {
   constexpr int LA = KcRows::kLd;
   constexpr int LB = KC ? KcRows::kLd : kGcLd;
   constexpr int SA = kGcBM * LA, SB = KC ? kGcBN * LB : kGcBK * LB;
-  constexpr int MT = kGcBM / kGcWM / 16, NT = kGcBN / kGcWN / 8;
-  extern __shared__ __align__(16) unsigned char ag_smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(ag_smem_raw);
+  constexpr int MT = kKcMT, NT = kKcNT;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + kGcStages * SA;
-  const int m0 = blockIdx.y * kGcBM, n0 = blockIdx.x * kGcBN;
   const int nk = (K + kGcBK - 1) / kGcBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm0 = (warp / kGcWN) * (kGcBM / kGcWM);
   const int wn0 = (warp % kGcWN) * (kGcBN / kGcWN);
-  const int g = lane >> 2, tg = lane & 3;
   const int mat = lane >> 3, r8 = lane & 7;
 
-  float c[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -687,19 +583,36 @@ __global__ void __launch_bounds__(kGcThreads, 2)
     }
   }
   sm90::cp_async_wait<0>();
+}
 
-  // rows m0 + wm0 + 16 i + g (+8), columns n0 + wn0 + 8 j + 2 tg (+1)
+// out[m][n] = sum_k A[m][k] B[k][n] on tc_kc_main_loop, each fp32 sum
+// rounded to bf16 once, the pairs of neighbouring columns stored as 32-bit
+// words into the ring block through `o`.
+template <bool KC>
+__global__ void __launch_bounds__(kGcThreads, 2)
+    ring_ag_gemm_bf16_kernel(Operand<__nv_bfloat16> A,
+                             Operand<__nv_bfloat16> B, int M, int N, int K,
+                             __nv_bfloat16* __restrict__ out, RowSplit o) {
+  extern __shared__ __align__(16) unsigned char kc_smem_raw[];
+  const int m0 = blockIdx.y * kGcBM, n0 = blockIdx.x * kGcBN;
+  float c[kKcMT][kKcNT][4];
+  tc_kc_main_loop<KC>(A, B, M, N, K, m0, n0, kc_smem_raw, c);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / kGcWN) * (kGcBM / kGcWM);
+  const int wn0 = (warp % kGcWN) * (kGcBN / kGcWN);
+  const int g = lane >> 2, tg = lane & 3;
   const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
                      o.sr % 2 == 0 && o.sb % 2 == 0;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < kKcMT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + wm0 + i * 16 + g + h * 8;
       if (m >= M) continue;
       __nv_bfloat16* row = out + o.off(m);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < kKcNT; ++j) {
         const int n = n0 + wn0 + j * 8 + 2 * tg;
         const float v0 = c[i][j][2 * h], v1 = c[i][j][2 * h + 1];
         if (pairs && n + 1 < N) {
@@ -708,6 +621,59 @@ __global__ void __launch_bounds__(kGcThreads, 2)
         } else {
           if (n < N) row[n] = __float2bfloat16_rn(v0);
           if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+}
+
+// out[m][n] = recv[m][n] + bf16(sum_k A[m][k] B[k][n]) on tc_kc_main_loop
+// (out and recv (M, N) row-major; recv null on the first ring step): the
+// partial rounds to bf16, the add is fp32 and rounds again, as the plain
+// version's bf16 matmul and bf16 add. Neighbouring columns are written as
+// 32-bit words where out and N allow it. out may be recv: no
+// __restrict__; each element is read, then written, by the one thread that
+// owns it.
+template <bool KC>
+__global__ void __launch_bounds__(kGcThreads, 2)
+    ring_rs_gemm_add_bf16_kernel(Operand<__nv_bfloat16> A,
+                                 Operand<__nv_bfloat16> B, int M, int N, int K,
+                                 __nv_bfloat16* out,
+                                 const __nv_bfloat16* recv) {
+  extern __shared__ __align__(16) unsigned char kc_smem_raw[];
+  const int m0 = blockIdx.y * kGcBM, n0 = blockIdx.x * kGcBN;
+  float c[kKcMT][kKcNT][4];
+  tc_kc_main_loop<KC>(A, B, M, N, K, m0, n0, kc_smem_raw, c);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / kGcWN) * (kGcBM / kGcWM);
+  const int wn0 = (warp % kGcWN) * (kGcBN / kGcWN);
+  const int g = lane >> 2, tg = lane & 3;
+  const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 && N % 2 == 0;
+  // the partial rounded to bf16, plus what arrived, rounded again
+  auto sum = [&](float v, int64_t at) {
+    const float part = __bfloat162float(__float2bfloat16_rn(v));
+    return recv != nullptr ? __fadd_rn(__bfloat162float(recv[at]), part)
+                           : part;
+  };
+#pragma unroll
+  for (int i = 0; i < kKcMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + i * 16 + g + h * 8;
+      if (m >= M) continue;
+      const int64_t row = static_cast<int64_t>(m) * N;
+#pragma unroll
+      for (int j = 0; j < kKcNT; ++j) {
+        const int n = n0 + wn0 + j * 8 + 2 * tg;
+        const float v0 = c[i][j][2 * h], v1 = c[i][j][2 * h + 1];
+        if (pairs && n + 1 < N) {
+          *reinterpret_cast<uint32_t*>(out + row + n) =
+              sm90::pack2<__nv_bfloat16>(sum(v0, row + n),
+                                         sum(v1, row + n + 1));
+        } else {
+          if (n < N) out[row + n] = __float2bfloat16_rn(sum(v0, row + n));
+          if (n + 1 < N)
+            out[row + n + 1] = __float2bfloat16_rn(sum(v1, row + n + 1));
         }
       }
     }
@@ -750,7 +716,7 @@ extern "C" int ring_ag_gemm_launch(int dtype, OPERAND_ARGS, int M, int N,
     if (!a_kcontig) return static_cast<int>(cudaErrorInvalidValue);
     auto kernel = b_kcontig ? ring_ag_gemm_bf16_kernel<true>
                             : ring_ag_gemm_bf16_kernel<false>;
-    const size_t smem = b_kcontig ? ag_smem<true>() : ag_smem<false>();
+    const size_t smem = b_kcontig ? kc_smem<true>() : kc_smem<false>();
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -759,7 +725,7 @@ extern "C" int ring_ag_gemm_launch(int dtype, OPERAND_ARGS, int M, int N,
         OPERANDS(__nv_bfloat16), M, N, K, static_cast<__nv_bfloat16*>(out),
         o);
   } else {
-    ring_ag_gemm_kernel<float, 128, 128, 4, 2>
+    ring_ag_gemm_fp32_kernel<128, 128, 4, 2>
         <<<grid_of(M, N, 128, 128), 256, 0, s>>>(
             OPERANDS(float), M, N, K, static_cast<float*>(out), o);
   }
@@ -772,13 +738,19 @@ extern "C" int ring_rs_gemm_add_launch(int dtype, OPERAND_ARGS, int M, int N,
   if (bad_sizes(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    ring_rs_gemm_add_kernel<__nv_bfloat16, 128, 128, 4, 2>
-        <<<grid_of(M, N, 128, 128), 256, 0, s>>>(
-            OPERANDS(__nv_bfloat16), M, N, K,
-            static_cast<__nv_bfloat16*>(out),
-            static_cast<const __nv_bfloat16*>(recv));
+    if (!a_kcontig) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = b_kcontig ? ring_rs_gemm_add_bf16_kernel<true>
+                            : ring_rs_gemm_add_bf16_kernel<false>;
+    const size_t smem = b_kcontig ? kc_smem<true>() : kc_smem<false>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid_of(M, N, kGcBM, kGcBN), kGcThreads, smem, s>>>(
+        OPERANDS(__nv_bfloat16), M, N, K, static_cast<__nv_bfloat16*>(out),
+        static_cast<const __nv_bfloat16*>(recv));
   } else {
-    ring_rs_gemm_add_kernel<float, 128, 128, 4, 2>
+    ring_rs_gemm_add_fp32_kernel<128, 128, 4, 2>
         <<<grid_of(M, N, 128, 128), 256, 0, s>>>(
             OPERANDS(float), M, N, K, static_cast<float*>(out),
             static_cast<const float*>(recv));
@@ -822,11 +794,11 @@ extern "C" int ring_gc_gemm_acc_launch(int dtype, OPERAND_ARGS, int M, int N,
   } else {
     auto o = static_cast<float*>(out);
     if (small_tiles)
-      ring_gc_gemm_acc_kernel<float, 64, 64, 2, 2>
+      ring_gc_gemm_acc_fp32_kernel<64, 64, 2, 2>
           <<<grid_of(M, N, 64, 64), 128, 0, s>>>(OPERANDS(float), M, N, K,
                                                  acc, first, o);
     else
-      ring_gc_gemm_acc_kernel<float, 128, 128, 4, 2>
+      ring_gc_gemm_acc_fp32_kernel<128, 128, 4, 2>
           <<<grid_of(M, N, 128, 128), 256, 0, s>>>(OPERANDS(float), M, N, K,
                                                    acc, first, o);
   }

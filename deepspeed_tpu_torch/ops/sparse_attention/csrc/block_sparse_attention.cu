@@ -3,16 +3,16 @@
 //
 // Replaces the TPU kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:
-//   block_sparse_fwd_kernel      <- _fwd_pk (pallas_call :749, shared layouts,
-//                                   all heads per grid step) and _fwd (:923,
-//                                   per-head layouts)
-//   block_sparse_bwd_dq_kernel   <- the dq halves of _bwd_pk (:792) and _bwd
-//                                   (:959)
-//   block_sparse_bwd_dkdv_kernel <- the dk/dv halves of _bwd_pk (:823) and
-//                                   _bwd (:988), the transposed-layout walk
+//   block_sparse_fwd_kernel         <- _fwd_pk (pallas_call :749, shared
+//                                      layouts, all heads per grid step) and
+//                                      _fwd (:923, per-head layouts)
+//   block_sparse_bwd_dq_tc_kernel   <- the dq halves of _bwd_pk (:792) and
+//     (fp32, fp16: ..._dq_kernel)      _bwd (:959)
+//   block_sparse_bwd_dkdv_tc_kernel <- the dk/dv halves of _bwd_pk (:823) and
+//     (fp32, fp16: ..._dkdv_kernel)    _bwd (:988), the transposed-layout walk
 // Both TPU implementations compute one function; here the layout tables carry
 // one layout head for a shared layout (every head reads head 0) and h heads
-// otherwise, so one trio covers both.
+// otherwise, so one set covers both.
 //
 // Layout: q, k, v, dout are (b, h, s, d) read through their (batch, head,
 // row) strides with unit stride on d (the (b, h, s, d) views of one QKV
@@ -34,59 +34,61 @@
 // of one side (queries for fwd/dq, keys for dk/dv) are cut into tiles of 64,
 // each a group of layout "units" (gcd(block, 64) tokens: a whole block, or
 // half of a 128 block). A tile walks the ascending union of its units'
-// active blocks on the other side, 64 tokens a step (dk/dv: kBq queries),
-// and masks each (unit, block) pair through the dense layout. One thread
-// block per (batch x head, tile); tiles are launched longest walk first
-// (blockIdx.y indexes the `order` table). No atomics: dq is deterministic.
-// A warp owns 8 anchor rows (one unit) and skips a step's products when none
-// of its pairs is in the layout, which is what keeps the transposed walk of
-// a layout with global columns (fixed, bigbird) near its real work.
+// active blocks on the other side, a step of tokens at a time, and masks
+// each (unit, block) pair through the dense layout. Tiles are launched
+// longest walk first (blockIdx.y indexes the `order` table).
 //
 // Bound on the H100 at the training shape (b 2, s 8192, h 16, d 64, bf16,
-// fixed layout, block 16: 33,792 active block pairs per head): operations,
-// 71 GFLOP forward on active pairs against 0.04 ms of bytes. These kernels
-// are the simple first version: every product on the CUDA cores in fp32 FMA
-// from shared-memory tiles, each thread owning a 4x4 score tile, so they run
-// far above the tensor-core bound. Left for later work: mma/wgmma products,
-// cp.async/TMA double-buffering of the next step's gathered tiles.
+// fixed layout, block 16: 33,792 active block pairs per head): operations
+// (71 GFLOP forward, 106 dq, 142 dk/dv on active pairs, against 0.04 ms of
+// bytes).
+//
+// bf16 backward (designed for Hopper): the flash backward's tensor-core
+// design (tc_attention.cuh) over gathered rows. Blocks of 4 warps; warp w
+// owns anchor rows 16 w .. 16 w + 15, which lie in one unit and so in one
+// layout block, and skips a step's products when the layout holds none of
+// its pairs. The anchor rows (Q, dO for dq; K, V for dk/dv) stay in shared
+// memory in bf16; the step's rows of the other side (64 keys, or 32
+// queries) are gathered by 16-byte cp.async into two stages, each row
+// wherever the walk puts it. S and dP (S^T, dP^T) come from mma.sync
+// m16n8k16 with ldmatrix fragments and stay in registers as the next
+// product's A operand: P and dS follow the plain versions' operations from
+// them, and pairs within the bound of a bf16 rounding edge are summed again
+// in the plain order, so each P and dS has the plain bits (the same check as
+// flash). Each step's dQ / dK / dV product starts from zero and is added
+// with a rounded fp32 add (tc_pb_step): the tensor cores' chained
+// accumulation drifted a long walk's cancelling sum past one bf16 ulp.
+// Both launch one block a (batch x head, tile), longest walk first, and
+// each block stores its own rows: no sum depends on the order blocks run
+// in, so dq, dk and dv have the same bits run to run. The host packs units
+// of like walks into a tile (Walk), so the `fixed` layout's global columns
+// share tiles and their warps walk the same long steps together.
+//
+// The forward, and fp32 (the parity runs: TF32 would break them) and fp16
+// backwards, keep the simple first version: every product on the CUDA cores
+// in fp32 FMA from shared-memory tiles, each thread owning a 4x4 score tile,
+// a warp skipping a step when none of its pairs is in the layout. fp16 would
+// need its own rounding edges and partial adds on the tensor cores (as the
+// flash kernels have); it stays here until then.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "sm90_mma.cuh"
+#include "tc_attention.cuh"
+
 namespace {
+
+using namespace tc_attention;
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;          // anchor rows per tile, keys per fwd/dq step
 constexpr int kLd = kTile + 4;     // leading dim of a transposed 64-wide tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // max / sum over the 16 lanes that share a row (lanes tx = 0..15)
 __device__ __forceinline__ float row_max(float v) {
@@ -662,6 +664,514 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------- the tensor-core backward (bf16, Hopper)
+
+constexpr int kTcBq = 32;             // dk/dv query step
+constexpr int kTcGroups = kTcBq / 16;  // 16-query groups of a dk/dv step
+
+// Token f of a walk (counted from the walk's first slot): its position on
+// the other side, -1 at or past slot `end`.
+__device__ __forceinline__ int walk_pos(const int* walk, int block, int f,
+                                        int end) {
+  const int slot = f / block;
+  return slot < end ? walk[slot] * block + f % block : -1;
+}
+
+// Rows r < R at positions pos(r) (-1: a zero row) of two (s x D) slices
+// (row strides s1, s2) into d1[r][*] and d2[r][*] (pitch ld): 16-byte
+// cp.async copies when vec, else plain loads stored directly.
+template <int D, int R, typename Pos>
+__device__ __forceinline__ void tc_gather2(
+    __nv_bfloat16* d1, const __nv_bfloat16* src1, int64_t s1,
+    __nv_bfloat16* d2, const __nv_bfloat16* src2, int64_t s2, int ld,
+    bool vec, Pos pos) {
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const int at = pos(r);
+    __nv_bfloat16* o1 = d1 + r * ld + c;
+    __nv_bfloat16* o2 = d2 + r * ld + c;
+    if (vec) {
+      sm90::cp_async16(o1, at >= 0 ? src1 + at * s1 + c : src1,
+                       at >= 0 ? 16 : 0);
+      sm90::cp_async16(o2, at >= 0 ? src2 + at * s2 + c : src2,
+                       at >= 0 ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o1[j] = at >= 0 ? src1[at * s1 + c + j] : __float2bfloat16(0.f);
+        o2[j] = at >= 0 ? src2[at * s2 + c + j] : __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
+// P and dS of a pair in the plain versions' order of fp32 operations:
+// score = ((S scale + kpm) + bias) (a term the plain version does not add
+// is 0 here, which adds exactly), x = score - lse, P = exp(x), dS = P (dP -
+// delta) scale.
+__device__ __forceinline__ PairTerms sparse_pair_terms(float s, float dp,
+                                                       float scale, float kpm,
+                                                       float bias, float lse,
+                                                       float delta) {
+  const float x = __fsub_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(s, scale), kpm), bias), lse);
+  const float p = expf(x);
+  const float d1 = __fsub_rn(dp, delta);
+  return {p, __fmul_rn(__fmul_rn(p, d1), scale), x, d1};
+}
+
+// edge_bound for that x: four roundings, of results at most sx, sx + |kpm|,
+// sx + |kpm| + |bias| and that + |lse|; edge_bound counts 3 sx + 2 |b| +
+// |lse| for its three, so b = (sx + 3 |kpm| + 2 |bias|) / 2 covers the
+// fourth (with neither term the additions of 0 are exact).
+__device__ __forceinline__ EdgeBound sparse_edge_bound(float es, float sx,
+                                                       float kpm, float bias,
+                                                       float lse_abs,
+                                                       float edp,
+                                                       float scale) {
+  const float b = (kpm == 0.f && bias == 0.f)
+                      ? 0.f
+                      : 0.5f * (sx + 3.f * fabsf(kpm) + 2.f * fabsf(bias));
+  return edge_bound(es, sx, b, lse_abs, edp, scale);
+}
+
+// acc[j] (16 x 8 each, j < D/8) += P (16 x K, C tiles p[K/8], rounded to T
+// here) . B (K x D, rows of `b` at pitch ld, read transposed), as tc_pb,
+// except that the step's product (its K/16 chained 16-deep products)
+// starts from zero and is added to acc with a rounded fp32 add. The tensor
+// cores align an accumulator to its largest term and drop the bits below
+// (tc_pb); chained over a walk of thousands of queries (a global column's)
+// that drifts a cancelling sum away from the plain version's
+// round-to-nearest one, so the chain is cut at every step.
+template <typename T, int D, int K>
+__device__ __forceinline__ void tc_pb_step(float (&acc)[D / 8][4],
+                                           const float (&p)[K / 8][4],
+                                           const T* b, int ld, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+  uint32_t af[K / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    sm90::pack_c_to_a<T>(af[kk], p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4_trans(bf, b + (kk * 16 + r8 + (mat & 1) * 8) * ld +
+                                      nd * 16 + (mat >> 1) * 8);
+      sm90::mma16816<T>(t0, af[kk], bf[0], bf[1]);
+      sm90::mma16816<T>(t1, af[kk], bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * nd][e] = __fadd_rn(acc[2 * nd][e], t0[e]);
+      acc[2 * nd + 1][e] = __fadd_rn(acc[2 * nd + 1][e], t1[e]);
+    }
+  }
+}
+
+// dq for one (batch x head, query tile), walking the tile's key blocks 64
+// keys a step; warp w owns anchor rows 16 w .. 16 w + 15, which lie in one
+// unit and so in one query block. Q and dO of the tile stay in shared
+// memory, the step's K and V rows are gathered by cp.async into two
+// stages; a warp none of whose pairs the layout holds in a step skips its
+// products.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
+    block_sparse_bwd_dq_tc_kernel(const SparseParams p) {
+  using T = __nv_bfloat16;
+  constexpr int LD = D + 8, R = kTile;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);  // [64][LD] the tile's rows
+  T* dos = qs + R * LD;                   // [64][LD]
+  T* ks = dos + R * LD;                   // [2][64][LD] the step's keys
+  T* vs = ks + 2 * R * LD;                // [2][64][LD]
+  float* kpm_s = reinterpret_cast<float*>(vs + 2 * R * LD);  // [2][64]
+  float* kn_s = kpm_s + 2 * R;            // [64] |k| of the step's keys
+  float* vn_s = kn_s + R;                 // [64] |v|
+  float* lq_s = vn_s + R;                 // [64] lse of the tile's rows
+  float* dl_s = lq_s + R;                 // [64] delta
+  int* kpos_s = reinterpret_cast<int*>(dl_s + R);  // [2][64]
+  int* apos_s = kpos_s + 2 * R;           // [64] the tile's rows
+  int* act_s = apos_s + R;                // [2][4 warps][4 key groups]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* wr = reinterpret_cast<float*>(act_s + 32) + warp * kTcList;
+  unsigned short* wl = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<float*>(act_s + 32) + 4 * kTcList) + warp * kTcList;
+
+  const TileWork w = tile_work(p);
+  const int g = lane >> 2, tg = lane & 3;
+  const T* qb = static_cast<const T*>(p.q) + w.bi * p.q_sb + w.head * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + w.bi * p.k_sb + w.head * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + w.bi * p.v_sb + w.head * p.v_sh;
+  const T* db =
+      static_cast<const T*>(p.dout) + w.bi * p.do_sb + w.head * p.do_sh;
+  const float* kpmb = p.kpm ? p.kpm + w.bi * p.kpm_sb : nullptr;
+  const int64_t rows_at = (static_cast<int64_t>(w.bi) * p.h + w.head) * p.s;
+  const bool vec_q = rows_aligned(qb, p.q_ss) && rows_aligned(db, p.do_ss);
+  const bool vec_k = rows_aligned(kb, p.k_ss) && rows_aligned(vb, p.v_ss);
+
+  const int* units = p.units + (w.hl * p.n_tiles + w.tile) * (kTile / p.unit);
+  auto anchor = [&](int r) {
+    const int u = units[r / p.unit];
+    return u >= 0 ? u * p.unit + r % p.unit : -1;
+  };
+  tc_gather2<D, R>(qs, qb, p.q_ss, dos, db, p.do_ss, LD, vec_q, anchor);
+  for (int r = threadIdx.x; r < R; r += kTcThreads) {
+    const int at = anchor(r);
+    apos_s[r] = at;
+    lq_s[r] = at >= 0 ? p.lse_in[rows_at + at] : kNegInf;
+    dl_s[r] = at >= 0 ? p.delta[rows_at + at] : 0.f;
+  }
+  // this thread's two rows (g, g + 8 of the warp's 16)
+  const int row_w = anchor(warp * 16);
+  int row[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    row[h2] = anchor(warp * 16 + g + h2 * 8);
+    lse_r[h2] = row[h2] >= 0 ? p.lse_in[rows_at + row[h2]] : kNegInf;
+    delta_r[h2] = row[h2] >= 0 ? p.delta[rows_at + row[h2]] : 0.f;
+  }
+
+  const int steps = (w.len * p.block + R - 1) / R;
+  auto stage = [&](int j) {
+    const int st = j & 1;
+    auto kp = [&](int r) { return walk_pos(w.walk, p.block, j * R + r, w.len); };
+    tc_gather2<D, R>(ks + st * R * LD, kb, p.k_ss, vs + st * R * LD, vb,
+                     p.v_ss, LD, vec_k, kp);
+    for (int i = threadIdx.x; i < R; i += kTcThreads) {
+      const int at = kp(i);
+      kpos_s[st * R + i] = at;
+      kpm_s[st * R + i] = (kpmb != nullptr && at >= 0) ? kpmb[at] : 0.f;
+    }
+    if (threadIdx.x < 16) {  // (warp, 16-key group): any pair in the layout
+      const int qa = anchor(threadIdx.x / 4 * 16);
+      const int ka = kp(threadIdx.x % 4 * 16);
+      act_s[st * 16 + threadIdx.x] = in_layout(
+          p, w.hl, qa >= 0 ? qa / p.block : -1, ka >= 0 ? ka / p.block : -1);
+    }
+  };
+  if (steps > 0) stage(0);
+  sm90::cp_async_commit();
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  float qn[2], dn[2];  // |q|, |dO| of this thread's two rows
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) stage(j + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // step j (and Q, dO) landed
+    const int st = j & 1;
+    const T* k_t = ks + st * R * LD;
+    const T* v_t = vs + st * R * LD;
+    if (j == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        qn[h2] = row_norm<T, D>(qs + (warp * 16 + g + h2 * 8) * LD);
+        dn[h2] = row_norm<T, D>(dos + (warp * 16 + g + h2 * 8) * LD);
+      }
+    }
+    for (int i = threadIdx.x; i < 2 * R; i += kTcThreads) {
+      if (i < R)
+        kn_s[i] = row_norm<T, D>(k_t + i * LD);
+      else
+        vn_s[i - R] = row_norm<T, D>(v_t + (i - R) * LD);
+    }
+    __syncthreads();  // the step's row norms
+    const int* act = act_s + st * 16 + warp * 4;
+    if (act[0] | act[1] | act[2] | act[3]) {  // warp-uniform
+      float kmax = 0.f, vmax = 0.f;
+      for (int i = lane; i < R; i += 32) {
+        kmax = fmaxf(kmax, kn_s[i]);
+        vmax = fmaxf(vmax, vn_s[i]);
+      }
+      kmax = warp_max(kmax);
+      vmax = warp_max(vmax);
+      EdgeBound eb[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        eb[h2] = sparse_edge_bound(kProductSlack * qn[h2] * kmax,
+                                   qn[h2] * kmax * p.scale, 0.f, 0.f,
+                                   fabsf(lse_r[h2]),
+                                   kProductSlack * dn[h2] * vmax, p.scale);
+      // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys
+      float sc[R / 8][4], dp[R / 8][4];
+      tc_abt<T, D, R>(sc, qs + warp * 16 * LD, k_t, LD, lane);
+      tc_abt<T, D, R>(dp, dos + warp * 16 * LD, v_t, LD, lane);
+      uint32_t flags = 0;
+#pragma unroll
+      for (int j8 = 0; j8 < R / 8; ++j8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h2 = e >> 1, qrow = row[h2];
+          const int kc = j8 * 8 + 2 * tg + (e & 1), key = kpos_s[st * R + kc];
+          const bool ok = act[j8 >> 1] && qrow >= 0 && key >= 0 &&
+                          lse_r[h2] > kNegInf && (!p.causal || qrow >= key);
+          float ds = 0.f;
+          if (ok) {
+            const float kpm = kpm_s[st * R + kc];
+            const float bias =
+                p.bias != nullptr
+                    ? p.bias[static_cast<int64_t>(qrow) * p.bias_ss + key]
+                    : 0.f;
+            const PairTerms t = sparse_pair_terms(
+                sc[j8][e], dp[j8][e], p.scale, kpm, bias, lse_r[h2],
+                delta_r[h2]);
+            EdgeBound b = eb[h2];
+            if (kpm != 0.f || bias != 0.f)
+              b = sparse_edge_bound(kProductSlack * qn[h2] * kmax,
+                                    qn[h2] * kmax * p.scale, kpm, bias,
+                                    fabsf(lse_r[h2]),
+                                    kProductSlack * dn[h2] * vmax, p.scale);
+            if (near_plain_edge<T>(t, b)) flags |= 1u << (j8 * 4 + e);
+            ds = t.ds;
+          }
+          dp[j8][e] = ds;  // dS, rounded to T as the dQ product's A operand
+        }
+      resolve_flagged<R / 8>(
+          flags, wr, wl, lane,
+          [&](int owner, int pos) {
+            const int kc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+            const int ql = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+            const float2 sd = seq_dots<T, D>(qs + ql * LD, k_t + kc * LD,
+                                             dos + ql * LD, v_t + kc * LD);
+            const float bias =
+                p.bias != nullptr
+                    ? p.bias[static_cast<int64_t>(apos_s[ql]) * p.bias_ss +
+                             kpos_s[st * R + kc]]
+                    : 0.f;
+            return sparse_pair_terms(sd.x, sd.y, p.scale, kpm_s[st * R + kc],
+                                     bias, lq_s[ql], dl_s[ql]).ds;
+          },
+          [&](int j8, int e, bool taken, float v) {
+            dp[j8][e] = taken ? v : dp[j8][e];
+          });
+      tc_pb_step<T, D, R>(dq, dp, k_t, LD, lane);  // dQ += dS K
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  sm90::cp_async_wait<0>();
+
+  if (row_w >= 0)
+    tc_store<T, D>(static_cast<T*>(p.dq) + w.bi * p.o_sb + w.head * p.o_sh,
+                   p.o_ss, row_w, p.s, dq, lane);
+}
+
+// dk and dv for one (batch x head, key tile), walking the tile's transposed
+// walk kTcBq queries a step; warp w owns anchor keys 16 w .. 16 w + 15 (one
+// unit, one key block). K and V of the tile stay in shared memory, the
+// step's Q and dO rows are gathered into two stages; a warp none of whose
+// pairs the layout holds in a step skips its products.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
+    block_sparse_bwd_dkdv_tc_kernel(const SparseParams p) {
+  using T = __nv_bfloat16;
+  constexpr int LD = D + 8, BQ = kTcBq, R = kTile;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* ks = reinterpret_cast<T*>(tc_smem);  // [64][LD] the tile's keys
+  T* vs = ks + R * LD;                    // [64][LD]
+  T* qs = vs + R * LD;                    // [2][BQ][LD] the step's queries
+  T* dos = qs + 2 * BQ * LD;              // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;           // [2][BQ] delta
+  float* qn_s = dl_s + 2 * BQ;            // [BQ] |q| of the step's rows
+  float* dn_s = qn_s + BQ;                // [BQ] |dO|
+  float* kb_s = dn_s + BQ;                // [64] kpm of the tile's keys
+  int* qpos_s = reinterpret_cast<int*>(kb_s + R);  // [2][BQ]
+  int* apos_s = qpos_s + 2 * BQ;          // [64] the tile's keys
+  int* act_s = apos_s + R;                // [2][4 warps][kTcGroups]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float2* wr = reinterpret_cast<float2*>(act_s + 8 * kTcGroups) +
+               warp * kTcList;
+  unsigned short* wl = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<float2*>(act_s + 8 * kTcGroups) + 4 * kTcList) +
+      warp * kTcList;
+
+  const TileWork w = tile_work(p);
+  const int bi = w.bi, head = w.head, hl = w.hl;
+  const int g = lane >> 2, tg = lane & 3;
+  const T* qb = static_cast<const T*>(p.q) + bi * p.q_sb + head * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + bi * p.k_sb + head * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + bi * p.v_sb + head * p.v_sh;
+  const T* db = static_cast<const T*>(p.dout) + bi * p.do_sb + head * p.do_sh;
+  const float* kpmb = p.kpm ? p.kpm + bi * p.kpm_sb : nullptr;
+  const int64_t rows_at = (static_cast<int64_t>(bi) * p.h + head) * p.s;
+  const bool vec_q = rows_aligned(qb, p.q_ss) && rows_aligned(db, p.do_ss);
+  const bool vec_k = rows_aligned(kb, p.k_ss) && rows_aligned(vb, p.v_ss);
+
+  const int* units = p.units + (hl * p.n_tiles + w.tile) * (kTile / p.unit);
+  auto anchor = [&](int r) {
+    const int u = units[r / p.unit];
+    return u >= 0 ? u * p.unit + r % p.unit : -1;
+  };
+  tc_gather2<D, R>(ks, kb, p.k_ss, vs, vb, p.v_ss, LD, vec_k, anchor);
+  for (int r = threadIdx.x; r < R; r += kTcThreads) {
+    const int at = anchor(r);
+    apos_s[r] = at;
+    kb_s[r] = (kpmb != nullptr && at >= 0) ? kpmb[at] : 0.f;
+  }
+  // this thread's two keys (g, g + 8 of the warp's 16) and their kpm
+  const int key_w = anchor(warp * 16);
+  int key[2];
+  float kpm_k[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    key[h2] = anchor(warp * 16 + g + h2 * 8);
+    kpm_k[h2] = (kpmb != nullptr && key[h2] >= 0) ? kpmb[key[h2]] : 0.f;
+  }
+
+  const int n = (w.len * p.block + BQ - 1) / BQ;
+  auto stage = [&](int it) {
+    const int st = it & 1;
+    auto qp = [&](int r) {
+      return walk_pos(w.walk, p.block, it * BQ + r, w.len);
+    };
+    tc_gather2<D, BQ>(qs + st * BQ * LD, qb, p.q_ss, dos + st * BQ * LD, db,
+                      p.do_ss, LD, vec_q, qp);
+    for (int i = threadIdx.x; i < BQ; i += kTcThreads) {
+      const int at = qp(i);
+      qpos_s[st * BQ + i] = at;
+      lse_s[st * BQ + i] = at >= 0 ? p.lse_in[rows_at + at] : kNegInf;
+      dl_s[st * BQ + i] = at >= 0 ? p.delta[rows_at + at] : 0.f;
+    }
+    if (threadIdx.x < 4 * kTcGroups) {  // (warp, 16-query group)
+      const int ka = anchor(threadIdx.x / kTcGroups * 16);
+      const int qa = qp(threadIdx.x % kTcGroups * 16);
+      act_s[st * 4 * kTcGroups + threadIdx.x] = in_layout(
+          p, hl, qa >= 0 ? qa / p.block : -1, ka >= 0 ? ka / p.block : -1);
+    }
+  };
+  if (n > 0) stage(0);
+  sm90::cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  float kn[2], vn[2];  // |k|, |v| of this thread's two keys
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) stage(it + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // step it (and K, V) landed
+    const int st = it & 1;
+    const T* q_t = qs + st * BQ * LD;
+    const T* do_t = dos + st * BQ * LD;
+    if (it == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        kn[h2] = row_norm<T, D>(ks + (warp * 16 + g + h2 * 8) * LD);
+        vn[h2] = row_norm<T, D>(vs + (warp * 16 + g + h2 * 8) * LD);
+      }
+    }
+    for (int i = threadIdx.x; i < 2 * BQ; i += kTcThreads) {
+      if (i < BQ)
+        qn_s[i] = row_norm<T, D>(q_t + i * LD);
+      else
+        dn_s[i - BQ] = row_norm<T, D>(do_t + (i - BQ) * LD);
+    }
+    __syncthreads();  // the step's row norms
+    const int* act = act_s + st * 4 * kTcGroups + warp * kTcGroups;
+    if (act[0] | act[1]) {  // warp-uniform
+      // the check's bounds for this thread's two keys over the step (rows
+      // without a softmax, lse = NEG_INF, hold no pair)
+      float qmax = 0.f, dmax = 0.f, lmax = 0.f;
+      for (int i = lane; i < BQ; i += 32) {
+        qmax = fmaxf(qmax, qn_s[i]);
+        dmax = fmaxf(dmax, dn_s[i]);
+        const float l = lse_s[st * BQ + i];
+        if (l > kNegInf) lmax = fmaxf(lmax, fabsf(l));
+      }
+      qmax = warp_max(qmax);
+      dmax = warp_max(dmax);
+      lmax = warp_max(lmax);
+      EdgeBound eb[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        eb[h2] = sparse_edge_bound(kProductSlack * kn[h2] * qmax,
+                                   qmax * kn[h2] * p.scale, kpm_k[h2], 0.f,
+                                   lmax, kProductSlack * vn[h2] * dmax,
+                                   p.scale);
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
+      float sc[BQ / 8][4], dp[BQ / 8][4];
+      tc_abt<T, D, BQ>(sc, ks + warp * 16 * LD, q_t, LD, lane);
+      tc_abt<T, D, BQ>(dp, vs + warp * 16 * LD, do_t, LD, lane);
+      uint32_t flags = 0;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h2 = e >> 1, kpos = key[h2];
+          const int qc = j * 8 + 2 * tg + (e & 1);
+          const int query = qpos_s[st * BQ + qc];
+          const float lse = lse_s[st * BQ + qc];
+          const bool ok = act[j >> 1] && kpos >= 0 && query >= 0 &&
+                          lse > kNegInf && (!p.causal || query >= kpos);
+          PairTerms t{0.f, 0.f, 0.f, 0.f};
+          if (ok) {
+            const float bias =
+                p.bias != nullptr
+                    ? p.bias[static_cast<int64_t>(query) * p.bias_ss + kpos]
+                    : 0.f;
+            t = sparse_pair_terms(sc[j][e], dp[j][e], p.scale, kpm_k[h2],
+                                  bias, lse, dl_s[st * BQ + qc]);
+            EdgeBound b = eb[h2];
+            if (bias != 0.f)
+              b = sparse_edge_bound(kProductSlack * kn[h2] * qmax,
+                                    qmax * kn[h2] * p.scale, kpm_k[h2], bias,
+                                    lmax, kProductSlack * vn[h2] * dmax,
+                                    p.scale);
+            if (near_plain_edge<T>(t, b)) flags |= 1u << (j * 4 + e);
+          }
+          sc[j][e] = t.p;   // P^T, rounded to T as the dV product's A operand
+          dp[j][e] = t.ds;  // dS^T, likewise for dK
+        }
+      resolve_flagged<BQ / 8>(
+          flags, wr, wl, lane,
+          [&](int owner, int pos) {
+            const int qc = (pos >> 2) * 8 + 2 * (owner & 3) + (pos & 1);
+            const int kl = warp * 16 + (owner >> 2) + ((pos & 3) >> 1) * 8;
+            const float2 sd = seq_dots<T, D>(q_t + qc * LD, ks + kl * LD,
+                                             do_t + qc * LD, vs + kl * LD);
+            const float bias =
+                p.bias != nullptr
+                    ? p.bias[static_cast<int64_t>(qpos_s[st * BQ + qc]) *
+                                 p.bias_ss +
+                             apos_s[kl]]
+                    : 0.f;
+            const PairTerms t = sparse_pair_terms(
+                sd.x, sd.y, p.scale, kb_s[kl], bias, lse_s[st * BQ + qc],
+                dl_s[st * BQ + qc]);
+            return make_float2(t.p, t.ds);
+          },
+          [&](int j, int e, bool taken, float2 v) {
+            sc[j][e] = taken ? v.x : sc[j][e];
+            dp[j][e] = taken ? v.y : dp[j][e];
+          });
+      tc_pb_step<T, D, BQ>(dv, sc, do_t, LD, lane);  // dV += P^T dO
+      tc_pb_step<T, D, BQ>(dk, dp, q_t, LD, lane);   // dK += dS^T Q
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  sm90::cp_async_wait<0>();
+
+  if (key_w >= 0) {
+    const int64_t gbase = bi * p.o_sb + head * p.o_sh;
+    tc_store<T, D>(static_cast<T*>(p.dk) + gbase, p.o_ss, key_w, p.s, dk, lane);
+    tc_store<T, D>(static_cast<T*>(p.dv) + gbase, p.o_ss, key_w, p.s, dv, lane);
+  }
+}
+
 // dk/dv query step: 64 queries, or 32 at d = 128 (shared memory holds 227 KB)
 template <int D>
 struct DkdvStep {
@@ -687,33 +1197,59 @@ constexpr size_t dkdv_smem() {
          kIndexBytes;
 }
 
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return sizeof(__nv_bfloat16) * 6 * kTile * (D + 8) +
+         sizeof(float) * 6 * kTile + sizeof(int) * (3 * kTile + 32) +
+         (sizeof(float) + sizeof(unsigned short)) * 4 * kTcList;
+}
+template <int D>
+constexpr size_t dkdv_tc_smem() {
+  return sizeof(__nv_bfloat16) * (2 * kTile + 4 * kTcBq) * (D + 8) +
+         sizeof(float) * (6 * kTcBq + kTile) +
+         sizeof(int) * (2 * kTcBq + kTile + 8 * kTcGroups) +
+         (sizeof(float2) + sizeof(unsigned short)) * 4 * kTcList;
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
                    const SparseParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
 
+// bf16 backward: the tensor-core kernels; fp32 (the parity runs) and fp16:
+// the FMA kernels. Static: nothing falls back.
 template <typename T, int D>
 cudaError_t dispatch(Which which, const SparseParams& p, cudaStream_t st) {
   const dim3 grid(p.b * p.h, p.n_tiles);
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   switch (which) {
     case kFwd:
-      return launch(block_sparse_fwd_kernel<T, D>, grid, fwd_smem<D>(), p, st);
+      return launch(block_sparse_fwd_kernel<T, D>, grid, kThreads,
+                    fwd_smem<D>(), p, st);
     case kDq:
-      return launch(block_sparse_bwd_dq_kernel<T, D>, grid, dq_smem<D>(), p,
-                    st);
-    default: {
-      constexpr int BQ = DkdvStep<D>::value;
-      return launch(block_sparse_bwd_dkdv_kernel<T, D, BQ>, grid,
-                    dkdv_smem<D, BQ>(), p, st);
-    }
+      if constexpr (tc)
+        return launch(block_sparse_bwd_dq_tc_kernel<D>, grid, kTcThreads,
+                      dq_tc_smem<D>(), p, st);
+      else
+        return launch(block_sparse_bwd_dq_kernel<T, D>, grid, kThreads,
+                      dq_smem<D>(), p, st);
+    default:
+      if constexpr (tc) {
+        return launch(block_sparse_bwd_dkdv_tc_kernel<D>, grid, kTcThreads,
+                      dkdv_tc_smem<D>(), p, st);
+      } else {
+        constexpr int BQ = DkdvStep<D>::value;
+        return launch(block_sparse_bwd_dkdv_kernel<T, D, BQ>, grid, kThreads,
+                      dkdv_smem<D, BQ>(), p, st);
+      }
   }
 }
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Measurements behind the designs of the tensor-core flash kernels and the
-ring GEMMs (``ring_gc_gemm_acc``, ``ring_ag_gemm``) on one H100; not a test
-and on no path of the package.
+"""Measurements behind the designs of the tensor-core flash and block-sparse
+backward kernels and the ring GEMMs (``ring_gc_gemm_acc``, ``ring_ag_gemm``,
+``ring_rs_gemm_add``) on one H100; not a test and on no path of the
+package.
 
     python3 probes/kernel_probe.py SECTION [SECTION ...]
 
@@ -39,9 +40,16 @@ prints one JSON line:
 * ``fwd_variants[:names]``: the flash kernels' times at the train shape and
   their worst errors (fp16 cases, bf16 forward) per patched variant of the
   source (FWD_VARIANTS), with ptxas's register counts of the forward;
-* ``flash_times``: the flash kernels and ring_ag_gemm timed on the tree
-  this script sits in (a copy run from a checkout of another commit times
-  that commit in the same call: parent, change, change, parent).
+* ``flash_times``: the flash kernels, ring_ag_gemm, ring_rs_gemm_add and
+  the bf16 block-sparse dq and dk/dv (train_sparse shape) timed on the
+  tree this script sits in (a copy run from a checkout of another commit
+  times that commit in the same call: parent, change, change, parent),
+  and a digest of the flash kernels' outputs (equal digests: bit-equal);
+* ``rs_variants``: ``ring_rs_gemm_add`` at the four TP 2 sites beside
+  torch.matmul, with each site's error over its bound;
+* ``sparse_parts``: the bf16 block-sparse dq and dk/dv at the train_sparse
+  shape (shared and per-head layouts) as built, without the rounding-edge
+  check and re-sum, and also without row norms (patched copies).
 
 Patched copies are written under ``probes/_build/`` (git-ignored).
 """
@@ -71,8 +79,16 @@ def _flush():
 
 def _patched(module, name, replacements):
     """Point ``module``'s kernel source at a copy with ``replacements``
-    (pairs of text) applied; None when one of them is not in the source."""
+    (pairs of text) applied, the shared ``tc_attention.cuh`` written into
+    the copy so its text can be patched too; None when one of them is not
+    in the source."""
     text = Path(module.SOURCE).read_text()
+    shared = cuda_build.INCLUDE_DIR / "tc_attention.cuh"
+    include = '#include "tc_attention.cuh"\n'
+    if include in text:
+        inline = shared.read_text().replace("#pragma once\n", "").replace(
+            '#include "sm90_mma.cuh"\n', "")
+        text = text.replace(include, inline)
     for old, _ in replacements:
         if old not in text:
             return None
@@ -603,6 +619,37 @@ def _registers(path, kernel, logs={}):
     return out
 
 
+def _flash_digest():
+    """sha256 (first 16 hex digits) of the flash kernels' outputs (out, lse,
+    dq, dk, dv) at the train shape (bf16, causal) and at a key-bias case
+    each of fp16 (d 128, s 1000), bf16 (d 32, s 384) and fp32 (d 64, s
+    200): equal digests from two trees mean bit-equal kernels."""
+    import hashlib
+    digest = hashlib.sha256()
+    for dtype, shape, bias in (
+            (torch.bfloat16, cs.FLASH_SHAPE, False),
+            (torch.float16, dict(b=2, s=1000, h=4, d=128), True),
+            (torch.bfloat16, dict(b=2, s=384, h=4, d=32), True),
+            (torch.float32, dict(b=2, s=200, h=4, d=64), True)):
+        q, k, v, dout = (t.to(dtype) for t in cs.flash_case(DEV, shape,
+                                                              seed=3))
+        h = shape["h"]
+        kb = None
+        if bias:
+            gen = torch.Generator(device=DEV).manual_seed(1)
+            kb = torch.randn((shape["b"], shape["s"]), generator=gen,
+                             device=DEV)
+            kb[:, -7:] = -1e4
+        kw = dict(num_heads=h, causal=not bias)
+        out, lse = fa.flash_fwd(q, k, v, kb, **kw)
+        args = (q, k, v, kb, dout, lse, fa.attention_delta(out, dout, h))
+        for t in (out, lse, fa.flash_bwd_dq(*args, **kw),
+                  *fa.flash_bwd_dkdv(*args, **kw)):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+    return digest.hexdigest()[:16]
+
+
 def flash_times():
     """The three flash kernels at the train shape (bf16, causal) and
     ring_ag_gemm summed over its four TP 2 sites, ms, on the tree this
@@ -618,10 +665,16 @@ def flash_times():
                                  flush),
            "dq_ms": cs.time_ms(lambda: fa.flash_bwd_dq(*args, **kw), flush)}
     gen = torch.Generator(device=DEV).manual_seed(5)
-    res["ag_ms"] = sum(
-        cs.time_ms(cs.ring_case("ring_ag_gemm", k_, n, mode, DEV, gen)[0],
-                   flush)
-        for _, k_, n, mode in cs.RING_SITES["ring_ag_gemm"])
+    for name, key in (("ring_ag_gemm", "ag_ms"), ("ring_rs_gemm_add", "rs_ms")):
+        res[key] = sum(
+            cs.time_ms(cs.ring_case(name, k_, n, mode, DEV, gen)[0], flush)
+            for _, k_, n, mode in cs.RING_SITES[name])
+    bsa, sargs, skw = _sparse_backward_args()
+    res["sparse_dq_ms"] = cs.time_ms(
+        lambda: bsa.block_sparse_bwd_dq(*sargs, **skw), flush)
+    res["sparse_dkdv_ms"] = cs.time_ms(
+        lambda: bsa.block_sparse_bwd_dkdv(*sargs, **skw), flush)
+    res["flash_digest"] = _flash_digest()
     return res
 
 
@@ -641,11 +694,192 @@ def ag_variants():
     return rows
 
 
+def rs_variants():
+    """ring_rs_gemm_add at its four TP 2 sites against torch.matmul, per
+    site, and the plain version's outputs against the kernel's (largest
+    error over its RING_TOL bound)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    flush = _flush()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    rows = {}
+    for site, k, n, mode in cs.RING_SITES["ring_rs_gemm_add"]:
+        kern, plain, lib, get, flops, nbytes = cs.ring_case(
+            "ring_rs_gemm_add", k, n, mode, DEV, gen)
+        kern()
+        plain()
+        _, ratio = cs._ring_err(get(0), get(1), cs.RING_TOL["ring_rs_gemm_add"])
+        ms = cs.time_ms(kern, flush)
+        rows[site] = {"ms": ms, "matmul_ms": cs.time_ms(lib, flush),
+                      "tflops": flops / ms / 1e9, "err_over_bound": ratio}
+    rows["sum_ms"] = sum(r["ms"] for r in rows.values())
+    return rows
+
+
+def _sparse_backward_args(section=None):
+    """The train_sparse shape's operands, the layout's tables (the train
+    config's shared layout by default) and the backward's arguments."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    section = section or cs.SPARSE_TRAIN
+    b, s, h, d = (cs.SPARSE_SHAPE[x] for x in "bshd")
+    q, k, v, dout = cs.sparse_case(DEV)
+    tables = bsa.LayoutTables(cs.sparse_layout(section, h, s),
+                              section["block"])
+    kw = dict(tables=tables, causal=True)
+    out, lse = bsa.block_sparse_fwd(q, k, v, **kw)
+    delta = bsa.attention_delta(out, dout)
+    return bsa, (q, k, v, None, None, dout, lse, delta), kw
+
+
+def _warp_step_share(tables, walk, step):
+    """Share of (warp, step) pairs of a walk in which the layout holds a
+    pair of the warp's 16 anchor rows (one unit, one block): the steps a
+    warp does not skip. ``step`` tokens a step (64 for dq, 32 for dk/dv)."""
+    w = getattr(tables, walk)
+    lay = tables.layout if walk == "fwd" else \
+        tables.layout.transpose(0, 2, 1)
+    blk = tables.block
+    held = total = 0
+    for h in range(tables.layout_heads):
+        pos = w.anchor_positions(h)
+        for t in range(w.n_tiles):
+            toks = (w.walk(h, t)[:, None] * blk + np.arange(blk)).reshape(-1)
+            rows = [pos[t, 16 * i] // blk for i in range(4) if
+                    pos[t, 16 * i] >= 0]
+            for s0 in range(0, len(toks), step):
+                cols = np.unique(toks[s0:s0 + step] // blk)
+                total += len(rows)
+                held += sum(bool(lay[h, r, cols].any()) for r in rows)
+    return held / max(total, 1)
+
+
+SPARSE_PARTS = {
+    "no_check": [("if (near_plain_edge<T>(t, b)) flags |= 1u << (j8 * 4 + e);",
+                  ";"),
+                 ("if (near_plain_edge<T>(t, b)) flags |= 1u << (j * 4 + e);",
+                  ";")],
+}
+SPARSE_PARTS["no_norms"] = SPARSE_PARTS["no_check"] + [
+    ("  return sqrtf(((acc[0]", "  return 1.f; return sqrtf(((acc[0]")]
+
+
+def sparse_parts():
+    """The bf16 block-sparse dq and dk/dv kernels at the train_sparse shape
+    (shared and per-head layouts): as built; with the rounding-edge check
+    and re-sum switched off in patched copies (results wrong, time only);
+    also without the row norms; and the share of warp-steps that hold a
+    pair."""
+    flush = _flush()
+    res = {}
+    for lname, section in (("shared", cs.SPARSE_TRAIN),
+                           ("per_head", cs.SPARSE_PARITY)):
+        bsa, args, kw = _sparse_backward_args(section)
+        tables = kw["tables"]
+
+        def timed():
+            return {"dq_ms": cs.time_ms(
+                lambda: bsa.block_sparse_bwd_dq(*args, **kw), flush),
+                    "dkdv_ms": cs.time_ms(
+                lambda: bsa.block_sparse_bwd_dkdv(*args, **kw), flush)}
+
+        row = {"as_built": timed(), "tiles": tables.bwd.n_tiles,
+               "warp_steps_with_a_pair": {
+                   "dq": _warp_step_share(tables, "fwd", 64),
+                   "dkdv": _warp_step_share(tables, "bwd", 32)}}
+        for name, reps in SPARSE_PARTS.items():
+            path = _patched(bsa, name, reps)
+            row[name] = "source changed" if path is None else \
+                _with_source(bsa, path, timed)
+        res[lname] = row
+    return res
+
+
+SPARSE_CHAINED = [
+    ("tc_pb_step<T, D, R>(dq", "tc_pb<T, D, R>(dq"),
+    ("tc_pb_step<T, D, BQ>(dv", "tc_pb<T, D, BQ>(dv"),
+    ("tc_pb_step<T, D, BQ>(dk", "tc_pb<T, D, BQ>(dk")]
+SPARSE_ALL_RESUMMED = [
+    ("if (near_plain_edge<T>(t, b)) flags |= 1u << (j8 * 4 + e);",
+     "flags |= 1u << (j8 * 4 + e);"),
+    ("if (near_plain_edge<T>(t, b)) flags |= 1u << (j * 4 + e);",
+     "flags |= 1u << (j * 4 + e);")]
+SPARSE_ACCUMULATION = {
+    "as_built": [], "chained": SPARSE_CHAINED,
+    "as_built_all_resummed": SPARSE_ALL_RESUMMED,
+    "chained_all_resummed": SPARSE_CHAINED + SPARSE_ALL_RESUMMED}
+# long transposed walks: (ds_config section, heads, seq, d, key bias)
+SPARSE_LONG_CASES = {
+    "bslongformer_b128_d128_kpm": (
+        {"mode": "bslongformer", "global_block_indices": [0],
+         "block": 128}, 4, 1536, 128, True),
+    "fixed_s4096": ({"mode": "fixed", "num_local_blocks": 4,
+                     "num_global_blocks": 1, "attention": "unidirectional",
+                     "block": 16}, 2, 4096, 64, False)}
+
+
+def sparse_accumulation():
+    """The bf16 block-sparse dq, dk, dv against their plain versions
+    (largest |kernel - plain| / (2^-7 |plain| + 1e-6): at most 1 within
+    one bf16 ulp) at two cases of long transposed walks, causal, b 2,
+    numpy-seeded data (a key bias with 20% of keys at -1e4 where named),
+    per patched variant: as built (each step's product from zero, added
+    with a rounded fp32 add), chained through the tensor cores'
+    accumulator as the flash kernels at bf16, and each with every pair's
+    P and dS summed again in the plain order."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def ratio(got, want):
+        want = want.float()
+        return float(((got.float() - want).abs() /
+                      (2 ** -7 * want.abs() + 1e-6)).max())
+
+    def cases():
+        out = {}
+        for name, (section, h, s, d, kpm) in SPARSE_LONG_CASES.items():
+            rng = np.random.RandomState(0)
+            tables = bsa.LayoutTables(cs.sparse_layout(section, h, s),
+                                      section["block"])
+            to = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEV)
+            qkv = to(rng.randn(2, s, 3 * h * d)).to(torch.bfloat16)
+            q, k, v = (t.reshape(2, s, h, d).transpose(1, 2)
+                       for t in qkv.split(h * d, dim=-1))
+            dout = to(rng.randn(2, h, s, d)).to(torch.bfloat16)
+            bias = None
+            if kpm:
+                a = rng.randn(2, s)
+                a[rng.rand(2, s) < 0.2] = -1e4
+                bias = to(a)
+            kw = dict(tables=tables, causal=True)
+            o, lse = bsa.block_sparse_fwd(q, k, v, bias, None, **kw)
+            delta = bsa.attention_delta(o, dout)
+            args = (q, k, v, bias, None, dout, lse, delta)
+            got = (bsa.block_sparse_bwd_dq(*args, **kw),
+                   *bsa.block_sparse_bwd_dkdv(*args, **kw))
+            ref = (bsa.block_sparse_bwd_dq_reference(*args, **kw),
+                   *bsa.block_sparse_bwd_dkdv_reference(*args, **kw))
+            out[name] = {g: ratio(a, b) for g, a, b in
+                         zip(("dq", "dk", "dv"), got, ref)}
+        return out
+
+    res = {}
+    for name, reps in SPARSE_ACCUMULATION.items():
+        path = _patched(bsa, "acc_" + name, reps) if reps else None
+        if reps and path is None:
+            res[name] = "source changed"
+            continue
+        res[name] = _with_source(bsa, path, cases) if path else cases()
+    return res
+
+
 SECTIONS = {"s_order": s_order, "cublas_order": cublas_order,
             "flash_parts": flash_parts, "flash_flags": flash_flags,
             "gc_variants": gc_variants, "fp16_backward": fp16_backward,
             "ag_variants": ag_variants, "fwd_variants": fwd_variants,
-            "flash_times": flash_times}
+            "flash_times": flash_times, "rs_variants": rs_variants,
+            "sparse_parts": sparse_parts,
+            "sparse_accumulation": sparse_accumulation}
 
 
 def main():

@@ -39,14 +39,18 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   its plain version over blocks 16-128, d_head 32/64/128,
   fp32/bf16/fp16, shared and per-head layouts of every mode, causal and
   not, key-padding and score biases, an empty query block; repeated runs
-  bit-identical; refusals; and a tiny fp32 GPT-2 with the ds_config
+  bit-identical; the bf16 dq and dk/dv kernels over the long transposed
+  walks of global columns, held to the plain versions and bit-identical
+  run to run; refusals; and a tiny fp32 GPT-2 with the ds_config
   sparse section trained through the kernels and through the plain
   versions, losses within 1e-5 relative.
 * ring GEMMs (the all-gather-matmul, matmul-reduce-scatter and dW
   gather-contract step kernels): each against its plain version over
   ragged shapes, fp32 and bf16, plain and transposed weights, ring blocks
-  1-4; the reduce-scatter step in place; the dW sum over every ring step;
-  refusals (device, dtype, strides, shapes).
+  1-4; the reduce-scatter step in place; the bf16 reduce-scatter kernel
+  at the TP 2 sites' (K, weight layout) pairs with and without what
+  arrived, in place, into a misaligned output and twice bit for bit; the
+  dW sum over every ring step; refusals (device, dtype, strides, shapes).
 """
 import numpy as np
 import pytest
@@ -729,6 +733,36 @@ def test_block_sparse_kernels_are_deterministic(cuda):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("s", [2048, 4096])
+def test_block_sparse_long_transposed_walks(cuda, s):
+    """Global columns make the transposed walks of a causal ``fixed``
+    layout long (a key tile of global columns walks every later query).
+    dq, dk and dv within one bf16 ulp of the plain versions (plus 1e-6)
+    and bit-identical over three runs."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    section = dict(FIXED, block=16, num_global_blocks=1)
+    tables, q, k, v, dout, _, _ = _sparse_case(
+        cuda, torch.bfloat16, section, 2, s, 64, empty_row=False)
+    assert int(tables.bwd.lengths.max()) * 16 >= s // 2   # a long walk
+    kw = dict(tables=tables, causal=True)
+    out, lse = bsa.block_sparse_fwd(q, k, v, **kw)
+    delta = bsa.attention_delta(out, dout)
+    args = (q, k, v, None, None, dout, lse, delta)
+    runs = [(bsa.block_sparse_bwd_dq(*args, **kw),
+             *bsa.block_sparse_bwd_dkdv(*args, **kw)) for _ in range(3)]
+    refs = (bsa.block_sparse_bwd_dq_reference(*args, **kw),
+            *bsa.block_sparse_bwd_dkdv_reference(*args, **kw))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), runs[0], refs):
+        assert torch.isfinite(got.float()).all(), name
+        assert _ulp_ratio(got, want, 1e-6) <= 1.0, \
+            (name, _ulp_ratio(got, want, 1e-6))
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
 def test_block_sparse_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_attention as bsa
@@ -1116,6 +1150,51 @@ def test_ring_rs_gemm_add_in_place_matches_plain_version(cuda, monkeypatch,
         torch.cuda.synchronize()
         assert rg.ring_rs_gemm_add.launches == before + 1
         _assert_ring_close(slot, plain, dtype)
+
+
+# (b, s_loc, K, N, w^T): the TP 2 sites' (K, weight layout) pairs at 400
+# rows (M off the 128-row tiles), then K off the 64-deep steps (16-byte
+# copies) and off 8 (plain loads), N off the 128-column tiles
+@pytest.mark.parametrize("b,s_loc,k,n,wt", [
+    (2, 200, 512, 1024, False), (2, 200, 2048, 1024, False),
+    (2, 200, 1536, 1024, True), (2, 200, 2048, 1024, True),
+    (1, 333, 520, 270, False), (1, 333, 517, 270, True),
+    (3, 77, 200, 1000, False)])
+def test_ring_rs_gemm_add_bf16_kernel_at_the_tp_sites(cuda, monkeypatch, b,
+                                                     s_loc, k, n, wt):
+    """The bf16 reduce-scatter step on the all-gather kernel's main loop:
+    against its plain version (_ring_tol) without ``recv`` (the first ring
+    step) and with it; in place (``out`` is ``recv``) and into a misaligned
+    output (2-byte aligned: the scalar stores) with the same bits as the
+    aligned run; and a second run bit-identical."""
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    _full_precision_reduction(monkeypatch)
+    dt, ring = torch.bfloat16, 2
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = _rnd(gen, cuda, dt, b, ring * s_loc, k)
+    w = _rnd(gen, cuda, dt, n, k).t() if wt else _rnd(gen, cuda, dt, k, n)
+    recv = _rnd(gen, cuda, dt, b, s_loc, n)
+    shape = (b, s_loc, n)
+    for arrived in (None, recv):
+        out, plain = (torch.empty(shape, device=cuda, dtype=dt)
+                      for _ in range(2))
+        before = rg.ring_rs_gemm_add.launches
+        rg.ring_rs_gemm_add(x, w, 1, ring, out, arrived)
+        rg.ring_rs_gemm_add_reference(x, w, 1, ring, plain, arrived)
+        torch.cuda.synchronize()
+        assert rg.ring_rs_gemm_add.launches == before + 1
+        _assert_ring_close(out, plain, dt)
+        again = torch.empty_like(out)
+        rg.ring_rs_gemm_add(x, w, 1, ring, again, arrived)
+        assert torch.equal(again, out)
+        odd = torch.empty(out.numel() + 1, device=cuda, dtype=dt)[1:]
+        odd = odd.view(shape)
+        assert odd.data_ptr() % 4 == 2
+        rg.ring_rs_gemm_add(x, w, 1, ring, odd, arrived)
+        assert torch.equal(odd, out)
+    slot = recv.clone()
+    assert rg.ring_rs_gemm_add(x, w, 1, ring, slot, slot) is slot
+    assert torch.equal(slot, out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

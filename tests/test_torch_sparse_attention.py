@@ -16,7 +16,9 @@ card by tests/test_torch_cuda.py and chip_smoke.py).
   with a key-padding bias, a score bias, and a fully masked row; lse
   against a masked dense log-sum-exp in numpy (2e-5);
 * the port's own walk tables: every active pair walked once, tiles in
-  launch order;
+  launch order; units of like walks packed into a tile (the transposed
+  walk of ``fixed`` groups its global columns), never more steps than
+  sequence order;
 * ``SparseSelfAttention`` with 'add' / 'mul' masks and ``rpe`` against the
   JAX module; ``SparseAttentionUtils`` against the JAX helpers.
 
@@ -251,6 +253,58 @@ def test_walks_cover_every_active_pair_once(name, block):
             steps = walk.lengths[h][walk.order[h]]
             assert np.all(np.diff(steps) <= 0)          # longest first
     assert tables.n_active == int(np.asarray(lay).sum())
+
+
+def _grid_walks(rows, grid, block, unit):
+    """(steps, idle warp-steps) of the tiles of ``grid`` (n_tiles,
+    TILE // unit; -1 = none) walking ``rows`` ([own block][other block]):
+    steps of TILE tokens (one block where blocks are larger), and the
+    (unit slot, step) pairs in which the slot holds no pair of the layout
+    (a warp of the kernels owns a unit slot and idles there)."""
+    steps = idle = 0
+    per_step = max(1, tbsa.TILE // block)
+    for g in grid:
+        blocks = np.where(g >= 0, g * unit // block, -1)
+        walk = np.nonzero(rows[blocks[blocks >= 0]].any(0))[0]
+        for at in range(0, len(walk), per_step):
+            cols = walk[at:at + per_step]
+            idle += sum(b < 0 or not rows[b][cols].any() for b in blocks)
+        steps += -(-len(walk) * block // tbsa.TILE)
+    return steps, idle
+
+
+@pytest.mark.parametrize("name", ["fixed_uni", "fixed_per_head",
+                                  "bigbird_random", "bslongformer"])
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("seq", [1024, 2048])
+def test_walks_pack_units_of_like_walks(name, block, seq):
+    """The host plan that packs units into tiles: each side's walks take
+    the steps their tiles' units need, never more steps and never more idle
+    warp-steps than tiles of units in sequence order; under ``fixed`` at
+    block 16 the transposed walk packs the global columns (the keys every
+    later query sees) together, so at most half the warp-steps idle that
+    sequence order would idle."""
+    cfg = dict(MODES[name], block=block)
+    lay = tsc.sparsity_config_from_dict(cfg, 3).make_layout(seq)
+    tables = tbsa.LayoutTables(lay, block)
+    for walk, side in ((tables.fwd, tables.layout),
+                       (tables.bwd, tables.layout.transpose(0, 2, 1))):
+        per_tile = tbsa.TILE // walk.unit
+        n_units = tables.nb * block // walk.unit
+        in_order = np.full(walk.n_tiles * per_tile, -1)
+        in_order[:n_units] = np.arange(n_units)
+        in_order = in_order.reshape(walk.n_tiles, per_tile)
+        for h in range(tables.layout_heads):
+            steps, idle = _grid_walks(side[h], walk.units[h], block,
+                                      walk.unit)
+            want_steps, want_idle = _grid_walks(side[h], in_order, block,
+                                                walk.unit)
+            assert steps == int((-(-walk.lengths[h] * block //
+                                   tbsa.TILE)).sum())
+            assert steps <= want_steps and idle <= want_idle
+            if walk is tables.bwd and name.startswith("fixed") and \
+                    block == 16:
+                assert steps < want_steps and 2 * idle <= want_idle
 
 
 def _module_inputs(seed=3):

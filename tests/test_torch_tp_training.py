@@ -119,11 +119,12 @@ def _spec(prec, backend="pallas", model=MODEL, load=None, **extra):
 def port_runs(jax_runs):
     """world -> per-rank results of workers.tp_engine: at world 2 fp32 and
     bf16 (each then loading the JAX engine's state), fp32 on the plain
-    ring and fp32 LAMB with unequal shards; at world 4 fp32."""
+    ring, fp32 LAMB with unequal shards and fp32 again on the kernel
+    backend (spec 0 repeated); at world 4 fp32."""
     specs2 = [_spec(p, load=(jax_runs[p]["master"], jax_runs[p]["opt"]))
               for p in ("fp32", "bf16")] + [_spec("fp32", "ppermute")] + \
         [_spec("fp32", steps=LAMB_STEPS, optimizer="Lamb",
-               scale_fc=FC_SCALE)]
+               scale_fc=FC_SCALE), _spec("fp32")]
     return {2: spawn(workers.tp_engine, 2, args=(specs2,), timeout_s=150),
             4: spawn(workers.tp_engine, 4, args=([_spec("fp32",
                                                         model=MODEL4)],),
@@ -217,10 +218,23 @@ def test_tp2_lamb_with_unequal_shards_matches_tp1_and_the_jax_engine(
 
 
 def test_plain_ring_and_kernel_backend_agree(port_runs):
-    """On CPU tensors both backends run the plain products: the losses of
-    the two fp32 runs are equal."""
+    """On CPU tensors both backends run the plain products: the losses and
+    the gathered masters of the two fp32 runs are equal, bit for bit."""
     for rank in port_runs[2]:
-        assert rank[0]["losses"] == rank[2]["losses"]
+        np.testing.assert_array_equal(rank[0]["losses"], rank[2]["losses"])
+        first = dict(_leaves(rank[0]["master"]))
+        for name, w in _leaves(rank[2]["master"]):
+            np.testing.assert_array_equal(first[name], w, err_msg=name)
+
+
+def test_one_backend_repeats_bit_for_bit(port_runs):
+    """Two fp32 runs on the kernel backend in one rank give the same
+    losses and the same gathered masters, bit for bit."""
+    for rank in port_runs[2]:
+        np.testing.assert_array_equal(rank[0]["losses"], rank[4]["losses"])
+        first = dict(_leaves(rank[0]["master"]))
+        for name, w in _leaves(rank[4]["master"]):
+            np.testing.assert_array_equal(first[name], w, err_msg=name)
 
 
 def test_shard_layout_round_trips():

@@ -10,6 +10,14 @@ import torch
 import torch.distributed as dist
 
 
+def single_threaded():
+    """One intra-op thread in this rank: the ranks of several test files
+    share the host's cores with each other (pytest-xdist workers x ranks x
+    8 threads), and the tests' bit-for-bit comparisons should not depend on
+    how an op splits its work across threads."""
+    torch.set_num_threads(1)
+
+
 def shard_operands(kind, x, w, rank, world):
     """This rank's shards of a global (x, w): column sites take rows of x
     and columns of w, row sites columns of x and rows of w."""
@@ -26,6 +34,7 @@ def ring_ops(rank, world, cases):
     backends: the local output and, where asked, the gradients of
     ``sum(y ** 2)``; then a rank-4 input on the kernel backend."""
     from deepspeed_tpu_torch.parallel import collective_matmul as cm
+    single_threaded()
     out = {}
     for backend in ("pallas", "ppermute"):
         for name, (kind, x, w, policy, grad) in cases.items():
@@ -105,6 +114,7 @@ def tp_engine(rank, world, specs):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.parallel.topology import build_mesh
+    single_threaded()
     results = []
     for spec in specs:
         cfg = gpt2.GPT2Config(**spec["model"])
