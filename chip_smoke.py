@@ -12,7 +12,9 @@ with no ``ok`` line):
 3. kernel  — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its time, the plain version's, the least time
    the card could take (``bound_ms``) and a PyTorch library call's where
-   one exists: paged attention (the serve path's decode shape), the flash
+   one exists: paged attention (the serve path's decode shape, two runs
+   bit-identical, its splits, and timed with every slot at 64, 512 and
+   1024 live keys beside SDPA and the bound), the flash
    forward, dk/dv and dq kernels (b 16, s 1024, h 16, d 64, bf16, causal,
    q/k/v strided column blocks of one QKV tensor; two runs of each
    bit-identical), the same three in the
@@ -30,8 +32,10 @@ with no ``ok`` line):
 6. block_sparse_attention kernel phase — the three block-sparse kernels
    against their plain versions at the long-context train shape (b 2,
    s 8192, h 16, d 64, bf16, causal), over the train config's shared
-   ``fixed`` layout and the parity config's per-head layout (the two
-   backward kernels also bit for bit over two runs), timed beside their
+   ``fixed`` layout and the parity config's per-head layout (the forward
+   and the two backward kernels also bit for bit over two runs; the fp16
+   forward, on the same tensor-core kernel, within one fp16 ulp of its
+   plain version plus eps / 4), timed beside their
    bounds, ``flex_attention`` (torch.compile, same block mask) and
    ``scaled_dot_product_attention`` with the layout as a dense mask;
 7. train_sparse — the long-context main path: ``initialize(...)
@@ -53,7 +57,8 @@ with no ``ok`` line):
    op through its autograd against direct kernel calls, the kernels
    against their plain versions, timed; then ``flash_fp32_repeats``: the
    fp32 key-mask case of the GPU tests (b 2, s 96, h 2, d 32) 60 times,
-   every run bit-identical, the worst element against the CPU run printed;
+   every run bit-identical, the worst element against the CPU run printed,
+   and each run's out against a float64 evaluation;
    then ``flash_fp16``: the fp16 forward, dk/dv and dq (tensor cores)
    against their plain versions at probes/kernel_probe.py fp16_backward's
    cases (d 32 / 128, s 96 / 1000, causal or not, a key bias dropping 20%
@@ -142,17 +147,20 @@ def time_ms(fn, flush, reps=25):
 # ------------------------------------------------------------ kernel case
 
 
-def paged_case(s, seed, device):
+def paged_case(s, seed, device, live=None):
     """The serving path's paged-attention shapes: 16 slots, 16 heads,
     d_head 64, pages of 16 tokens, the full gpt2_medium pool (1024 usable
     pages + garbage page 0, 24 layers) in bf16, 64 pages per table.
-    Lengths spread to 1023 so windows cross page boundaries; garbage page
+    Lengths spread to 1023 so windows cross page boundaries (``live``:
+    every slot at that many keys with its s queries); garbage page
     0 and every unallocated page are NaN. With s > 1 the valid lengths
     are padded (some slots have fewer real queries than s)."""
     import torch
     b, h, dh, ps, max_pages, layers, usable = 16, 16, 64, 16, 64, 24, 1024
     rng = np.random.RandomState(seed)
     positions = np.linspace(0, max_pages * ps - s, b).round().astype(np.int32)
+    if live is not None:
+        positions = np.full(b, live - s, np.int32)
     valid_lens = np.full(b, s, np.int32)
     if s > 1:
         valid_lens = rng.randint(1, s + 1, size=b).astype(np.int32)
@@ -205,14 +213,37 @@ def bound_ms(nbytes, flops, flops_per_s):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernel(flush):
-    """paged_attention vs paged_attention_reference on the card."""
+def paged_library_ms(case, flush):
+    """Yardstick: scaled_dot_product_attention over the case's rows
+    gathered into contiguous memory beforehand (the gather itself is
+    excluded), the live window as a boolean mask."""
     import torch
     import torch.nn.functional as F
+    device = case["q"].device
+    b, _, h, dh = case["q"].shape
+    index = case["page_tables"].long()
+    rows_of = lambda pool: torch.nan_to_num(pool[:, 0][index]).permute(
+        0, 2, 1, 3, 4).reshape(b, h, -1, dh).contiguous()
+    k_rows, v_rows = rows_of(case["k_pool"]), rows_of(case["v_pool"])
+    live = (case["positions"] + case["valid_lens"] - 1).long()
+    mask = (torch.arange(k_rows.shape[2], device=device)[None, :] <=
+            live[:, None])[:, None, None, :]
+    qh = case["q"].transpose(1, 2).contiguous()
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qh, k_rows, v_rows, attn_mask=mask), flush)
+
+
+def phase_kernel(flush):
+    """paged_attention vs paged_attention_reference on the card; two runs
+    bit for bit; timed at the decode shape of the path and with every slot
+    at 64, 512 and 1024 live keys."""
+    import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
+    from deepspeed_tpu_torch.ops.paged_attention.paged_attention import \
+        launch_plan
     device = torch.device("cuda", 0)
-    max_err, checks = 0.0, []
+    max_err, checks, repeat_equal = 0.0, [], True
     for s in (1, 4):
         case = paged_case(s, seed=s, device=device)
         for layer in (0, SERVE_LAYERS - 1):
@@ -221,8 +252,10 @@ def phase_kernel(flush):
                     case["valid_lens"])
             kw = dict(layer_idx=layer, page_size=case["page_size"])
             got = paged_attention(*args, **kw)
+            again = paged_attention(*args, **kw)
             want = paged_attention_reference(*args, **kw)
             torch.cuda.synchronize()
+            repeat_equal = repeat_equal and torch.equal(got, again)
             # valid query rows only: a padded row's reference output reads
             # past the live window by design
             vl = case["valid_lens"].cpu().numpy()
@@ -238,32 +271,36 @@ def phase_kernel(flush):
             max_err = max(max_err, err)
     assert max_err <= 2e-5, "paged_attention off its plain version by " \
         "{} > 2e-5".format(max_err)
+    assert repeat_equal, "two paged_attention runs differ"
 
-    # times at the decode shape of the path (s = 1)
-    case = paged_case(1, seed=1, device=device)
-    args = (case["q"], case["k_pool"], case["v_pool"], case["page_tables"],
-            case["positions"], case["valid_lens"])
-    kw = dict(layer_idx=0, page_size=case["page_size"])
-    kernel_ms = time_ms(lambda: paged_attention(*args, **kw), flush)
-    plain_ms = time_ms(lambda: paged_attention_reference(*args, **kw), flush)
-    bound_ms, bound_by = paged_bound_ms(case)
-    # yardstick: scaled_dot_product_attention over rows gathered into
-    # contiguous memory beforehand (the gather itself is excluded)
+    # times at the decode shape of the path (s = 1), then the sweep
+    timed = {}
+    for name, live in (("kernel_case", None), ("all_64", 64),
+                       ("all_512", 512), ("all_1024", 1024)):
+        case = paged_case(1, seed=1, device=device, live=live)
+        args = (case["q"], case["k_pool"], case["v_pool"],
+                case["page_tables"], case["positions"], case["valid_lens"])
+        kw = dict(layer_idx=0, page_size=case["page_size"])
+        bound = paged_bound_ms(case)
+        timed[name] = {
+            "kernel_ms": time_ms(lambda: paged_attention(*args, **kw), flush),
+            "library_ms": paged_library_ms(case, flush),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        if live is None:
+            timed[name]["plain_ms"] = time_ms(
+                lambda: paged_attention_reference(*args, **kw), flush)
     b, _, h, dh = case["q"].shape
-    index = case["page_tables"].long()
-    rows_of = lambda pool: torch.nan_to_num(pool[:, 0][index]).permute(
-        0, 2, 1, 3, 4).reshape(b, h, -1, dh).contiguous()
-    k_rows, v_rows = rows_of(case["k_pool"]), rows_of(case["v_pool"])
-    live = (case["positions"] + case["valid_lens"] - 1).long()
-    mask = (torch.arange(k_rows.shape[2], device=device)[None, :] <=
-            live[:, None])[:, None, None, :]
-    qh = case["q"].transpose(1, 2).contiguous()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, k_rows, v_rows, attn_mask=mask), flush)
+    chunk, rounds, splits = launch_plan(case["q"].element_size(), dh,
+                                        case["page_tables"].shape[1] *
+                                        case["page_size"])
+    row = timed.pop("kernel_case")
     return {"phase": "kernel", "name": "paged_attention", "checks": checks,
-            "max_abs_err": max_err, "tolerance": 2e-5, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "max_abs_err": max_err, "tolerance": 2e-5,
+            "repeat_bit_equal": repeat_equal, **row,
+            "sweep_every_slot_at": timed,
+            "launch": {"splits": splits, "keys_a_round": chunk,
+                       "rounds_a_split": rounds,
+                       "blocks": b * h * splits},
             "library_call": "F.scaled_dot_product_attention over pre-gathered "
                             "contiguous rows, gather excluded",
             "shape": {"slots": b, "heads": h, "d_head": dh, "page_size": 16,
@@ -491,7 +528,9 @@ def phase_flash_fp32_repeats(repeats=60):
     kernels ``repeats`` times and on the CPU (the plain versions) 5 times:
     every GPU run bit-identical to the first, every CPU run too, and the
     worst element of each output against the CPU run printed with both
-    sides' values; held to the test's 1e-5."""
+    sides' values, and each run's out against a float64 evaluation, batch
+    by batch (the distinct values over the GPU runs, one a CPU run); held
+    to the test's 1e-5."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
     rng = np.random.RandomState(1)
@@ -519,12 +558,26 @@ def phase_flash_fp32_repeats(repeats=60):
                     key=lambda w: w["rel_err"])
              for i, n in enumerate(names)}
     rel = max(w["rel_err"] for w in worst.values())
+    # out in float64, to tell which side a run that differs has left
+    q, k, v = (a.astype(np.float64) for a in arrays[:3])
+    sc = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(d) + \
+        mask.astype(np.float64)[:, None, None, :]
+    pr = np.exp(sc - sc.max(-1, keepdims=True))
+    exact = torch.from_numpy(np.einsum("bhqk,bkhd->bqhd",
+                                       pr / pr.sum(-1, keepdims=True), v))
+    def per_batch(out):
+        return tuple(float(e) for e in
+                     (out.double() - exact).abs().amax(dim=(1, 2, 3)))
+
+    out_vs_float64 = {"gpu_runs": sorted({per_batch(r[0]) for r in gpu}),
+                      "cpu_runs": [per_batch(r[0]) for r in cpu]}
     result = {"phase": "flash_fp32_repeats", "repeats": repeats,
               "shape": {"b": b, "s": s, "h": h, "d": d, "dtype": "fp32",
                         "key_mask": "25% of keys -1e9"},
               "gpu_runs_differing_from_the_first": gpu_varies,
               "cpu_runs_differing_from_the_first": cpu_varies,
               "worst_vs_cpu": worst, "max_rel_err": rel, "tolerance": 1e-5,
+              "out_max_abs_err_vs_float64": out_vs_float64,
               "cpu": {"model": _cpu_model(),
                       "capability": torch.backends.cpu.get_cpu_capability(),
                       "threads": torch.get_num_threads()}}
@@ -1044,6 +1097,7 @@ def phase_sparse(flush):
         dk, dv = bsa.block_sparse_bwd_dkdv(*args, **kw)
         again = (bsa.block_sparse_bwd_dq(*args, **kw),
                  *bsa.block_sparse_bwd_dkdv(*args, **kw))
+        fwd_again = bsa.block_sparse_fwd(q, k, v, **kw)
         ref_out, ref_lse = bsa.block_sparse_fwd_reference(q, k, v, **kw)
         ref_dq = bsa.block_sparse_bwd_dq_reference(*args, **kw)
         ref_dk, ref_dv = bsa.block_sparse_bwd_dkdv_reference(*args, **kw)
@@ -1060,10 +1114,27 @@ def phase_sparse(flush):
             assert torch.isfinite(t.float()).all(), "non-finite kernel output"
         errs["bwd_repeat_bit_equal"] = all(
             torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+        errs["fwd_repeat_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(fwd_again, (out, lse)))
         assert errs["lse"] <= FLASH_TOL["lse"], (name, errs)
         assert max(errs[g + "_ulp_ratio"] for g in pairs) <= 1.0, (name, errs)
         assert errs["bwd_repeat_bit_equal"], (name, "two backward runs differ")
-        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, again
+        assert errs["fwd_repeat_bit_equal"], (name, "two forward runs differ")
+        # fp16 runs the same tensor-core forward: one fp16 ulp of the plain
+        # value plus eps / 4, as flash_fp16 holds the flash forward
+        q16, k16, v16 = (t.to(torch.float16) for t in (q, k, v))
+        out16, lse16 = bsa.block_sparse_fwd(q16, k16, v16, **kw)
+        ref16, ref_lse16 = bsa.block_sparse_fwd_reference(q16, k16, v16, **kw)
+        torch.cuda.synchronize()
+        eps16 = torch.finfo(torch.float16).eps
+        errs["fp16_out_ulp_ratio"] = float(
+            ((out16.float() - ref16.float()).abs() /
+             (eps16 * ref16.float().abs() + eps16 / 4)).max())
+        errs["fp16_lse"] = abs_err(lse16, ref_lse16)
+        assert errs["fp16_out_ulp_ratio"] <= 1.0, (name, errs)
+        assert errs["fp16_lse"] <= FLASH_TOL["lse"], (name, errs)
+        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, again, fwd_again
+        del q16, k16, v16, out16, lse16, ref16, ref_lse16
 
         times = {
             "block_sparse_fwd": (

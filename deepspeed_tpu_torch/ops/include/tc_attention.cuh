@@ -1,8 +1,9 @@
 // Tensor-core attention building blocks shared by the port's flash and
-// block-sparse backward kernels (sm_90a): the type helpers, the exactness
-// check that gives each pair's P and dS the plain versions' bits, and the
-// mma.sync tile products over rows staged in shared memory. Blocks of
-// kTcThreads threads, 4 warps of 16 rows each.
+// block-sparse kernels, forward and backward (sm_90a): the type helpers,
+// the exactness checks that give each pair's P (and the forward's running
+// max) and dS the plain versions' bits, the forward's whole key-tile step
+// (tc_fwd_step), and the mma.sync tile products over rows staged in shared
+// memory. Blocks of kTcThreads threads, 4 warps of 16 rows each.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -410,6 +411,228 @@ __device__ __forceinline__ void tc_pb(float (&acc)[D / 8][4],
       }
     }
   }
+}
+
+constexpr float kTcNegInf = -1e30f;  // a masked score, never -inf
+
+// The score terms of the forward's step (tc_fwd_step): score() takes the
+// tensor-core S of live pair (kc, h2) to the score, exact() the re-summed
+// S, both in the plain version's order of fp32 operations; bound(kc, h2,
+// sx) is a value b whose 1.2e-7 b bounds the roundings of the per-pair
+// terms on top of err0 and whose 2.4e-7 b does so for x = score - m_new
+// (read only when PER_PAIR). kZeroDead: a row whose running max is still
+// kTcNegInf gets P = 0 (the block-sparse contract; flash's plain version
+// has no such rule). FwdScale: S scale alone (flash, no bias).
+struct FwdScale {
+  static constexpr bool kZeroDead = false;
+  float scale;
+  __device__ __forceinline__ float score(float s, int, int) const {
+    return __fmul_rn(s, scale);
+  }
+  __device__ __forceinline__ float exact(float s, int, int) const {
+    return score_of(s, scale, 0.f);
+  }
+  __device__ __forceinline__ float bound(int, int, float) const {
+    return 0.f;
+  }
+};
+// S scale + b[key] (flash's key-padding bias; the tile's keys in b):
+// one rounding more, of a result at most sx + |b| (err0 counts the sx).
+struct FwdKeyBias {
+  static constexpr bool kZeroDead = false;
+  float scale;
+  const float* b;
+  __device__ __forceinline__ float score(float s, int kc, int) const {
+    return score_of(s, scale, b[kc]);
+  }
+  __device__ __forceinline__ float exact(float s, int kc, int) const {
+    return score_of(s, scale, b[kc]);
+  }
+  __device__ __forceinline__ float bound(int kc, int, float) const {
+    return fabsf(b[kc]);
+  }
+};
+
+// One key tile of the tensor-core forward for a warp's 16 rows x N keys
+// (flash_fwd_tc_kernel, block_sparse_fwd_tc_kernel). sc holds the
+// tensor-core S (tc_abt); live_of(kc, h2) says whether the pair of key
+// column kc and row g + 8 h2 counts (the others score kTcNegInf); m, l, acc
+// are the rows' online
+// softmax state (this thread's rows g and g + 8), updated in place; qw the
+// warp's 16 query rows, k_t and v_t the tile's N key rows, at pitch ld in
+// shared memory; qn the two rows' norms, kmax the tile's largest key norm;
+// pw this thread's 32 slots in shared memory.
+//
+// P = exp(sc - m_new) is rounded to T before P.V, so P must have the plain
+// version's bits, and so must the running max m_new, which the plain
+// version takes over its own scores. The tensor-core scores sc lie within
+// err of the plain sc; the pairs that may hold the plain tile max (sc +
+// err reaches both the best sc - err of the row and the running max: none
+// in most later tiles) are summed again in the plain order, and their
+// exact scores give m_new exactly; then each pair's P, and the pairs whose
+// P lies within the bound of a rounding edge of T are summed again. Both
+// re-sums are done by the lane that holds the pair: about ten a warp tile
+// of 1024 pairs, where the backward's shared list cost more than the sums
+// (probes/kernel_probe.py fwd_variants). PER_PAIR: the terms' bound
+// differs pair by pair (a bias), else it is 0 and the row's bounds hold.
+template <typename T, int D, int N, bool PER_PAIR, typename Terms,
+          typename Live>
+__device__ __forceinline__ void tc_fwd_step(
+    float (&sc)[N / 8][4], Live live_of, float (&m)[2], float (&l)[2],
+    float (&acc)[D / 8][4], const T* qw, const T* k_t, const T* v_t, int ld,
+    const float (&qn)[2], float kmax, float scale, const Terms& terms,
+    float* pw, int lane) {
+  static_assert(N == 64, "a warp tile's pairs are the 32 bits of live");
+  constexpr int NJ = N / 8;
+  const int g = lane >> 2, tg = lane & 3;
+  // per row: a bound on |sc - sc_plain| before the per-pair terms (S
+  // within es of the plain S, two roundings a side) and |S scale|
+  float err0[2], sx[2], es_s[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    sx[h2] = qn[h2] * kmax * scale;
+    es_s[h2] = kProductSlack * qn[h2] * kmax * scale;
+    err0[h2] = es_s[h2] + 2.4e-7f * sx[h2];
+  }
+
+  // the scores of the live pairs; hi and lo bound the plain tile max of
+  // each row from above and below
+  uint32_t live = 0;
+  float hi[2] = {kTcNegInf, kTcNegInf}, lo[2] = {kTcNegInf, kTcNegInf};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h2 = e >> 1, kc = j * 8 + 2 * tg + (e & 1);
+      const bool ok = live_of(kc, h2);
+      live |= ok ? 1u << (j * 4 + e) : 0u;
+      if constexpr (PER_PAIR) {
+        const float err = err0[h2] + 1.2e-7f * terms.bound(kc, h2, sx[h2]);
+        sc[j][e] = ok ? terms.score(sc[j][e], kc, h2) : kTcNegInf;
+        hi[h2] = fmaxf(hi[h2], ok ? sc[j][e] + err : kTcNegInf);
+        lo[h2] = fmaxf(lo[h2], ok ? sc[j][e] - err : kTcNegInf);
+      } else {
+        sc[j][e] = ok ? terms.score(sc[j][e], kc, h2) : kTcNegInf;
+        hi[h2] = fmaxf(hi[h2], sc[j][e]);
+      }
+    }
+  // the pairs that may hold the plain tile max where it may pass the
+  // running max m (none when hi < m): the plain max is at least lo, so
+  // no pair whose sc + err is below max(lo, m) matters; their scores
+  // summed again in the plain order give the tile max, and m_new, exactly
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    if constexpr (PER_PAIR) {
+      hi[h2] = quad_max(hi[h2]);
+      lo[h2] = fmaxf(quad_max(lo[h2]), m[h2]);
+    } else {
+      const float mx = quad_max(hi[h2]);
+      hi[h2] = mx > kTcNegInf ? mx + err0[h2] : kTcNegInf;
+      lo[h2] = fmaxf(mx - err0[h2], m[h2]);
+    }
+  }
+  uint32_t cand = 0;
+  if (hi[0] >= m[0] || hi[1] >= m[1]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1;
+        const float err =
+            PER_PAIR ? err0[h2] + 1.2e-7f * terms.bound(
+                                            j * 8 + 2 * tg + (e & 1), h2,
+                                            sx[h2])
+                     : err0[h2];
+        if (hi[h2] >= m[h2] && sc[j][e] + err >= lo[h2])
+          cand |= live & 1u << (j * 4 + e);
+      }
+  }
+  float mt[2] = {kTcNegInf, kTcNegInf};
+  for (uint32_t f = cand; f != 0u; f &= f - 1u) {
+    const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
+    const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
+    const float v = terms.exact(
+        seq_dot<T, D>(qw + (g + h2 * 8) * ld, k_t + kc * ld), kc, h2);
+    mt[0] = h2 ? mt[0] : fmaxf(mt[0], v);
+    mt[1] = h2 ? fmaxf(mt[1], v) : mt[1];
+  }
+  float m_new[2], corr[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    m_new[h2] = fmaxf(m[h2], quad_max(mt[h2]));
+    corr[h2] = expf(__fsub_rn(m[h2], m_new[h2]));
+  }
+  if constexpr (Terms::kZeroDead) {
+    // a dead row's pairs (bits j * 4 + e, e >> 1 its h2) leave the live
+    // set: P = 0, and no pair of it is summed again
+    live &= (m_new[0] <= kTcNegInf ? 0xCCCCCCCCu : ~0u) &
+            (m_new[1] <= kTcNegInf ? 0x33333333u : ~0u);
+    cand &= live;
+  }
+
+  // P at the plain bits: the candidates, and the pairs whose P lies
+  // within the bound of a rounding edge of T (edge_bound's ex and tp,
+  // with each pair's terms), are summed again
+  float exb[2];
+  NearEdge<T> near[2] = {NearEdge<T>(0.f), NearEdge<T>(0.f)};
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    exb[h2] = es_s[h2] + 1.2e-7f * (3.f * sx[h2] + fabsf(m_new[h2]));
+    near[h2] = NearEdge<T>((exb[h2] * (1.f + exb[h2]) + 4.8e-7f) *
+                               16777216.f + 10.f);
+  }
+  uint32_t flags = cand;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h2 = e >> 1, bit = j * 4 + e;
+      const float x = __fsub_rn(sc[j][e], m_new[h2]);
+      const float pr = live >> bit & 1u ? expf(x) : 0.f;
+      bool near_edge;
+      if constexpr (PER_PAIR) {
+        const float ex =
+            exb[h2] + 2.4e-7f * terms.bound(j * 8 + 2 * tg + (e & 1), h2,
+                                            sx[h2]);
+        near_edge = x + ex >= p_zero_below<T>() &&
+                    NearEdge<T>((ex * (1.f + ex) + 4.8e-7f) * 16777216.f +
+                                10.f)(pr);
+      } else {
+        near_edge = x + exb[h2] >= p_zero_below<T>() && near[h2](pr);
+      }
+      if ((live >> bit & 1u) && near_edge) flags |= 1u << bit;
+      sc[j][e] = pr;  // P, rounded to T as the P.V product's A operand
+    }
+  // each lane sums its own flagged pairs again (a few a warp tile: one
+  // lane seldom holds more than one), through its slots in shared memory
+  for (uint32_t f = flags; f != 0u; f &= f - 1u) {
+    const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
+    const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
+    const float v = terms.exact(
+        seq_dot<T, D>(qw + (g + h2 * 8) * ld, k_t + kc * ld), kc, h2);
+    pw[pos] = expf(__fsub_rn(v, h2 ? m_new[1] : m_new[0]));
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (flags >> (j * 4 + e) & 1u) sc[j][e] = pw[j * 4 + e];
+
+  // the online softmax: l and acc rescaled, then += P . V
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      rs += sc[j][2 * h2] + sc[j][2 * h2 + 1];
+    l[h2] = l[h2] * corr[h2] + quad_sum(rs);
+    m[h2] = m_new[h2];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+  tc_pb<T, D, N>(acc, sc, v_t, ld, lane);
 }
 
 // 16 rows x D of fp32 accumulators (C tiles) -> rows `row0 + g (+8)` of a

@@ -12,7 +12,10 @@ same stream).
   launches the hand-written kernel ``csrc/paged_attention.cu`` on the
   current stream and adds one to ``paged_attention.launches``; on CPU
   tensors it returns :func:`paged_attention_reference`. A build or
-  launch failure raises; nothing falls back.
+  launch failure raises; nothing falls back. The kernel splits each
+  slot's keys over several blocks (:func:`launch_plan`, sized from the
+  page table's width, never from the device-side lengths) and combines
+  their partials inside the same launch.
 * :func:`paged_attention_reference` is the plain PyTorch version:
   gather each slot's pages back into contiguous rows, then the shared
   masked attention ``models/gpt2.py::_attend_cache_rows`` — exactly the
@@ -36,6 +39,46 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 256
+# shared memory for a round's K and V rows, which sets the keys a round
+STAGE_BYTES = 32 * 1024
+MAX_SPLITS = 32             # past this, a split takes several rounds
+
+
+class _Params(ctypes.Structure):
+    """``PagedParams`` of ``csrc/paged_attention.cu``, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "k_pool", "v_pool", "page_tables", "positions", "valid_lens",
+        "out", "ws", "tickets")] + [(name, ctypes.c_int) for name in (
+            "b", "s", "h", "dh", "page_size", "max_pages", "num_layers",
+            "layer_idx", "chunk", "rounds", "splits")] + [
+        ("sm_scale", ctypes.c_float)]
+
+
+def launch_plan(element_size, dh, table_keys):
+    """(chunk, rounds, splits): a round stages ``chunk`` keys (a power of
+    two in [16, 256] whose K and V rows fit STAGE_BYTES), a split walks
+    ``rounds`` rounds, and ``splits`` splits cover ``table_keys`` (the
+    page table's width), at most MAX_SPLITS of them."""
+    chunk = 256
+    while chunk > 16 and 2 * chunk * dh * element_size > STAGE_BYTES:
+        chunk //= 2
+    rounds = max(1, -(-table_keys // (chunk * MAX_SPLITS)))
+    return chunk, rounds, -(-table_keys // (chunk * rounds))
+
+
+_TICKETS = {}
+
+
+def _tickets(device, stream, n):
+    """A zeroed int32 ticket per (slot, head) for launches on ``stream``
+    (the kernel leaves every ticket at 0 again), kept per stream so that
+    launches on two streams never share one."""
+    key = (device.index, stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = have
+    return have
 
 
 def build():
@@ -50,8 +93,7 @@ def _library():
     and loaded once per process (a decode step launches 24 times)."""
     lib = cuda_build.load(SOURCE)
     fn = lib.paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.paged_attention_error_string.argtypes = [ctypes.c_int]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -144,12 +186,21 @@ def paged_attention(q, k_pool, v_pool, page_tables, positions, valid_lens,
         return out
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_tables.data_ptr(), positions.data_ptr(), valid_lens.data_ptr(),
-        out.data_ptr(), b, s, h, dh, page_size, page_tables.shape[1],
-        k_pool.shape[1], layer_idx, 1.0 / math.sqrt(dh),
-        _DTYPE_CODES[q.dtype], stream)
+    max_pages = page_tables.shape[1]
+    chunk, rounds, splits = launch_plan(q.element_size(), dh,
+                                        max_pages * page_size)
+    p = _Params(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                page_tables.data_ptr(), positions.data_ptr(),
+                valid_lens.data_ptr(), out.data_ptr(), None, None, b, s, h,
+                dh, page_size, max_pages, k_pool.shape[1], layer_idx, chunk,
+                rounds, splits, 1.0 / math.sqrt(dh))
+    if splits > 1:
+        ws = torch.empty(b * h * splits * s * (dh + 2), dtype=torch.float32,
+                         device=q.device)
+        p.ws = ws.data_ptr()
+        p.tickets = _tickets(q.device, stream, b * h).data_ptr()
+    err = lib.paged_attention_launch(ctypes.byref(p), _DTYPE_CODES[q.dtype],
+                                     stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: CUDA "
                            "error {} ({})".format(

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:
-//   block_sparse_fwd_kernel         <- _fwd_pk (pallas_call :749, shared
-//                                      layouts, all heads per grid step) and
+//   block_sparse_fwd_tc_kernel      <- _fwd_pk (pallas_call :749, shared
+//     (fp32: block_sparse_fwd_kernel)  layouts, all heads per grid step) and
 //                                      _fwd (:923, per-head layouts)
 //   block_sparse_bwd_dq_tc_kernel   <- the dq halves of _bwd_pk (:792) and
 //     (fp32, fp16: ..._dq_kernel)      _bwd (:959)
@@ -43,33 +43,43 @@
 // (71 GFLOP forward, 106 dq, 142 dk/dv on active pairs, against 0.04 ms of
 // bytes).
 //
-// bf16 backward (designed for Hopper): the flash backward's tensor-core
-// design (tc_attention.cuh) over gathered rows. Blocks of 4 warps; warp w
-// owns anchor rows 16 w .. 16 w + 15, which lie in one unit and so in one
-// layout block, and skips a step's products when the layout holds none of
-// its pairs. The anchor rows (Q, dO for dq; K, V for dk/dv) stay in shared
-// memory in bf16; the step's rows of the other side (64 keys, or 32
-// queries) are gathered by 16-byte cp.async into two stages, each row
-// wherever the walk puts it. S and dP (S^T, dP^T) come from mma.sync
-// m16n8k16 with ldmatrix fragments and stay in registers as the next
-// product's A operand: P and dS follow the plain versions' operations from
-// them, and pairs within the bound of a bf16 rounding edge are summed again
-// in the plain order, so each P and dS has the plain bits (the same check as
-// flash). Each step's dQ / dK / dV product starts from zero and is added
+// bf16 and fp16 forward, bf16 backward (designed for Hopper): the flash
+// kernels' tensor-core design (tc_attention.cuh) over gathered rows. Blocks
+// of 4 warps; warp w owns anchor rows 16 w .. 16 w + 15, which lie in one
+// unit and so in one layout block, and skips a step's products when the
+// layout holds none of its pairs. The anchor rows (Q for the forward; Q,
+// dO for dq; K, V for dk/dv) stay in shared memory in the input type; the
+// step's rows of the other side (64 keys, or 32 queries) are gathered by
+// 16-byte cp.async into two stages, each row wherever the walk puts it. S
+// and dP (S^T, dP^T) come from mma.sync m16n8k16 with ldmatrix fragments
+// and stay in registers as the next product's A operand.
+//   Forward: each step is the flash forward's (tc_fwd_step): P and the
+// running max at the plain version's bits (pairs that may hold the tile
+// max, and pairs within the bound of a rounding edge of the input type,
+// fp16's own edges included, are summed again in the plain order), P.V
+// chained through the tensor cores' accumulator as flash does; the kpm and
+// bias terms in the plain order, with their roundings in the bound; P = 0
+// in a row whose running max is still NEG_INF, which flash's step leaves
+// out (a row whose every pair kpm or bias masks).
+//   Backward: P and dS follow the plain versions' operations from S and
+// dP, and pairs within the bound of a bf16 rounding edge are summed again
+// in the plain order, so each P and dS has the plain bits (the same check
+// as flash). Each step's dQ / dK / dV product starts from zero and is added
 // with a rounded fp32 add (tc_pb_step): the tensor cores' chained
 // accumulation drifted a long walk's cancelling sum past one bf16 ulp.
-// Both launch one block a (batch x head, tile), longest walk first, and
-// each block stores its own rows: no sum depends on the order blocks run
-// in, so dq, dk and dv have the same bits run to run. The host packs units
-// of like walks into a tile (Walk), so the `fixed` layout's global columns
-// share tiles and their warps walk the same long steps together.
+// All three launch one block a (batch x head, tile), longest walk first,
+// and each block stores its own rows: no sum depends on the order blocks
+// run in, so out, lse, dq, dk and dv have the same bits run to run. The
+// host packs units of like walks into a tile (Walk), so the `fixed`
+// layout's global columns share tiles and their warps walk the same long
+// steps together.
 //
-// The forward, and fp32 (the parity runs: TF32 would break them) and fp16
-// backwards, keep the simple first version: every product on the CUDA cores
-// in fp32 FMA from shared-memory tiles, each thread owning a 4x4 score tile,
-// a warp skipping a step when none of its pairs is in the layout. fp16 would
-// need its own rounding edges and partial adds on the tensor cores (as the
-// flash kernels have); it stays here until then.
+// fp32 (the parity runs: TF32 would break them) and the fp16 backward keep
+// the simple first version: every product on the CUDA cores in fp32 FMA
+// from shared-memory tiles, each thread owning a 4x4 score tile, a warp
+// skipping a step when none of its pairs is in the layout. The fp16
+// backward would need its own rounding edges and partial adds on the
+// tensor cores (as the flash backward has); it stays here until then.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -677,30 +687,28 @@ __device__ __forceinline__ int walk_pos(const int* walk, int block, int f,
   return slot < end ? walk[slot] * block + f % block : -1;
 }
 
-// Rows r < R at positions pos(r) (-1: a zero row) of two (s x D) slices
-// (row strides s1, s2) into d1[r][*] and d2[r][*] (pitch ld): 16-byte
-// cp.async copies when vec, else plain loads stored directly.
-template <int D, int R, typename Pos>
-__device__ __forceinline__ void tc_gather2(
-    __nv_bfloat16* d1, const __nv_bfloat16* src1, int64_t s1,
-    __nv_bfloat16* d2, const __nv_bfloat16* src2, int64_t s2, int ld,
-    bool vec, Pos pos) {
+// Rows r < R at positions pos(r) (-1: a zero row) of N (s x D) slices (row
+// strides ss[n]) into dst[n][r][*] (pitch ld): 16-byte cp.async copies when
+// vec, else plain loads stored directly.
+template <int D, int R, int N, typename T, typename Pos>
+__device__ __forceinline__ void tc_gather(T* const (&dst)[N],
+                                          const T* const (&src)[N],
+                                          const int64_t (&ss)[N], int ld,
+                                          bool vec, Pos pos) {
   constexpr int CPR = D / 8;
   for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const int at = pos(r);
-    __nv_bfloat16* o1 = d1 + r * ld + c;
-    __nv_bfloat16* o2 = d2 + r * ld + c;
-    if (vec) {
-      sm90::cp_async16(o1, at >= 0 ? src1 + at * s1 + c : src1,
-                       at >= 0 ? 16 : 0);
-      sm90::cp_async16(o2, at >= 0 ? src2 + at * s2 + c : src2,
-                       at >= 0 ? 16 : 0);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o1[j] = at >= 0 ? src1[at * s1 + c + j] : __float2bfloat16(0.f);
-        o2[j] = at >= 0 ? src2[at * s2 + c + j] : __float2bfloat16(0.f);
+    for (int n = 0; n < N; ++n) {
+      T* o = dst[n] + r * ld + c;
+      if (vec) {
+        sm90::cp_async16(o, at >= 0 ? src[n] + at * ss[n] + c : src[n],
+                         at >= 0 ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          o[j] = at >= 0 ? src[n][at * ss[n] + c + j] : from_f<T>(0.f);
       }
     }
   }
@@ -772,6 +780,181 @@ __device__ __forceinline__ void tc_pb_step(float (&acc)[D / 8][4],
   }
 }
 
+// The forward's score terms (tc_fwd_step): kpm per key, then bias per
+// (query, key), added in that order as the plain version adds them (a term
+// it does not add is 0 here, which adds exactly). Three roundings, of
+// results at most sx, sx + |kpm| and that + |bias|, of which err0 counts
+// 2 sx; bound() = sx + 2 |kpm| + |bias| covers the rest for the score
+// (1.2e-7 b) and, with one more rounding of at most that + |m|, for x =
+// score - m (2.4e-7 b). A row whose running max is still NEG_INF gets
+// P = 0 (kZeroDead): a row whose every pair kpm or bias masks scores
+// exactly NEG_INF, and its out is 0, not the mean of the masked V rows.
+struct SparseFwdTerms {
+  static constexpr bool kZeroDead = true;
+  float scale;
+  const float* kpm;   // the step's keys' kpm (zeros without kpm)
+  const float* bias;  // (s, s) at row stride bias_ss, or null
+  int64_t bias_ss;
+  int row[2];         // this thread's two query positions (-1: none)
+  const int* key;     // the step's key positions (-1: none)
+  __device__ __forceinline__ float pair_bias(int kc, int h2) const {
+    return bias != nullptr && row[h2] >= 0 && key[kc] >= 0
+               ? bias[static_cast<int64_t>(row[h2]) * bias_ss + key[kc]]
+               : 0.f;
+  }
+  __device__ __forceinline__ float score(float s, int kc, int h2) const {
+    return __fadd_rn(__fadd_rn(__fmul_rn(s, scale), kpm[kc]),
+                     pair_bias(kc, h2));
+  }
+  __device__ __forceinline__ float exact(float s, int kc, int h2) const {
+    return score(s, kc, h2);
+  }
+  __device__ __forceinline__ float bound(int kc, int h2, float sx) const {
+    return sx + 2.f * fabsf(kpm[kc]) + fabsf(pair_bias(kc, h2));
+  }
+};
+// S scale alone, under the same contract.
+struct SparseFwdScale : FwdScale {
+  static constexpr bool kZeroDead = true;
+};
+
+// out and lse for one (batch x head, query tile), walking the tile's key
+// blocks 64 keys a step with the flash forward's step (tc_fwd_step: P and
+// the running max at the plain version's bits). The plain version walks
+// the same steps, so its running max changes at the same keys. Warp w owns
+// anchor rows 16 w .. 16 w + 15, which lie in one unit and so in one query
+// block; Q of the tile stays in shared memory, the step's K and V rows are
+// gathered by cp.async into two stages. A warp none of whose pairs the
+// layout holds in a step skips it: the plain version's max, sum and acc do
+// not move there either. TERMS: a kpm or bias term is given.
+template <typename T, int D, bool TERMS>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
+    block_sparse_fwd_tc_kernel(const SparseParams p) {
+  constexpr int LD = D + 8, R = kTile, NJ = R / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);  // [64][LD] the tile's rows
+  T* ks = qs + R * LD;                    // [2][64][LD] the step's keys
+  T* vs = ks + 2 * R * LD;                // [2][64][LD]
+  float* kpm_s = reinterpret_cast<float*>(vs + 2 * R * LD);  // [2][64]
+  float* kn_s = kpm_s + 2 * R;            // [64] |k| of the step's keys
+  int* kpos_s = reinterpret_cast<int*>(kn_s + R);  // [2][64]
+  int* act_s = kpos_s + 2 * R;            // [2][4 warps][4 key groups]
+  float* pw = reinterpret_cast<float*>(act_s + 32) + threadIdx.x * 33;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+
+  const TileWork w = tile_work(p);
+  const T* qb = static_cast<const T*>(p.q) + w.bi * p.q_sb + w.head * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + w.bi * p.k_sb + w.head * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + w.bi * p.v_sb + w.head * p.v_sh;
+  const float* kpmb = p.kpm ? p.kpm + w.bi * p.kpm_sb : nullptr;
+  const bool vec_q = rows_aligned(qb, p.q_ss);
+  const bool vec_k = rows_aligned(kb, p.k_ss) && rows_aligned(vb, p.v_ss);
+
+  const int* units = p.units + (w.hl * p.n_tiles + w.tile) * (kTile / p.unit);
+  auto anchor = [&](int r) {
+    const int u = units[r / p.unit];
+    return u >= 0 ? u * p.unit + r % p.unit : -1;
+  };
+  tc_gather<D, R, 1, T>({qs}, {qb}, {p.q_ss}, LD, vec_q, anchor);
+  // the warp's first row, and this thread's two (g, g + 8 of the 16)
+  const int row_w = anchor(warp * 16);
+  int row[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) row[h2] = anchor(warp * 16 + g + h2 * 8);
+
+  const int steps = (w.len * p.block + R - 1) / R;
+  auto stage = [&](int j) {
+    const int st = j & 1;
+    auto kp = [&](int r) { return walk_pos(w.walk, p.block, j * R + r, w.len); };
+    tc_gather<D, R, 2, T>({ks + st * R * LD, vs + st * R * LD}, {kb, vb},
+                          {p.k_ss, p.v_ss}, LD, vec_k, kp);
+    for (int i = threadIdx.x; i < R; i += kTcThreads) {
+      const int at = kp(i);
+      kpos_s[st * R + i] = at;
+      kpm_s[st * R + i] = (kpmb != nullptr && at >= 0) ? kpmb[at] : 0.f;
+    }
+    if (threadIdx.x < 16) {  // (warp, 16-key group): any pair in the layout
+      const int qa = anchor(threadIdx.x / 4 * 16);
+      const int ka = kp(threadIdx.x % 4 * 16);
+      act_s[st * 16 + threadIdx.x] = in_layout(
+          p, w.hl, qa >= 0 ? qa / p.block : -1, ka >= 0 ? ka / p.block : -1);
+    }
+  };
+  if (steps > 0) stage(0);
+  sm90::cp_async_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, qn[2] = {0.f, 0.f};
+  const T* qw = qs + warp * 16 * LD;
+
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) stage(j + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // step j (and Q) landed
+    const int st = j & 1;
+    const T* k_t = ks + st * R * LD;
+    const T* v_t = vs + st * R * LD;
+    const int* kpos = kpos_s + st * R;
+    if (j == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        qn[h2] = row_norm<T, D>(qw + (g + h2 * 8) * LD);
+    }
+    for (int i = threadIdx.x; i < R; i += kTcThreads)
+      kn_s[i] = row_norm<T, D>(k_t + i * LD);
+    __syncthreads();  // the step's key norms
+    const int* act = act_s + st * 16 + warp * 4;
+    if (act[0] | act[1] | act[2] | act[3]) {  // warp-uniform
+      float kmax = 0.f;
+      for (int i = lane; i < R; i += 32) kmax = fmaxf(kmax, kn_s[i]);
+      kmax = warp_max(kmax);
+      // a pair counts where the layout holds its (16-key group) block pair
+      // and both positions are real, the key not after the query if causal
+      auto live = [&](int kc, int h2) {
+        const int key = kpos[kc];
+        return act[kc >> 4] && row[h2] >= 0 && key >= 0 &&
+               (!p.causal || row[h2] >= key);
+      };
+      float sc[NJ][4];
+      tc_abt<T, D, R>(sc, qw, k_t, LD, lane);
+      if constexpr (TERMS)
+        tc_fwd_step<T, D, R, true>(
+            sc, live, m, l, acc, qw, k_t, v_t, LD, qn, kmax, p.scale,
+            SparseFwdTerms{p.scale, kpm_s + st * R, p.bias, p.bias_ss,
+                           {row[0], row[1]}, kpos},
+            pw, lane);
+      else
+        tc_fwd_step<T, D, R, false>(sc, live, m, l, acc, qw, k_t, v_t, LD, qn,
+                                    kmax, p.scale, SparseFwdScale{{p.scale}},
+                                    pw, lane);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  sm90::cp_async_wait<0>();
+
+  if (row_w < 0) return;  // a tile's rows past its units
+  float ls[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    ls[h2] = l[h2] == 0.f ? 1.f : l[h2];
+    if (tg == 0)
+      p.lse[(static_cast<int64_t>(w.bi) * p.h + w.head) * p.s + row[h2]] =
+          l[h2] == 0.f ? kNegInf : m[h2] + logf(ls[h2]);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fdiv_rn(acc[j][e], ls[e >> 1]);
+  tc_store<T, D>(static_cast<T*>(p.out) + w.bi * p.o_sb + w.head * p.o_sh,
+                 p.o_ss, row_w, p.s, acc, lane);
+}
+
 // dq for one (batch x head, query tile), walking the tile's key blocks 64
 // keys a step; warp w owns anchor rows 16 w .. 16 w + 15, which lie in one
 // unit and so in one query block. Q and dO of the tile stay in shared
@@ -818,7 +1001,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     const int u = units[r / p.unit];
     return u >= 0 ? u * p.unit + r % p.unit : -1;
   };
-  tc_gather2<D, R>(qs, qb, p.q_ss, dos, db, p.do_ss, LD, vec_q, anchor);
+  tc_gather<D, R, 2, T>({qs, dos}, {qb, db}, {p.q_ss, p.do_ss}, LD, vec_q,
+                        anchor);
   for (int r = threadIdx.x; r < R; r += kTcThreads) {
     const int at = anchor(r);
     apos_s[r] = at;
@@ -840,8 +1024,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
   auto stage = [&](int j) {
     const int st = j & 1;
     auto kp = [&](int r) { return walk_pos(w.walk, p.block, j * R + r, w.len); };
-    tc_gather2<D, R>(ks + st * R * LD, kb, p.k_ss, vs + st * R * LD, vb,
-                     p.v_ss, LD, vec_k, kp);
+    tc_gather<D, R, 2, T>({ks + st * R * LD, vs + st * R * LD}, {kb, vb},
+                          {p.k_ss, p.v_ss}, LD, vec_k, kp);
     for (int i = threadIdx.x; i < R; i += kTcThreads) {
       const int at = kp(i);
       kpos_s[st * R + i] = at;
@@ -1012,7 +1196,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     const int u = units[r / p.unit];
     return u >= 0 ? u * p.unit + r % p.unit : -1;
   };
-  tc_gather2<D, R>(ks, kb, p.k_ss, vs, vb, p.v_ss, LD, vec_k, anchor);
+  tc_gather<D, R, 2, T>({ks, vs}, {kb, vb}, {p.k_ss, p.v_ss}, LD, vec_k,
+                        anchor);
   for (int r = threadIdx.x; r < R; r += kTcThreads) {
     const int at = anchor(r);
     apos_s[r] = at;
@@ -1034,8 +1219,8 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     auto qp = [&](int r) {
       return walk_pos(w.walk, p.block, it * BQ + r, w.len);
     };
-    tc_gather2<D, BQ>(qs + st * BQ * LD, qb, p.q_ss, dos + st * BQ * LD, db,
-                      p.do_ss, LD, vec_q, qp);
+    tc_gather<D, BQ, 2, T>({qs + st * BQ * LD, dos + st * BQ * LD},
+                           {qb, db}, {p.q_ss, p.do_ss}, LD, vec_q, qp);
     for (int i = threadIdx.x; i < BQ; i += kTcThreads) {
       const int at = qp(i);
       qpos_s[st * BQ + i] = at;
@@ -1197,6 +1382,11 @@ constexpr size_t dkdv_smem() {
          kIndexBytes;
 }
 
+template <typename T, int D>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(T) * 5 * kTile * (D + 8) + sizeof(float) * 3 * kTile +
+         sizeof(int) * (2 * kTile + 32) + sizeof(float) * kTcThreads * 33;
+}
 template <int D>
 constexpr size_t dq_tc_smem() {
   return sizeof(__nv_bfloat16) * 6 * kTile * (D + 8) +
@@ -1224,16 +1414,24 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
 
-// bf16 backward: the tensor-core kernels; fp32 (the parity runs) and fp16:
-// the FMA kernels. Static: nothing falls back.
+// bf16 and fp16 forward, bf16 backward: the tensor-core kernels; fp32 (the
+// parity runs) and the fp16 backward: the FMA kernels. Static: nothing
+// falls back.
 template <typename T, int D>
 cudaError_t dispatch(Which which, const SparseParams& p, cudaStream_t st) {
   const dim3 grid(p.b * p.h, p.n_tiles);
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   switch (which) {
     case kFwd:
-      return launch(block_sparse_fwd_kernel<T, D>, grid, kThreads,
-                    fwd_smem<D>(), p, st);
+      if constexpr (std::is_same<T, float>::value)
+        return launch(block_sparse_fwd_kernel<T, D>, grid, kThreads,
+                      fwd_smem<D>(), p, st);
+      else if (p.kpm != nullptr || p.bias != nullptr)
+        return launch(block_sparse_fwd_tc_kernel<T, D, true>, grid,
+                      kTcThreads, fwd_tc_smem<T, D>(), p, st);
+      else
+        return launch(block_sparse_fwd_tc_kernel<T, D, false>, grid,
+                      kTcThreads, fwd_tc_smem<T, D>(), p, st);
     case kDq:
       if constexpr (tc)
         return launch(block_sparse_bwd_dq_tc_kernel<D>, grid, kTcThreads,

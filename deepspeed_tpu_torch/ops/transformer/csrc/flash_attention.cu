@@ -534,21 +534,11 @@ struct TcTile {
 // of 64 in ascending order (the plain version's tiles: its running max
 // changes at the same keys); warp w owns queries q0 + 16 w .. + 15, so the
 // row max and sum cross only the 4 lanes of a quad. The heaviest causal
-// tiles (the last queries) are scheduled first.
-//
-// P = exp(sc - m_new) is rounded to T before P.V, so P must have the plain
-// version's bits, and so must the running max m_new, which the plain
-// version takes over its own scores. Each tile: the tensor-core scores sc
-// (S within es of the plain S, so sc within e of the plain sc); the pairs
-// that may hold the plain tile max (sc + e reaches both the best sc - e of
-// the row and the running max: none in most later tiles) are summed again
-// in the plain order, and their exact scores give m_new exactly; then each
-// pair's P, and the pairs whose P lies within the bound of a rounding edge
-// of T are summed again. Both re-sums are done by the lane that holds the
-// pair: about ten a warp tile of 1024 pairs, where the backward's shared
-// list cost more than the sums (probes/kernel_probe.py fwd_variants). BIAS
-// switches the key bias's terms off at compile time (none on GPT-2's
-// path); at d <= 64, 168 registers keep three blocks on an SM.
+// tiles (the last queries) are scheduled first. Each tile is one
+// tc_fwd_step (tc_attention.cuh, shared with the block-sparse forward): P
+// and the running max at the plain version's bits. BIAS switches the key
+// bias's terms off at compile time (none on GPT-2's path); at d <= 64, 168
+// registers keep three blocks on an SM.
 template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     flash_fwd_tc_kernel(const FlashParams p) {
@@ -622,155 +612,27 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
     float kmax = 0.f;
     for (int i = lane; i < kTcRows; i += 32) kmax = fmaxf(kmax, kn_s[i]);
     kmax = warp_max(kmax);
-    // per row: a bound on |sc - sc_plain| before the key's bias term
-    // (S within es of the plain S, two roundings a side), |S scale|, and
-    // the last live key of the tile (past s, or above the row when causal;
-    // none for rows past s)
-    float err0[2], sx[2], es_s[2];
+    // the last live key of the tile for each row (past s, or above the
+    // row when causal; none for rows past s)
     int lim[2];
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
-      sx[h2] = qn[h2] * kmax * p.scale;
-      es_s[h2] = kProductSlack * qn[h2] * kmax * p.scale;
-      err0[h2] = es_s[h2] + 2.4e-7f * sx[h2];
       const int row = row0 + h2 * 8;
       lim[h2] = row >= s ? -1 : (p.causal ? min(row, s - 1) : s - 1) - k0;
     }
-
-    // the tensor-core scores of this warp's 16 queries x 64 keys; hi and lo
-    // bound the plain tile max of each row from above and below
+    auto live = [&](int kc, int h2) { return kc <= lim[h2]; };
+    // the tensor-core scores of this warp's 16 queries x 64 keys, then the
+    // online softmax step with P and the running max at the plain bits
     float sc[NJ][4];
     tc_abt<T, D, kTcRows>(sc, qw, k_t, LD, lane);
-    uint32_t live = 0;
-    float hi[2] = {kNegInf, kNegInf}, lo[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h2 = e >> 1, kc = j * 8 + 2 * tg + (e & 1);
-        const bool ok = kc <= lim[h2];
-        live |= ok ? 1u << (j * 4 + e) : 0u;
-        if constexpr (BIAS) {
-          const float bias = b_t[kc];
-          const float err = err0[h2] + 1.2e-7f * fabsf(bias);
-          sc[j][e] = ok ? score_of(sc[j][e], p.scale, bias) : kNegInf;
-          hi[h2] = fmaxf(hi[h2], ok ? sc[j][e] + err : kNegInf);
-          lo[h2] = fmaxf(lo[h2], ok ? sc[j][e] - err : kNegInf);
-        } else {
-          sc[j][e] = ok ? __fmul_rn(sc[j][e], p.scale) : kNegInf;
-          hi[h2] = fmaxf(hi[h2], sc[j][e]);
-        }
-      }
-    // the pairs that may hold the plain tile max where it may pass the
-    // running max m (none when hi < m): the plain max is at least lo, so
-    // no pair whose sc + err is below max(lo, m) matters; their scores
-    // summed again in the plain order give the tile max, and m_new, exactly
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      if constexpr (BIAS) {
-        hi[h2] = quad_max(hi[h2]);
-        lo[h2] = fmaxf(quad_max(lo[h2]), m[h2]);
-      } else {
-        const float mx = quad_max(hi[h2]);
-        hi[h2] = mx > kNegInf ? mx + err0[h2] : kNegInf;
-        lo[h2] = fmaxf(mx - err0[h2], m[h2]);
-      }
-    }
-    uint32_t cand = 0;
-    if (hi[0] >= m[0] || hi[1] >= m[1]) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h2 = e >> 1;
-          const float err =
-              BIAS ? err0[h2] +
-                         1.2e-7f * fabsf(b_t[j * 8 + 2 * tg + (e & 1)])
-                   : err0[h2];
-          if (hi[h2] >= m[h2] && sc[j][e] + err >= lo[h2])
-            cand |= live & 1u << (j * 4 + e);
-        }
-    }
-    float mt[2] = {kNegInf, kNegInf};
-    for (uint32_t f = cand; f != 0u; f &= f - 1u) {
-      const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
-      const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
-      const float v = score_of(
-          seq_dot<T, D>(qw + (g + h2 * 8) * LD, k_t + kc * LD), p.scale,
-          BIAS ? b_t[kc] : 0.f);
-      mt[0] = h2 ? mt[0] : fmaxf(mt[0], v);
-      mt[1] = h2 ? fmaxf(mt[1], v) : mt[1];
-    }
-    float m_new[2], corr[2];
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      m_new[h2] = fmaxf(m[h2], quad_max(mt[h2]));
-      corr[h2] = expf(__fsub_rn(m[h2], m_new[h2]));
-    }
-
-    // P at the plain bits: the candidates, and the pairs whose P lies
-    // within the bound of a rounding edge of T (edge_bound's ex and tp,
-    // with each key's bias), are summed again
-    float exb[2];
-    NearEdge<T> near[2] = {NearEdge<T>(0.f), NearEdge<T>(0.f)};
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      exb[h2] = es_s[h2] + 1.2e-7f * (3.f * sx[h2] + fabsf(m_new[h2]));
-      near[h2] = NearEdge<T>((exb[h2] * (1.f + exb[h2]) + 4.8e-7f) *
-                                 16777216.f + 10.f);
-    }
-    uint32_t flags = cand;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h2 = e >> 1, bit = j * 4 + e;
-        const float x = __fsub_rn(sc[j][e], m_new[h2]);
-        const float pr = live >> bit & 1u ? expf(x) : 0.f;
-        bool near_edge;
-        if constexpr (BIAS) {
-          const float ex =
-              exb[h2] + 2.4e-7f * fabsf(b_t[j * 8 + 2 * tg + (e & 1)]);
-          near_edge = x + ex >= p_zero_below<T>() &&
-                      NearEdge<T>((ex * (1.f + ex) + 4.8e-7f) * 16777216.f +
-                                  10.f)(pr);
-        } else {
-          near_edge = x + exb[h2] >= p_zero_below<T>() && near[h2](pr);
-        }
-        if ((live >> bit & 1u) && near_edge) flags |= 1u << bit;
-        sc[j][e] = pr;  // P, rounded to T as the P.V product's A operand
-      }
-    // each lane sums its own flagged pairs again (a few a warp tile: one
-    // lane seldom holds more than one), through its slots in shared memory
-    for (uint32_t f = flags; f != 0u; f &= f - 1u) {
-      const int pos = __ffs(f) - 1, h2 = (pos & 3) >> 1;
-      const int kc = (pos >> 2) * 8 + 2 * tg + (pos & 1);
-      const float v = score_of(
-          seq_dot<T, D>(qw + (g + h2 * 8) * LD, k_t + kc * LD), p.scale,
-          BIAS ? b_t[kc] : 0.f);
-      pw[pos] = expf(__fsub_rn(v, h2 ? m_new[1] : m_new[0]));
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (flags >> (j * 4 + e) & 1u) sc[j][e] = pw[j * 4 + e];
-
-    // the online softmax: l and acc rescaled, then += P . V
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        rs += sc[j][2 * h2] + sc[j][2 * h2 + 1];
-      l[h2] = l[h2] * corr[h2] + quad_sum(rs);
-      m[h2] = m_new[h2];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
-    tc_pb<T, D, kTcRows>(acc, sc, v_t, LD, lane);
+    if constexpr (BIAS)
+      tc_fwd_step<T, D, kTcRows, true>(sc, live, m, l, acc, qw, k_t, v_t, LD,
+                                       qn, kmax, p.scale,
+                                       FwdKeyBias{p.scale, b_t}, pw, lane);
+    else
+      tc_fwd_step<T, D, kTcRows, false>(sc, live, m, l, acc, qw, k_t, v_t, LD,
+                                        qn, kmax, p.scale, FwdScale{p.scale},
+                                        pw, lane);
     __syncthreads();  // every warp is done with stage st
   }
   sm90::cp_async_wait<0>();

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Measurements behind the designs of the tensor-core flash and block-sparse
-backward kernels and the ring GEMMs (``ring_gc_gemm_acc``, ``ring_ag_gemm``,
-``ring_rs_gemm_add``) on one H100; not a test and on no path of the
-package.
+kernels, the ring GEMMs (``ring_gc_gemm_acc``, ``ring_ag_gemm``,
+``ring_rs_gemm_add``) and the split paged decode kernel on one H100; not a
+test and on no path of the package.
 
     python3 probes/kernel_probe.py SECTION [SECTION ...]
 
@@ -40,8 +40,9 @@ prints one JSON line:
 * ``fwd_variants[:names]``: the flash kernels' times at the train shape and
   their worst errors (fp16 cases, bf16 forward) per patched variant of the
   source (FWD_VARIANTS), with ptxas's register counts of the forward;
-* ``flash_times``: the flash kernels, ring_ag_gemm, ring_rs_gemm_add and
-  the bf16 block-sparse dq and dk/dv (train_sparse shape) timed on the
+* ``flash_times``: the flash kernels, ring_ag_gemm, ring_rs_gemm_add, the
+  bf16 block-sparse forward, dq and dk/dv (train_sparse shape) and the
+  paged decode kernel (the kernel phase's s = 1 case) timed on the
   tree this script sits in (a copy run from a checkout of another commit
   times that commit in the same call: parent, change, change, parent),
   and a digest of the flash kernels' outputs (equal digests: bit-equal);
@@ -49,7 +50,17 @@ prints one JSON line:
   torch.matmul, with each site's error over its bound;
 * ``sparse_parts``: the bf16 block-sparse dq and dk/dv at the train_sparse
   shape (shared and per-head layouts) as built, without the rounding-edge
-  check and re-sum, and also without row norms (patched copies).
+  check and re-sum, and also without row norms (patched copies);
+* ``paged_variants[:names]``: the paged decode kernel at the kernel phase's
+  s = 1 case (16 slots at 0-1023 keys) and with every slot at 1024 keys,
+  per variant (PAGED_VARIANTS): keys staged a round (64, 128, 256), K
+  commit groups a round (1, 2, 4), and the split partials combined by a
+  second launch instead of the last block's ticket (a patched copy), each
+  with its splits, ms and error against the plain version;
+* ``sparse_fwd_parts``: the bf16 block-sparse forward at the train_sparse
+  shape (shared and per-head layouts) as built, without the exactness
+  check and re-sums, and also without row norms (patched copies), and the
+  share of the forward walk's warp-steps that hold a pair.
 
 Patched copies are written under ``probes/_build/`` (git-ignored).
 """
@@ -276,8 +287,8 @@ def flash_parts():
     return res
 
 
-FLAG_SITES = [("    float mt[2] = {kNegInf, kNegInf};\n", "cand", 0),
-              ("    // each lane sums its own flagged pairs again", "flags", 2),
+FLAG_SITES = [("  float mt[2] = {kTcNegInf, kTcNegInf};\n", "cand", 0),
+              ("  // each lane sums its own flagged pairs again", "flags", 2),
               ("    resolve_flagged<BQ / 8>(", "flags", 4),
               ("    resolve_flagged<kTcRows / 8>(", "flags", 6)]
 
@@ -511,8 +522,8 @@ FWD_VARIANTS = {
     "as_built": [],
     "cand_only": [("flags |= 1u << bit;", ";")],
     "edges_only": FWD_MAX_FROM_TC,
-    "cand_only_no_resum": [("    uint32_t flags = cand;",
-                            "    uint32_t flags = 0;"),
+    "cand_only_no_resum": [("  uint32_t flags = cand;",
+                            "  uint32_t flags = 0;"),
                            ("flags |= 1u << bit;", ";")],
     "cheap_dot": [("__device__ __forceinline__ float seq_dot(const T* a, "
                    "const T* b) {\n  float s = 0.f;",
@@ -524,9 +535,9 @@ FWD_VARIANTS = {
         "  return (edge_ulps<T>(t.ds) - b.tp) * d1 <= b.ed ||\n"
         "         (kFarEdge<T> - b.tp) * d1 <= b.ed;",
         "  return (edge_ulps<T>(t.ds) - b.tp) * d1 <= b.ed;")],
-    "check_only": [("    for (uint32_t f = flags; f != 0u; f &= f - 1u) {",
-                    "    if (flags == 0x7fffffffu) pw[0] = 0.f;\n"
-                    "    for (uint32_t f = 0; f != 0u; f &= f - 1u) {")],
+    "check_only": [("  for (uint32_t f = flags; f != 0u; f &= f - 1u) {",
+                    "  if (flags == 0x7fffffffu) pw[0] = 0.f;\n"
+                    "  for (uint32_t f = 0; f != 0u; f &= f - 1u) {")],
     "fwd_2_blocks": [("__launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)\n"
                       "    flash_fwd_tc_kernel",
                       "__launch_bounds__(kTcThreads)\n    flash_fwd_tc_kernel")],
@@ -670,10 +681,18 @@ def flash_times():
             cs.time_ms(cs.ring_case(name, k_, n, mode, DEV, gen)[0], flush)
             for _, k_, n, mode in cs.RING_SITES[name])
     bsa, sargs, skw = _sparse_backward_args()
+    res["sparse_fwd_ms"] = cs.time_ms(
+        lambda: bsa.block_sparse_fwd(*sargs[:3], **skw), flush)
     res["sparse_dq_ms"] = cs.time_ms(
         lambda: bsa.block_sparse_bwd_dq(*sargs, **skw), flush)
     res["sparse_dkdv_ms"] = cs.time_ms(
         lambda: bsa.block_sparse_bwd_dkdv(*sargs, **skw), flush)
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    case = cs.paged_case(1, seed=1, device=DEV)
+    pargs = (case["q"], case["k_pool"], case["v_pool"], case["page_tables"],
+             case["positions"], case["valid_lens"])
+    res["paged_ms"] = cs.time_ms(lambda: paged_attention(
+        *pargs, layer_idx=0, page_size=case["page_size"]), flush)
     res["flash_digest"] = _flash_digest()
     return res
 
@@ -873,13 +892,127 @@ def sparse_accumulation():
     return res
 
 
+def _paged_module():
+    import importlib
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.paged_attention.paged_attention")
+
+
+# a second launch combines the split partials (the ticket never fires)
+PAGED_TWO_LAUNCHES = [
+    ("  if (tid == 0) last_block = atomicAdd(ticket, 1) == n_live - 1;",
+     "  if (tid == 0) last_block = 0;"),
+    ("template <typename T, int QG>\ncudaError_t launch_qg(",
+     "__global__ void __launch_bounds__(kThreads)\n"
+     "    paged_combine_kernel(const PagedParams p) {\n"
+     "  const int head = blockIdx.x, slot = blockIdx.y;\n"
+     "  const int live = p.positions[slot] + p.valid_lens[slot] - 1;\n"
+     "  const int n_keys = min(max(live + 1, 0), p.max_pages * "
+     "p.page_size);\n"
+     "  const int run = p.chunk * p.rounds;\n"
+     "  const int n_live = max(1, (n_keys + run - 1) / run);\n"
+     "  if (n_live > 1) combine_splits(p, slot, head, n_live);\n}\n\n"
+     "template <typename T, int QG>\ncudaError_t launch_qg("),
+    ("  paged_attention_kernel<T, QG><<<grid, kThreads, smem, stream>>>(p);\n",
+     "  paged_attention_kernel<T, QG><<<grid, kThreads, smem, stream>>>(p);\n"
+     "  if (p.splits > 1)\n    paged_combine_kernel<<<dim3(p.h, p.b), "
+     "kThreads, 0, stream>>>(p);\n")]
+PAGED_K_GROUPS = "constexpr int kKGroups = 2;"
+# name: (STAGE_BYTES, patch): the keys a round follow STAGE_BYTES (64 / 128
+# / 256 at bf16, d_head 64)
+PAGED_VARIANTS = {
+    "as_built": (None, None),
+    "chunk64": (16 * 1024, None),
+    "chunk256": (64 * 1024, None),
+    "stages1": (None, [(PAGED_K_GROUPS, PAGED_K_GROUPS.replace("2", "1"))]),
+    "stages4": (None, [(PAGED_K_GROUPS, PAGED_K_GROUPS.replace("2", "4"))]),
+    "two_launches": (None, PAGED_TWO_LAUNCHES)}
+
+
+def paged_variants(names=None):
+    """The paged decode kernel per variant (PAGED_VARIANTS) at the kernel
+    phase's s = 1 case and with every slot at 1024 live keys: splits, ms
+    and the largest error against the plain version."""
+    pam = _paged_module()
+    flush = _flush()
+    cases = {"kernel_case": cs.paged_case(1, seed=1, device=DEV),
+             "all_1024": cs.paged_case(1, seed=1, device=DEV, live=1024)}
+    res = {}
+    for name, (stage_bytes, reps) in PAGED_VARIANTS.items():
+        if names and name not in names:
+            continue
+        path = _patched(pam, name, reps) if reps else None
+        if reps and path is None:
+            res[name] = "source changed"
+            continue
+        saved = pam.STAGE_BYTES
+        pam.STAGE_BYTES = stage_bytes or pam.STAGE_BYTES
+
+        def measure():
+            row = {}
+            for cname, case in cases.items():
+                args = (case["q"], case["k_pool"], case["v_pool"],
+                        case["page_tables"], case["positions"],
+                        case["valid_lens"])
+                kw = dict(layer_idx=0, page_size=case["page_size"])
+                got = pam.paged_attention(*args, **kw)
+                want = pam.paged_attention_reference(*args, **kw)
+                row[cname] = {
+                    "ms": cs.time_ms(lambda: pam.paged_attention(*args, **kw),
+                                     flush),
+                    "max_abs_err": float((got - want).abs().max()),
+                    "plan": pam.launch_plan(
+                        2, case["q"].shape[-1],
+                        case["page_tables"].shape[1] * case["page_size"])}
+            return row
+        try:
+            res[name] = _with_source(pam, path, measure) if path else \
+                measure()
+        finally:
+            pam.STAGE_BYTES = saved
+    return res
+
+
+SPARSE_FWD_PARTS = {"no_check": FLASH_PARTS["no_check"],
+                    "no_norms": FLASH_PARTS["no_norms"]}
+
+
+def sparse_fwd_parts():
+    """The bf16 block-sparse forward at the train_sparse shape (shared and
+    per-head layouts): as built; with the exactness check and re-sums
+    switched off in patched copies (results wrong, time only); also
+    without the row norms; and the share of warp-steps (16 rows x 64 keys)
+    that hold a pair."""
+    flush = _flush()
+    res = {}
+    for lname, section in (("shared", cs.SPARSE_TRAIN),
+                           ("per_head", cs.SPARSE_PARITY)):
+        bsa, args, kw = _sparse_backward_args(section)
+        q, k, v = args[:3]
+
+        def timed():
+            return {"fwd_ms": cs.time_ms(
+                lambda: bsa.block_sparse_fwd(q, k, v, **kw), flush)}
+
+        row = {"as_built": timed(), "warp_steps_with_a_pair":
+               _warp_step_share(kw["tables"], "fwd", 64)}
+        for name, reps in SPARSE_FWD_PARTS.items():
+            path = _patched(bsa, "fwd_" + name, reps)
+            row[name] = "source changed" if path is None else \
+                _with_source(bsa, path, timed)
+        res[lname] = row
+    return res
+
+
 SECTIONS = {"s_order": s_order, "cublas_order": cublas_order,
             "flash_parts": flash_parts, "flash_flags": flash_flags,
             "gc_variants": gc_variants, "fp16_backward": fp16_backward,
             "ag_variants": ag_variants, "fwd_variants": fwd_variants,
             "flash_times": flash_times, "rs_variants": rs_variants,
             "sparse_parts": sparse_parts,
-            "sparse_accumulation": sparse_accumulation}
+            "sparse_accumulation": sparse_accumulation,
+            "paged_variants": paged_variants,
+            "sparse_fwd_parts": sparse_fwd_parts}
 
 
 def main():

@@ -78,20 +78,31 @@ def cuda():
 
 
 def _paged_case(device, dtype, dh, ps, s, b=5, h=3, layers=2, max_pages=12,
-                seed=0):
+                seed=0, lives=None, poison_tail=False):
     """Slots at lengths spread over the whole page-table window (crossing
     page boundaries), their pages scattered over the pool, NaN in page 0
-    and every unallocated page; with s > 1 the valid lengths are padded."""
+    and every unallocated page; with s > 1 the valid lengths are padded.
+    ``lives`` instead gives each slot's live key count (its last real
+    query at key lives - 1); ``poison_tail`` puts NaN in every row after
+    a slot's last live key in its last page."""
     rng = np.random.RandomState(seed)
     usable = b * max_pages + 3
     positions = np.linspace(0, max_pages * ps - s, b).round().astype(np.int32)
     valid_lens = np.full(b, s, np.int32)
     if s > 1:
         valid_lens = rng.randint(1, s + 1, size=b).astype(np.int32)
+    if lives is not None:
+        lives = np.asarray(lives, np.int64)
+        b = len(lives)
+        valid_lens = np.ones(b, np.int32)
+        if s > 1:
+            valid_lens = rng.randint(1, s + 1, size=b).clip(
+                max=lives).astype(np.int32)
+        positions = (lives - valid_lens).astype(np.int32)
     page_tables = np.zeros((b, max_pages), np.int32)
     free = list(rng.permutation(np.arange(1, usable + 1)))
     for i in range(b):
-        need = -(-(int(positions[i]) + s) // ps)
+        need = min(max_pages, -(-(int(positions[i]) + s) // ps))
         page_tables[i, :need] = [free.pop() for _ in range(need)]
     shape = (usable + 1, layers, h, ps, dh)
     k_pool = rng.randn(*shape).astype(np.float32)
@@ -99,6 +110,12 @@ def _paged_case(device, dtype, dh, ps, s, b=5, h=3, layers=2, max_pages=12,
     dead = np.ones(usable + 1, bool)
     dead[page_tables[page_tables > 0]] = False
     k_pool[dead] = v_pool[dead] = np.nan
+    if poison_tail:
+        for i in range(b):
+            last = int(positions[i]) + int(valid_lens[i]) - 1
+            page = page_tables[i, last // ps]
+            k_pool[page, :, :, last % ps + 1:] = np.nan
+            v_pool[page, :, :, last % ps + 1:] = np.nan
     q = rng.randn(b, s, h, dh).astype(np.float32)
     to = lambda a, t=dtype: torch.from_numpy(a).to(device=device, dtype=t)
     return (to(q), to(k_pool), to(v_pool), to(page_tables, torch.int32),
@@ -129,6 +146,43 @@ def test_paged_attention_kernel_matches_plain_version(cuda, dtype, dh, ps, s):
             assert torch.isfinite(g).all(), (i, layer)
             err = float((g - w).abs().max())
             assert err <= ATOL, (i, layer, err)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("dtype,dh,ps", [
+    (torch.bfloat16, 64, 16),
+    (torch.float32, 128, 8),
+    (torch.float16, 32, 4),
+    (torch.float32, 256, 32),
+])
+def test_paged_attention_split_edges(cuda, dtype, dh, ps, s):
+    """Live lengths at the edges of the kernel's splits: one key, exactly
+    one split's run, one run plus one key, two runs less one, the full
+    page table; NaN in every row after each slot's last live key; with s
+    > 1 padded valid lengths. Each against the plain version (real query
+    rows, 2e-5), three runs bit for bit."""
+    from deepspeed_tpu_torch.ops.paged_attention.paged_attention import \
+        launch_plan
+    max_pages = 1024 // ps
+    table = max_pages * ps
+    elem = torch.tensor([], dtype=dtype).element_size()
+    chunk, rounds, splits = launch_plan(elem, dh, table)
+    run = chunk * rounds
+    assert splits > 1
+    lives = [1, run, run + 1, 2 * run - 1, table, min(3, table)]
+    args, valid_lens = _paged_case(cuda, dtype, dh, ps, s, max_pages=max_pages,
+                                   lives=lives, poison_tail=True)
+    runs = [paged_attention(*args, layer_idx=1, page_size=ps)
+            for _ in range(3)]
+    want = paged_attention_reference(*args, layer_idx=1, page_size=ps)
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert torch.equal(runs[0], other)
+    for i, n in enumerate(valid_lens):
+        g, w = runs[0][i, :n], want[i, :n]
+        assert torch.isfinite(g).all(), (i, lives[i])
+        err = float((g - w).abs().max())
+        assert err <= ATOL, (i, lives[i], err)
 
 
 @pytest.mark.parametrize("bad", ["head_width", "device"])
@@ -646,7 +700,7 @@ PER_HEAD = dict(FIXED, different_layout_per_head=True,
                 num_different_global_patterns=4)
 
 
-@pytest.mark.parametrize("section,block,d,dtype,causal,kpm,bias", [
+SPARSE_CASES = [
     (FIXED, 16, 64, torch.bfloat16, True, False, False),
     (PER_HEAD, 16, 64, torch.bfloat16, True, True, True),
     (FIXED, 32, 32, torch.float16, False, True, False),
@@ -660,14 +714,19 @@ PER_HEAD = dict(FIXED, different_layout_per_head=True,
      False, True),
     ({"mode": "sliding_window", "num_sliding_window_blocks": 3}, 128, 64,
      torch.float16, True, False, False),
-])
+]
+
+
+@pytest.mark.parametrize("section,block,d,dtype,causal,kpm,bias",
+                         SPARSE_CASES)
 def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
                                                    dtype, causal, kpm, bias):
     """Each of the three kernels against its plain version, an empty query
     block included. fp32: out within 1e-5 absolute, dq, dk, dv within 1e-5
     of their largest magnitude; bf16/fp16, per element: one ulp of the
     plain value plus eps / 4 (out) or 1e-6 (grads); lse within 1e-4 and
-    NEG_INF exactly where the plain version has it."""
+    NEG_INF exactly where the plain version has it; three forward runs bit
+    for bit."""
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_attention as bsa
     h = 4
@@ -678,7 +737,9 @@ def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
     names = ("block_sparse_fwd", "block_sparse_bwd_dq",
              "block_sparse_bwd_dkdv")
     counts = [getattr(bsa, n).launches for n in names]
-    out, lse = bsa.block_sparse_fwd(q, k, v, kpm_t, bias_t, **kw)
+    runs = [bsa.block_sparse_fwd(q, k, v, kpm_t, bias_t, **kw)
+            for _ in range(3)]
+    out, lse = runs[0]
     delta = bsa.attention_delta(out, dout)
     args = (q, k, v, kpm_t, bias_t, dout, lse, delta)
     dq = bsa.block_sparse_bwd_dq(*args, **kw)
@@ -689,7 +750,9 @@ def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
     ref_dk, ref_dv = bsa.block_sparse_bwd_dkdv_reference(*args, **kw)
     torch.cuda.synchronize()
     assert [getattr(bsa, n).launches for n in names] == \
-        [c + 1 for c in counts]
+        [c + n for c, n in zip(counts, (3, 1, 1))]
+    for o, ls in runs[1:]:                          # the forward's repeats
+        assert torch.equal(o, out) and torch.equal(ls, lse)
     assert out.transpose(1, 2).is_contiguous()      # (b, s, h, d) memory
     dead = ref_lse <= bsa.NEG_INF
     assert bool(dead.any()) and torch.equal(lse <= bsa.NEG_INF, dead)
@@ -709,6 +772,60 @@ def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
     for name, got, want in grads:
         assert _ulp_ratio(got, want, 1e-6) <= 1.0, \
             (name, _ulp_ratio(got, want, 1e-6))
+
+
+@pytest.mark.parametrize("mask", ["kpm", "bias", "both"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_block_sparse_rows_masked_to_neg_inf(cuda, dtype, mask):
+    """Rows whose every key in the layout a kpm or bias of NEG_INF masks
+    (batch 1's first block as padding under causal masking; whole bias
+    rows) get out 0 and lse NEG_INF, as in the plain version, and no
+    gradient; the other rows and the gradients as in
+    test_block_sparse_kernels_match_plain_versions."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention as bsa
+    h, block, d = 4, 16, 64
+    s = block * 12
+    tables, q, k, v, dout, kpm_t, bias_t = _sparse_case(
+        cuda, dtype, dict(FIXED, block=block), h, s, d, seed=2,
+        kpm=mask != "bias", bias=mask != "kpm", empty_row=False)
+    expect = torch.zeros((2, h, s), dtype=torch.bool, device=cuda)
+    if kpm_t is not None:
+        kpm_t[1, :block] = bsa.NEG_INF
+        expect[1, :, :block] = True
+    if bias_t is not None:
+        rows = [3 * block + 5, 7 * block, 7 * block + 1, 11 * block + 15]
+        bias_t[rows] = bsa.NEG_INF
+        expect[:, :, rows] = True
+    kw = dict(tables=tables, causal=True)
+    out, lse = bsa.block_sparse_fwd(q, k, v, kpm_t, bias_t, **kw)
+    delta = bsa.attention_delta(out, dout)
+    args = (q, k, v, kpm_t, bias_t, dout, lse, delta)
+    grads = (bsa.block_sparse_bwd_dq(*args, **kw),
+             *bsa.block_sparse_bwd_dkdv(*args, **kw))
+    ref_out, ref_lse = bsa.block_sparse_fwd_reference(q, k, v, kpm_t, bias_t,
+                                                      **kw)
+    refs = (bsa.block_sparse_bwd_dq_reference(*args, **kw),
+            *bsa.block_sparse_bwd_dkdv_reference(*args, **kw))
+    torch.cuda.synchronize()
+    dead = ref_lse <= bsa.NEG_INF
+    assert torch.equal(dead, expect)
+    assert torch.equal(lse <= bsa.NEG_INF, dead)
+    assert float((lse - ref_lse)[~dead].abs().max()) <= 1e-4
+    assert float(out[dead].float().abs().max()) == 0.0
+    assert float(grads[0][dead].float().abs().max()) == 0.0
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out,) + grads,
+                               (ref_out,) + refs):
+        assert torch.isfinite(got.float()).all(), name
+        if dtype == torch.float32:
+            err = float((got - want).abs().max()) if name == "out" else \
+                _rel_err(got, want)
+            assert err <= 1e-5, (name, err)
+        else:
+            tol = torch.finfo(dtype).eps / 4 if name == "out" else 1e-6
+            assert _ulp_ratio(got, want, tol) <= 1.0, \
+                (name, _ulp_ratio(got, want, tol))
 
 
 def test_block_sparse_kernels_are_deterministic(cuda):

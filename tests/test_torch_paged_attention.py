@@ -9,6 +9,7 @@ pages, live windows crossing page boundaries, layers 0 and 1, and padded
 ``valid_lens``. Tolerance: atol = rtol = 1e-5, the JAX package's own for
 its kernel against the gather path (fp32, summation order differs).
 """
+import importlib
 import pathlib
 import stat
 
@@ -162,3 +163,20 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(cuda_build.KernelBuildError, match="nvcc not found"):
         cuda_build.nvcc_path()
+
+
+@pytest.mark.parametrize("element_size,dh,table_keys", [
+    (2, 64, 1024), (2, 64, 16), (2, 256, 2048), (4, 256, 768),
+    (4, 32, 20), (2, 16, 32768), (4, 128, 1)])
+def test_launch_plan_covers_the_table(element_size, dh, table_keys):
+    """The kernel's splits cover the page table's width with no split past
+    its end, at most MAX_SPLITS of them, each round's K and V rows within
+    STAGE_BYTES (or the smallest round of 16 keys)."""
+    pam = importlib.import_module(
+        "deepspeed_tpu_torch.ops.paged_attention.paged_attention")
+    chunk, rounds, splits = pam.launch_plan(element_size, dh, table_keys)
+    run = chunk * rounds
+    assert chunk & (chunk - 1) == 0 and 16 <= chunk <= 256
+    assert 2 * chunk * dh * element_size <= pam.STAGE_BYTES or chunk == 16
+    assert 1 <= splits <= pam.MAX_SPLITS
+    assert splits * run >= table_keys > (splits - 1) * run
