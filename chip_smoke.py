@@ -21,14 +21,22 @@ with no ``ok`` line):
    BERT path's mode (``flash_bert``: b 32, s 512, h 16, d 64, bf16,
    non-causal, the fp32 key bias of the train_bert batch's padded mask,
    also timed without the bias) and Adam (one flat fp32 buffer of
-   GPT-2-350M's size);
-4. train   — the training main path: ``initialize(...).train_batch(...)``
-   on GPT-2-350M (``gpt2_medium``) at full width and depth, seq 1024,
-   bf16, ZeRO-2, Adam with fp32 moments, the flash and Adam kernels
-   chosen by "auto"; every kernel's launch count set to 0 just before the
-   timed steps and read just after; then a torch.profiler window;
+   GPT-2-350M's size, with fp32 and with bf16 moments);
+4. train   — the training main path at bench.py's first rung:
+   ``initialize(...).train_batch(...)`` on GPT-2-350M (``gpt2_medium``) at
+   full width and depth, seq 1024, micro 20, remat off, bf16, ZeRO-2,
+   Adam with bf16 moments and a bf16 gradient accumulator, the flash and
+   Adam kernels chosen by "auto"; every kernel's launch count set to 0
+   just before the timed steps and read just after; then a
+   torch.profiler window;
 5. train-parity — fp32 loss trajectories with the kernels and with the
-   plain versions, at gpt2_medium width with 2 layers;
+   plain versions, at gpt2_medium width with 2 layers, with fp32 and with
+   bf16 Adam moments; then ``train_example``: the GPT-2 example's twin
+   (``deepspeed_tpu_torch/examples/gpt2_pretrain.py``) on the repo's
+   ``examples/gpt2/ds_config_zero2.json`` at gpt2_medium (WarmupDecayLR,
+   betas (0.9, 0.95), weight decay 0.1, clipping 1.0), a few steps: the
+   learning rate of every step held to WarmupDecayLR, the loss falling,
+   counts set to 0 just before and read just after;
 6. block_sparse_attention kernel phase — the three block-sparse kernels
    against their plain versions at the long-context train shape (b 2,
    s 8192, h 16, d 64, bf16, causal), over the train config's shared
@@ -58,7 +66,9 @@ with no ``ok`` line):
    against their plain versions, timed; then ``flash_fp32_repeats``: the
    fp32 key-mask case of the GPU tests (b 2, s 96, h 2, d 32) 60 times,
    every run bit-identical, the worst element against the CPU run printed,
-   and each run's out against a float64 evaluation;
+   and each run's out against a float64 evaluation, and each CPU run's
+   forward intermediates (S, P, the row sums l, P.V per key tile) against
+   float64 and against CPU run 1;
    then ``flash_fp16``: the fp16 forward, dk/dv and dq (tensor cores)
    against their plain versions at probes/kernel_probe.py fp16_backward's
    cases (d 32 / 128, s 96 / 1000, causal or not, a key bias dropping 20%
@@ -67,16 +77,18 @@ with no ``ok`` line):
 12. lamb — the LAMB stage-1 and apply kernels against their plain
    versions over one flat fp32 buffer of BERT-large's size with its real
    segment table (26 parameters, 336,232,258 elements), the per-segment
-   sums (|p|^2, |u|^2) included, timed;
+   sums (|p|^2, |u|^2) included, with fp32 and with bf16 moments, timed;
 13. train_bert — the BERT main path: ``initialize(...).train_batch(...)``
    on BERT-large at full width and depth, seq 512, micro batch 32, bf16,
-   ZeRO-2, LAMB with fp32 moments, remat on, dropout 0, a padded
-   key mask (the flash kernels non-causal with a key bias); counts set to
-   0 just before the timed steps and read just after; a torch.profiler
-   window;
+   ZeRO-2, LAMB with bf16 moments and a bf16 gradient accumulator
+   (tests/perf/bert_bench.py's default bf16_state), remat on, dropout 0,
+   a padded key mask (the flash kernels non-causal with a key bias);
+   counts set to 0 just before the timed steps and read just after; a
+   torch.profiler window;
 14. train_bert_parity — fp32 loss trajectories with the kernels (flash +
    LAMB) and with the plain versions (einsum attention + plain LAMB), at
-   BERT-large width with 2 layers, seq 128, the padded mask;
+   BERT-large width with 2 layers, seq 128, the padded mask, with fp32
+   and with bf16 LAMB moments;
 15. ring_gemm — the three ring-step kernels of the tensor-parallel path
    (all-gather-matmul, matmul-reduce-scatter with the add, the dW
    gather-contract) at gpt2_medium TP 2's shapes (b 16, s 1024, four
@@ -97,7 +109,9 @@ with no ``ok`` line):
    every fc kernel scaled x20) against the TP 1 engine, fp32, 2 layers:
    losses and fc masters;
 
-then one ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
+variant the main paths run) and, last, ``{"ok": true, "device":
+{...}}``.
 ``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
@@ -521,6 +535,94 @@ def _cpu_model():
     return "unknown"
 
 
+TRACE_OPS = ("S", "P", "l", "PV")
+
+
+def _online_float64(arrays, mask, block=64):
+    """The plain forward's online softmax over key tiles of ``block`` in
+    float64 (non-causal, the key bias added): per tile S, P, the running
+    row sums l and the running P.V, as ``flash_fwd_reference`` traces
+    them in fp32."""
+    q, k, v = (np.transpose(a.astype(np.float64), (0, 2, 1, 3))
+               for a in arrays[:3])
+    b, h, s, d = q.shape
+    bias = mask.astype(np.float64)[:, None, None, :]
+    m = np.full((b, h, s, 1), -1e30)
+    l = np.zeros((b, h, s, 1))
+    acc = np.zeros((b, h, s, d))
+    tiles = []
+    for k0 in range(0, s, block):
+        sc = q @ np.swapaxes(k[:, :, k0:k0 + block], -1, -2) / np.sqrt(d) + \
+            bias[..., k0:k0 + block]
+        m_new = np.maximum(m, sc.max(-1, keepdims=True))
+        p = np.exp(sc - m_new)
+        corr = np.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdims=True)
+        acc = acc * corr + p @ v[:, :, k0:k0 + block]
+        m = m_new
+        tiles.append({"S": sc, "P": p, "l": l, "PV": acc})
+    return tiles
+
+
+def _trace_report(traces, exact):
+    """Per CPU run: each op's largest |fp32 - float64| over the tiles
+    (S over the unmasked keys: a masked score is -1e9 in both), and the
+    first (tile, op) whose values differ from CPU run 1's, bit for bit."""
+    import torch
+    report = []
+    for run in traces:
+        errs = {}
+        for op in TRACE_OPS:
+            worst = 0.0
+            for tile, want in zip(run, exact):
+                want = want[op]
+                diff = np.abs(tile[op].double().numpy() - want)
+                if op == "S":
+                    diff = np.where(want > -1e8, diff, 0.0)
+                worst = max(worst, float(diff.max()))
+            errs[op] = worst
+        first = None
+        for i, (tile, ref) in enumerate(zip(run, traces[0])):
+            for op in TRACE_OPS:
+                if first is None and not torch.equal(tile[op], ref[op]):
+                    first = "tile {} {}".format(i, op)
+        report.append({"max_abs_err_vs_float64": errs,
+                       "first_differing_from_run_1": first})
+    return report
+
+
+def flash_fp32_case():
+    """The fp32 key-mask case of tests/test_torch_cuda.py (b 2, s 96, h 2,
+    d 32, 25% of keys masked by -1e9): q, k, v, dout and the mask."""
+    rng = np.random.RandomState(1)
+    b, s, h, d = 2, 96, 2, 32
+    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+    return arrays, mask
+
+
+def flash_fp32_run(arrays, mask, dev, trace=None):
+    """Forward and backward of the case through flash_attention_bshd on
+    ``dev``; ``trace`` (a list) gets the CPU plain forward's per-tile
+    intermediates. Returns (out, dq, dk, dv) on the CPU."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+               for a in arrays[:3])
+    plain = fa.flash_fwd_reference
+    if trace is not None:
+        fa.flash_fwd_reference = lambda *a, **kw: plain(*a, trace=trace,
+                                                        **kw)
+    try:
+        out = fa.flash_attention_bshd(
+            q, k, v, causal=False, mask_bias=torch.from_numpy(mask).to(dev))
+    finally:
+        fa.flash_fwd_reference = plain
+    out.backward(torch.from_numpy(arrays[3]).to(dev))
+    return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+
 def phase_flash_fp32_repeats(repeats=60):
     """The fp32 key-mask case of tests/test_torch_cuda.py::
     test_flash_attention_bshd_mask_bias_grads_match_plain (b 2, s 96, h 2,
@@ -529,26 +631,18 @@ def phase_flash_fp32_repeats(repeats=60):
     every GPU run bit-identical to the first, every CPU run too, and the
     worst element of each output against the CPU run printed with both
     sides' values, and each run's out against a float64 evaluation, batch
-    by batch (the distinct values over the GPU runs, one a CPU run); held
-    to the test's 1e-5."""
+    by batch (the distinct values over the GPU runs, one a CPU run); each
+    CPU run's forward intermediates (S, P, the row sums l, P.V, per key
+    tile) against float64 and against CPU run 1, so a run that leaves
+    the exact value names the op; held to the test's 1e-5."""
     import torch
-    from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
-    rng = np.random.RandomState(1)
-    b, s, h, d = 2, 96, 2, 32
-    arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
-    mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
-    mask[:, 0] = 0.0
-
-    def run(dev):
-        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
-                   for a in arrays[:3])
-        out = flash_attention_bshd(q, k, v, causal=False,
-                                   mask_bias=torch.from_numpy(mask).to(dev))
-        out.backward(torch.from_numpy(arrays[3]).to(dev))
-        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
-
-    gpu = [run(torch.device("cuda", 0)) for _ in range(repeats)]
-    cpu = [run(torch.device("cpu")) for _ in range(5)]
+    arrays, mask = flash_fp32_case()
+    b, s, h, d = arrays[0].shape
+    gpu = [flash_fp32_run(arrays, mask, torch.device("cuda", 0))
+           for _ in range(repeats)]
+    traces = [[] for _ in range(5)]
+    cpu = [flash_fp32_run(arrays, mask, torch.device("cpu"), trace=t)
+           for t in traces]
     names = ("out", "dq", "dk", "dv")
     gpu_varies = {n: sum(not torch.equal(r[i], gpu[0][i]) for r in gpu[1:])
                   for i, n in enumerate(names)}
@@ -558,13 +652,11 @@ def phase_flash_fp32_repeats(repeats=60):
                     key=lambda w: w["rel_err"])
              for i, n in enumerate(names)}
     rel = max(w["rel_err"] for w in worst.values())
+    tiles = _online_float64(arrays, mask)
     # out in float64, to tell which side a run that differs has left
-    q, k, v = (a.astype(np.float64) for a in arrays[:3])
-    sc = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(d) + \
-        mask.astype(np.float64)[:, None, None, :]
-    pr = np.exp(sc - sc.max(-1, keepdims=True))
-    exact = torch.from_numpy(np.einsum("bhqk,bkhd->bqhd",
-                                       pr / pr.sum(-1, keepdims=True), v))
+    exact = torch.from_numpy(np.transpose(
+        tiles[-1]["PV"] / tiles[-1]["l"], (0, 2, 1, 3)))
+
     def per_batch(out):
         return tuple(float(e) for e in
                      (out.double() - exact).abs().amax(dim=(1, 2, 3)))
@@ -578,6 +670,7 @@ def phase_flash_fp32_repeats(repeats=60):
               "cpu_runs_differing_from_the_first": cpu_varies,
               "worst_vs_cpu": worst, "max_rel_err": rel, "tolerance": 1e-5,
               "out_max_abs_err_vs_float64": out_vs_float64,
+              "cpu_intermediates": _trace_report(traces, tiles),
               "cpu": {"model": _cpu_model(),
                       "capability": torch.backends.cpu.get_cpu_capability(),
                       "threads": torch.get_num_threads()}}
@@ -757,7 +850,10 @@ def phase_flash3d(flush):
 
 def phase_adam(flush):
     """The Adam kernel against its plain version over one flat fp32
-    buffer of GPT-2-350M's parameter count, timed; bit-exact."""
+    buffer of GPT-2-350M's parameter count, with fp32 moments and with
+    bf16 moments (the train path's, ``moments_dtype: "bf16"``), timed;
+    bit-exact. The bound counts each variant's bytes: fp32 moments read
+    p, g, m, v and write p, m, v (28 bytes an element), bf16 moments 20."""
     import torch
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops.adam.fused_adam import (
@@ -767,53 +863,81 @@ def phase_adam(flush):
     gen = torch.Generator(device=device).manual_seed(3)
     new = lambda: torch.randn(n, generator=gen, device=device)
     g = new()
-    p, m, v = new(), new() * 1e-2, new().abs_() * 1e-4
-    copies = [[t.clone() for t in (p, m, v)] for _ in range(2)]
     bc1, bc2 = bias_corrections(0.9, 0.999, 7)
     kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
               bc1=bc1, bc2=bc2)
-    fused_adam(copies[0][0], g, copies[0][1], copies[0][2], **kw)
-    fused_adam_reference(copies[1][0], g, copies[1][1], copies[1][2], **kw)
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(*copies))
-    assert err == 0.0, "fused_adam off its plain version by {}".format(err)
-    del copies
-    kernel_ms = time_ms(lambda: fused_adam(p, g, m, v, **kw), flush)
-    plain_ms = time_ms(lambda: fused_adam_reference(p, g, m, v, **kw),
-                       flush, reps=5)
     step = torch.tensor(7.0, device=device)
-    library_ms = time_ms(lambda: torch._fused_adam_(
-        [p], [g], [m], [v], [], [step], lr=1e-4, beta1=0.9, beta2=0.999,
-        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), flush)
-    b_ms, b_by = bound_ms(7 * 4 * n, 18 * n, FP32_FLOPS_PER_S)
+    variants = {}
+    for moments, dtype, nbytes in (("fp32", torch.float32, 28),
+                                   ("bf16", torch.bfloat16, 20)):
+        p, m, v = new(), new() * 1e-2, new().abs_() * 1e-4
+        m, v = m.to(dtype), v.to(dtype)
+        copies = [[t.clone() for t in (p, m, v)] for _ in range(2)]
+        fused_adam(copies[0][0], g, copies[0][1], copies[0][2], **kw)
+        fused_adam_reference(copies[1][0], g, copies[1][1], copies[1][2],
+                             **kw)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(*copies))
+        equal = all(torch.equal(a, b) for a, b in zip(*copies))
+        assert equal and err == 0.0, \
+            "fused_adam ({} moments) off its plain version by {}".format(
+                moments, err)
+        del copies
+        kernel_ms = time_ms(lambda: fused_adam(p, g, m, v, **kw), flush)
+        plain_ms = time_ms(lambda: fused_adam_reference(p, g, m, v, **kw),
+                           flush, reps=5)
+        library_ms, library_call = None, None
+        try:
+            fn = lambda: torch._fused_adam_(
+                [p], [g], [m], [v], [], [step], lr=1e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False)
+            fn()
+            library_ms = time_ms(fn, flush)
+            library_call = "torch._fused_adam_ over the same flat tensors"
+        except (RuntimeError, TypeError) as exc:
+            library_call = "none: torch._fused_adam_ refuses {} moments " \
+                "with fp32 params ({})".format(moments, str(exc)[:120])
+        b_ms, b_by = bound_ms(nbytes * n, 18 * n, FP32_FLOPS_PER_S)
+        variants[moments] = {
+            "max_abs_err": err, "bit_equal": equal, "tolerance": 0.0,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes_per_element": nbytes,
+            "library_ms": library_ms, "library_call": library_call}
+        del p, m, v
+        torch.cuda.empty_cache()
     return {"phase": "kernel", "name": "fused_adam", "elements": n,
-            "max_abs_err": err, "tolerance": 0.0, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
-            "library_call": "torch._fused_adam_ over the same flat tensors"}
+            "variants": variants}
 
 
 # ------------------------------------------------------------ training path
 
 
-TRAIN_MICRO, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 16, 1024, 2, 10
-TRAIN_REMAT = False       # the peak stays well under 70 GB without it
+# bench.py:96-140's first rung, (20, False, True): micro 20, remat off,
+# bf16 moments and a bf16 gradient accumulator; its "runtime.executor" and
+# "telemetry" sections are left out (the port has neither yet)
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 20, 1024, 2, 10
+TRAIN_REMAT = False
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": TRAIN_MICRO,
     "gradient_accumulation_steps": 1,
     "bf16": {"enabled": True},
     "zero_optimization": {"stage": 2},
     "optimizer": {"type": "Adam", "params": {"lr": 1e-4,
+                                             "moments_dtype": "bf16",
                                              "fused_kernel": "auto"}},
+    "data_types": {"grad_accum_dtype": "bf16"},
     "transformer": {"flash_attention": "auto"},
     "steps_per_print": 10 ** 9,
 }
 
 
 def phase_train(launch_counters):
-    """The training main path: gpt2_medium at full width and depth, seq
-    1024, bf16, ZeRO-2, Adam with fp32 moments, through the port's
-    initialize(...).train_batch(...) on one fixed batch."""
+    """The training main path at bench.py's first rung: gpt2_medium at
+    full width and depth, seq 1024, micro 20, bf16, ZeRO-2, Adam with bf16
+    moments and a bf16 gradient accumulator, remat off, through the
+    port's initialize(...).train_batch(...) on one fixed batch."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
@@ -830,6 +954,11 @@ def phase_train(launch_counters):
         engine.flash_attention_backend
     assert engine.fused_optimizer_kernel == "pallas", \
         engine.fused_optimizer_kernel
+    flat = engine.flat
+    assert flat.exp_avg.dtype == flat.acc.dtype == torch.bfloat16
+    # fp32 -> bf16 moments save 2 x 2 bytes an element, the accumulator 2
+    saved = {"moments_gb": 4 * flat.numel / 2 ** 30,
+             "grad_accumulator_gb": 2 * flat.numel / 2 ** 30}
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size,
                       size=(1, TRAIN_MICRO, TRAIN_SEQ)).astype(np.int64)
@@ -866,7 +995,9 @@ def phase_train(launch_counters):
     return {"phase": "train", "model": "gpt2_medium", "layers": cfg.n_layers,
             "d_model": cfg.d_model, "seq": TRAIN_SEQ,
             "micro_batch": TRAIN_MICRO, "dtype": "bf16", "zero_stage": 2,
-            "moments": "fp32", "remat": TRAIN_REMAT, "params": n_params,
+            "moments": "bf16", "grad_accum": "bf16",
+            "memory_saved_vs_fp32_state": saved, "remat": TRAIN_REMAT,
+            "params": n_params,
             "engine_init_s": init_s, "steps": TRAIN_STEPS,
             "step_ms": step_s * 1e3, "tokens_per_sec": tokens / step_s,
             "mfu": mfu, "mfu_peak": "989 TFLOP/s dense bf16",
@@ -940,7 +1071,8 @@ def train_profile(engine, batch, steps=2, span_names=(), kernel_groups=()):
 def phase_train_parity(steps=5, tol=1e-4):
     """fp32 loss trajectories at gpt2_medium width with 2 layers, TF32
     off: the kernels ("pallas", "pallas") against the plain versions
-    ("xla", "xla"), from the same init."""
+    ("xla", "xla"), from the same init, with fp32 and with bf16 Adam
+    moments."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
@@ -948,29 +1080,104 @@ def phase_train_parity(steps=5, tol=1e-4):
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(2)
     ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
-    runs = {}
-    for backend in ("pallas", "xla"):
-        cfg = gpt2.config_for("gpt2_medium", n_layers=2,
-                              max_seq_len=TRAIN_SEQ, loss_chunk=128,
-                              remat=False)
-        model = gpt2.make_gpt2_model(config=cfg, seed=1)
-        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
-            "train_micro_batch_size_per_gpu": 4,
-            "optimizer": {"type": "Adam", "params": {
-                "lr": 1e-4, "fused_kernel": backend}},
-            "transformer": {"flash_attention": backend},
-            "steps_per_print": 10 ** 9})[0]
-        assert engine.flash_attention_backend == backend
-        runs[backend] = [float(engine.train_batch(batch=(ids, ids)))
-                         for _ in range(steps)]
-        del engine, model
-        torch.cuda.empty_cache()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"],
-                                                  runs["xla"]))
-    assert rel <= tol, (rel, runs)
+    runs, rel = {}, {}
+    for moments in ("fp32", "bf16"):
+        for backend in ("pallas", "xla"):
+            cfg = gpt2.config_for("gpt2_medium", n_layers=2,
+                                  max_seq_len=TRAIN_SEQ, loss_chunk=128,
+                                  remat=False)
+            model = gpt2.make_gpt2_model(config=cfg, seed=1)
+            engine = deepspeed_tpu_torch.initialize(
+                model=model, config_params={
+                    "train_micro_batch_size_per_gpu": 4,
+                    "optimizer": {"type": "Adam", "params": {
+                        "lr": 1e-4, "fused_kernel": backend,
+                        "moments_dtype": moments}},
+                    "transformer": {"flash_attention": backend},
+                    "steps_per_print": 10 ** 9})[0]
+            assert engine.flash_attention_backend == backend
+            assert engine.flat.exp_avg.dtype == getattr(
+                torch, {"fp32": "float32", "bf16": "bfloat16"}[moments])
+            runs["{}/{}".format(moments, backend)] = [
+                float(engine.train_batch(batch=(ids, ids)))
+                for _ in range(steps)]
+            del engine, model
+            torch.cuda.empty_cache()
+        rel[moments] = max(
+            abs(a - b) / abs(b) for a, b in zip(
+                runs[moments + "/pallas"], runs[moments + "/xla"]))
+        assert rel[moments] <= tol, (moments, rel, runs)
     return {"phase": "train_parity", "layers": 2, "d_model": 1024,
-            "dtype": "fp32", "steps": steps, "losses": runs,
-            "max_rel_diff": rel, "tolerance": tol}
+            "dtype": "fp32", "moments": ["fp32", "bf16"], "steps": steps,
+            "losses": runs, "max_rel_diff": rel, "tolerance": tol}
+
+
+EXAMPLE_CONFIG = "examples/gpt2/ds_config_zero2.json"
+EXAMPLE_STEPS = 8
+
+
+def phase_train_example(launch_counters):
+    """The GPT-2 example's twin (deepspeed_tpu_torch/examples/
+    gpt2_pretrain.py) on the repo's examples/gpt2/ds_config_zero2.json at
+    gpt2_medium, seq 1024: bf16, ZeRO-2, Adam betas (0.9, 0.95), weight
+    decay 0.1, clipping 1.0, WarmupDecayLR; fresh synthetic tokens each
+    step, as the JAX example. Counts set to 0 just before main() and read
+    just after; the learning rate of every step held to WarmupDecayLR's
+    formula, written here; the loss falls: the first batch's loss after
+    the run (eval mode; dropout is 0, so train and eval give the same
+    loss) below its loss at step 0. The training losses themselves, each
+    on a fresh random batch at a warm-up rate of at most ~4e-5 after step
+    0, stay within noise of ln(vocab)."""
+    import json
+    import math
+    import torch
+    from deepspeed_tpu_torch.examples import gpt2_pretrain
+    with open(EXAMPLE_CONFIG) as f:
+        sched = json.load(f)["scheduler"]["params"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in launch_counters:
+        counter.launches = 0
+    t0 = time.perf_counter()
+    res = gpt2_pretrain.main(["--size", "gpt2_medium", "--seq_len", "1024",
+                              "--steps", str(EXAMPLE_STEPS),
+                              "--deepspeed_config", EXAMPLE_CONFIG])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    engine = res["engine"]
+    first = np.random.RandomState(0).randint(      # the twin's first batch
+        0, engine.module.config.vocab_size, size=(8, 1024)).astype(np.int32)
+    engine.eval()
+    first_after = float(engine(first, first))
+    lr0 = engine._config.optimizer_params["lr"]
+    lo, hi = sched["warmup_min_lr"], sched["warmup_max_lr"]
+    warm = max(2, sched["warmup_num_steps"])
+    want = [lr0] + [lo + (hi - lo) * math.log(i + 1) / math.log(warm)
+                    for i in range(EXAMPLE_STEPS - 1)]
+    lr_err = max(abs(a - b) for a, b in zip(res["lrs"], want))
+    losses = res["losses"]
+    layers = engine.module.config.n_layers
+    assert layers == 24 and engine.device.type == "cuda"
+    assert type(engine.lr_scheduler).__name__ == "WarmupDecayLR"
+    assert engine.optimizer.betas == (0.9, 0.95)
+    assert lr_err <= 1e-15 * hi, (res["lrs"], want)
+    assert all(np.isfinite(losses)), losses
+    assert first_after < losses[0], (first_after, losses)
+    for name in FLASH_GROUPS:
+        assert launches[name] == layers * EXAMPLE_STEPS, launches
+    assert launches["fused_adam"] == EXAMPLE_STEPS, launches
+    step_ms = statistics.median(res["step_seconds"][2:]) * 1e3
+    del engine, res
+    return {"phase": "train_example", "script":
+            "deepspeed_tpu_torch/examples/gpt2_pretrain.py",
+            "config": EXAMPLE_CONFIG, "model": "gpt2_medium", "seq": 1024,
+            "micro_batch": 8, "steps": EXAMPLE_STEPS, "losses": losses,
+            "first_batch_loss_after": first_after,
+            "lrs": [float(x) for x in want], "lr_max_abs_err": lr_err,
+            "step_ms_median_after_2": step_ms, "wall_s_incl_init": wall,
+            "peak_memory_gb": peak_gb, "launches": launches}
 
 
 # ------------------------------------------- block-sparse attention (slice 3)
@@ -1211,8 +1418,13 @@ def phase_train_sparse(launch_counters):
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
+    # the train config with fp32 moments and accumulator, as before the
+    # bench rung's bf16 state
     ds = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=SPARSE_MICRO,
-              sparse_attention=dict(SPARSE_TRAIN))
+              sparse_attention=dict(SPARSE_TRAIN),
+              optimizer={"type": "Adam", "params": {
+                  "lr": 1e-4, "fused_kernel": "auto"}})
+    del ds["data_types"]
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=SPARSE_SEQ,
                           loss_chunk=128, remat=SPARSE_REMAT,
                           sparse_attention=dict(SPARSE_TRAIN))
@@ -1348,14 +1560,17 @@ LAMB_NAMES = ("fused_lamb", "fused_lamb_apply")
 ZERO_INIT = ("bias", "qkvb", "attn_ob", "attn_nb", "inter_b", "output_b",
              "norm_b")
 BERT_MICRO, BERT_SEQ, BERT_REMAT = 32, 512, True
-# tests/perf/bert_bench.py:19-40 with fp32 moments (bf16_state=False)
+# tests/perf/bert_bench.py:18-40 at its default bf16_state=True: bf16
+# LAMB moments and a bf16 gradient accumulator
 BERT_CONFIG = {
     "train_micro_batch_size_per_gpu": BERT_MICRO,
     "gradient_accumulation_steps": 1,
     "bf16": {"enabled": True},
     "zero_optimization": {"stage": 2},
     "optimizer": {"type": "Lamb", "params": {"lr": 2e-3,
+                                             "moments_dtype": "bf16",
                                              "fused_kernel": "auto"}},
+    "data_types": {"grad_accum_dtype": "bf16"},
     "transformer": {"flash_attention": "auto"},
     "steps_per_print": 10 ** 9,
 }
@@ -1386,10 +1601,15 @@ def _fp32_steps(got, want):
 
 def phase_lamb(flush):
     """The two LAMB kernels against their plain versions over one flat
-    fp32 buffer of BERT-large's size and segment table, step 7; m, v, the
+    fp32 buffer of BERT-large's size and segment table, step 7, with fp32
+    moments and with bf16 moments (the train_bert path's): m, v, the
     trust ratios and the per-segment sums (|p|^2, |u|^2) bit-equal (the
     sums also within 1e-5 of a float64 sum of each segment), p within one
-    ulp, two kernel runs bit-identical; timed."""
+    ulp, two kernel runs bit-identical; with bf16 moments stage 1 leaves
+    m and v untouched; timed. Bytes an element: fp32 moments stage 1 24
+    (reads p, g, m, v, writes m, v), apply 16 (reads p, m, v, writes p);
+    bf16 moments stage 1 12 (reads p, g, m, v), apply 20 (reads p, g, m,
+    v, writes p, m, v)."""
     import torch
     from deepspeed_tpu_torch.models import bert
     from deepspeed_tpu_torch.ops.adam.fused_adam import bias_corrections
@@ -1407,8 +1627,8 @@ def phase_lamb(flush):
     gen = torch.Generator(device=device).manual_seed(7)
     new = lambda scale: torch.randn(total, generator=gen, device=device) * \
         scale * covered
-    p, g, m = new(0.02), new(1e-3), new(1e-4)
-    v = new(1e-4) ** 2
+    p, g, m32 = new(0.02), new(1e-3), new(1e-4)
+    v32 = new(1e-4) ** 2
     for i in zero:                   # zero params, live gradients
         off, numel = segments[i]
         g[off:off + numel] = torch.randn(numel, generator=gen,
@@ -1417,78 +1637,101 @@ def phase_lamb(flush):
     bc1, bc2 = bias_corrections(0.9, 0.999, 7)
     sc = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01, bc1=bc1,
               bc2=bc2)
-    kw = dict(lr=2e-3, eps=1e-8, weight_decay=0.01, bc1=bc1, bc2=bc2)
-    sides, ratios, sums = [], [], []
-    for route in ("kernel", "kernel", "plain"):
-        pp, mm, vv = p.clone(), m.clone(), v.clone()
-        if route == "kernel":
-            r, sq = fused_lamb(pp, g, mm, vv, plan, **sc)
-            fused_lamb_apply(pp, mm, vv, r, plan, **kw)
-        else:
-            r, sq = fused_lamb_reference(pp, g, mm, vv, plan, **sc)
-            fused_lamb_apply_reference(pp, mm, vv, r, plan, **kw)
-        sides.append((pp, mm, vv))
-        ratios.append(r)
-        sums.append(sq)
-    torch.cuda.synchronize()
-    repeat = all(torch.equal(a, b) for a, b in zip(sides[0], sides[1])) \
-        and torch.equal(sums[0], sums[1])
-    m_equal = torch.equal(sides[0][1], sides[2][1])
-    v_equal = torch.equal(sides[0][2], sides[2][2])
-    ratio_equal = torch.equal(ratios[0], ratios[2])
-    sums_equal = torch.equal(sums[0], sums[2])
-    p_sq = torch.stack([(p[off:off + numel].double() ** 2).sum()
-                        for off, numel in segments])
-    sums_rel = float(((sums[0][:, 0].double() - p_sq).abs() /
-                      p_sq.clamp_min(1e-30)).max())
-    assert sums_equal, "the kernel's per-segment sums differ from plain"
-    assert sums_rel <= 1e-5, sums_rel
-    p_steps = _fp32_steps(sides[0][0], sides[2][0])
-    err = max(float((a - b).abs().max()) for a, b in zip(sides[0], sides[2]))
-    assert repeat, "two runs of the LAMB kernels differ"
-    assert m_equal and v_equal, "m or v off the plain version"
-    assert ratio_equal, (ratios[0], ratios[2])
-    assert p_steps <= 1, "p off the plain version by {} ulp".format(p_steps)
-    assert torch.isfinite(sides[0][0]).all()
-    ones = int((ratios[0] == 1.0).sum())
-    assert ones >= len(zero), (ones, len(zero))
-    del sides
-    torch.cuda.empty_cache()
-    ratio = ratios[0]
-    del sums
-    stage1_ms = time_ms(lambda: fused_lamb(p, g, m, v, plan, **sc), flush)
-    apply_ms = time_ms(lambda: fused_lamb_apply(p, m, v, ratio, plan, **kw),
-                       flush)
-    plain_stage1 = time_ms(lambda: fused_lamb_reference(p, g, m, v, plan,
-                                                        **sc), flush, reps=5)
-    plain_apply = time_ms(lambda: fused_lamb_apply_reference(
-        p, m, v, ratio, plan, **kw), flush, reps=5)
-    # bytes: stage 1 reads p, g, m, v and writes m, v; the apply reads p,
-    # m, v and writes p (partials and ratios are < 0.1% more); operations:
-    # ~20 fp32 a element for stage 1 (the TPU kernel's own count), ~10 for
-    # the apply
-    return {"phase": "lamb", "elements": n, "buffer": total,
-            "segments": len(segments), "chunks": plan.n_chunks,
-            "zero_init_segments": len(zero), "ratio_one_segments": ones,
+    p0 = p
+    variants = {}
+    for moments, dtype, stage1_bytes, apply_bytes in (
+            ("fp32", torch.float32, 24, 16), ("bf16", torch.bfloat16, 12, 20)):
+        # each variant from the same state (the timing runs move p)
+        p = p0.clone()
+        m, v = m32.to(dtype, copy=True), v32.to(dtype, copy=True)
+        p_sq = torch.stack([(p[off:off + numel].double() ** 2).sum()
+                            for off, numel in segments])
+        kw = dict(lr=2e-3, eps=1e-8, weight_decay=0.01, bc1=bc1, bc2=bc2)
+        if dtype == torch.bfloat16:
+            kw.update(g=g, beta1=0.9, beta2=0.999)
+        sides, ratios, sums, untouched = [], [], [], True
+        for route in ("kernel", "kernel", "plain"):
+            pp, mm, vv = p.clone(), m.clone(), v.clone()
+            if route == "kernel":
+                r, sq = fused_lamb(pp, g, mm, vv, plan, **sc)
+                if dtype == torch.bfloat16:
+                    untouched &= torch.equal(mm, m) and torch.equal(vv, v)
+                fused_lamb_apply(pp, mm, vv, r, plan, **kw)
+            else:
+                r, sq = fused_lamb_reference(pp, g, mm, vv, plan, **sc)
+                fused_lamb_apply_reference(pp, mm, vv, r, plan, **kw)
+            sides.append((pp, mm, vv))
+            ratios.append(r)
+            sums.append(sq)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(sides[0], sides[1])) \
+            and torch.equal(sums[0], sums[1])
+        m_equal = torch.equal(sides[0][1], sides[2][1])
+        v_equal = torch.equal(sides[0][2], sides[2][2])
+        ratio_equal = torch.equal(ratios[0], ratios[2])
+        sums_equal = torch.equal(sums[0], sums[2])
+        sums_rel = float(((sums[0][:, 0].double() - p_sq).abs() /
+                          p_sq.clamp_min(1e-30)).max())
+        assert sums_equal, "the kernel's per-segment sums differ from plain"
+        assert sums_rel <= 1e-5, sums_rel
+        p_steps = _fp32_steps(sides[0][0], sides[2][0])
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(sides[0], sides[2]))
+        assert repeat, "two runs of the LAMB kernels differ"
+        assert untouched, "stage 1 wrote bf16 moments"
+        assert m_equal and v_equal, "m or v off the plain version"
+        assert ratio_equal, (ratios[0], ratios[2])
+        assert p_steps <= 1, "p off the plain version by {} ulp".format(
+            p_steps)
+        assert torch.isfinite(sides[0][0]).all()
+        ones = int((ratios[0] == 1.0).sum())
+        assert ones >= len(zero), (ones, len(zero))
+        ratio = ratios[0]
+        del sides, sums
+        torch.cuda.empty_cache()
+        stage1_ms = time_ms(lambda: fused_lamb(p, g, m, v, plan, **sc),
+                            flush)
+        apply_ms = time_ms(lambda: fused_lamb_apply(p, m, v, ratio, plan,
+                                                    **kw), flush)
+        plain_stage1 = time_ms(lambda: fused_lamb_reference(
+            p, g, m, v, plan, **sc), flush, reps=5)
+        plain_apply = time_ms(lambda: fused_lamb_apply_reference(
+            p, m, v, ratio, plan, **kw), flush, reps=5)
+        # operations: ~20 fp32 an element for stage 1 (the TPU kernel's
+        # own count), ~10 for the apply (~20 with bf16 moments: m', v'
+        # again); partials and ratios are < 0.1% more bytes
+        apply_ops = 10 if dtype == torch.float32 else 20
+        variants[moments] = {
             "bit_equal": {"m": m_equal, "v": v_equal, "ratio": ratio_equal,
-                          "sums": sums_equal, "repeat": repeat},
+                          "sums": sums_equal, "repeat": repeat,
+                          "stage1_leaves_bf16_moments": untouched},
             "p_sq_rel_err_vs_float64": sums_rel,
             "p_max_ulp": p_steps, "max_abs_err": err,
-            "tolerance": "m, v, ratio, sums bit-equal; p <= 1 ulp; "
-                         "|p|^2 sums 1e-5 of float64",
+            "ratio_one_segments": ones,
             "kernels": {
                 "fused_lamb": dict(
                     kernel_ms=stage1_ms, plain_ms=plain_stage1,
                     library_ms=None, max_abs_err=err,
                     **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                        24 * n, 20 * n, FP32_FLOPS_PER_S)))),
+                        stage1_bytes * n, 20 * n, FP32_FLOPS_PER_S)))),
                 "fused_lamb_apply": dict(
                     kernel_ms=apply_ms, plain_ms=plain_apply,
                     library_ms=None, max_abs_err=err,
                     **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                        16 * n, 10 * n, FP32_FLOPS_PER_S))))},
-            "step_bound_ms": bound_ms(40 * n, 30 * n, FP32_FLOPS_PER_S)[0],
-            "library_call": None}
+                        apply_bytes * n, apply_ops * n,
+                        FP32_FLOPS_PER_S))))},
+            "step_ms": stage1_ms + apply_ms,
+            "step_bound_ms": bound_ms((stage1_bytes + apply_bytes) * n,
+                                      (20 + apply_ops) * n,
+                                      FP32_FLOPS_PER_S)[0]}
+        del m, v
+        torch.cuda.empty_cache()
+    return {"phase": "lamb", "elements": n, "buffer": total,
+            "segments": len(segments), "chunks": plan.n_chunks,
+            "zero_init_segments": len(zero),
+            "tolerance": "m, v, ratio, sums bit-equal; p <= 1 ulp; "
+                         "|p|^2 sums 1e-5 of float64",
+            "variants": variants, "library_call": None}
 
 
 def bert_batch(cfg, micro, seq, seed):
@@ -1508,9 +1751,10 @@ def bert_batch(cfg, micro, seq, seed):
 
 def phase_train_bert(launch_counters):
     """The BERT main path: BERT-large at full width and depth, seq 512,
-    micro batch 32, bf16, ZeRO-2, LAMB with fp32 moments, remat on,
-    dropout 0, the padded mask, through initialize(...).train_batch(...)
-    on one fixed batch."""
+    micro batch 32, bf16, ZeRO-2, LAMB with bf16 moments and a bf16
+    gradient accumulator (bert_bench.py's bf16_state), remat on, dropout
+    0, the padded mask, through initialize(...).train_batch(...) on one
+    fixed batch."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import bert
@@ -1528,6 +1772,8 @@ def phase_train_bert(launch_counters):
     assert engine.fused_optimizer_kernel == "pallas"
     assert engine.flash_attention_backend == "pallas"
     assert engine.flat.segments.shape == (26, 2)
+    assert engine.flat.exp_avg.dtype == engine.flat.acc.dtype == \
+        torch.bfloat16
     batch = bert_batch(cfg, BERT_MICRO, BERT_SEQ, seed=0)
     mask = batch[2][0]
     losses = [float(engine.train_batch(batch=batch))
@@ -1567,7 +1813,8 @@ def phase_train_bert(launch_counters):
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "heads": cfg.n_heads, "seq": BERT_SEQ, "micro_batch": BERT_MICRO,
             "valid_tokens": int(mask.sum()), "dtype": "bf16",
-            "zero_stage": 2, "optimizer": "lamb", "moments": "fp32",
+            "zero_stage": 2, "optimizer": "lamb", "moments": "bf16",
+            "grad_accum": "bf16",
             "remat": BERT_REMAT, "params": n_params,
             "engine_init_s": init_s, "steps": TRAIN_STEPS,
             "step_ms": step_s * 1e3, "tokens_per_sec": tokens / step_s,
@@ -1582,46 +1829,51 @@ def phase_train_bert_parity(launch_counters, steps=5, tol=1e-4, seq=128):
     """fp32 loss trajectories at BERT-large width with 2 layers, seq 128,
     the padded mask, TF32 off: the kernels (flash "pallas", LAMB "pallas")
     against the plain versions (einsum attention "xla", plain LAMB "xla"),
-    from the same init."""
+    from the same init, with fp32 and with bf16 LAMB moments."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import bert
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     micro = 8
-    runs, launches = {}, {}
-    for backend in ("pallas", "xla"):
-        cfg = bert.config_for("bert_large", n_layers=2, max_seq_len=seq,
-                              dropout=0.0, attn_dropout=0.0, remat=True)
-        model = bert.make_bert_model(config=cfg, seed=1)
-        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
-            "train_micro_batch_size_per_gpu": micro,
-            "optimizer": {"type": "Lamb", "params": {
-                "lr": 2e-3, "fused_kernel": backend}},
-            "transformer": {"flash_attention": backend},
-            "steps_per_print": 10 ** 9})[0]
-        assert engine.flash_attention_backend == backend
-        batch = bert_batch(cfg, micro, seq, seed=3)
-        for counter in launch_counters:
-            counter.launches = 0
-        runs[backend] = [float(engine.train_batch(batch=batch))
-                         for _ in range(steps)]
-        launches[backend] = {c.__name__: c.launches for c in launch_counters}
-        del engine, model
-        torch.cuda.empty_cache()
+    runs, launches, rel = {}, {}, {}
     want = {"flash_fwd": 2 * 2 * steps, "flash_bwd_dkdv": 2 * steps,
             "flash_bwd_dq": 2 * steps, "fused_lamb": steps,
             "fused_lamb_apply": steps}
-    assert launches["pallas"] == want, launches
-    assert not any(launches["xla"].values()), launches
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"],
-                                                  runs["xla"]))
-    assert rel <= tol, (rel, runs)
-    assert runs["pallas"][-1] < runs["pallas"][0], runs
+    for moments in ("fp32", "bf16"):
+        for backend in ("pallas", "xla"):
+            key = "{}/{}".format(moments, backend)
+            cfg = bert.config_for("bert_large", n_layers=2, max_seq_len=seq,
+                                  dropout=0.0, attn_dropout=0.0, remat=True)
+            model = bert.make_bert_model(config=cfg, seed=1)
+            engine = deepspeed_tpu_torch.initialize(
+                model=model, config_params={
+                    "train_micro_batch_size_per_gpu": micro,
+                    "optimizer": {"type": "Lamb", "params": {
+                        "lr": 2e-3, "fused_kernel": backend,
+                        "moments_dtype": moments}},
+                    "transformer": {"flash_attention": backend},
+                    "steps_per_print": 10 ** 9})[0]
+            assert engine.flash_attention_backend == backend
+            batch = bert_batch(cfg, micro, seq, seed=3)
+            for counter in launch_counters:
+                counter.launches = 0
+            runs[key] = [float(engine.train_batch(batch=batch))
+                         for _ in range(steps)]
+            launches[key] = {c.__name__: c.launches
+                             for c in launch_counters}
+            del engine, model
+            torch.cuda.empty_cache()
+        assert launches[moments + "/pallas"] == want, launches
+        assert not any(launches[moments + "/xla"].values()), launches
+        rel[moments] = max(abs(a - b) / abs(b) for a, b in zip(
+            runs[moments + "/pallas"], runs[moments + "/xla"]))
+        assert rel[moments] <= tol, (moments, rel, runs)
+        assert runs[moments + "/pallas"][-1] < runs[moments + "/pallas"][0]
     return {"phase": "train_bert_parity", "layers": 2, "d_model": 1024,
             "seq": seq, "micro_batch": micro, "dtype": "fp32",
-            "steps": steps, "losses": runs, "launches": launches,
-            "max_rel_diff": rel, "tolerance": tol}
+            "moments": ["fp32", "bf16"], "steps": steps, "losses": runs,
+            "launches": launches, "max_rel_diff": rel, "tolerance": tol}
 
 
 # ----------------------------------------------------------- serving path
@@ -1961,8 +2213,9 @@ def phase_ring_gemm(flush):
                       "dtype": "bf16"}}
 
 
+TP_MICRO = 16           # the train path's micro batch before bench.py's rung
 TP_CONFIG = {
-    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "train_micro_batch_size_per_gpu": TP_MICRO,
     "gradient_accumulation_steps": 1,
     "bf16": {"enabled": True},
     "zero_optimization": {"stage": 2},
@@ -2004,7 +2257,7 @@ def tp_train_rank(rank, world, spec):
     assert engine.device.type == "cuda" and engine._cm_tp
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size,
-                      size=(1, TRAIN_MICRO, TRAIN_SEQ)).astype(np.int64)
+                      size=(1, TP_MICRO, TRAIN_SEQ)).astype(np.int64)
     batch = (ids, ids.copy())
     losses = [float(engine.train_batch(batch=batch))
               for _ in range(spec["warmup"])]
@@ -2093,13 +2346,13 @@ def phase_train_tp(world=TP, layers=TP_LAYERS, steps=TP_STEPS,
     assert max(abs(a - b) for a, b in zip(ranks[0]["losses"],
                                           ranks[-1]["losses"])) == 0.0
     step_ms = max(r["step_ms"] for r in ranks)
-    tokens = TRAIN_MICRO * TRAIN_SEQ
+    tokens = TP_MICRO * TRAIN_SEQ
     n_params = gpt2.num_params(cfg)
     flops_per_token = 6.0 * n_params + 12.0 * layers * cfg.d_model * \
         TRAIN_SEQ
     return {"phase": "train_tp", "model": "gpt2_medium", "layers": layers,
             "d_model": cfg.d_model, "seq": TRAIN_SEQ,
-            "micro_batch": TRAIN_MICRO, "tp": world, "dtype": "bf16",
+            "micro_batch": TP_MICRO, "tp": world, "dtype": "bf16",
             "zero_stage": 2, "backend": backend,
             "transport": ranks[0]["transport"],
             "devices": [r["device"] for r in ranks], "steps": steps,
@@ -2425,6 +2678,9 @@ KERNELS = [
 ]
 
 
+OPTIMIZER_NAMES = ("fused_adam",) + LAMB_NAMES
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2506,6 +2762,9 @@ def main():
     torch.cuda.empty_cache()
     emit(phase_train_parity())
     torch.cuda.empty_cache()
+    # the example twin's path (fp32 moments, the example's config)
+    emit(phase_train_example(train_counters))
+    torch.cuda.empty_cache()
 
     # the BERT path: every dense-training kernel's count, so Adam is seen
     # not to launch there
@@ -2552,8 +2811,9 @@ def main():
         err = max(mode["errors"][g + "_abs"] for mode in (flash, flash_bert)
                   for g in grads[name])
         measured[name] = dict(row, max_abs_err=err)
-    measured["fused_adam"] = adam
-    measured.update(lamb["kernels"])
+    # the optimizer rows at the variant the main paths run: bf16 moments
+    measured["fused_adam"] = adam["variants"]["bf16"]
+    measured.update(lamb["variants"]["bf16"]["kernels"])
     # rows at the main path's (shared) layout; the error over both layouts
     grads = {"block_sparse_fwd": ("out",), "block_sparse_bwd_dq": ("dq",),
              "block_sparse_bwd_dkdv": ("dk", "dv")}
@@ -2580,7 +2840,8 @@ def main():
         "plain_ms": measured[name]["plain_ms"],
         "bound_ms": measured[name]["bound_ms"],
         "bound_by": measured[name]["bound_by"],
-        "library_ms": measured[name]["library_ms"]}
+        "library_ms": measured[name]["library_ms"],
+        **({"moments": "bf16"} if name in OPTIMIZER_NAMES else {})}
         for name, source, replaces, _ in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,15 @@ Two entry points, as in the JAX package:
   per-step CUDA kernels in ``ops/ring_gemm``);
 * :func:`init_inference` serves GPT-2 from a slot or paged KV cache, with
   paged-attention decode in a CUDA kernel (``ops/paged_attention``).
+
+Around them, the JAX package's single-device training surface: bf16
+optimizer moments (``optimizer.params.moments_dtype``) in the Adam and
+LAMB kernels, SGD, the ``scheduler`` section and the four LR schedules
+(``runtime/lr_schedules.py``), ``initialize(optimizer=, lr_scheduler=,
+training_data=, model_parameters=)``, ``FP16_Optimizer``
+(``runtime/fp16/fused_optimizer.py``), :func:`add_config_arguments`, and
+twins of the repo's two examples (``examples/cifar_train.py``,
+``examples/gpt2_pretrain.py``).
 """
 from .version import __version__
 
@@ -104,3 +113,25 @@ def init_inference(model=None, config=None, mp_size=1, mesh=None,
         __version__), ranks=[0])
     return InferenceEngine(model, config=config, dtype=dtype, seed=seed,
                            device=device)
+
+
+def _add_core_arguments(parser):
+    """Add DeepSpeed args group (reference __init__.py:148)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user code, no "
+                            "impact on DeepSpeed backend)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI; discover the job launch info from "
+                            "the MPI environment.")
+    return parser
+
+
+def add_config_arguments(parser):
+    """Update an argument parser to enable the runtime: ``--deepspeed``,
+    ``--deepspeed_config``, ``--deepspeed_mpi`` (the JAX package's
+    ``add_config_arguments``; reference __init__.py:199)."""
+    parser = _add_core_arguments(parser)
+    return parser

@@ -10,9 +10,20 @@ import numpy as np
 import torch
 
 
+def _tensor_of(array):
+    """A numpy array -> a CPU tensor of its dtype. A bf16 array (the JAX
+    package's ``ml_dtypes.bfloat16``, which numpy does not know) becomes a
+    bf16 tensor bit for bit, through its 16-bit patterns."""
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(array)
+
+
 def params_from_jax(tree):
     """A JAX param tree (nested dicts and lists of numpy arrays) -> a
-    ``state_dict`` (dotted names -> CPU tensors, the same dtypes)."""
+    ``state_dict`` (dotted names -> CPU tensors, the same dtypes; bf16
+    leaves too)."""
     state = {}
 
     def walk(prefix, node):
@@ -23,7 +34,7 @@ def params_from_jax(tree):
             for i, child in enumerate(node):
                 walk(prefix + (str(i),), child)
         else:
-            state[".".join(prefix)] = torch.from_numpy(np.array(node))
+            state[".".join(prefix)] = _tensor_of(np.array(node))
 
     walk((), tree)
     return state
@@ -32,14 +43,16 @@ def params_from_jax(tree):
 def params_to_jax(state_dict):
     """A ``state_dict`` (dotted names) -> the tree of numpy arrays as
     nested dicts (the inverse of :func:`params_from_jax` for a tree
-    without lists)."""
+    without lists). numpy has no bf16: a bf16 tensor comes out as fp32
+    holding the same values, which cast back to bf16 bit for bit."""
     tree = {}
     for name, t in state_dict.items():
         node = tree
         *path, leaf = name.split(".")
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return tree
 
 

@@ -7,7 +7,8 @@
 // array per leaf; the engine's flat master buffer makes this one launch per
 // optimizer step.
 //
-//   p, m, v   (n,) fp32, updated in place
+//   p         (n,) fp32, updated in place
+//   m, v      (n,) fp32 or bf16 (the moment storage), updated in place
 //   g         (n,) fp32, read
 //   scalars   lr, beta1, beta2, eps, weight_decay, bc1 = 1 - beta1^step and
 //             bc2 = 1 - beta2^step, all fp32 (the caller computes bc1/bc2 in
@@ -22,14 +23,25 @@
 // line of DeepSpeed's CUDA Adam; the plain version rounds it once too
 // (fma_f32).
 //
-// Bound on the H100: bytes. Each element reads 4 fp32 and writes 3 (28 bytes)
-// for about 20 operations, far below the card's ~20 fp32 operations per byte.
-// What the design does about it: one pass over the buffers, 16-byte loads
-// and stores where all four pointers allow them (a scalar pass otherwise, and
-// for the tail past a multiple of 4), a grid-stride loop sized to the card.
+// bf16 moments (the JAX package's moments_dtype="bf16", adam_update's XLA
+// leaf): m and v are read as bf16, widened to fp32 (exact), updated in fp32,
+// and rounded back to bf16 to nearest even (__float2bfloat16_rn, as
+// .astype(bfloat16) and PyTorch's cast round). The parameter update uses the
+// fp32 m' and v' before that rounding, as the reference leaf does.
+//
+// Bound on the H100: bytes. Each element reads 4 fp32 and writes 3 (28 bytes;
+// 20 with bf16 moments) for about 20 operations, far below the card's ~20
+// fp32 operations per byte.
+// What the design does about it: one pass over the buffers, four elements a
+// thread a round (16-byte loads and stores of p and g, 16 or 8 of m and v)
+// where all four pointers allow them (a scalar pass otherwise, and for the
+// tail past a multiple of 4), a grid-stride loop sized to the card; one
+// template over the moment type, so bf16 storage is the same pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "moments.cuh"
 
 namespace {
 
@@ -52,9 +64,11 @@ __device__ __forceinline__ void adam_one(float& p, float g, float& m, float& v,
   p = __fsub_rn(p, __fmul_rn(s.lr, update));
 }
 
+// MT: the moments' storage type (float or __nv_bfloat16).
+template <typename MT>
 __global__ void __launch_bounds__(kThreads)
     fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
-                      float* __restrict__ m, float* __restrict__ v, int64_t n,
+                      MT* __restrict__ m, MT* __restrict__ v, int64_t n,
                       int vectorized, AdamScalars s) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -64,39 +78,48 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t n4 = n / 4;
     float4* p4 = reinterpret_cast<float4*>(p);
     const float4* g4 = reinterpret_cast<const float4*>(g);
-    float4* m4 = reinterpret_cast<float4*>(m);
-    float4* v4 = reinterpret_cast<float4*>(v);
     for (int64_t i = first; i < n4; i += stride) {
-      float4 pp = p4[i], mm = m4[i], vv = v4[i];
+      float4 pp = p4[i], mm = load4(m, 4 * i), vv = load4(v, 4 * i);
       const float4 gg = g4[i];
       adam_one(pp.x, gg.x, mm.x, vv.x, s);
       adam_one(pp.y, gg.y, mm.y, vv.y, s);
       adam_one(pp.z, gg.z, mm.z, vv.z, s);
       adam_one(pp.w, gg.w, mm.w, vv.w, s);
       p4[i] = pp;
-      m4[i] = mm;
-      v4[i] = vv;
+      store4(m, 4 * i, mm);
+      store4(v, 4 * i, vv);
     }
     done = n4 * 4;
   }
   for (int64_t i = done + first; i < n; i += stride) {
-    float pp = p[i], mm = m[i], vv = v[i];
+    float pp = p[i], mm = widen(m[i]), vv = widen(v[i]);
     adam_one(pp, g[i], mm, vv, s);
     p[i] = pp;
-    m[i] = mm;
-    v[i] = vv;
+    narrow(mm, m + i);
+    narrow(vv, v + i);
   }
+}
+
+template <typename MT>
+void launch(void* p, const void* g, void* m, void* v, int64_t n,
+            int vectorized, const AdamScalars& s, unsigned blocks,
+            cudaStream_t stream) {
+  fused_adam_kernel<MT><<<blocks, kThreads, 0, stream>>>(
+      static_cast<float*>(p), static_cast<const float*>(g),
+      static_cast<MT*>(m), static_cast<MT*>(v), n, vectorized, s);
 }
 
 }  // namespace
 
-// vectorized: 1 when all four pointers are 16-byte aligned. Returns a
+// vectorized: 1 when p and g are 16-byte aligned and m and v 4-element
+// aligned; moments_bf16: 1 when m and v are bf16, 0 when fp32. Returns a
 // cudaError_t; the kernel runs on `stream` without a sync.
 extern "C" int fused_adam_launch(void* p, const void* g, void* m, void* v,
-                                 int64_t n, int vectorized, float lr,
-                                 float beta1, float beta2, float eps,
-                                 float weight_decay, float bc1, float bc2,
-                                 int adam_w_mode, int num_sms, void* stream) {
+                                 int64_t n, int vectorized, int moments_bf16,
+                                 float lr, float beta1, float beta2,
+                                 float eps, float weight_decay, float bc1,
+                                 float bc2, int adam_w_mode, int num_sms,
+                                 void* stream) {
   if (n <= 0 || num_sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const AdamScalars s{lr, beta1, beta2, eps, weight_decay, bc1, bc2,
                       adam_w_mode};
@@ -104,10 +127,13 @@ extern "C" int fused_adam_launch(void* p, const void* g, void* m, void* v,
   int64_t blocks = (work + kThreads - 1) / kThreads;
   const int64_t cap = static_cast<int64_t>(num_sms) * 8;  // 8 blocks per SM
   if (blocks > cap) blocks = cap;
-  fused_adam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v), n, vectorized, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (moments_bf16)
+    launch<__nv_bfloat16>(p, g, m, v, n, vectorized, s,
+                          static_cast<unsigned>(blocks), st);
+  else
+    launch<float>(p, g, m, v, n, vectorized, s, static_cast<unsigned>(blocks),
+                  st);
   return static_cast<int>(cudaGetLastError());
 }
 

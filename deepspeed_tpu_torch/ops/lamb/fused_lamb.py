@@ -12,13 +12,19 @@ once: a :class:`LambPlan` cuts each segment of it (one ``(offset, numel)``
 per parameter, ``FlatPartition.segments``) into chunks of
 :data:`CHUNK` elements, one CUDA block each.
 
-* :func:`fused_lamb` (stage 1) updates ``m`` and ``v`` in place and returns
-  the per-segment trust ratios and each segment's ``(|p|^2, |u|^2)``: on
-  CUDA tensors it launches
+* :func:`fused_lamb` (stage 1) returns the per-segment trust ratios and
+  each segment's ``(|p|^2, |u|^2)``, and updates fp32 ``m`` and ``v`` in
+  place: on CUDA tensors it launches
   ``csrc/fused_lamb.cu``'s ``lamb_stage1_kernel`` (one launch for the whole
   partition) and adds one to ``fused_lamb.launches``;
   :func:`fused_lamb_apply` applies ``p -= (lr * ratio) * u`` with its own
   kernel and count. On CPU tensors each runs its plain version.
+* bf16 moments (``moments_dtype``, as the JAX package's ``lamb_init``): u
+  must come from the fp32 m' and v', as ``lamb_update``'s XLA leaf takes
+  it, not from their bf16 roundings. So stage 1 leaves bf16 ``m`` and
+  ``v`` untouched, and the apply takes ``g`` (and ``beta1``, ``beta2``),
+  makes m' and v' again from the old moments with the same operations,
+  updates ``p`` and stores m' and v' rounded to bf16 (nearest even).
 * :func:`fused_lamb_reference` / :func:`fused_lamb_apply_reference` are the
   plain PyTorch versions: the kernels' operations in the kernels' order,
   each rounding once in fp32, and the kernels' summation order for the
@@ -45,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_build
-from ..adam.fused_adam import bias_corrections, f32, _tree_map
+from ..adam.fused_adam import (aligned, bias_corrections, check_buffers,
+                               f32, moments_dtype_of, _tree_map)
 from ...utils.distributed import all_reduce_
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_lamb.cu"
@@ -70,10 +77,10 @@ def _library():
     ptr, i64, i32, flt = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_float)
     lib.fused_lamb_launch.argtypes = [ptr] * 5 + [i64, ptr, i64] + \
-        [ptr] * 4 + [i32] + [flt] * 8 + [i32, ptr]
+        [ptr] * 4 + [i32] * 2 + [flt] * 8 + [i32, ptr]
     lib.fused_lamb_launch.restype = i32
-    lib.fused_lamb_apply_launch.argtypes = [ptr] * 4 + [i64, ptr, i32] + \
-        [flt] * 5 + [i32, ptr]
+    lib.fused_lamb_apply_launch.argtypes = [ptr] * 5 + [i64, ptr] + \
+        [i32] * 2 + [flt] * 7 + [i32, ptr]
     lib.fused_lamb_apply_launch.restype = i32
     lib.fused_lamb_error_string.argtypes = [i32]
     lib.fused_lamb_error_string.restype = ctypes.c_char_p
@@ -94,6 +101,10 @@ class LambPlan:
     def __init__(self, segments, device):
         seg = torch.as_tensor(segments, dtype=torch.int64).cpu().numpy()
         seg = seg.reshape(-1, 2)
+        ends = seg[:, 0] + seg[:, 1]
+        if (seg < 0).any() or (seg[1:, 0] < ends[:-1]).any():
+            raise ValueError("LambPlan: segments must be (offset, numel) "
+                             "pairs in buffer order that do not overlap")
         self.device = torch.device(device)
         self.offsets, self.numels = seg[:, 0].copy(), seg[:, 1].copy()
         per = -(-self.numels // CHUNK)
@@ -126,16 +137,8 @@ class LambPlan:
         return int((self.offsets + self.numels).max()) if self.n_seg else 0
 
 
-def _check(p, plan, *others):
-    for name, t in (("p", p),) + others:
-        if t.dtype != torch.float32 or t.device != p.device or \
-                t.numel() != p.numel() or not t.is_contiguous():
-            raise ValueError(
-                "fused_lamb: {} must be a contiguous fp32 tensor of {} "
-                "elements on {}; got {} {} on {}".format(
-                    name, p.numel(), p.device, t.numel(), t.dtype, t.device))
-    if p.device.type not in ("cpu", "cuda"):
-        raise ValueError("fused_lamb: unsupported device {}".format(p.device))
+def _check(p, plan, fp32, moments):
+    check_buffers("fused_lamb", p, [("p", p)] + fp32, moments)
     if plan.device != p.device:
         raise ValueError("fused_lamb: the plan lives on {}, the buffers on {}"
                          .format(plan.device, p.device))
@@ -156,17 +159,18 @@ def _raise_if(err, lib, name):
 
 
 def _vectorized(plan, *tensors):
-    return int(plan.aligned and all(t.data_ptr() % 16 == 0 for t in tensors))
+    return int(plan.aligned) & aligned(tensors)
 
 
 def fused_lamb(p, g, m, v, plan, *, beta1, beta2, eps, weight_decay, bc1,
                bc2, max_coeff=10.0, min_coeff=0.01, eps_inside_sqrt=False):
-    """LAMB stage 1 over the segments of flat fp32 ``p``, ``g``, ``m``,
-    ``v``: ``m`` and ``v`` updated in place; returns the (n_seg,) fp32
-    trust ratios and the (n_seg, 2) fp32 sums ``(|p|^2, |u|^2)`` they were
-    taken from (zeros for a segment of no element). On CUDA the kernel
-    runs on the current stream, without a synchronise."""
-    _check(p, plan, ("g", g), ("m", m), ("v", v))
+    """LAMB stage 1 over the segments of flat fp32 ``p``, ``g`` and fp32 or
+    bf16 ``m``, ``v``: fp32 moments updated in place (bf16 ones untouched:
+    the apply stores them); returns the (n_seg,) fp32 trust ratios and the
+    (n_seg, 2) fp32 sums ``(|p|^2, |u|^2)`` they were taken from (zeros for
+    a segment of no element). On CUDA the kernel runs on the current
+    stream, without a synchronise."""
+    _check(p, plan, [("g", g)], [("m", m), ("v", v)])
     sc = _scalars(beta1=beta1, beta2=beta2, eps=eps,
                   weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                   max_coeff=max_coeff, min_coeff=min_coeff)
@@ -183,7 +187,7 @@ def fused_lamb(p, g, m, v, plan, *, beta1, beta2, eps, weight_decay, bc1,
         plan.chunks.data_ptr(), plan.n_chunks, plan.seg_first.data_ptr(),
         plan.n_seg, plan.partials.data_ptr(), plan.tickets.data_ptr(),
         ratio.data_ptr(), sums.data_ptr(), _vectorized(plan, p, g, m, v),
-        sc["beta1"],
+        int(m.dtype == torch.bfloat16), sc["beta1"],
         sc["beta2"], sc["eps"], sc["weight_decay"], sc["bc1"], sc["bc2"],
         sc["max_coeff"], sc["min_coeff"], int(bool(eps_inside_sqrt)),
         torch.cuda.current_stream(p.device).cuda_stream)
@@ -196,28 +200,38 @@ fused_lamb.launches = 0
 
 
 def fused_lamb_apply(p, m, v, ratio, plan, *, lr, eps, weight_decay, bc1,
-                     bc2, eps_inside_sqrt=False):
-    """``p -= (lr * ratio[segment]) * u`` in place over every segment, u
-    recomputed from ``p``, the updated ``m`` and ``v``."""
-    _check(p, plan, ("m", m), ("v", v))
+                     bc2, eps_inside_sqrt=False, g=None, beta1=None,
+                     beta2=None):
+    """``p -= (lr * ratio[segment]) * u`` in place over every segment. fp32
+    moments: u from ``p`` and stage 1's ``m``, ``v``. bf16 moments: ``g``,
+    ``beta1`` and ``beta2`` are required; m' and v' are made from the old
+    ``m``, ``v`` and ``g`` as stage 1 made them, u from those, and m', v'
+    stored (rounded to bf16)."""
+    recompute = m.dtype == torch.bfloat16
+    if recompute and (g is None or beta1 is None or beta2 is None):
+        raise ValueError("fused_lamb_apply: bf16 moments need g, beta1 and "
+                         "beta2 (the apply makes m' and v')")
+    _check(p, plan, [("g", g)] if recompute else [], [("m", m), ("v", v)])
     if ratio.shape != (plan.n_seg,) or ratio.dtype != torch.float32 or \
             ratio.device != p.device:
         raise ValueError("fused_lamb_apply: ratio must be fp32 ({},) on {}"
                          .format(plan.n_seg, p.device))
     sc = _scalars(lr=lr, eps=eps, weight_decay=weight_decay, bc1=bc1,
-                  bc2=bc2)
+                  bc2=bc2, beta1=beta1 or 0.0, beta2=beta2 or 0.0)
     if p.device.type == "cpu":
         return fused_lamb_apply_reference(p, m, v, ratio, plan,
                                           eps_inside_sqrt=eps_inside_sqrt,
-                                          **sc)
+                                          g=g, **sc)
     if plan.n_chunks == 0:
         return p
     ratio = ratio.contiguous()
     lib = _library()
+    used = (p, g, m, v) if recompute else (p, m, v)
     err = lib.fused_lamb_apply_launch(
-        p.data_ptr(), m.data_ptr(), v.data_ptr(), plan.chunks.data_ptr(),
-        plan.n_chunks, ratio.data_ptr(),
-        _vectorized(plan, p, m, v), sc["lr"], sc["eps"], sc["weight_decay"],
+        p.data_ptr(), g.data_ptr() if recompute else None, m.data_ptr(),
+        v.data_ptr(), plan.chunks.data_ptr(), plan.n_chunks,
+        ratio.data_ptr(), _vectorized(plan, *used), int(recompute),
+        sc["lr"], sc["beta1"], sc["beta2"], sc["eps"], sc["weight_decay"],
         sc["bc1"], sc["bc2"], int(bool(eps_inside_sqrt)),
         torch.cuda.current_stream(p.device).cuda_stream)
     _raise_if(err, lib, "fused_lamb_apply")
@@ -277,22 +291,30 @@ def _segment_total(parts):
     return _block_tree(acc)
 
 
+def _moments(g, m, v, beta1, beta2):
+    """(m', v') in fp32 from fp32 or bf16 ``m``, ``v`` (widened exactly):
+    the kernels' operations, one fp32 rounding each."""
+    one = np.float32(1.0)
+    return (f32(beta1) * m.float() + f32(one - np.float32(beta1)) * g,
+            f32(beta2) * v.float() + f32(one - np.float32(beta2)) * (g * g))
+
+
 def fused_lamb_reference(p, g, m, v, plan, *, beta1, beta2, eps,
                          weight_decay, bc1, bc2, max_coeff=10.0,
                          min_coeff=0.01, eps_inside_sqrt=False):
-    """The plain PyTorch stage 1, in place on ``m`` and ``v``; returns the
-    trust ratios and the per-segment sums, as :func:`fused_lamb`. Any
-    device."""
-    one = np.float32(1.0)
-    m.copy_(f32(beta1) * m + f32(one - np.float32(beta1)) * g)
-    v.copy_(f32(beta2) * v + f32(one - np.float32(beta2)) * (g * g))
+    """The plain PyTorch stage 1: fp32 ``m`` and ``v`` updated in place
+    (bf16 ones untouched); returns the trust ratios and the per-segment
+    sums, as :func:`fused_lamb`. Any device."""
+    m_new, v_new = _moments(g, m, v, beta1, beta2)
+    if m.dtype == torch.float32:
+        m_new, v_new = m.copy_(m_new), v.copy_(v_new)
     sums = torch.zeros((plan.n_seg, 2), dtype=torch.float32, device=p.device)
     for i, (off, n) in enumerate(zip(plan.offsets.tolist(),
                                      plan.numels.tolist())):
         if n == 0:
             continue
         sl = slice(off, off + n)
-        u = _direction(p[sl], m[sl], v[sl], eps=eps,
+        u = _direction(p[sl], m_new[sl], v_new[sl], eps=eps,
                        weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                        eps_inside_sqrt=eps_inside_sqrt)
         sums[i, 0] = _segment_total(_chunk_partials(p[sl] * p[sl]))
@@ -328,26 +350,36 @@ def ring_ratios(ratio, sums, plan, group, sharded_from, max_coeff,
 
 def fused_lamb_apply_reference(p, m, v, ratio, plan, *, lr, eps,
                                weight_decay, bc1, bc2,
-                               eps_inside_sqrt=False):
-    """The plain PyTorch apply, in place on ``p``. Any device."""
+                               eps_inside_sqrt=False, g=None, beta1=None,
+                               beta2=None):
+    """The plain PyTorch apply, in place on ``p`` (and on bf16 ``m``, ``v``,
+    made m' and v' from ``g`` as :func:`fused_lamb_apply` does). Any
+    device."""
+    m_new, v_new = m, v
+    if m.dtype == torch.bfloat16:
+        m_new, v_new = _moments(g, m, v, beta1, beta2)
     scale = f32(lr) * ratio
     for i, (off, n) in enumerate(zip(plan.offsets.tolist(),
                                      plan.numels.tolist())):
         sl = slice(off, off + n)
-        u = _direction(p[sl], m[sl], v[sl], eps=eps,
+        u = _direction(p[sl], m_new[sl], v_new[sl], eps=eps,
                        weight_decay=weight_decay, bc1=bc1, bc2=bc2,
                        eps_inside_sqrt=eps_inside_sqrt)
         p[sl] = p[sl] - scale[i] * u
+    if m.dtype == torch.bfloat16:
+        m.copy_(m_new)
+        v.copy_(v_new)
     return p
 
 
 # ------------------------------------------------------------ pytree form
 
 
-def lamb_init(params):
+def lamb_init(params, moments_dtype=torch.float32):
     """``{"step": 0, "exp_avg": zeros, "exp_avg_sq": zeros}`` over a dict
-    (or nested dict/list) of fp32 tensors, the JAX names."""
-    zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)
+    (or nested dict/list) of fp32 tensors, the JAX names; the moments in
+    ``moments_dtype`` (fp32 or bf16)."""
+    zeros = lambda t: torch.zeros_like(t, dtype=moments_dtype)
     return {"step": 0, "exp_avg": _tree_map(zeros, params),
             "exp_avg_sq": _tree_map(zeros, params)}
 
@@ -361,16 +393,17 @@ def _step(p, g, m, v, plan, use_kernel, lr, eps_inside_sqrt, group=None,
     if group is not None:
         ratio = ring_ratios(ratio, sums, plan, group, sharded_from,
                             sc["max_coeff"], sc["min_coeff"])
-    apply(p, m, v, ratio, plan, lr=lr, eps_inside_sqrt=eps_inside_sqrt,
-          **{k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2")})
+    apply(p, m, v, ratio, plan, lr=lr, eps_inside_sqrt=eps_inside_sqrt, g=g,
+          **{k: sc[k] for k in ("eps", "weight_decay", "bc1", "bc2",
+                                "beta1", "beta2")})
     return ratio
 
 
 def lamb_update(grads, state, params, lr, beta1, beta2, eps, weight_decay,
                 bias_correction=True, max_coeff=10.0, min_coeff=0.01,
                 eps_inside_sqrt=False, use_kernel=False):
-    """One LAMB step over a tree of contiguous fp32 tensors, in place, one
-    trust ratio per leaf. Returns ``(params, state)`` with
+    """One LAMB step over a tree of contiguous fp32 tensors (the moments
+    fp32 or bf16), in place, one trust ratio per leaf. Returns ``(params, state)`` with
     ``state["step"]`` advanced. ``use_kernel`` routes each leaf through the
     kernels' wrappers, otherwise the plain versions."""
     step = state["step"] + 1
@@ -393,8 +426,9 @@ class FusedLamb:
     """Optimizer handle with mutable hyperparameters (read at each step),
     as ``deepspeed_tpu.ops.lamb.FusedLamb``. ``use_kernel``: True the
     kernels' wrappers (the kernels on CUDA tensors, their plain versions
-    on CPU tensors), False the plain versions. The moments are fp32, the
-    kernels' storage. ``max_grad_norm`` is kept for the engine, which
+    on CPU tensors), False the plain versions.
+    ``moments_dtype``: the moments' storage, fp32 (default) or bf16, the
+    JAX handle's spellings. ``max_grad_norm`` is kept for the engine, which
     clips before the step."""
 
     name = "lamb"
@@ -407,12 +441,7 @@ class FusedLamb:
         if amsgrad:
             raise RuntimeError(
                 "FusedLamb does not support the AMSGrad variant.")
-        if moments_dtype is not None and str(moments_dtype).lower() not in (
-                "fp32", "float32", "torch.float32"):
-            raise NotImplementedError(
-                "optimizer.params.moments_dtype={!r}: bf16 moment storage "
-                "is not ported yet (the LAMB kernel keeps fp32 moments); it "
-                "comes with the optimizer-state slice".format(moments_dtype))
+        self.moments_dtype = moments_dtype_of(moments_dtype)
         self.lr = lr
         self.bias_correction = bias_correction
         self.betas = tuple(betas)
@@ -424,6 +453,9 @@ class FusedLamb:
         self.min_coeff = min_coeff
         self.use_kernel = use_kernel
         self._plan = None
+
+    def init_state(self, params):
+        return lamb_init(params, self.moments_dtype)
 
     def hyperparams(self):
         return {"lr": float(self.lr), "beta1": float(self.betas[0]),

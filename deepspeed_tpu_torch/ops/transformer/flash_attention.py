@@ -341,9 +341,11 @@ def _packed(t, dtype):
 
 
 def flash_fwd_reference(q, k, v, bias=None, *, num_heads, causal=True,
-                        sm_scale=None, block=BLOCK):
+                        sm_scale=None, block=BLOCK, trace=None):
     """The plain PyTorch forward: the kernel's online softmax over key
-    tiles of ``block``, all rows at once. Any device."""
+    tiles of ``block``, all rows at once. Any device. ``trace``: a list
+    that gets, per key tile, copies of its scores S, probabilities P, the
+    running row sums l and the running P.V (``acc``)."""
     b, s, hd = q.shape
     h, d = num_heads, hd // num_heads
     scale = _scale_of(sm_scale, d)
@@ -368,6 +370,9 @@ def flash_fwd_reference(q, k, v, bias=None, *, num_heads, causal=True,
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p.to(v.dtype).float() @ vb
         m = m_new
+        if trace is not None:
+            trace.append({"S": sc.clone(), "P": p.clone(), "l": l.clone(),
+                          "PV": acc.clone()})
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = _packed(acc / l_safe, q.dtype)
     lse = (m + torch.log(l_safe))[..., 0].permute(0, 2, 1).contiguous()

@@ -10,8 +10,9 @@ data-parallel world: ``torch.distributed``'s when a process group is up,
 else 1, or the caller's.
 
 This slice runs ``bf16`` / ``fp16`` / ``amp`` mixed precision,
-``zero_optimization`` stages 0-2, Adam/AdamW and LAMB (``optimizer.params``
-including ``fused_kernel``), ``gradient_clipping``,
+``zero_optimization`` stages 0-2, Adam/AdamW, LAMB and SGD
+(``optimizer.params`` including ``fused_kernel`` and ``moments_dtype``),
+``scheduler`` (the four LR schedules), ``gradient_clipping``,
 ``progressive_layer_drop`` (the keep-probability schedule),
 ``data_types.grad_accum_dtype``, ``steps_per_print``,
 ``transformer.flash_attention`` and ``sparse_attention`` (parsed per mode
@@ -43,7 +44,6 @@ TRANSFORMER_FLASH_ATTENTION_MODES = ("auto", "pallas", "xla")
 # and switched on raises NotImplementedError; ``{"enabled": false}`` or
 # ``false`` is accepted.
 UNPORTED_SECTIONS = {
-    SCHEDULER: "the LR-schedule slice",
     CHECKPOINT: "the checkpoint slice",
     SPARSE_GRADIENTS: "the multi-GPU ZeRO slice",
     "elasticity": "the elastic-training slice",
@@ -267,6 +267,19 @@ def get_optimizer_params(param_dict):
     return None
 
 
+def get_scheduler_name(param_dict):
+    if SCHEDULER in param_dict and TYPE in param_dict[SCHEDULER]:
+        return param_dict[SCHEDULER][TYPE]
+    return SCHEDULER_TYPE_DEFAULT
+
+
+def get_scheduler_params(param_dict):
+    if get_scheduler_name(param_dict) is not None and \
+            SCHEDULER_PARAMS in param_dict[SCHEDULER]:
+        return param_dict[SCHEDULER][SCHEDULER_PARAMS]
+    return None
+
+
 def _world_size():
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
@@ -377,6 +390,8 @@ class DeepSpeedConfig(object):
                 self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
         self.optimizer_params = get_optimizer_params(param_dict)
+        self.scheduler_name = get_scheduler_name(param_dict)
+        self.scheduler_params = get_scheduler_params(param_dict)
         self.zero_allow_untested_optimizer = g(
             ZERO_ALLOW_UNTESTED_OPTIMIZER,
             ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)

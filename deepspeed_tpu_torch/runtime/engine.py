@@ -43,8 +43,15 @@ it all-reduces the gradients of the parameters every rank holds whole
 over the group, reduces the overflow flag (max) and the global gradient
 norm (each sharded square once, each replicated one once), so every rank
 takes the same decisions and issues the same hops. The JAX-tree methods
-gather or slice the full tree. Client optimizers and LR schedulers,
-checkpoints, telemetry and data-parallel worlds above 1 come with later
+gather or slice the full tree.
+
+The rest of the single-device API, as the JAX engine: a client optimizer
+handle (``optimizer=``: the port's ``FusedAdam``, ``FusedLamb`` or
+``SGD``), an LR schedule (``lr_scheduler=``, or the ds_config
+``scheduler`` section, ``runtime/lr_schedules.py``) stepped after every
+apply step that was not skipped, ``training_data=`` through
+:meth:`deepspeed_io`, and ``model_parameters=`` as initial weights.
+Checkpoints, telemetry and data-parallel worlds above 1 come with later
 slices and raise ``NotImplementedError``.
 """
 import inspect
@@ -57,16 +64,21 @@ import torch.distributed as dist
 from ..inference.engine import resolve_device
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
+from ..ops.sgd import SGD
 from ..ops.transformer.attention import resolve_flash_backend
 from ..parallel.collective_matmul import CollectiveMatmulBinding
 from ..parallel.topology import DATA_AXIS, MODEL_AXIS, build_mesh
 from ..utils.distributed import all_gather, all_reduce_
 from ..utils.logging import log_dist, logger
+from ..utils.timer import ThroughputTimer
 from . import utils as rt_utils
 from .comm.config import warn_or_raise_noop
 from .config import DeepSpeedConfig
-from .constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER, MAX_GRAD_NORM
+from .constants import (ADAM_OPTIMIZER, LAMB_OPTIMIZER, MAX_GRAD_NORM,
+                        ROUTE_TRAIN)
+from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
+from .lr_schedules import SCHEDULE_CLASSES
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero.partition import FlatPartition
 
@@ -83,17 +95,8 @@ class DeepSpeedEngine:
                  lr_scheduler=None, mpu=None, dist_init_required=None,
                  collate_fn=None, config_params=None, device=None,
                  mesh=None):
-        for name, value, later in (
-                ("optimizer", optimizer, "a client optimizer"),
-                ("lr_scheduler", lr_scheduler, "the LR-schedule slice"),
-                ("training_data", training_data, "the data-loader slice"),
-                ("model_parameters", model_parameters,
-                 "a later slice (the module's own parameters are used)")):
-            if value is not None:
-                raise NotImplementedError(
-                    "initialize({}=...) is not ported yet: it comes with "
-                    "{}".format(name, later))
         assert model is not None, "deepspeed.initialize requires a model"
+        self.collate_fn = collate_fn
         self.device = resolve_device(device)
         self.global_steps = 0
         self.global_samples = 0
@@ -114,14 +117,23 @@ class DeepSpeedEngine:
                 "several GPUs comes with the multi-GPU ZeRO slice "
                 "(torch.distributed)".format(self.dp_world_size))
         self.module = model
+        self._load_model_parameters(model_parameters)
         self.flash_attention_backend = None
         self.fused_optimizer_kernel = None
         self._configure_precision()
         self._apply_transformer_overrides()
         self._configure_comm()
-        self._configure_optimizer()
+        self._configure_optimizer(optimizer)
+        self._configure_lr_scheduler(lr_scheduler)
         self._configure_pld()
         self._init_state()
+        self.training_dataloader = self.deepspeed_io(training_data) \
+            if training_data is not None else None
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu(),
+            num_workers=self.dp_world_size,
+            steps_per_output=self.steps_per_print(), monitor_memory=False,
+            device=self.device)
         self._generator = torch.Generator().manual_seed(
             int(os.environ.get("DEEPSPEED_SEED", 42)))
         self._forward_kwargs = set(inspect.signature(
@@ -258,12 +270,64 @@ class DeepSpeedEngine:
             logger.warning("transformer.flash_attention has NO effect: the "
                            "model exposes no flash_attention_backend field")
 
-    def _configure_optimizer(self):
+    def _load_model_parameters(self, model_parameters):
+        """``initialize(model_parameters=...)``, as ``as_model`` reads it
+        where an ``nn.Module`` allows: a tree of initial weights (the
+        model's JAX-shaped tree, or a ``state_dict`` of its parameter
+        names) loaded into the module; or the module's own parameters
+        (``model.parameters()``, DeepSpeed's usual argument), which changes
+        nothing. Anything else (a subset of them: frozen parameters; torch
+        param groups) has no counterpart and raises."""
+        if model_parameters is None:
+            return
+        named = dict(self.module.named_parameters())
+        if isinstance(model_parameters, dict):
+            state = model_parameters if set(model_parameters) == set(named) \
+                else self._tree_converters()["params_from_jax"](
+                    model_parameters)
+            missing = sorted(set(named) - set(state))
+            if missing:
+                raise ValueError("model_parameters has no weights for {}"
+                                 .format(", ".join(missing[:5])))
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(torch.as_tensor(np.asarray(state[name]))
+                            .reshape(p.shape))
+            return
+        if {id(p) for p in model_parameters} != \
+                {id(p) for p in named.values()}:
+            raise NotImplementedError(
+                "model_parameters must be all of the module's parameters "
+                "(or a tree of weights): training a subset (frozen "
+                "parameters) or param groups is not ported; the JAX "
+                "package's engine steps the whole tree with one set of "
+                "hyperparameters too")
+
+    def _configure_optimizer(self, client_optimizer=None):
+        if client_optimizer is not None:
+            if isinstance(client_optimizer, torch.optim.Optimizer) or \
+                    not (hasattr(client_optimizer, "step_flat") and
+                         hasattr(client_optimizer, "hyperparams")):
+                raise TypeError(
+                    "optimizer={}: the engine takes a port optimizer handle "
+                    "(deepspeed_tpu_torch.ops: FusedAdam, FusedLamb or SGD, "
+                    "as the JAX engine takes its own handles); a "
+                    "torch.optim.Optimizer has no counterpart in the JAX "
+                    "package".format(type(client_optimizer).__name__))
+            if self.zero_optimization() and \
+                    not getattr(client_optimizer, "supports_zero", True):
+                raise ValueError(
+                    "{} is not compatible with ZeRO (zero_optimization."
+                    "stage >= 1)".format(type(client_optimizer).__name__))
+            self.optimizer = client_optimizer
+            log_dist("Using client optimizer {}".format(
+                type(client_optimizer).__name__), ranks=[0])
+            return
         name = (self._config.optimizer_name or ADAM_OPTIMIZER).lower()
-        if name not in (ADAM_OPTIMIZER, "adamw", LAMB_OPTIMIZER):
+        if name not in (ADAM_OPTIMIZER, "adamw", LAMB_OPTIMIZER, "sgd"):
             raise NotImplementedError(
                 "optimizer {!r} is not ported yet: this slice runs Adam, "
-                "AdamW and LAMB (OneBitAdam comes with the "
+                "AdamW, LAMB and SGD (OneBitAdam comes with the "
                 "compressed-communication slice)".format(name))
         params = dict(self._config.optimizer_params or {})
         max_grad_norm = params.pop(MAX_GRAD_NORM, None)
@@ -282,12 +346,41 @@ class DeepSpeedEngine:
         use_kernel = self.fused_optimizer_kernel == "pallas"
         if name == LAMB_OPTIMIZER:
             self.optimizer = FusedLamb(use_kernel=use_kernel, **params)
+        elif name == "sgd":
+            if fused_kernel is not None:
+                logger.warning("optimizer.params.fused_kernel has NO "
+                               "effect: SGD has no kernel")
+            self.fused_optimizer_kernel = None
+            self.optimizer = SGD(**params)
         else:
             if name == "adamw":
                 params.setdefault("adam_w_mode", True)
             self.optimizer = FusedAdam(use_kernel=use_kernel, **params)
         log_dist("Using DeepSpeed optimizer: {} (apply: {})".format(
             name, self.fused_optimizer_kernel), ranks=[0])
+
+    def _configure_lr_scheduler(self, client_lr_scheduler):
+        """A client schedule (anything with ``step()``), else the ds_config
+        ``scheduler`` section's, over the optimizer handle, else None."""
+        if client_lr_scheduler is not None:
+            if not callable(getattr(client_lr_scheduler, "step", None)):
+                raise TypeError(
+                    "lr_scheduler={}: a schedule needs a step() method "
+                    "(runtime/lr_schedules.py's schedules have one)".format(
+                        type(client_lr_scheduler).__name__))
+            self.lr_scheduler = client_lr_scheduler
+            return
+        name = self._config.scheduler_name
+        if name is None:
+            self.lr_scheduler = None
+            return
+        cls = SCHEDULE_CLASSES.get(name)
+        if cls is None:
+            raise ValueError("Unknown lr schedule: {}".format(name))
+        self.lr_scheduler = cls(self.optimizer,
+                                **(self._config.scheduler_params or {}))
+        log_dist("DeepSpeed using configured LR scheduler = {}".format(name),
+                 ranks=[0])
 
     def _configure_pld(self):
         if self._config.pld_enabled:
@@ -309,10 +402,12 @@ class DeepSpeedEngine:
             spec = self._module_fn("partition_spec_fn")
             replicated = [name for name, p in self.module.named_parameters()
                           if spec(name, tuple(p.shape)) is None]
-        self.flat = FlatPartition(self.module, self.device,
-                                  self.compute_dtype,
-                                  world_size=self.dp_world_size,
-                                  accum_dtype=accum, replicated=replicated)
+        self.flat = FlatPartition(
+            self.module, self.device, self.compute_dtype,
+            world_size=self.dp_world_size, accum_dtype=accum,
+            replicated=replicated,
+            moments_dtype=getattr(self.optimizer, "moments_dtype",
+                                  torch.float32))
         self.scaler = ls.loss_scaler_from_config(self._config)
 
     # ------------------------------------------------------------ training
@@ -367,9 +462,10 @@ class DeepSpeedEngine:
             self.gradient_accumulation_steps() == 0
 
     def step(self, lr_kwargs=None):
-        """The optimizer step at gradient-accumulation boundaries."""
+        """The optimizer step at gradient-accumulation boundaries;
+        ``lr_kwargs`` go to the LR schedule's ``step``."""
         if self.is_gradient_accumulation_boundary():
-            self._take_model_step()
+            self._take_model_step(lr_kwargs)
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu() * \
             self.dp_world_size
@@ -419,13 +515,15 @@ class DeepSpeedEngine:
         self.scaler = ls.update_scale(self.scaler, overflow)
         return metrics
 
-    def _take_model_step(self):
+    def _take_model_step(self, lr_kwargs=None):
         metrics = self._apply_step()
         self._step_metrics = metrics
         if metrics["overflow"]:
             self.skipped_steps += 1
             log_dist("OVERFLOW! Skipping step. Attempted loss scale: "
                      "{}".format(metrics["loss_scale"]), ranks=[0])
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step(**(lr_kwargs or {}))
         if self.progressive_layer_drop:
             self.progressive_layer_drop.update_state(self.global_steps)
         self.global_steps += 1
@@ -495,7 +593,29 @@ class DeepSpeedEngine:
         return self._config.gradient_clipping
 
     def get_lr(self):
-        return [float(self.optimizer.lr)]
+        return [float(getattr(self.optimizer, "lr", 0.0))]
+
+    def get_mom(self):
+        betas = getattr(self.optimizer, "betas", None)
+        return [betas] if betas is not None else None
+
+    # ---------------------------------------------------------------- data
+
+    def deepspeed_io(self, dataset, batch_size=None, route=ROUTE_TRAIN,
+                     data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """A :class:`DeepSpeedDataLoader` over ``dataset`` (anything with
+        ``__len__`` and ``__getitem__``), as the JAX engine's: batches of
+        the micro batch times this process's share of the data axis (here
+        one replica, rank 0), shuffled for the train route."""
+        if batch_size is None:
+            batch_size = self.train_micro_batch_size_per_gpu() * \
+                self.dp_world_size
+        return DeepSpeedDataLoader(
+            dataset, batch_size=batch_size,
+            collate_fn=collate_fn or self.collate_fn,
+            data_parallel_world_size=1, data_parallel_rank=0,
+            shuffle=(route == ROUTE_TRAIN))
 
     def loss_scale(self):
         return float(self.scaler.cur_scale)
@@ -554,9 +674,11 @@ class DeepSpeedEngine:
         return to_jax(self._full_tree(self.flat.master))
 
     def get_optimizer_state(self):
-        """``{"step", "exp_avg", "exp_avg_sq"}`` as JAX-shaped trees (Adam's
-        and LAMB's state have the same shape); full trees, as
-        :meth:`get_master_params`."""
+        """``{"step", "exp_avg", "exp_avg_sq"}`` as JAX-shaped trees (Adam's,
+        LAMB's and SGD's state have the same shape); full trees, as
+        :meth:`get_master_params`. bf16 moments come out as fp32 arrays of
+        the same values (numpy has no bf16), which cast back to bf16 bit
+        for bit."""
         to_jax = self._tree_converters()["optimizer_state_to_jax"]
         return to_jax({
             "step": self.flat.step,
@@ -566,7 +688,8 @@ class DeepSpeedEngine:
     def load_state_from_jax(self, master=None, optimizer_state=None):
         """Start from a JAX engine's state: an fp32 master tree and/or an
         optimizer state ``{"step", "exp_avg", "exp_avg_sq"}`` (numpy
-        trees)."""
+        trees; bf16 moments, as the JAX engine's ``moments_dtype="bf16"``
+        holds them, load bit for bit)."""
         conv = self._tree_converters()
         if master is not None:
             self.flat.load(self.flat.master,

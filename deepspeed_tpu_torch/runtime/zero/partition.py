@@ -5,10 +5,12 @@ re-expressed for PyTorch. The JAX package shards each leaf of the train
 state over the mesh's ``data`` axis (stage 1: master + optimizer state;
 stage 2: + gradients). Here the state is a few flat buffers:
 
-* one fp32 master buffer, the fp32 gradient accumulator and the fp32
-  optimizer moments (``exp_avg`` / ``exp_avg_sq``, Adam's or LAMB's):
-  the optimizer works on each whole, with one kernel launch (Adam) or
-  one per pass (LAMB's stage 1 and apply);
+* one fp32 master buffer, the gradient accumulator (fp32, or bf16 with
+  ``data_types.grad_accum_dtype``) and the optimizer moments
+  (``exp_avg`` / ``exp_avg_sq``, Adam's, LAMB's or SGD's; fp32, or bf16
+  with ``optimizer.params.moments_dtype``, as the JAX package's
+  ``adam_init`` stores them): the optimizer works on each whole, with one
+  kernel launch (Adam) or one per pass (LAMB's stage 1 and apply);
 * the compute-dtype parameters: one flat buffer of which every
   ``nn.Parameter`` of the module is a view (at fp32 compute it is the
   master buffer itself);
@@ -43,7 +45,8 @@ class FlatPartition:
     """The flat buffers of one module's parameters and their views."""
 
     def __init__(self, module, device, compute_dtype, world_size=1,
-                 accum_dtype=torch.float32, replicated=()):
+                 accum_dtype=torch.float32, replicated=(),
+                 moments_dtype=torch.float32):
         if world_size != 1:
             raise NotImplementedError(
                 "ZeRO over {} ranks is not ported yet: partitions across "
@@ -79,8 +82,8 @@ class FlatPartition:
             else self.master
         self.grads = torch.zeros(total, dtype=compute_dtype, device=device)
         self.acc = torch.zeros(total, dtype=accum_dtype, device=device)
-        self.exp_avg = torch.zeros(total, dtype=torch.float32, device=device)
-        self.exp_avg_sq = torch.zeros(total, dtype=torch.float32,
+        self.exp_avg = torch.zeros(total, dtype=moments_dtype, device=device)
+        self.exp_avg_sq = torch.zeros(total, dtype=moments_dtype,
                                       device=device)
         self.step = 0
         for p, off, shape in zip(params, self.offsets, self.shapes):
@@ -115,7 +118,8 @@ class FlatPartition:
 
     def tree_of(self, flat):
         """A flat buffer -> ``{dotted name: fp32 CPU tensor}`` (the
-        ``state_dict`` naming of the module)."""
+        ``state_dict`` naming of the module; a bf16 buffer's values are
+        exact in fp32)."""
         host = flat.detach().float().cpu()
         out = {}
         for name, off, shape in zip(self.names, self.offsets, self.shapes):
@@ -124,7 +128,8 @@ class FlatPartition:
         return out
 
     def load(self, flat, state):
-        """``{dotted name: tensor}`` -> into a flat buffer."""
+        """``{dotted name: tensor}`` -> into a flat buffer (cast to its
+        dtype: values a bf16 buffer can hold load bit for bit)."""
         for name, off, shape in zip(self.names, self.offsets, self.shapes):
             n = int(np.prod(shape)) if shape else 1
             flat[off:off + n].copy_(

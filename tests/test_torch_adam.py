@@ -209,5 +209,6 @@ def test_fused_adam_handle_steps_flat_buffers_like_the_tree_update():
                                   weight_decay=0.05)
     assert torch.equal(flat[0], tree["p"])
     assert torch.equal(flat[2], state["exp_avg_sq"]["p"])
-    with pytest.raises(NotImplementedError, match="moments_dtype"):
-        FusedAdam(moments_dtype="bf16")
+    assert FusedAdam(moments_dtype="bf16").moments_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="moments_dtype"):
+        FusedAdam(moments_dtype="fp16")

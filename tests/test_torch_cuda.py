@@ -23,14 +23,15 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   caller-given views; repeated runs bit-identical; refusals;
   the (b, s, h, d) op with a key-padding mask against its CPU run.
 * Adam: the kernel against its plain version bit for bit, over odd
-  lengths and misaligned starts, AdamW and L2.
+  lengths and misaligned starts, AdamW and L2, fp32 and bf16 moments.
 * training: a tiny fp32 GPT-2 through ``initialize(...).train_batch``, 3
   steps with the kernels ("pallas") and with the plain versions ("xla"),
   losses within 1e-5 relative, with one launch of each flash kernel per
   layer per step and one Adam launch per step.
 * LAMB (stage-1 and apply kernels): against the plain versions over
-  aligned and misaligned segment tables, m, v and the trust ratios bit for
-  bit, p within one ulp, repeated runs bit-identical; refusals.
+  aligned and misaligned segment tables, fp32 and bf16 moments, m, v and
+  the trust ratios bit for bit, p within one ulp, repeated runs
+  bit-identical; refusals.
 * the 3D flash API ((b * h, s, d), any s) against its CPU run; the fp32
   key-mask op repeated over 8 seeds with each error printed.
 * BERT: a tiny fp32 BERT with a padded mask trained with LAMB through the
@@ -630,6 +631,43 @@ def test_fused_adam_kernel_matches_plain_version(cuda, n, offset, adam_w):
         assert torch.equal(got, want), float((got - want).abs().max())
 
 
+@pytest.mark.parametrize("n,offset,adam_w", [
+    (1, 0, True), (4099, 0, False), (4099, 2, True), (1 << 20, 0, True),
+    ((1 << 20) + 7, 1, False)])
+def test_fused_adam_bf16_moments_kernel_matches_plain_version(cuda, n,
+                                                              offset,
+                                                              adam_w):
+    """bf16 moments (fp32 math, stored rounded to nearest even), three
+    steps over odd lengths and misaligned starts: p, m and v equal to the
+    plain version bit for bit."""
+    from deepspeed_tpu_torch.ops.adam import (bias_corrections, fused_adam,
+                                              fused_adam_reference)
+    rng = np.random.RandomState(n + 1)
+    host = [rng.randn(n + offset).astype(np.float32),
+            rng.randn(n + offset).astype(np.float32) * 1e-2,
+            np.abs(rng.randn(n + offset)).astype(np.float32) * 1e-4]
+    sides = []
+    for _ in range(2):
+        p = torch.from_numpy(host[0].copy()).to(cuda)[offset:]
+        m, v = (torch.from_numpy(a).to(cuda).bfloat16()[offset:]
+                for a in host[1:])
+        sides.append([p, m, v])
+    before = fused_adam.launches
+    for step in (1, 2, 3):
+        g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+        bc1, bc2 = bias_corrections(0.9, 0.999, step)
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                  weight_decay=0.01, bc1=bc1, bc2=bc2, adam_w_mode=adam_w)
+        fused_adam(sides[0][0], g, *sides[0][1:], **kw)
+        fused_adam_reference(sides[1][0], g, *sides[1][1:], **kw)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 3
+    assert sides[0][1].dtype == torch.bfloat16
+    for got, want in zip(*sides):
+        assert torch.equal(got, want), float((got.float() -
+                                              want.float()).abs().max())
+
+
 # --------------------------------------------------------------- training
 
 
@@ -977,8 +1015,8 @@ def _ulp_steps(got, want):
 LAMB_SEGMENTS = {
     # a BERT-like table: aligned starts, tiny and multi-chunk segments,
     # an all-zero segment (the trust ratio's 1.0 branch), an empty one
-    "aligned": [(0, 2), (64, 100_000), (100_032, 17), (100_096, 8192),
-                (108_288, 0), (108_288, 30_000)],
+    "aligned": [(0, 2), (64, 100_000), (100_096, 17), (100_160, 8192),
+                (108_352, 0), (108_352, 30_000)],
     # starts that are no multiple of 4: the scalar path
     "misaligned": [(1, 5000), (5003, 9000), (14_007, 1)],
 }
@@ -1003,7 +1041,7 @@ def test_fused_lamb_kernels_match_plain_versions(cuda, table,
     for off, n in segments:
         covered[off:off + n] = True
     if table == "aligned":
-        covered[100_032:100_049] = False       # the all-zero segment
+        covered[100_096:100_113] = False       # the all-zero segment
     p0 = (rng.randn(total) * covered).astype(np.float32)
     plan = LambPlan(segments, cuda)
     sides = [[torch.tensor(p0, device=cuda), torch.zeros(total, device=cuda),
@@ -1037,6 +1075,59 @@ def test_fused_lamb_kernels_match_plain_versions(cuda, table,
         assert _ulp_steps(sides[0][0], sides[2][0]) <= 1
     if table == "aligned":
         assert float(ratios[0][2]) == 1.0          # the all-zero segment
+    assert torch.isfinite(sides[0][0]).all()
+
+
+@pytest.mark.parametrize("table", ["aligned", "misaligned"])
+def test_fused_lamb_bf16_moments_kernels_match_plain_versions(cuda, table):
+    """bf16 moments, three steps: stage 1 leaves m and v untouched, the
+    apply makes m' and v' from g and stores them; m, v, the trust ratios
+    and the sums bit-equal to the plain versions, p within one fp32 ulp,
+    two kernel runs bit-identical."""
+    from deepspeed_tpu_torch.ops.adam import bias_corrections
+    from deepspeed_tpu_torch.ops.lamb import (
+        LambPlan, fused_lamb, fused_lamb_apply, fused_lamb_apply_reference,
+        fused_lamb_reference)
+    segments = LAMB_SEGMENTS[table]
+    total = max(o + n for o, n in segments) + 64
+    rng = np.random.RandomState(len(segments) + 7)
+    covered = np.zeros(total, bool)
+    for off, n in segments:
+        covered[off:off + n] = True
+    p0 = (rng.randn(total) * covered).astype(np.float32)
+    plan = LambPlan(segments, cuda)
+    sides = [[torch.tensor(p0, device=cuda),
+              torch.zeros(total, device=cuda, dtype=torch.bfloat16),
+              torch.zeros(total, device=cuda, dtype=torch.bfloat16)]
+             for _ in range(3)]
+    for step in (1, 2, 3):
+        g = torch.from_numpy((rng.randn(total) * covered).astype(
+            np.float32)).to(cuda)
+        bc1, bc2 = bias_corrections(0.9, 0.999, step)
+        sc = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                  bc1=bc1, bc2=bc2)
+        kw = dict(sc, g=g, lr=2e-3)
+        ratios, sums = [], []
+        for i, (p, m, v) in enumerate(sides):
+            m0 = m.clone()
+            if i < 2:
+                r, sq = fused_lamb(p, g, m, v, plan, **sc)
+                assert torch.equal(m, m0)          # stage 1: untouched
+                fused_lamb_apply(p, m, v, r, plan, **kw)
+            else:
+                r, sq = fused_lamb_reference(p, g, m, v, plan, **sc)
+                fused_lamb_apply_reference(p, m, v, r, plan, **kw)
+            ratios.append(r)
+            sums.append(sq)
+        torch.cuda.synchronize()
+        for t0, t1 in zip(sides[0], sides[1]):
+            assert torch.equal(t0, t1)             # deterministic
+        assert torch.equal(ratios[0], ratios[2]), (ratios[0], ratios[2])
+        assert torch.equal(sums[0], sums[2])
+        assert torch.equal(sides[0][1], sides[2][1])
+        assert torch.equal(sides[0][2], sides[2][2])
+        assert _ulp_steps(sides[0][0], sides[2][0]) <= 1
+    assert sides[0][1].dtype == torch.bfloat16
     assert torch.isfinite(sides[0][0]).all()
 
 

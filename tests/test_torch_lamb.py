@@ -231,8 +231,9 @@ def test_wrappers_run_their_plain_versions_on_cpu_tensors():
 
 
 def test_fused_lamb_handle_options():
-    with pytest.raises(NotImplementedError, match="moments_dtype"):
-        FusedLamb(moments_dtype="bf16")
+    assert FusedLamb(moments_dtype="BF16").moments_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="moments_dtype"):
+        FusedLamb(moments_dtype="fp16")
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLamb(amsgrad=True)
     opt = FusedLamb(lr=5e-3, betas=(0.8, 0.99), max_grad_norm=1.0,

@@ -23,7 +23,8 @@
   fp32 master weights; and a 3-step fp32 trajectory with the
   ``sparse_attention`` section on;
 * rules: ``initialize`` needs CUDA unless asked for the CPU, a world size
-  above 1 and unported arguments raise ``NotImplementedError``, the
+  above 1 raises ``NotImplementedError`` and client arguments the engine
+  cannot take raise, the
   parameters and gradients stay views of the flat buffers, and the tied
   embedding's gradient sums both uses.
 
@@ -267,8 +268,6 @@ def test_bad_configs_raise_alike(name):
 
 
 UNPORTED = {
-    "scheduler": {"scheduler": {"type": "WarmupLR",
-                                "params": {"warmup_num_steps": 10}}},
     "zero_stage_3": {"zero_optimization": {"stage": 3}},
     "cpu_offload": {"zero_optimization": {"stage": 2, "cpu_offload": True}},
     "zeropp_qwz": {"zero_optimization": {"stage": 2,
@@ -662,8 +661,16 @@ def test_world_size_above_one_and_unported_arguments_raise(monkeypatch):
         deepspeed_tpu_torch.initialize(
             model=model, config_params=_ds("bf16", 2, 1, 2), device="cpu")
     monkeypatch.undo()
-    for kw in ({"optimizer": object()}, {"lr_scheduler": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # what the client arguments cannot take: a torch optimizer (no JAX
+    # counterpart), a schedule without step(), a subset of the parameters
+    for kw, match in (
+            ({"optimizer": torch.optim.SGD(model.parameters(), lr=0.1)},
+             "port optimizer handle"),
+            ({"optimizer": object()}, "port optimizer handle"),
+            ({"lr_scheduler": object()}, "step"),
+            ({"model_parameters": list(model.parameters())[:1]},
+             "frozen parameters")):
+        with pytest.raises((TypeError, NotImplementedError), match=match):
             deepspeed_tpu_torch.initialize(
                 model=model, config_params=_ds("bf16", 2, 1, 2),
                 device="cpu", **kw)

@@ -85,7 +85,8 @@ def _train_config(spec):
     conf = {"train_micro_batch_size_per_gpu": spec["micro"],
             "gradient_accumulation_steps": 1,
             "optimizer": {"type": spec.get("optimizer", "Adam"),
-                          "params": {"lr": 1e-3}},
+                          "params": dict({"lr": 1e-3},
+                                         **spec.get("opt_params", {}))},
             "steps_per_print": 10 ** 9}
     if spec["backend"] is not None:
         conf["comm"] = {"collective_matmul": {"enabled": True,
