@@ -108,6 +108,22 @@ with no ``ok`` line):
 18. train_tp_lamb — LAMB at TP 2 (ring and LAMB kernels, rank 0's half of
    every fc kernel scaled x20) against the TP 1 engine, fp32, 2 layers:
    losses and fc masters;
+19. train_dp — the data-parallel main path: two spawned ranks sharing
+   this card (gloo, every collective through host memory), each
+   ``initialize(mesh=build_mesh(data=2), ...)`` on the GPT-2 example's
+   ``examples/gpt2/ds_config_zero2.json`` (ZeRO-2, WarmupDecayLR,
+   clipping) at gpt2_medium, seq 1024, micro 8 a rank, each its rows of
+   one global batch; counts set to 0 just before the timed steps and read
+   just after, per rank (Adam once a step over numel / 2); a profile
+   step (the ZeRO collectives' host time); the state a rank holds at
+   stages 0, 1 and 2;
+20. train_dp_parity — DP 2 at gpt2_medium width with 4 layers against DP
+   1 and against the plain versions, fp32 and bf16 (stages 0, 1 and 2 bit
+   for bit), and LAMB with one rank's part of a leaf scaled x20 (stage 2
+   against stage 0 and DP 1): losses and masters;
+21. train_dp_tp_parity — four ranks on ``build_mesh(data=2, model=2)``
+   (ring, flash and Adam kernels), 2 layers, fp32 and bf16 ZeRO-2,
+   against DP 1 x TP 1;
 
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
@@ -115,7 +131,8 @@ variant the main paths run) and, last, ``{"ok": true, "device":
 ``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
-step on both backends.
+step on both backends; ``--dp-nccl`` (four cards) runs train_dp at DP 4
+and at DP 2 x TP 2 with one rank per card.
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
 without a result when CUDA is unavailable.
 """
@@ -2312,7 +2329,8 @@ def tp_profile(engine, batch):
         rgm.ring_rotate_start, ring.RingHop.wait = start, wait
 
 
-TP_LAYERS, TP_WARMUP, TP_STEPS = 24, 2, 10
+# 5 timed steps (10 until the data-parallel phases came; the script's time)
+TP_LAYERS, TP_WARMUP, TP_STEPS = 24, 2, 5
 
 
 def phase_train_tp(world=TP, layers=TP_LAYERS, steps=TP_STEPS,
@@ -2499,6 +2517,530 @@ def phase_train_tp_lamb(steps=2, loss_tol=1e-5, master_atol=5e-5,
             "tolerance": {"loss_rel": loss_tol, "master_atol": master_atol}}
 
 
+# ------------------------------------------ data parallelism, ZeRO-1/2 (slice 11)
+
+
+DP, DP_MICRO, DP_WARMUP, DP_STEPS = 2, 8, 2, 4
+DP_SPANS = ("zero.reduce_scatter", "zero.all_gather", "zero.all_reduce")
+
+
+def _dp_counters():
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    return [fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq, fused_adam,
+            fused_lamb, fused_lamb_apply, rg.ring_ag_gemm,
+            rg.ring_rs_gemm_add, rg.ring_gc_gemm_acc]
+
+
+def dp_rows(batch, rank, micro):
+    """Data coordinate ``rank``'s rows of a global batch ``(gas, rows,
+    ...)``."""
+    return tuple(np.ascontiguousarray(x[:, rank * micro:(rank + 1) * micro])
+                 for x in batch)
+
+
+def dp_train_rank(rank, world, spec):
+    """One rank of the data-parallel main path: the GPT-2 example's config
+    (``examples/gpt2/ds_config_zero2.json``: bf16, ZeRO-2, Adam betas (0.9,
+    0.95), weight decay 0.1, clipping 1.0, WarmupDecayLR) at gpt2_medium,
+    seq 1024, micro 8 a rank, over ``build_mesh(data=spec["data"],
+    model=spec["tp"])`` (TP through ``comm.collective_matmul``); this data
+    coordinate's rows of one global batch; counts reset just before the
+    timed steps; then a profile step, and the state a rank holds at each
+    stage (engines built on the same model without stepping)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    with open(EXAMPLE_CONFIG) as f:
+        conf = json.load(f)
+    conf["steps_per_print"] = 10 ** 9
+    conf["transformer"] = {"flash_attention": "auto"}
+    tp = spec.get("tp", 1)
+    if tp > 1:
+        conf["comm"] = {"collective_matmul": {"enabled": True,
+                                              "backend": "pallas"}}
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT,
+                          n_layers=spec["layers"])
+    mesh = build_mesh(data=spec["data"], model=tp)
+    t0 = time.perf_counter()
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine = deepspeed_tpu_torch.initialize(model=model, mesh=mesh,
+                                            config_params=conf)[0]
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda" and engine.dp_world_size == \
+        spec["data"] and engine.zero_optimization_stage() == 2
+    assert engine.flash_attention_backend == "pallas"
+    assert engine.fused_optimizer_kernel == "pallas"
+    micro = engine.train_micro_batch_size_per_gpu()
+    assert micro == DP_MICRO, micro
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(
+        1, micro * spec["data"], TRAIN_SEQ)).astype(np.int64)
+    batch = dp_rows((ids, ids.copy()), engine.dp_rank, micro)
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(spec["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _dp_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [engine.train_batch(batch=batch)
+                   for _ in range(spec["steps"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [float(x) for x in step_losses]
+    flat = engine.flat
+    out = {"rank": rank, "dp_rank": engine.dp_rank, "losses": losses,
+           "step_ms": wall * 1e3 / spec["steps"], "init_s": init_s,
+           "launches": launches, "peak_memory_gb": peak_gb,
+           "transport": torch.distributed.get_backend(),
+           "device": str(engine.device), "views": flat.check_views(),
+           "numel": flat.numel, "adam_numel": flat.master.numel(),
+           "lr": engine.get_lr()[0]}
+    groups = ("ReduceScatter", "AllGather", "AllReduce", "flash_", "ring_",
+              "Memcpy")
+    out["train_profile"] = train_profile(engine, batch, steps=1,
+                                         span_names=DP_SPANS,
+                                         kernel_groups=groups)
+    state = {2: flat.state_bytes()}
+    del engine, flat
+    torch.cuda.empty_cache()
+    for stage in (1, 0) if spec.get("stage_bytes") else ():
+        other = dict(conf, zero_optimization={"stage": stage})
+        eng = deepspeed_tpu_torch.initialize(model=model, mesh=mesh,
+                                             config_params=other)[0]
+        state[stage] = eng.flat.state_bytes()
+        del eng
+        torch.cuda.empty_cache()
+    out["state_bytes"] = state
+    return out
+
+
+def phase_train_dp(world=DP, layers=24, tp=1, steps=DP_STEPS):
+    """The data-parallel main path: ``world`` spawned ranks (one card: all
+    on it over gloo, every collective through host memory, so the step
+    time only shows that the path runs; one card each: NCCL). Every rank
+    launches fused_adam once a step over its partition (numel / data) and
+    each flash kernel once a layer a step; the ranks report the same
+    losses, and the loss falls."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    data = world // tp
+    spec = {"layers": layers, "warmup": DP_WARMUP, "steps": steps,
+            "data": data, "tp": tp, "stage_bytes": tp == 1}
+    ranks = spawn(dp_train_rank, world, args=(spec,), timeout_s=900)
+    per_step = {"flash_fwd": layers, "flash_bwd_dkdv": layers,
+                "flash_bwd_dq": layers, "fused_adam": 1,
+                "fused_lamb": 0, "fused_lamb_apply": 0}
+    if tp > 1:
+        per_step.update((n, 4 * tp * layers) for n in RING_NAMES)
+    for r in ranks:
+        losses = r["losses"]
+        assert all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], losses
+        assert r["views"], r
+        assert r["adam_numel"] * data == r["numel"], r
+        for name, n in per_step.items():
+            assert r["launches"][name] == n * steps, (name, r["launches"])
+        assert r["losses"] == ranks[0]["losses"]
+    if tp == 1:
+        bytes_ = ranks[0]["state_bytes"]
+        assert bytes_[1]["master"] * data == bytes_[0]["master"]
+        assert bytes_[2]["acc"] * data == bytes_[0]["acc"] == \
+            bytes_[1]["acc"]
+    step_ms = max(r["step_ms"] for r in ranks)
+    prof = ranks[0]["train_profile"]
+    return {"phase": "train_dp" if tp == 1 else "train_dp_tp",
+            "config": EXAMPLE_CONFIG, "model": "gpt2_medium",
+            "layers": layers, "seq": TRAIN_SEQ,
+            "micro_batch_per_rank": DP_MICRO, "data": data, "tp": tp,
+            "zero_stage": 2, "transport": ranks[0]["transport"],
+            "devices": [r["device"] for r in ranks], "steps": steps,
+            "step_ms": step_ms,
+            "step_ms_note": "ranks share one card and cross host memory for "
+                            "every collective over gloo: this time only "
+                            "shows that the path runs"
+            if ranks[0]["transport"] == "gloo" else "one rank a card, NCCL",
+            "host_collective_ms_per_step":
+                prof.get("host_ms_per_step_in_spans"),
+            "collective_kernel_ms_per_step":
+                prof.get("kernel_ms_per_step_by_group"),
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+            "state_bytes_rank0_by_stage": ranks[0]["state_bytes"],
+            "launches_per_rank_per_step": per_step,
+            "launches": {name: sum(r["launches"][name] for r in ranks)
+                         for name in per_step},
+            "losses": ranks[0]["losses"], "ranks": ranks}
+
+
+DP_PARITY_LAYERS, DP_PARITY_MICRO, DP_PARITY_STEPS = 4, 2, 3
+
+
+def _dp_parity_conf(prec, stage, backend, optimizer="Adam", lr=1e-4,
+                    tp=1):
+    conf = {"train_micro_batch_size_per_gpu": DP_PARITY_MICRO,
+            "optimizer": {"type": optimizer, "params": {
+                "lr": lr, "fused_kernel": backend}},
+            "transformer": {"flash_attention": backend},
+            "steps_per_print": 10 ** 9}
+    if prec == "bf16":
+        conf["bf16"] = {"enabled": True}
+        conf["zero_optimization"] = {"stage": stage}
+    if tp > 1:
+        conf["comm"] = {"collective_matmul": {"enabled": True,
+                                              "backend": backend}}
+    return conf
+
+
+def _leaf_items(tree, prefix=""):
+    """A JAX-shaped tree -> ``{dotted name: fp32 array}``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree, np.float32)}
+    out = {}
+    for key, child in items:
+        out.update(_leaf_items(child, "{}{}.".format(prefix, key)))
+    return out
+
+
+def _master_diff(got, want, d_model, init):
+    """Largest |got - want| over the master leaves, apart from it over the
+    qkv biases' key part (whose exact gradient is zero, softmax rows
+    summing to one, so rounding noise alone moves it), and the largest
+    over the leaves of how far got's move from ``init`` is from want's,
+    by norm, relative to want's (the key part left out)."""
+    worst, key_bias, moved = 0.0, 0.0, 0.0
+    for name, w in want.items():
+        diff = np.abs(got[name] - w)
+        step = (got[name] - init[name], w - init[name])
+        if name.endswith("qkv_bias"):
+            key = np.s_[d_model:2 * d_model]
+            key_bias = max(key_bias, float(diff[..., key].max()))
+            diff = np.delete(diff, key, axis=-1)
+            step = tuple(np.delete(a, key, axis=-1) for a in step)
+        worst = max(worst, float(diff.max()))
+        norm = float(np.linalg.norm(step[1]))
+        if norm > 0:
+            moved = max(moved, float(np.linalg.norm(step[0] - step[1])) /
+                        norm)
+    return {"max_abs": worst, "key_bias_max_abs": key_bias,
+            "moved_rel": moved}
+
+
+def _straddling_leaf(model, data):
+    """The leaf that straddles rank 1's range at ``data`` ranks and how
+    many of its elements lie in rank 0's range (the engine's layout: each
+    parameter at a multiple of ALIGN, the whole padded to data x ALIGN)."""
+    from deepspeed_tpu_torch.runtime.zero.partition import ALIGN
+    sizes = [(n, p.numel()) for n, p in model.named_parameters()]
+    numel = sum(-(-n // ALIGN) * ALIGN for _, n in sizes)
+    half = -(-numel // (data * ALIGN)) * ALIGN
+    off = 0
+    for name, n in sizes:
+        if off < half < off + n:
+            return name, half - off
+        off += -(-n // ALIGN) * ALIGN
+    raise AssertionError("no leaf straddles rank 1's range")
+
+
+def dp_parity_model(layers, scale=None, data=DP):
+    """gpt2_medium width at ``layers`` layers, seed 1; with ``scale``, rank
+    0's part of the leaf straddling rank 1's range scaled by it."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = gpt2.config_for("gpt2_medium", n_layers=layers,
+                          max_seq_len=TRAIN_SEQ, loss_chunk=128, remat=False)
+    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    if scale:
+        name, count = _straddling_leaf(model, data)
+        with torch.no_grad():
+            dict(model.named_parameters())[name].view(-1)[:count] *= scale
+    return model
+
+
+def dp_parity_rank(rank, world, spec):
+    """Every run of ``spec["runs"]`` (name, prec, stage, backend,
+    optimizer, scaled) at ``build_mesh(data=spec["data"],
+    model=spec["tp"])``, this data coordinate's rows of ``spec["ids"]``,
+    TF32 off; per run the losses, the launches, and the gathered masters'
+    differences from the single-rank references in ``spec["ref_path"]``
+    and from the runs named in ``spec["pairs"]``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs = dict(np.load(spec["ref_path"])) if spec.get("ref_path") else {}
+    counters = _dp_counters()
+    keep, out = {}, {}
+    for name, prec, stage, backend, optimizer, scaled in spec["runs"]:
+        mesh = build_mesh(data=spec["data"], model=spec["tp"])
+        model = dp_parity_model(spec["layers"], scale=scaled,
+                                data=spec["data"])
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, mesh=mesh, config_params=_dp_parity_conf(
+                prec, stage, backend, optimizer, spec["lr"][optimizer],
+                spec["tp"]))[0]
+        batch = dp_rows((spec["ids"], spec["ids"]), engine.dp_rank,
+                        DP_PARITY_MICRO)
+        d_model = model.config.d_model
+        init = _leaf_items(engine.get_master_params())
+        for c in counters:
+            c.launches = 0
+        losses = [float(engine.train_batch(batch=batch))
+                  for _ in range(spec["steps"])]
+        master = _leaf_items(engine.get_master_params())
+        res = {"losses": losses,
+               "launches": {c.__name__: c.launches for c in counters},
+               "adam_numel": engine.flat.master.numel(),
+               "numel": engine.flat.numel}
+        ref = spec["refs"].get(name)
+        if ref:
+            want = {k[len(ref) + 1:]: v for k, v in refs.items()
+                    if k.startswith(ref + "/")}
+            res["vs_" + ref] = _master_diff(master, want, d_model, init)
+        for other in spec["pairs"].get(name, ()):
+            res["vs_" + other] = _master_diff(master, keep[other], d_model,
+                                              init)
+            res["bit_equal_" + other] = all(
+                np.array_equal(master[k], v) for k, v in keep[other].items())
+        if name in spec["keep"]:
+            keep[name] = master
+        out[name] = res
+        del engine, model, master, init
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp1_reference(runs, layers, ids, lr, steps, path):
+    """The single-rank (and single-model-rank) engine on the whole global
+    batch, per run (name, prec, stage, backend, optimizer, scaled): the
+    losses, the launches; the masters saved to ``path`` (npz, keyed
+    ``run/leaf``)."""
+    import torch
+    import deepspeed_tpu_torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _dp_counters()
+    out, arrays = {}, {}
+    for name, prec, stage, backend, optimizer, scaled in runs:
+        model = dp_parity_model(layers, scale=scaled)
+        conf = _dp_parity_conf(prec, stage, backend, optimizer, lr[optimizer])
+        conf["train_micro_batch_size_per_gpu"] = ids.shape[1]
+        engine = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=conf)[0]
+        for c in counters:
+            c.launches = 0
+        losses = [float(engine.train_batch(batch=(ids, ids)))
+                  for _ in range(steps)]
+        out[name] = {"losses": losses,
+                     "launches": {c.__name__: c.launches for c in counters}}
+        arrays.update(("{}/{}".format(name, k), v) for k, v in
+                      _leaf_items(engine.get_master_params()).items())
+        del engine, model
+        torch.cuda.empty_cache()
+    np.savez(path, **arrays)
+    return out
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
+                          scale=20.0):
+    """DP 2 on the card (two gloo ranks) at gpt2_medium width with 4
+    layers, seq 1024, micro 2 a rank, TF32 off: with the kernels against
+    DP 1 with the kernels on the same global batch, and against DP 2 with
+    the plain versions; fp32 (stage 0: ZeRO needs bf16) and bf16 at stages
+    0, 1 and 2 (equal bit for bit: every stage sums in the accumulator's
+    dtype and Adam is elementwise); LAMB at bf16, stages 0 and 2, with
+    rank 0's part of the leaf straddling the two ranges scaled x20, stage
+    2 (trust ratios from the data group's sums) against stage 0 (each
+    rank the whole leaf) and DP 1. Losses within ``loss_tol`` relative;
+    masters (:func:`_check_masters`) within ``master_atol`` absolute at
+    fp32 and between LAMB's stages, and at bf16 across runs that round
+    their gradients differently each leaf's move within ``moved_rtol`` of
+    the reference's."""
+    import os
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, 50304, size=(1, DP_PARITY_MICRO * DP, TRAIN_SEQ)) \
+        .astype(np.int64)
+    lr = {"Adam": 1e-4, "Lamb": 1e-3}
+    runs = [("fp32/pallas/s0", "fp32", 0, "pallas", "Adam", None),
+            ("fp32/xla/s0", "fp32", 0, "xla", "Adam", None),
+            ("bf16/pallas/s0", "bf16", 0, "pallas", "Adam", None),
+            ("bf16/pallas/s1", "bf16", 1, "pallas", "Adam", None),
+            ("bf16/pallas/s2", "bf16", 2, "pallas", "Adam", None),
+            ("bf16/xla/s2", "bf16", 2, "xla", "Adam", None),
+            ("lamb/pallas/s0", "bf16", 0, "pallas", "Lamb", scale),
+            ("lamb/pallas/s2", "bf16", 2, "pallas", "Lamb", scale)]
+    dp1_runs = [("dp1/fp32", "fp32", 0, "pallas", "Adam", None),
+                ("dp1/bf16", "bf16", 2, "pallas", "Adam", None),
+                ("dp1/lamb", "bf16", 2, "pallas", "Lamb", scale)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dp1.npz")
+        dp1 = dp1_reference(dp1_runs, DP_PARITY_LAYERS, ids, lr,
+                            DP_PARITY_STEPS, path)
+        spec = {"runs": runs, "data": DP, "tp": 1, "ids": ids, "lr": lr,
+                "layers": DP_PARITY_LAYERS, "steps": DP_PARITY_STEPS,
+                "ref_path": path,
+                "refs": {"fp32/pallas/s0": "dp1/fp32",
+                         "bf16/pallas/s2": "dp1/bf16",
+                         "lamb/pallas/s2": "dp1/lamb"},
+                "pairs": {"fp32/xla/s0": ("fp32/pallas/s0",),
+                          "bf16/pallas/s1": ("bf16/pallas/s0",),
+                          "bf16/pallas/s2": ("bf16/pallas/s0",),
+                          "bf16/xla/s2": ("bf16/pallas/s2",),
+                          "lamb/pallas/s2": ("lamb/pallas/s0",)},
+                "keep": ("fp32/pallas/s0", "bf16/pallas/s0",
+                         "bf16/pallas/s2", "lamb/pallas/s0")}
+        ranks = spawn(dp_parity_rank, DP, args=(spec,), timeout_s=900)
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    for r in ranks:
+        for name in r0:
+            assert r[name]["losses"] == r0[name]["losses"], name
+    losses = {name: r0[name]["losses"] for name in r0}
+    losses.update((name, d["losses"]) for name, d in dp1.items())
+    rel = {"fp32: dp2 vs dp1": _rel(losses["fp32/pallas/s0"],
+                                    losses["dp1/fp32"]),
+           "fp32: kernels vs plain": _rel(losses["fp32/pallas/s0"],
+                                          losses["fp32/xla/s0"]),
+           "bf16: dp2 vs dp1": _rel(losses["bf16/pallas/s2"],
+                                    losses["dp1/bf16"]),
+           "bf16: kernels vs plain": _rel(losses["bf16/pallas/s2"],
+                                          losses["bf16/xla/s2"]),
+           "lamb: stage 2 vs stage 0": _rel(losses["lamb/pallas/s2"],
+                                            losses["lamb/pallas/s0"]),
+           "lamb: dp2 vs dp1": _rel(losses["lamb/pallas/s2"],
+                                    losses["dp1/lamb"])}
+    masters = {"fp32: dp2 vs dp1": r0["fp32/pallas/s0"]["vs_dp1/fp32"],
+               "fp32: kernels vs plain":
+                   r0["fp32/xla/s0"]["vs_fp32/pallas/s0"],
+               "bf16: dp2 vs dp1": r0["bf16/pallas/s2"]["vs_dp1/bf16"],
+               "bf16: kernels vs plain":
+                   r0["bf16/xla/s2"]["vs_bf16/pallas/s2"],
+               "lamb: stage 2 vs stage 0":
+                   r0["lamb/pallas/s2"]["vs_lamb/pallas/s0"],
+               "lamb: dp2 vs dp1": r0["lamb/pallas/s2"]["vs_dp1/lamb"]}
+    stages_equal = {s: r0["bf16/pallas/" + s]["bit_equal_bf16/pallas/s0"]
+                    and losses["bf16/pallas/" + s] == losses["bf16/pallas/s0"]
+                    for s in ("s1", "s2")}
+    result = {"phase": "train_dp_parity", "layers": DP_PARITY_LAYERS,
+              "d_model": 1024, "seq": TRAIN_SEQ,
+              "micro_batch_per_rank": DP_PARITY_MICRO, "data": DP,
+              "steps": DP_PARITY_STEPS, "lr": lr, "lamb_scale": scale,
+              "losses": losses, "loss_max_rel_diff": rel,
+              "master_max_abs_diff": masters,
+              "bf16_stages_bit_equal_to_stage_0": stages_equal,
+              "launches_rank0": {n: r0[n]["launches"] for n in r0},
+              "tolerance": {"loss_rel": loss_tol,
+                            "master_atol": master_atol,
+                            "moved_rel": moved_rtol}}
+    steps = DP_PARITY_STEPS
+    for r in ranks:
+        for name, res in r.items():
+            live = "/pallas/" in name
+            counts = res["launches"]
+            opt = "fused_lamb" if name.startswith("lamb") else "fused_adam"
+            assert (counts["flash_fwd"] == DP_PARITY_LAYERS * steps) == \
+                live, (name, counts)
+            assert (counts[opt] == steps) == live, (name, counts)
+            if name.endswith("s2") or name.endswith("s1"):
+                assert res["adam_numel"] * DP == res["numel"], (name, res)
+    for name, d in dp1.items():
+        assert d["launches"]["flash_fwd"] == DP_PARITY_LAYERS * steps, d
+    assert all(stages_equal.values()), result
+    assert max(rel.values()) <= loss_tol, result
+    _check_masters(masters, master_atol, moved_rtol, result)
+    return result
+
+
+def _check_masters(masters, atol, moved_rtol, result):
+    """Pairs that round alike (fp32; LAMB's stages at bf16) within ``atol``
+    everywhere; bf16 pairs that round their gradients differently by how
+    far each leaf moved (within ``moved_rtol`` of the reference's move),
+    since an Adam or LAMB step moves an element whose gradient is rounding
+    noise by up to lr either way."""
+    for pair, m in masters.items():
+        if pair.startswith("fp32") or "stage 2 vs stage 0" in pair:
+            assert max(m["max_abs"], m["key_bias_max_abs"]) <= atol, \
+                (pair, result)
+        else:
+            assert m["moved_rel"] <= moved_rtol, (pair, result)
+
+
+def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
+                             moved_rtol=0.25):
+    """DP 2 x TP 2 on the card: four gloo ranks over ``build_mesh(data=2,
+    model=2)`` (the ring kernels for the TP matmuls, flash, Adam), fp32
+    stage 0 and bf16 stage 2, at gpt2_medium width with ``layers`` layers,
+    TF32 off, against DP 1 x TP 1 on the same global batch: losses within
+    ``loss_tol`` relative, masters as :func:`_check_masters` holds them.
+    Depth 2 keeps the phase inside the script's time limit."""
+    import os
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 50304, size=(1, DP_PARITY_MICRO * DP, TRAIN_SEQ)) \
+        .astype(np.int64)
+    lr = {"Adam": 1e-4}
+    runs = [("fp32", "fp32", 0, "pallas", "Adam", None),
+            ("bf16", "bf16", 2, "pallas", "Adam", None)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dp1.npz")
+        dp1 = dp1_reference([("dp1/" + r[0],) + r[1:] for r in runs],
+                            layers, ids, lr, DP_PARITY_STEPS, path)
+        spec = {"runs": runs, "data": 2, "tp": 2, "ids": ids, "lr": lr,
+                "layers": layers, "steps": DP_PARITY_STEPS,
+                "ref_path": path,
+                "refs": {"fp32": "dp1/fp32", "bf16": "dp1/bf16"},
+                "pairs": {}, "keep": ()}
+        ranks = spawn(dp_parity_rank, 4, args=(spec,), timeout_s=900)
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    rel = {name: _rel(r0[name]["losses"], dp1["dp1/" + name]["losses"])
+           for name in r0}
+    masters = {name: r0[name]["vs_dp1/" + name] for name in r0}
+    result = {"phase": "train_dp_tp_parity", "layers": layers,
+              "d_model": 1024, "seq": TRAIN_SEQ, "data": 2, "tp": 2,
+              "micro_batch_per_rank": DP_PARITY_MICRO,
+              "steps": DP_PARITY_STEPS,
+              "losses": {"dp2_tp2": {n: r0[n]["losses"] for n in r0},
+                         "dp1_tp1": {n: d["losses"]
+                                     for n, d in dp1.items()}},
+              "loss_max_rel_diff": rel, "master_max_abs_diff": masters,
+              "launches_rank0": {n: r0[n]["launches"] for n in r0},
+              "tolerance": {"loss_rel": loss_tol,
+                            "master_atol": master_atol,
+                            "moved_rel": moved_rtol}}
+    for r in ranks:
+        for name in r0:
+            assert r[name]["losses"] == r0[name]["losses"], name
+            counts = r[name]["launches"]
+            assert all(counts[n] == 4 * 2 * layers * DP_PARITY_STEPS
+                       for n in RING_NAMES), (name, counts)
+            assert counts["flash_fwd"] == layers * DP_PARITY_STEPS, counts
+            assert counts["fused_adam"] == DP_PARITY_STEPS, counts
+    assert max(rel.values()) <= loss_tol, result
+    _check_masters(masters, master_atol, moved_rtol, result)
+    return result
+
+
 def nccl_rank(rank, world, spec):
     """One rank of the multi-card run: each site's ring op (kernels, and
     the plain ring) against the unfused reference (all_gather_into_tensor
@@ -2628,6 +3170,20 @@ def main_tp_nccl():
                         "layers": TP_LAYERS, "dtype": "bf16"}})
 
 
+def main_dp_nccl():
+    """``--dp-nccl``: the data-parallel main path with one rank per card
+    over NCCL (needs 4 cards): DP 4, and DP 2 x TP 2; the step and the
+    reduce-scatter and all-gather kernels' device time a step."""
+    import torch
+    count = torch.cuda.device_count()
+    assert count >= 4, "--dp-nccl needs 4 cards, found {}".format(count)
+    for tp in (1, 2):
+        res = phase_train_dp(world=4, tp=tp)
+        assert res["transport"] == "nccl", res["transport"]
+        res["phase"] = "dp_nccl"
+        emit(res)
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, the path that launches it
     ("paged_attention",
@@ -2720,8 +3276,11 @@ def main():
                        "ptxas": [line.strip() for line in r.log.splitlines()
                                  if "registers" in line or "spill" in line]}
                       for src, r in zip(sources, records)]})
-    if "--tp-nccl" in sys.argv[1:]:
-        main_tp_nccl()
+    if "--tp-nccl" in sys.argv[1:] or "--dp-nccl" in sys.argv[1:]:
+        if "--tp-nccl" in sys.argv[1:]:
+            main_tp_nccl()
+        if "--dp-nccl" in sys.argv[1:]:
+            main_dp_nccl()
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -2800,6 +3359,12 @@ def main():
     emit(train_tp)
     emit(phase_train_tp_parity())
     emit(phase_train_tp_lamb())
+
+    # the data-parallel path: two ranks on this card (gloo), each with its
+    # own counts, reset just before its timed steps
+    emit(phase_train_dp())
+    emit(phase_train_dp_parity())
+    emit(phase_train_dp_tp_parity())
 
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}

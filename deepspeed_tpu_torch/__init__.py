@@ -10,9 +10,10 @@ Two entry points, as in the JAX package:
 
 * :func:`initialize` trains a model (GPT-2 through its
   ``forward(input_ids, labels)`` loss, BERT through its MLM + NSP
-  pretraining loss, ``models.bert``) with ZeRO stages 0-2 at world size
-  1, bf16/fp16 mixed precision over fp32 master weights and Adam/AdamW or
-  LAMB; flash attention (``ops/transformer/flash_attention.py``, BERT's
+  pretraining loss, ``models.bert``) with ZeRO stages 0-2, on one device
+  or data-parallel over ``torch.distributed`` (the flat state partitioned
+  over the mesh's ``data`` axis), bf16/fp16 mixed precision over fp32
+  master weights and Adam/AdamW or LAMB; flash attention (``ops/transformer/flash_attention.py``, BERT's
   non-causal with the key-padding mask as a key bias), the Adam apply
   (``ops/adam``) and LAMB (``ops/lamb``) run in CUDA kernels, and with the
   ds_config ``sparse_attention`` section (``GPT2Config(sparse_attention=
@@ -65,6 +66,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``mesh=parallel.topology.build_mesh(model=n)``, with the ds_config's
     ``comm.collective_matmul`` on, trains each rank's shard of ``model``
     (built whole on every rank from one seed) through the ring GEMMs.
+
+    Data parallelism: inside a process group, the ``data`` axis of the
+    mesh (``build_mesh(data=n)``, every rank by default, or ``data=d``
+    beside ``model=m``) is the ZeRO data group: each rank passes its own
+    micro batch's rows to ``train_batch`` and keeps its range of the
+    master, moments (stage 1) and gradient accumulator (stage 2).
     """
     from .runtime.engine import DeepSpeedEngine
 

@@ -58,13 +58,18 @@ def main(argv=None):
         args=args, model=model, config_params=args.deepspeed_config,
         device=args.device)
 
-    mb = engine.train_micro_batch_size_per_gpu() * engine.dp_world_size
+    micro = engine.train_micro_batch_size_per_gpu()
+    mb = micro * engine.dp_world_size
     gas = engine.gradient_accumulation_steps()
     rs = np.random.RandomState(0)
+    # the JAX example's global batch; over a data group each rank trains
+    # on its rows of it
+    rows = slice(engine.dp_rank * micro, (engine.dp_rank + 1) * micro)
 
     def next_batch(_):
-        return rs.randint(0, model.config.vocab_size,
-                          size=(gas, mb, args.seq_len)).astype(np.int32)
+        ids = rs.randint(0, model.config.vocab_size,
+                         size=(gas, mb, args.seq_len)).astype(np.int32)
+        return np.ascontiguousarray(ids[:, rows])
 
     losses, lrs, seconds = [], [], []
     for step in range(args.steps):

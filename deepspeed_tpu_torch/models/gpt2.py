@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.paged_attention import paged_attention, paged_attention_reference
 from ..ops.sparse_attention import SparseSelfAttention
 from ..ops.sparse_attention.sparsity_config import sparsity_config_from_dict
+from ..ops.sparse_grads import sparse_embedding_lookup
 from ..ops.transformer.attention import causal_attention
 from ..ops.transformer.flash_attention import fused_ln_qkv_attention
 from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
@@ -87,6 +88,13 @@ class GPT2Config:
     # this rank's rows of the sequence, and the four TP sites run the ring
     # ops; None keeps the plain matmuls.
     collective_matmul: object = None
+    # Sparse embedding-gradient exchange (ds_config "sparse_gradients",
+    # ops/sparse_grads.py): the lookup's backward all-gathers (ids, rows)
+    # over the ``data`` axis of ``embedding_grad_mesh`` (the engine's
+    # ProcessMesh) and densifies them; no mesh or a trivial axis keeps the
+    # plain lookup.
+    sparse_embedding_grads: bool = False
+    embedding_grad_mesh: object = None
 
     @property
     def d_head(self):
@@ -844,8 +852,10 @@ def _forward_hidden_train(params, input_ids, config, generator, train):
     compute_dtype = params.ln_f.scale.dtype
     wte = params.wte if binding is None else gather_rows(params.wte,
                                                          binding.group)
-    x = wte[input_ids[:, rows]].to(compute_dtype) + \
-        params.wpe[rows].to(compute_dtype)
+    ids = input_ids[:, rows]
+    tok = sparse_embedding_lookup(wte, ids, mesh=config.embedding_grad_mesh) \
+        if config.sparse_embedding_grads else wte[ids]
+    x = tok.to(compute_dtype) + params.wpe[rows].to(compute_dtype)
     block_fn = make_block_fn(config, train, x.device)
     for bp, seed in zip(params.blocks, _layer_seeds(config, generator,
                                                     train)):

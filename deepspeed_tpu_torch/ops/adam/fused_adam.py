@@ -273,12 +273,15 @@ class FusedAdam:
                 "weight_decay": float(self.weight_decay)}
 
     def step_flat(self, p, g, m, v, step, segments=None, group=None,
-                  sharded_from=0):
+                  sharded_from=0, dp_group=None):
         """One step over the flat fp32 master ``p`` and gradient ``g`` and
         the moments ``m``, ``v`` (``moments_dtype``) at optimizer step
-        ``step`` (the count after this update). Adam is elementwise: the segment table
-        (``FlatPartition.segments``) and the tensor-parallel layout
-        (``group``, ``sharded_from``) do not matter to it."""
+        ``step`` (the count after this update): a whole buffer, or one
+        rank's contiguous range of it (views at any offset of the
+        kernel's alignment). Adam is elementwise: the segment table
+        (``FlatPartition.segments``), the tensor-parallel layout
+        (``group``, ``sharded_from``) and the data group (``dp_group``) do
+        not matter to it."""
         h = {k: f32(val) for k, val in self.hyperparams().items()}
         bc1, bc2 = bias_corrections(h["beta1"], h["beta2"], step,
                                     self.bias_correction)

@@ -37,6 +37,11 @@ per parameter, ``FlatPartition.segments``) into chunks of
   rank holds a shard of some parameters: the step all-reduces those
   segments' sums over the ring and takes their ratios from the whole
   leaf's norms (:func:`ring_ratios`), as the reference's GSPMD psum does.
+  Over a data group with the state partitioned (ZeRO stages 1-2) a rank
+  steps its range of the buffer, with every segment clipped to it: the
+  step all-reduces every segment's sums over the data group first, in
+  one collective (:func:`dp_ratios`), then the sharded ones over the
+  ring.
 
 The norms sum up to 10^8 squares in another order than the JAX package (per
 leaf padded to (rows, 128), or XLA's reduce), so the trust ratio may differ
@@ -348,6 +353,16 @@ def ring_ratios(ratio, sums, plan, group, sharded_from, max_coeff,
                             trust_ratios(whole, max_coeff, min_coeff))
 
 
+def dp_ratios(sums, group, max_coeff, min_coeff):
+    """The trust ratios of a data-parallel rank's step over its range of
+    the buffer: every segment's sums ``(|p|^2, |u|^2)`` all-reduced over
+    ``group`` (one collective; a segment the rank holds none of adds
+    zeros), the ratios taken from the whole segments' norms. Returns the
+    ratios and the reduced sums."""
+    sums = all_reduce_(sums, group)
+    return trust_ratios(sums, max_coeff, min_coeff), sums
+
+
 def fused_lamb_apply_reference(p, m, v, ratio, plan, *, lr, eps,
                                weight_decay, bc1, bc2,
                                eps_inside_sqrt=False, g=None, beta1=None,
@@ -385,11 +400,16 @@ def lamb_init(params, moments_dtype=torch.float32):
 
 
 def _step(p, g, m, v, plan, use_kernel, lr, eps_inside_sqrt, group=None,
-          sharded_from=0, **sc):
+          sharded_from=0, dp_group=None, **sc):
     stage1, apply = (fused_lamb, fused_lamb_apply) if use_kernel else \
         (fused_lamb_reference, fused_lamb_apply_reference)
     ratio, sums = stage1(p, g, m, v, plan, eps_inside_sqrt=eps_inside_sqrt,
                          **sc)
+    # the data reduction first (each leaf of this rank's model shard whole),
+    # then the ring's (each sharded leaf whole)
+    if dp_group is not None:
+        ratio, sums = dp_ratios(sums, dp_group, sc["max_coeff"],
+                                sc["min_coeff"])
     if group is not None:
         ratio = ring_ratios(ratio, sums, plan, group, sharded_from,
                             sc["max_coeff"], sc["min_coeff"])
@@ -470,7 +490,7 @@ class FusedLamb:
         return self._plan[1]
 
     def step_flat(self, p, g, m, v, step, segments, group=None,
-                  sharded_from=0):
+                  sharded_from=0, dp_group=None):
         """One step over flat fp32 buffers at optimizer step ``step`` (the
         count after this update), one trust ratio per ``(offset, numel)``
         of ``segments`` (``FlatPartition.segments``; the plan built from it
@@ -478,7 +498,10 @@ class FusedLamb:
         tensor-parallel ring of more than one rank, whose segments at or
         past offset ``sharded_from`` (``FlatPartition.replicated_end``) are
         shards of a leaf (:func:`ring_ratios`); None where the rank holds
-        every leaf whole."""
+        every leaf whole. ``dp_group``: the data group over which the
+        buffers are partitioned (``p`` is this rank's range and
+        ``segments`` are clipped to it, :func:`dp_ratios`); None where
+        the rank steps the whole buffer."""
         h = {k: f32(val) for k, val in self.hyperparams().items()}
         bc1, bc2 = bias_corrections(h["beta1"], h["beta2"], step,
                                     self.bias_correction)
@@ -487,4 +510,4 @@ class FusedLamb:
               beta2=h["beta2"], eps=h["eps"], weight_decay=h["weight_decay"],
               bc1=bc1, bc2=bc2, max_coeff=self.max_coeff,
               min_coeff=self.min_coeff, group=group,
-              sharded_from=sharded_from)
+              sharded_from=sharded_from, dp_group=dp_group)

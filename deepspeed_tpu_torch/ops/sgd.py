@@ -34,9 +34,10 @@ class SGD:
                 "weight_decay": float(self.weight_decay)}
 
     def step_flat(self, p, g, m, v, step, segments=None, group=None,
-                  sharded_from=0):
-        """One step over flat fp32 buffers, in place (``v`` unused; SGD is
-        elementwise, so the segments and the TP layout do not matter)."""
+                  sharded_from=0, dp_group=None):
+        """One step over flat fp32 buffers (or one rank's range of them),
+        in place (``v`` unused; SGD is elementwise, so the segments, the
+        TP layout and the data group do not matter)."""
         h = self.hyperparams()
         g = g + f32(h["weight_decay"]) * p
         m.copy_(f32(h["beta1"]) * m + g)

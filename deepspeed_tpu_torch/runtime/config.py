@@ -15,11 +15,12 @@ This slice runs ``bf16`` / ``fp16`` / ``amp`` mixed precision,
 ``scheduler`` (the four LR schedules), ``gradient_clipping``,
 ``progressive_layer_drop`` (the keep-probability schedule),
 ``data_types.grad_accum_dtype``, ``steps_per_print``,
-``transformer.flash_attention`` and ``sparse_attention`` (parsed per mode
+``transformer.flash_attention``, ``sparse_attention`` (parsed per mode
 as the JAX package does; the model reads it through
-``engine.sparse_attention_config()``). Every other section the JAX package
-accepts parses here too, but switching it on raises
-``NotImplementedError`` naming the later slice that brings it
+``engine.sparse_attention_config()``) and ``sparse_gradients`` (the
+model opts in, ``GPT2Config.sparse_embedding_grads``). Every other
+section the JAX package accepts parses here too, but switching it on
+raises ``NotImplementedError`` naming the later slice that brings it
 (:data:`UNPORTED_SECTIONS`).
 """
 import json
@@ -45,7 +46,6 @@ TRANSFORMER_FLASH_ATTENTION_MODES = ("auto", "pallas", "xla")
 # ``false`` is accepted.
 UNPORTED_SECTIONS = {
     CHECKPOINT: "the checkpoint slice",
-    SPARSE_GRADIENTS: "the multi-GPU ZeRO slice",
     "elasticity": "the elastic-training slice",
     "activation_checkpointing": "the activation-checkpointing slice",
     "flops_profiler": "the observability slice",

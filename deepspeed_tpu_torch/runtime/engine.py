@@ -1,4 +1,5 @@
-"""DeepSpeedEngine: the training engine on one device.
+"""DeepSpeedEngine: the training engine, on one device or data- and
+tensor-parallel over ``torch.distributed``.
 
 Port of ``deepspeed_tpu/runtime/engine.py::DeepSpeedEngine``, returned by
 ``deepspeed_tpu_torch.initialize()``. The same step anatomy and method
@@ -33,6 +34,26 @@ methods (``get_master_params``, ``get_optimizer_state``,
 ``load_state_from_jax``) use the converters of the model's own module
 (``params_to_jax`` and friends).
 
+Data parallelism (ZeRO stages 0-2): inside a process group the mesh's
+``data`` axis (``mesh=``, ``mpu``, or every rank on it) is the data
+group. Each rank passes its own rows, ``(gas, micro, ...)`` to
+:meth:`train_batch` and ``(micro, ...)`` to :meth:`forward`, as the JAX
+engine's multi-process path feeds each process; another row count raises
+``ValueError``. The flat buffers are partitioned over the data group
+(``runtime/zero/partition.py``): stage 0 keeps every buffer whole and
+all-reduces the accumulator at the boundary; stage 1 keeps only the
+owned range of the master and the moments, all-reduces the accumulator
+and steps the owned range; stage 2 also keeps only the owned range of the
+accumulator, into which each micro-step's gradients are reduce-scattered.
+Every stage scales the summed gradients once by ``1 / dp_world`` (the
+mean over the global batch, as the JAX engine's loss; it has no
+predivide), takes the overflow flag and the global norm over the group
+(from the owned ranges when partitioned), and after the step all-gathers
+the updated owned ranges into the compute-dtype parameters. Every stage
+sums the gradients over the group in the accumulator's dtype, so the
+stages give the same bits at one micro-step a step. The loss
+:meth:`train_batch` returns is the mean over the data group.
+
 Tensor parallelism: with an ``mpu`` (Megatron style, or an object with a
 ``.mesh``) or a ``mesh=`` whose ``model`` axis n > 1, and the ds_config
 ``comm.collective_matmul`` section on, the engine swaps the module for
@@ -42,17 +63,20 @@ four TP sites of each block then run the ring ops. After the micro steps
 it all-reduces the gradients of the parameters every rank holds whole
 over the group, reduces the overflow flag (max) and the global gradient
 norm (each sharded square once, each replicated one once), so every rank
-takes the same decisions and issues the same hops. The JAX-tree methods
-gather or slice the full tree.
+takes the same decisions and issues the same hops. With both axes the
+data reduction runs first, over the data group, and the model ranks of
+one data coordinate own the same range of the same layout. The JAX-tree
+methods gather or slice the full tree (over the data group, then the
+model group).
 
-The rest of the single-device API, as the JAX engine: a client optimizer
+The rest of the API, as the JAX engine: a client optimizer
 handle (``optimizer=``: the port's ``FusedAdam``, ``FusedLamb`` or
 ``SGD``), an LR schedule (``lr_scheduler=``, or the ds_config
 ``scheduler`` section, ``runtime/lr_schedules.py``) stepped after every
 apply step that was not skipped, ``training_data=`` through
 :meth:`deepspeed_io`, and ``model_parameters=`` as initial weights.
-Checkpoints, telemetry and data-parallel worlds above 1 come with later
-slices and raise ``NotImplementedError``.
+Checkpoints and telemetry come with later slices and raise
+``NotImplementedError``.
 """
 import inspect
 import os
@@ -60,6 +84,7 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..inference.engine import resolve_device
 from ..ops.adam.fused_adam import FusedAdam
@@ -86,9 +111,9 @@ FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
 
 
 class DeepSpeedEngine:
-    """Train a module with ZeRO stages 0-2 at data-parallel world size 1,
+    """Train a module with ZeRO stages 0-2 over a data-parallel group,
     optionally tensor-parallel over a ``model`` group, mixed precision
-    over fp32 master weights and Adam/AdamW or LAMB."""
+    over fp32 master weights and Adam/AdamW, LAMB or SGD."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
@@ -106,16 +131,9 @@ class DeepSpeedEngine:
         self.lr_scheduler = None
         self._configure_mesh(mpu, mesh)
         # the batch triple is checked against the data-parallel world: the
-        # process group's, divided by the model axis
+        # mesh's data axis
         self._config = DeepSpeedConfig(*self._resolve_config(
-            args, config_params), world_size=self.dp_world_size
-            if self.mp_world_size > 1 else None)
-        self.dp_world_size = self._config.world_size
-        if self.dp_world_size != 1:
-            raise NotImplementedError(
-                "data-parallel world size {} is not ported yet: ZeRO over "
-                "several GPUs comes with the multi-GPU ZeRO slice "
-                "(torch.distributed)".format(self.dp_world_size))
+            args, config_params), world_size=self.dp_world_size)
         self.module = model
         self._load_model_parameters(model_parameters)
         self.flash_attention_backend = None
@@ -140,6 +158,7 @@ class DeepSpeedEngine:
             model.forward).parameters)
         self._pending_backward = False
         self._step_metrics = {}
+        self._configure_sparse_gradients()
         self.module.train()
         if self._config.dump_state:
             self._config.print("DeepSpeedEngine configuration")
@@ -185,6 +204,10 @@ class DeepSpeedEngine:
         self.mesh = mesh
         self.dp_world_size = int(mesh.shape.get(DATA_AXIS, 1))
         self.mp_world_size = int(mesh.shape.get(MODEL_AXIS, 1))
+        self._dp_group = mesh.get_group(DATA_AXIS) \
+            if self.dp_world_size > 1 else None
+        self.dp_rank = dist.get_rank(self._dp_group) \
+            if self._dp_group is not None else 0
         self._tp_group = None
         if self.mp_world_size > 1:
             self._tp_group = tp_group if tp_group is not None \
@@ -241,6 +264,35 @@ class DeepSpeedEngine:
                      "dtype={} backend={} transport={}".format(
                          self.mp_world_size, cm.chunks, cm.dtype,
                          cm.backend, self.comm_transport), ranks=[0])
+
+    def _configure_sparse_gradients(self):
+        """The sparse embedding-gradient exchange, as the JAX engine: a
+        model opts in through its config (``GPT2Config.
+        sparse_embedding_grads`` with ``embedding_grad_mesh``, routing the
+        lookup through ``ops/sparse_grads.py``); the engine records the
+        module names where the exchange is live and warns where the config
+        and the model disagree."""
+        self.csr_tensor_module_names = set()
+        model_cfg = getattr(self.module, "config", None)
+        if getattr(model_cfg, "sparse_embedding_grads", False):
+            grad_mesh = getattr(model_cfg, "embedding_grad_mesh", None)
+            axis_size = int(grad_mesh.shape.get(DATA_AXIS, 1)) \
+                if grad_mesh is not None else 1
+            if axis_size > 1:
+                self.csr_tensor_module_names.add("wte")
+            else:
+                logger.warning(
+                    "sparse_embedding_grads is set but embedding_grad_mesh "
+                    "has no nontrivial '%s' axis — the lookup falls back "
+                    "to dense gradients", DATA_AXIS)
+        if self.sparse_gradients_enabled() and \
+                not self.csr_tensor_module_names:
+            logger.warning(
+                "sparse_gradients is enabled in ds_config but the model "
+                "does not route any embedding through "
+                "sparse_embedding_lookup (e.g. "
+                "GPT2Config.sparse_embedding_grads=True with "
+                "embedding_grad_mesh); gradients stay dense")
 
     def _configure_precision(self):
         if self._config.bf16_enabled or self._config.amp_enabled:
@@ -403,11 +455,22 @@ class DeepSpeedEngine:
             replicated = [name for name, p in self.module.named_parameters()
                           if spec(name, tuple(p.shape)) is None]
         self.flat = FlatPartition(
-            self.module, self.device, self.compute_dtype,
-            world_size=self.dp_world_size, accum_dtype=accum,
+            self.module, self.device, self.compute_dtype, accum_dtype=accum,
             replicated=replicated,
             moments_dtype=getattr(self.optimizer, "moments_dtype",
-                                  torch.float32))
+                                  torch.float32),
+            group=self._dp_group, stage=self.zero_optimization_stage())
+        if self._cm_tp and self.flat.sharded:
+            # the model ranks of one data coordinate must own the same
+            # range of the same layout: the ring's reductions pair them up
+            mine = torch.tensor([self.flat.numel, self.flat.lo,
+                                 self.flat.hi, self.flat.replicated_end],
+                                dtype=torch.int64, device=self.device)
+            seen = all_gather(mine, self._tp_group).view(-1, 4)
+            if not bool((seen == mine).all()):
+                raise RuntimeError(
+                    "model ranks hold different flat layouts (numel, lo, "
+                    "hi, replicated_end): {}".format(seen.tolist()))
         self.scaler = ls.loss_scaler_from_config(self._config)
 
     # ------------------------------------------------------------ training
@@ -426,12 +489,25 @@ class DeepSpeedEngine:
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
 
+    def _check_rows(self, inputs, dim):
+        """Over a data group each rank passes the micro batch's rows."""
+        micro = self.train_micro_batch_size_per_gpu()
+        for x in inputs:
+            if x.dim() > dim and x.shape[dim] != micro:
+                raise ValueError(
+                    "each of the {} data-parallel ranks takes its own {} rows "
+                    "(train_micro_batch_size_per_gpu), got a batch of {} "
+                    "rows".format(self.dp_world_size, micro, x.shape[dim]))
+
     def forward(self, *inputs, **kwargs):
         """Run a micro-batch -> the loss. In train mode the graph is kept
-        for :meth:`backward`; in eval mode it runs without gradients."""
+        for :meth:`backward`; in eval mode it runs without gradients. Over
+        a data group each rank passes its own ``micro`` rows."""
         if len(inputs) == 1 and isinstance(inputs[0], (tuple, list)):
             inputs = tuple(inputs[0])
         inputs = tuple(self._to_device(x) for x in inputs)
+        if self._dp_group is not None and self.module.training:
+            self._check_rows(inputs, 0)
         if "generator" in self._forward_kwargs and self.module.training:
             kwargs.setdefault("generator", self._generator)
         if self.progressive_layer_drop and self.module.training:
@@ -448,7 +524,8 @@ class DeepSpeedEngine:
 
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Back-propagate ``loss * loss_scale / gas`` into the flat
-        gradient buffer and fold it into the fp32 accumulator."""
+        gradient buffer and fold it into the accumulator (at stage 2 over
+        a data group: reduce-scattered into the owned slice)."""
         assert self._pending_backward, \
             "backward() called without a prior train-mode forward()"
         self._pending_backward = False
@@ -471,30 +548,42 @@ class DeepSpeedEngine:
             self.dp_world_size
 
     def _apply_step(self):
-        """Overflow check, unscale, clip, the optimizer, params refresh,
-        zero acc."""
+        """Reduce over the data group (stages 0/1), overflow check,
+        unscale and average, clip, the optimizer over the owned range,
+        params refresh (the all-gather when partitioned), zero acc."""
         flat = self.flat
-        group = self._tp_group if self._cm_tp else None
-        if group is not None:
+        tp = self._tp_group if self._cm_tp else None
+        dp = self._dp_group
+        if dp is not None and not flat.grads_sharded:
+            with record_function("zero.all_reduce"):
+                all_reduce_(flat.acc, dp)
+        acc = flat.own(flat.acc)
+        rep_end = flat.own_replicated_end
+        if tp is not None:
             # the whole-on-every-rank parameters saw only this rank's rows
-            all_reduce_(flat.acc[:flat.replicated_end], group)
-        grads = flat.acc
-        if grads.dtype != torch.float32:
-            grads = grads.float()
+            all_reduce_(acc[:rep_end], tp)
+        grads = acc if acc.dtype == torch.float32 else acc.float()
         overflow = rt_utils.CheckOverflow.has_overflow(grads)
-        if group is not None:
-            overflow = all_reduce_(overflow.float().reshape(1), group,
-                                   dist.ReduceOp.MAX)[0] > 0
-        overflow = bool(overflow)
         scale = self.scaler.cur_scale
-        if scale != 1.0:
-            grads.mul_(1.0 / scale)
+        # one division after the sum: the mean over the global batch
+        inv = 1.0 / scale / self.dp_world_size
+        if inv != 1.0:
+            grads.mul_(inv)
         total_norm = None
-        if group is not None:
-            rep_end = flat.replicated_end
-            sq = grads[rep_end:].pow(2).sum().reshape(1)
-            total_norm = (all_reduce_(sq, group)[0] +
-                          grads[:rep_end].pow(2).sum()).sqrt()
+        if flat.sharded or tp is not None:
+            # the flag and the squares in one collective a group: each
+            # owned range's squares once over the data group, each TP
+            # shard's once per model rank, each replicated element once
+            stats = torch.stack([overflow.float(),
+                                 grads[rep_end:].pow(2).sum(),
+                                 grads[:rep_end].pow(2).sum()])
+            if flat.sharded:
+                all_reduce_(stats, dp)
+            if tp is not None:
+                all_reduce_(stats[:2], tp)
+            overflow = stats[0] > 0
+            total_norm = (stats[1] + stats[2]).sqrt()
+        overflow = bool(overflow)
         clip = self.gradient_clipping()
         if clip > 0:
             grad_norm = rt_utils.clip_grad_norm_(grads, clip,
@@ -503,10 +592,11 @@ class DeepSpeedEngine:
             grad_norm = total_norm if total_norm is not None \
                 else rt_utils.get_grad_norm(grads)
         if not overflow:
-            self.optimizer.step_flat(flat.master, grads, flat.exp_avg,
-                                     flat.exp_avg_sq, flat.step + 1,
-                                     segments=flat.segments, group=group,
-                                     sharded_from=flat.replicated_end)
+            self.optimizer.step_flat(
+                flat.master, grads, flat.exp_avg, flat.exp_avg_sq,
+                flat.step + 1, segments=flat.segments, group=tp,
+                sharded_from=rep_end,
+                **({"dp_group": dp} if flat.sharded else {}))
             flat.step += 1
             flat.refresh_params()
         flat.acc.zero_()
@@ -534,9 +624,12 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch: ``batch`` is a tuple of arrays stacked
-        ``(gas, global_batch, ...)`` (or ``data_iter`` yields ``gas``
-        micro-batches); every micro step, then the apply step. Returns the
-        mean loss, a 0-dim fp32 tensor on the device."""
+        ``(gas, batch, ...)`` (or ``data_iter`` yields ``gas``
+        micro-batches); every micro step, then the apply step. At one
+        rank the batch is the global one; over a data group each rank
+        passes its own ``micro`` rows. Returns the mean loss over the
+        global batch (the same on every rank of the data group), a 0-dim
+        fp32 tensor on the device."""
         gas = self.gradient_accumulation_steps()
         if batch is None:
             assert data_iter is not None, \
@@ -545,6 +638,8 @@ class DeepSpeedEngine:
             batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
                           for i in range(len(micro[0])))
         batch = tuple(self._to_device(x) for x in batch)
+        if self._dp_group is not None:
+            self._check_rows(batch, 1)
         self.module.train()
         losses = []
         for i in range(gas):
@@ -554,7 +649,11 @@ class DeepSpeedEngine:
         self._take_model_step()
         self.micro_steps += gas
         self.global_samples += self.train_batch_size()
-        return torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        if self._dp_group is not None:
+            loss = all_reduce_(loss.reshape(1), self._dp_group)[0] / \
+                self.dp_world_size
+        return loss
 
     # ----------------------------------------------------------- accessors
 
@@ -576,6 +675,9 @@ class DeepSpeedEngine:
         ``GPT2Config(sparse_attention=engine.sparse_attention_config())``,
         as with the JAX package."""
         return self._config.sparse_attention
+
+    def sparse_gradients_enabled(self):
+        return bool(self._config.sparse_gradients_enabled)
 
     def zero_optimization(self):
         return self._config.zero_enabled
@@ -606,15 +708,16 @@ class DeepSpeedEngine:
                      num_local_io_workers=None):
         """A :class:`DeepSpeedDataLoader` over ``dataset`` (anything with
         ``__len__`` and ``__getitem__``), as the JAX engine's: batches of
-        the micro batch times this process's share of the data axis (here
-        one replica, rank 0), shuffled for the train route."""
+        the micro batch from this rank's contiguous share of the dataset
+        (rank ``dp_rank`` of the data group), shuffled for the train
+        route."""
         if batch_size is None:
-            batch_size = self.train_micro_batch_size_per_gpu() * \
-                self.dp_world_size
+            batch_size = self.train_micro_batch_size_per_gpu()
         return DeepSpeedDataLoader(
             dataset, batch_size=batch_size,
             collate_fn=collate_fn or self.collate_fn,
-            data_parallel_world_size=1, data_parallel_rank=0,
+            data_parallel_world_size=self.dp_world_size,
+            data_parallel_rank=self.dp_rank,
             shuffle=(route == ROUTE_TRAIN))
 
     def loss_scale(self):
@@ -649,9 +752,11 @@ class DeepSpeedEngine:
 
     def _full_tree(self, flat):
         """A flat buffer -> the full model's ``{dotted name: fp32 CPU
-        tensor}``: under tensor parallelism every rank's buffer is
-        gathered over the group (one all-gather; every rank must call)
-        and the shards joined (the module's ``tp_gather_state_dicts``)."""
+        tensor}``: a partition is gathered over the data group, then under
+        tensor parallelism every rank's buffer over the model group (one
+        all-gather each; every rank must call) and the shards joined (the
+        module's ``tp_gather_state_dicts``)."""
+        flat = self.flat.whole(flat)
         if not self._cm_tp:
             return self.flat.tree_of(flat)
         parts = all_gather(flat.detach(), self._tp_group, dim=0)
@@ -668,8 +773,8 @@ class DeepSpeedEngine:
 
     def get_master_params(self):
         """The fp32 master weights as the JAX-shaped tree of numpy arrays
-        (the model module's ``params_to_jax`` naming); under tensor
-        parallelism the full tree, gathered (every rank must call)."""
+        (the model module's ``params_to_jax`` naming); over a data or a
+        model group the full tree, gathered (every rank must call)."""
         to_jax = self._tree_converters()["params_to_jax"]
         return to_jax(self._full_tree(self.flat.master))
 
@@ -688,8 +793,10 @@ class DeepSpeedEngine:
     def load_state_from_jax(self, master=None, optimizer_state=None):
         """Start from a JAX engine's state: an fp32 master tree and/or an
         optimizer state ``{"step", "exp_avg", "exp_avg_sq"}`` (numpy
-        trees; bf16 moments, as the JAX engine's ``moments_dtype="bf16"``
-        holds them, load bit for bit)."""
+        trees, whole; bf16 moments, as the JAX engine's
+        ``moments_dtype="bf16"`` holds them, load bit for bit). Each rank
+        keeps its model shard's owned range, and the compute-dtype
+        parameters are refreshed from the whole master tree."""
         conv = self._tree_converters()
         if master is not None:
             self.flat.load(self.flat.master,

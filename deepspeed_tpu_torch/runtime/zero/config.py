@@ -2,9 +2,17 @@
 
 Port of ``deepspeed_tpu/runtime/zero/config.py``: the same keys,
 defaults and deprecated boolean form. The port runs stages 0-2 over
-flat buffers (``runtime/zero/partition.py``); what it does not run yet
-raises ``NotImplementedError`` naming the slice that brings it: stage
-3, ``cpu_offload`` / ``cpu_offload_params`` and the ZeRO++ modes.
+flat buffers partitioned over the data group
+(``runtime/zero/partition.py``); what it does not run yet raises
+``NotImplementedError`` naming the slice that brings it: stage 3,
+``cpu_offload`` / ``cpu_offload_params`` and the ZeRO++ modes. The
+bucket, overlap and contiguity keys (``reduce_bucket_size``,
+``allgather_bucket_size``, ``overlap_comm``, ``reduce_scatter``,
+``allgather_partitions``, ``contiguous_gradients``) are parsed and
+satisfied by the design, as in the JAX engine: the gradients and the
+state are contiguous flat buffers, stage 2 reduce-scatters each
+micro-step's whole gradient buffer in one collective and the updated
+ranges come back in one all-gather; there is no bucket to size.
 """
 from ..config_utils import get_scalar_param
 from .constants import *  # noqa: F401,F403
@@ -13,8 +21,8 @@ from ...utils.logging import logger
 # ZeRO features of the JAX package that this slice does not run, with the
 # later slice of the port that brings each
 UNPORTED_ZERO_KEYS = {
-    ZERO_OPTIMIZATION_CPU_OFFLOAD: "the ZeRO-Offload slice",
-    ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS: "the ZeRO-Offload slice",
+    ZERO_OPTIMIZATION_CPU_OFFLOAD: "the ZeRO-3/offload slice",
+    ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS: "the ZeRO-3/offload slice",
     ZERO_OPTIMIZATION_QUANTIZED_WEIGHTS: "the ZeRO++ slice",
     ZERO_OPTIMIZATION_QUANTIZED_GRADIENTS: "the ZeRO++ slice",
 }
@@ -121,7 +129,7 @@ class DeepSpeedZeroConfig(object):
         if self.stage is not None and self.stage >= 3:
             raise NotImplementedError(
                 "zero_optimization.stage 3 is not ported yet: parameter "
-                "partitioning comes with the multi-GPU ZeRO slice")
+                "partitioning comes with the ZeRO-3/offload slice")
         for key, later in UNPORTED_ZERO_KEYS.items():
             if zero_config_dict.get(key):
                 raise NotImplementedError(

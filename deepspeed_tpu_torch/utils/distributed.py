@@ -115,16 +115,36 @@ def all_gather(tensor, group, dim=0):
     return out.to(tensor.device) if staged else out
 
 
+def all_gather_into(out, part, group):
+    """Every rank's ``part`` (1-D, of equal lengths) written into ``out``
+    in rank order: NCCL gathers into ``out`` directly; gloo gathers a list
+    (through host memory for CUDA tensors) and copies it in. ``part`` may
+    be a view of ``out``."""
+    if dist.get_backend(group) == GLOO:
+        out.copy_(all_gather(part, group))
+    else:
+        dist.all_gather_into_tensor(out, part.clone(), group=group)
+    return out
+
+
 def reduce_scatter(tensor, group, dim=0):
     """The sum over ``group`` of ``tensor``, this rank's 1/n slice along
-    ``dim``. gloo has no reduce-scatter: it all-reduces and slices."""
+    ``dim``: rank r gets the sum of every rank's chunk r, in ``tensor``'s
+    dtype (a bf16 buffer sums in bf16 on both transports). gloo has no
+    reduce-scatter on every torch version: it all-reduces and slices."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     if dist.get_backend(group) == GLOO:
-        full = all_reduce_(tensor.clone(), group)
-        return full.chunk(n, dim=dim)[r].contiguous()
+        # through host memory for a CUDA tensor: only this rank's slice
+        # comes back to the card
+        full = host_copy(tensor) if tensor.is_cuda else tensor.clone()
+        dist.all_reduce(full, group=group)
+        return full.chunk(n, dim=dim)[r].to(tensor.device).contiguous()
     out = torch.empty_like(tensor.chunk(n, dim=dim)[r])
-    dist.reduce_scatter(out, [c.contiguous() for c in tensor.chunk(n, dim)],
-                        group=group)
+    if dim == 0 and tensor.is_contiguous():
+        dist.reduce_scatter_tensor(out, tensor, group=group)
+    else:
+        dist.reduce_scatter(out, [c.contiguous()
+                                  for c in tensor.chunk(n, dim)], group=group)
     return out
 
 

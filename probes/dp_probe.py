@@ -1,0 +1,49 @@
+#!/usr/bin/env python3
+"""Run some of chip_smoke.py's phases on their own, after building the
+kernels, on a machine with the card:
+
+    python3 probes/dp_probe.py PHASE [PHASE ...]
+
+PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
+``train_dp_parity``, ``train_dp_tp_parity``, ``train``), optionally with
+integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
+JSON line. Not a test and on no path of the package.
+"""
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main():
+    import torch
+    from deepspeed_tpu_torch.ops import cuda_build
+    if not torch.cuda.is_available():
+        sys.exit("dp_probe: no CUDA device is available")
+    sources = sorted({src for _, src, _, _ in cs.KERNELS})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(cuda_build.build, sources))
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    for arg in sys.argv[1:]:
+        name, _, kw = arg.partition(":")
+        kwargs = {k: int(v) for k, v in
+                  (item.split("=") for item in kw.split(",") if item)}
+        fn = getattr(cs, "phase_" + name)
+        t0 = time.perf_counter()
+        if name in ("train", "train_example"):
+            # the flash kernels' and Adam's counts
+            res = fn(cs._dp_counters()[:4], **kwargs)
+        else:
+            res = fn(**kwargs)
+        res["probe_wall_s"] = time.perf_counter() - t0
+        cs.emit(res)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

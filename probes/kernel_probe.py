@@ -62,6 +62,11 @@ prints one JSON line:
   check and re-sums, and also without row norms (patched copies), and the
   share of the forward walk's warp-steps that hold a pair.
 
+* ``sparse_fp16_backward``: the fp16 block-sparse forward, dq and dk/dv
+  against their plain versions on long walks (a dense layout of 32-token
+  blocks, d 32 / 128, s 96 / 1024, causal or not, a key-padding and a
+  score bias): each output's largest error over one fp16 ulp + 1e-6.
+
 Patched copies are written under ``probes/_build/`` (git-ignored).
 """
 import ctypes
@@ -1004,6 +1009,57 @@ def sparse_fwd_parts():
     return res
 
 
+SPARSE_FP16_CASES = [(d, s, causal) for d in (32, 128) for s in (96, 1024)
+                     for causal in (True, False)]
+
+
+def sparse_fp16_backward():
+    """The fp16 block-sparse kernels (forward, dq, dk/dv) against their
+    plain versions on long walks: a dense layout of 32-token blocks (query
+    block 1 emptied), b 2, h 4, d 32 / 128, s 96 / 1024, causal or not,
+    a key-padding bias dropping 20% of keys (-1e4) and an (s, s) score
+    bias; the largest error of each output over one fp16 ulp of the plain
+    value plus 1e-6 (eps / 4 for out), as tests/test_torch_cuda.py's
+    SPARSE_CASES hold them (1 passes)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        block_sparse_attention as bsa, sparsity_config_from_dict)
+    eps = torch.finfo(torch.float16).eps
+    ratio = lambda got, want, atol: float(
+        ((got.float() - want.float()).abs() /
+         (eps * want.float().abs() + atol)).max())
+    rows = []
+    for d, s, causal in SPARSE_FP16_CASES:
+        h, b, block = 4, 2, 32
+        layout = sparsity_config_from_dict(
+            {"mode": "dense", "block": block}, h).make_layout(s)
+        layout[:, 1] = 0
+        tables = bsa.LayoutTables(layout, block)
+        rng = np.random.RandomState(0)
+        to = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEV)
+        qkv = to(rng.randn(b, s, 3 * h * d)).half()
+        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+                   for t in qkv.split(h * d, dim=-1))
+        dout = to(rng.randn(b, h, s, d)).half()
+        kpm = rng.randn(b, s)
+        kpm[rng.rand(b, s) < 0.2] = -1e4
+        kpm, bias = to(kpm), to(rng.randn(s, s))
+        kw = dict(tables=tables, causal=causal)
+        out, lse = bsa.block_sparse_fwd(q, k, v, kpm, bias, **kw)
+        delta = bsa.attention_delta(out, dout)
+        args = (q, k, v, kpm, bias, dout, lse, delta)
+        got = (out, bsa.block_sparse_bwd_dq(*args, **kw)) + \
+            tuple(bsa.block_sparse_bwd_dkdv(*args, **kw))
+        want = (bsa.block_sparse_fwd_reference(q, k, v, kpm, bias, **kw)[0],
+                bsa.block_sparse_bwd_dq_reference(*args, **kw)) + \
+            tuple(bsa.block_sparse_bwd_dkdv_reference(*args, **kw))
+        torch.cuda.synchronize()
+        rows.append({"d": d, "s": s, "causal": causal, "ulp_ratio": {
+            name: ratio(g, w, eps / 4 if name == "out" else 1e-6)
+            for name, g, w in zip(("out", "dq", "dk", "dv"), got, want)}})
+    return {"cases": rows, "worst": max(max(r["ulp_ratio"].values())
+                                        for r in rows)}
+
+
 SECTIONS = {"s_order": s_order, "cublas_order": cublas_order,
             "flash_parts": flash_parts, "flash_flags": flash_flags,
             "gc_variants": gc_variants, "fp16_backward": fp16_backward,
@@ -1012,7 +1068,8 @@ SECTIONS = {"s_order": s_order, "cublas_order": cublas_order,
             "sparse_parts": sparse_parts,
             "sparse_accumulation": sparse_accumulation,
             "paged_variants": paged_variants,
-            "sparse_fwd_parts": sparse_fwd_parts}
+            "sparse_fwd_parts": sparse_fwd_parts,
+            "sparse_fp16_backward": sparse_fp16_backward}
 
 
 def main():

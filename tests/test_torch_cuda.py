@@ -23,11 +23,15 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   caller-given views; repeated runs bit-identical; refusals;
   the (b, s, h, d) op with a key-padding mask against its CPU run.
 * Adam: the kernel against its plain version bit for bit, over odd
-  lengths and misaligned starts, AdamW and L2, fp32 and bf16 moments.
+  lengths and misaligned starts, AdamW and L2, fp32 and bf16 moments, and
+  over each ZeRO rank's range of one buffer (views at an aligned nonzero
+  offset).
 * training: a tiny fp32 GPT-2 through ``initialize(...).train_batch``, 3
   steps with the kernels ("pallas") and with the plain versions ("xla"),
   losses within 1e-5 relative, with one launch of each flash kernel per
-  layer per step and one Adam launch per step.
+  layer per step and one Adam launch per step; the same at data-parallel
+  world 2 (two gloo ranks on the card), fp32 and bf16 ZeRO-2, Adam with
+  both moment dtypes and LAMB.
 * LAMB (stage-1 and apply kernels): against the plain versions over
   aligned and misaligned segment tables, fp32 and bf16 moments, m, v and
   the trust ratios bit for bit, p within one ulp, repeated runs
@@ -668,6 +672,47 @@ def test_fused_adam_bf16_moments_kernel_matches_plain_version(cuda, n,
                                               want.float()).abs().max())
 
 
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_fused_adam_steps_one_ranks_range_of_a_buffer(cuda, moments):
+    """ZeRO's partitions: the kernel over views of one buffer at a nonzero
+    storage offset that is a multiple of the partition alignment (64
+    elements; the four-wide path), each rank's range in turn, bit for bit
+    the plain version over the same ranges; a range's step leaves the
+    other untouched."""
+    from deepspeed_tpu_torch.ops.adam import (bias_corrections, fused_adam,
+                                              fused_adam_reference)
+    from deepspeed_tpu_torch.ops.adam.fused_adam import aligned
+    from deepspeed_tpu_torch.runtime.zero.partition import ALIGN
+    part = 1000 * ALIGN
+    rng = np.random.RandomState(7)
+    host = [rng.randn(2 * part).astype(np.float32),
+            rng.randn(2 * part).astype(np.float32) * 1e-2,
+            np.abs(rng.randn(2 * part)).astype(np.float32) * 1e-4]
+    sides = [[torch.from_numpy(host[0].copy()).to(cuda)] +
+             [torch.from_numpy(a).to(cuda).to(moments) for a in host[1:]]
+             for _ in range(2)]
+    before = fused_adam.launches
+    for rank in (1, 0):
+        lo = rank * part
+        g = torch.from_numpy(rng.randn(part).astype(np.float32)).to(cuda)
+        bc1, bc2 = bias_corrections(0.9, 0.999, 1)
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                  weight_decay=0.01, bc1=bc1, bc2=bc2)
+        views = [[t[lo:lo + part] for t in side] for side in sides]
+        assert views[0][0].storage_offset() == lo and \
+            aligned(views[0] + [g]) == 1
+        untouched = [t[part - lo:2 * part - lo].clone() for t in sides[0]]
+        fused_adam(views[0][0], g, *views[0][1:], **kw)
+        fused_adam_reference(views[1][0], g, *views[1][1:], **kw)
+        torch.cuda.synchronize()
+        for t, was in zip(sides[0], untouched):
+            assert torch.equal(t[part - lo:2 * part - lo], was)
+    assert fused_adam.launches == before + 2
+    for got, want in zip(*sides):
+        assert torch.equal(got, want), float((got.float() -
+                                              want.float()).abs().max())
+
+
 # --------------------------------------------------------------- training
 
 
@@ -698,6 +743,46 @@ def test_tiny_training_kernels_match_plain_versions(cuda):
         assert launches == want, (backend, launches)
     np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
     assert runs["pallas"][-1] < runs["pallas"][0]
+
+
+def test_dp2_training_kernels_match_plain_versions(cuda):
+    """ZeRO data parallelism on the card: two gloo ranks sharing it
+    (``tests/torch_dp_workers.py``), a tiny GPT-2 on each rank's rows of
+    one global batch, with the kernels and with the plain versions, for
+    Adam with fp32 and bf16 moments and LAMB with bf16 moments: at fp32
+    (stage 0) the losses within 1e-5 relative, at bf16 with ZeRO-2 (the
+    optimizer over each rank's half of the buffers, LAMB's trust ratios
+    from the data group's sums) within 5e-4; both ranks report the same
+    losses; with the kernels each flash kernel launches once a layer a
+    step and the optimizer's once a step, with the plain versions none."""
+    import torch_dp_workers as workers
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, remat=True, loss_chunk=32)
+    ids = np.random.RandomState(6).randint(0, 256, size=(1, 8, 128))
+    cases = [(prec, stage, opt, moments)
+             for prec, stage in (("fp32", 0), ("bf16", 2))
+             for opt, moments in (("Adam", "fp32"), ("Adam", "bf16"),
+                                  ("Lamb", "bf16"))]
+    specs = [dict(model=cfg, seed=5, data=2, prec=prec, stage=stage,
+                  micro=4, batch=(ids, ids), steps=3, optimizer=opt,
+                  moments=moments, backend=backend, device="cuda")
+             for prec, stage, opt, moments in cases
+             for backend in ("pallas", "xla")]
+    ranks = spawn(workers.dp_engine, 2, args=(specs,), timeout_s=600)
+    for i, (prec, stage, opt, moments) in enumerate(cases):
+        kern, plain = (r[2 * i] for r in ranks), (r[2 * i + 1] for r in ranks)
+        for k, p in zip(kern, plain):
+            assert k["device"].startswith("cuda") and k["views"]
+            np.testing.assert_allclose(k["losses"], p["losses"],
+                                       rtol=1e-5 if prec == "fp32" else 5e-4)
+            assert k["losses"][-1] < k["losses"][0]
+            assert k["losses"] == ranks[0][2 * i]["losses"]
+            opt_kernel = "fused_lamb" if opt == "Lamb" else "fused_adam"
+            assert k["launches"]["flash_fwd"] == 2 * 3, k["launches"]
+            assert k["launches"][opt_kernel] == 3, k["launches"]
+            assert not any(p["launches"].values()), p["launches"]
+            assert k["adam_numel"] * (2 if stage else 1) == k["numel"]
 
 
 # ----------------------------------------------- block-sparse attention
@@ -738,27 +823,35 @@ PER_HEAD = dict(FIXED, different_layout_per_head=True,
                 num_different_global_patterns=4)
 
 
+# (section, block, d, dtype, causal, kpm, bias, seq); seq None: 12 blocks
 SPARSE_CASES = [
-    (FIXED, 16, 64, torch.bfloat16, True, False, False),
-    (PER_HEAD, 16, 64, torch.bfloat16, True, True, True),
-    (FIXED, 32, 32, torch.float16, False, True, False),
-    (PER_HEAD, 32, 128, torch.float32, True, False, True),
+    (FIXED, 16, 64, torch.bfloat16, True, False, False, None),
+    (PER_HEAD, 16, 64, torch.bfloat16, True, True, True, None),
+    (FIXED, 32, 32, torch.float16, False, True, False, None),
+    (PER_HEAD, 32, 128, torch.float32, True, False, True, None),
     ({"mode": "bigbird", "num_random_blocks": 1, "seed": 2}, 64, 64,
-     torch.float32, False, False, False),
+     torch.float32, False, False, False, None),
     ({"mode": "bslongformer", "global_block_indices": [0]}, 128, 128,
-     torch.bfloat16, True, True, False),
+     torch.bfloat16, True, True, False, None),
     ({"mode": "variable", "different_layout_per_head": True,
       "num_random_blocks": 1, "seed": 5}, 16, 32, torch.bfloat16, False,
-     False, True),
+     False, True, None),
     ({"mode": "sliding_window", "num_sliding_window_blocks": 3}, 128, 64,
-     torch.float16, True, False, False),
+     torch.float16, True, False, False, None),
+] + [
+    # the fp16 backward on long walks with a key bias and a score bias:
+    # every block of a dense layout, at the flash fp16 cases' lengths
+    # (chip_smoke.py FP16_CASES: 96, and 1000 rounded up to the block)
+    ({"mode": "dense"}, 32, d, torch.float16, causal, True, True, s)
+    for d in (32, 128) for s in (96, 1024) for causal in (True, False)
 ]
 
 
-@pytest.mark.parametrize("section,block,d,dtype,causal,kpm,bias",
+@pytest.mark.parametrize("section,block,d,dtype,causal,kpm,bias,seq",
                          SPARSE_CASES)
 def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
-                                                   dtype, causal, kpm, bias):
+                                                   dtype, causal, kpm, bias,
+                                                   seq):
     """Each of the three kernels against its plain version, an empty query
     block included. fp32: out within 1e-5 absolute, dq, dk, dv within 1e-5
     of their largest magnitude; bf16/fp16, per element: one ulp of the
@@ -768,7 +861,7 @@ def test_block_sparse_kernels_match_plain_versions(cuda, section, block, d,
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_attention as bsa
     h = 4
-    s = block * 12
+    s = seq or block * 12
     tables, q, k, v, dout, kpm_t, bias_t = _sparse_case(
         cuda, dtype, dict(section, block=block), h, s, d, kpm=kpm, bias=bias)
     kw = dict(tables=tables, causal=causal)

@@ -23,8 +23,9 @@
   fp32 master weights; and a 3-step fp32 trajectory with the
   ``sparse_attention`` section on;
 * rules: ``initialize`` needs CUDA unless asked for the CPU, a world size
-  above 1 raises ``NotImplementedError`` and client arguments the engine
-  cannot take raise, the
+  above 1 needs a process group of its size (the batch triple follows the
+  mesh's data axis), ZeRO-3 raises ``NotImplementedError`` and client
+  arguments the engine cannot take raise, the
   parameters and gradients stay views of the flat buffers, and the tied
   embedding's gradient sums both uses.
 
@@ -65,6 +66,7 @@ from deepspeed_tpu_torch.runtime import constants as tconstants
 from deepspeed_tpu_torch.runtime import utils as tutils
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as tls
 from deepspeed_tpu_torch.runtime.zero import constants as tzero_constants
+from deepspeed_tpu_torch.parallel.topology import build_mesh
 from deepspeed_tpu_torch.runtime.zero.partition import FlatPartition
 
 pytestmark = pytest.mark.torch_port
@@ -653,13 +655,21 @@ def test_initialize_needs_cuda_unless_asked_for_the_cpu():
 
 def test_world_size_above_one_and_unported_arguments_raise(monkeypatch):
     model = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        FlatPartition(model, torch.device("cpu"), torch.bfloat16,
-                      world_size=2)
-    monkeypatch.setattr(tconfig, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="world size 2"):
+    # a data-parallel world above one needs a process group of its size
+    # (tests/test_torch_zero_dp.py trains one); ZeRO-3 is a later slice
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        build_mesh(data=2)
+    with pytest.raises(NotImplementedError, match="ZeRO-3/offload"):
         deepspeed_tpu_torch.initialize(
-            model=model, config_params=_ds("bf16", 2, 1, 2), device="cpu")
+            model=model, config_params=_ds("bf16", 3, 1, 2), device="cpu")
+    # the batch triple follows the mesh's data axis (1 here), not the
+    # size of a process group the mesh does not span
+    monkeypatch.setattr(tconfig, "_world_size", lambda: 2)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config_params=_ds("bf16", 2, 1, 2), device="cpu")[0]
+    assert engine.dp_world_size == 1 and engine.train_batch_size() == 2
+    assert isinstance(engine.flat, FlatPartition) and \
+        engine.flat.part_numel == engine.flat.numel
     monkeypatch.undo()
     # what the client arguments cannot take: a torch optimizer (no JAX
     # counterpart), a schedule without step(), a subset of the parameters
