@@ -121,9 +121,22 @@ with no ``ok`` line):
    1 and against the plain versions, fp32 and bf16 (stages 0, 1 and 2 bit
    for bit), and LAMB with one rank's part of a leaf scaled x20 (stage 2
    against stage 0 and DP 1): losses and masters;
-21. train_dp_tp_parity — four ranks on ``build_mesh(data=2, model=2)``
+21. train_dp_ckpt — DP 2 (train_dp_parity's two ranks, after its runs:
+   ZeRO-2, the example's config, 2 layers) saves; DP 1 loads: the master
+   bit for bit, the next step within train_dp_parity's bounds;
+22. train_dp_tp_parity — four ranks on ``build_mesh(data=2, model=2)``
    (ring, flash and Adam kernels), 2 layers, fp32 and bf16 ZeRO-2,
    against DP 1 x TP 1;
+23. train_ckpt — the train path at bench.py's first rung saves after 2
+   steps (``save_checkpoint``, a temporary directory, deleted after),
+   takes 2 more; a fresh engine from another seed loads the tag
+   (``verify_tag`` first) and takes the same 2: losses, master and
+   moments equal bit for bit; counts set to 0 just before the resumed
+   steps and read just after; save and load seconds, tag bytes by file;
+24. train_remat — bench.py's third rung (micro 24, remat on) under
+   ``remat_policy`` "full" and "dots": the first step bit-equal, step ms
+   and peak GB each ("dots" keeping at least REMAT_DOTS_EXTRA_GB more),
+   and a profile under "dots";
 
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
@@ -132,7 +145,8 @@ variant the main paths run) and, last, ``{"ok": true, "device":
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
 step on both backends; ``--dp-nccl`` (four cards) runs train_dp at DP 4
-and at DP 2 x TP 2 with one rank per card.
+and at DP 2 x TP 2 with one rank per card, then resumes a DP 4 tag at
+DP 2 x TP 2 (``dp_nccl_ckpt``).
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
 without a result when CUDA is unavailable.
 """
@@ -2773,7 +2787,8 @@ def dp_parity_rank(rank, world, spec):
     model=spec["tp"])``, this data coordinate's rows of ``spec["ids"]``,
     TF32 off; per run the losses, the launches, and the gathered masters'
     differences from the single-rank references in ``spec["ref_path"]``
-    and from the runs named in ``spec["pairs"]``."""
+    and from the runs named in ``spec["pairs"]``; with ``spec["ckpt"]``,
+    then :func:`dp_ckpt_rank` on it, under the key "ckpt"."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.parallel.topology import build_mesh
@@ -2818,6 +2833,8 @@ def dp_parity_rank(rank, world, spec):
         out[name] = res
         del engine, model, master, init
         torch.cuda.empty_cache()
+    if spec.get("ckpt"):
+        out["ckpt"] = dp_ckpt_rank(rank, world, spec["ckpt"])
     return out
 
 
@@ -2857,7 +2874,7 @@ def _rel(a, b):
 
 
 def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
-                          scale=20.0):
+                          scale=20.0, ckpt=None):
     """DP 2 on the card (two gloo ranks) at gpt2_medium width with 4
     layers, seq 1024, micro 2 a rank, TF32 off: with the kernels against
     DP 1 with the kernels on the same global batch, and against DP 2 with
@@ -2870,7 +2887,9 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
     masters (:func:`_check_masters`) within ``master_atol`` absolute at
     fp32 and between LAMB's stages, and at bf16 across runs that round
     their gradients differently each leaf's move within ``moved_rtol`` of
-    the reference's."""
+    the reference's. With ``ckpt`` (:func:`dp_ckpt_spec`) the ranks then
+    run train_dp_ckpt's DP 2 part (:func:`dp_ckpt_rank`), sharing their
+    start-up; its returns come back under "dp_ckpt_ranks"."""
     import os
     import tempfile
     import torch
@@ -2906,9 +2925,11 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
                           "bf16/xla/s2": ("bf16/pallas/s2",),
                           "lamb/pallas/s2": ("lamb/pallas/s0",)},
                 "keep": ("fp32/pallas/s0", "bf16/pallas/s0",
-                         "bf16/pallas/s2", "lamb/pallas/s0")}
+                         "bf16/pallas/s2", "lamb/pallas/s0"),
+                "ckpt": ckpt}
         ranks = spawn(dp_parity_rank, DP, args=(spec,), timeout_s=900)
     torch.cuda.empty_cache()
+    ckpt_ranks = [r.pop("ckpt") for r in ranks] if ckpt else None
     r0 = ranks[0]
     for r in ranks:
         for name in r0:
@@ -2966,6 +2987,8 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
     assert all(stages_equal.values()), result
     assert max(rel.values()) <= loss_tol, result
     _check_masters(masters, master_atol, moved_rtol, result)
+    if ckpt:
+        result["dp_ckpt_ranks"] = ckpt_ranks
     return result
 
 
@@ -3170,10 +3193,63 @@ def main_tp_nccl():
                         "layers": TP_LAYERS, "dtype": "bf16"}})
 
 
+def nccl_ckpt_rank(rank, world, spec):
+    """One rank of ``--dp-nccl``'s checkpoint run: the GPT-2 example's
+    config at gpt2_medium, DP 4 (ZeRO-2) for 2 steps, a save into
+    ``spec["dir"]``, one more step; then DP 2 x TP 2 (the ring kernels)
+    loads the tag and takes that step on the same global batch."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=False)
+    state = {k: v.clone() for k, v in
+             gpt2.make_gpt2_model(config=cfg, seed=0).state_dict().items()}
+    out = {"transport": torch.distributed.get_backend()}
+    for data, tp in ((world, 1), (world // 2, 2)):
+        model = gpt2.GPT2Model(cfg)
+        model.load_state_dict(state)
+        micro = spec["rows"] // data
+        conf = _example_conf(micro)
+        if tp > 1:
+            conf["comm"] = {"collective_matmul": {"enabled": True,
+                                                  "backend": "pallas"}}
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, mesh=build_mesh(data=data, model=tp),
+            config_params=conf)[0]
+        batch = dp_rows((spec["ids"], spec["ids"]), engine.dp_rank, micro)
+        key = "dp{}_tp{}".format(data, tp)
+        if tp == 1:
+            losses = [float(engine.train_batch(batch=batch))
+                      for _ in range(CKPT_STEPS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.save_checkpoint(spec["dir"], tag="t")
+            out["save_s"] = time.perf_counter() - t0
+            out[key] = {"losses": losses}
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path, _ = engine.load_checkpoint(spec["dir"])
+            torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+            assert path is not None
+            out[key] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[key]["next_loss"] = float(engine.train_batch(batch=batch))
+        out[key]["next_step_ms"] = (time.perf_counter() - t0) * 1e3
+        del engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main_dp_nccl():
     """``--dp-nccl``: the data-parallel main path with one rank per card
     over NCCL (needs 4 cards): DP 4, and DP 2 x TP 2; the step and the
-    reduce-scatter and all-gather kernels' device time a step."""
+    reduce-scatter and all-gather kernels' device time a step; then
+    :func:`phase_dp_nccl_ckpt`."""
     import torch
     count = torch.cuda.device_count()
     assert count >= 4, "--dp-nccl needs 4 cards, found {}".format(count)
@@ -3182,6 +3258,383 @@ def main_dp_nccl():
         assert res["transport"] == "nccl", res["transport"]
         res["phase"] = "dp_nccl"
         emit(res)
+    emit(phase_dp_nccl_ckpt())
+
+
+def phase_dp_nccl_ckpt(loss_tol=5e-4):
+    """A tag saved at DP 4 resumes at DP 2 x TP 2, one rank per card over
+    NCCL (4 cards): the next step's loss within ``loss_tol`` (bf16: the
+    two layouts sum in other orders) of DP 4's; the save and load
+    seconds."""
+    import tempfile
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    rows = DP_MICRO * 4
+    ids = np.random.RandomState(6).randint(
+        0, 50304, size=(1, rows, TRAIN_SEQ)).astype(np.int64)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_ckpt_") as tmp:
+        ranks = spawn(nccl_ckpt_rank, 4, args=({"ids": ids, "rows": rows,
+                                                "dir": tmp},),
+                      timeout_s=900)
+    r0 = ranks[0]
+    want, got = r0["dp4_tp1"]["next_loss"], r0["dp2_tp2"]["next_loss"]
+    res = {"phase": "dp_nccl_ckpt", "transport": r0["transport"],
+           "saved_at": "DP 4", "loaded_at": "DP 2 x TP 2",
+           "model": "gpt2_medium", "config": EXAMPLE_CONFIG,
+           "save_s": max(r["save_s"] for r in ranks),
+           "load_s": max(r["load_s"] for r in ranks),
+           "losses_dp4": r0["dp4_tp1"]["losses"], "next_loss_dp4": want,
+           "next_loss_dp2_tp2": got, "loss_rel_diff": abs(got - want) /
+           abs(want), "loss_tol": loss_tol,
+           "next_step_ms": {k: max(r[k]["next_step_ms"] for r in ranks)
+                            for k in ("dp4_tp1", "dp2_tp2")}}
+    assert r0["transport"] == "nccl", res
+    assert all(r["dp2_tp2"]["next_loss"] == got for r in ranks), res
+    assert res["loss_rel_diff"] <= loss_tol, res
+    return res
+
+
+# ------------------------ checkpoints and activation checkpointing (slice 12)
+
+
+CKPT_STEPS = 2
+CKPT_TAG_GB = 3.55      # predicted: bf16 module + fp32 master + bf16 moments
+
+
+def _bench_engine(seed, layers=None, micro=TRAIN_MICRO, seq=TRAIN_SEQ,
+                  remat=TRAIN_REMAT, policy="full", state=None):
+    """bench.py's rung engine (``TRAIN_CONFIG``: bf16, ZeRO-2, Adam with
+    bf16 moments and accumulator) on gpt2_medium, from ``seed`` or from a
+    CPU ``state`` dict of its weights."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=seq, loss_chunk=128,
+                          remat=remat, remat_policy=policy,
+                          **({"n_layers": layers} if layers else {}))
+    if state is None:
+        model = gpt2.make_gpt2_model(config=cfg, seed=seed)
+    else:
+        model = gpt2.GPT2Model(cfg)
+        model.load_state_dict(state)
+    conf = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro)
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config_params=conf)[0]
+    assert engine.device.type == "cuda"
+    assert engine.flash_attention_backend == "pallas"
+    assert engine.fused_optimizer_kernel == "pallas"
+    return engine, cfg
+
+
+def _flat_state(engine):
+    flat = engine.flat
+    return [t.detach().clone() for t in (flat.master, flat.exp_avg,
+                                         flat.exp_avg_sq)]
+
+
+def _max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_train_ckpt(launch_counters, layers=None, micro=TRAIN_MICRO,
+                     seq=TRAIN_SEQ):
+    """Save and resume on the training main path at bench.py's first rung:
+    2 steps, a synchronous ``save_checkpoint`` into a temporary directory,
+    2 more steps; a fresh engine from another seed ``load_checkpoint``s
+    the tag (``verify_tag`` first) and runs the same 2 steps. The losses
+    and the fp32 masters and both moments of the two runs must be equal
+    bit for bit; counts set to 0 just before the resumed steps and read
+    just after. Prints save and load seconds, the tag's bytes by file and
+    the free disk before the save; the directory is deleted."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt
+    engine, cfg = _bench_engine(0, layers, micro, seq)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, micro, seq)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(CKPT_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        assert free_gb > 2 * CKPT_TAG_GB, \
+            "{:.2f} GB free for a {} GB tag".format(free_gb, CKPT_TAG_GB)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(tmp, tag="t")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok, why = ckpt.verify_tag(tmp, "t")
+        verify_s = time.perf_counter() - t0
+        assert ok, why
+        files = ckpt.read_manifest(tmp, "t")["files"]
+        tag_bytes = {name: rec["bytes"] for name, rec in files.items()}
+        kept = [float(engine.train_batch(batch=batch))
+                for _ in range(CKPT_STEPS)]
+        kept_state = _flat_state(engine)
+        del engine
+        torch.cuda.empty_cache()
+        other, _ = _bench_engine(1, layers, micro, seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, client = other.load_checkpoint(tmp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert path is not None and other.global_steps == CKPT_STEPS
+        for counter in launch_counters:
+            counter.launches = 0
+        resumed = [float(other.train_batch(batch=batch))
+                   for _ in range(CKPT_STEPS)]
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in launch_counters}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = ("master", "exp_avg", "exp_avg_sq")
+    equal = {n: bool(torch.equal(a, b)) for n, a, b in
+             zip(names, _flat_state(other), kept_state)}
+    diff = {n: _max_abs(a, b) for n, a, b in
+            zip(names, _flat_state(other), kept_state)}
+    result = {"phase": "train_ckpt", "model": "gpt2_medium",
+              "layers": cfg.n_layers, "seq": seq, "micro_batch": micro,
+              "dtype": "bf16", "zero_stage": 2, "moments": "bf16",
+              "free_disk_gb_before_save": free_gb, "save_s": save_s,
+              "verify_s": verify_s, "load_s": load_s,
+              "tag_bytes": tag_bytes,
+              "tag_gb": sum(tag_bytes.values()) / 1e9,
+              "predicted_tag_gb": CKPT_TAG_GB,
+              "losses_before_save": losses, "losses_kept_going": kept,
+              "losses_resumed": resumed, "state_bit_equal": equal,
+              "state_max_abs_diff": diff, "launches_resumed": launches}
+    assert resumed == kept and all(equal.values()), result
+    for name in FLASH_GROUPS:
+        assert launches[name] == cfg.n_layers * CKPT_STEPS, result
+    assert launches["fused_adam"] == CKPT_STEPS, result
+    return result
+
+
+def _example_conf(micro):
+    with open(EXAMPLE_CONFIG) as f:
+        conf = json.load(f)
+    conf.update(steps_per_print=10 ** 9,
+                train_micro_batch_size_per_gpu=micro,
+                transformer={"flash_attention": "auto"})
+    return conf
+
+
+DP_CKPT_LAYERS = 2
+
+
+def dp_ckpt_rank(rank, world, spec):
+    """One rank of ``train_dp_ckpt``: the GPT-2 example's config at
+    gpt2_medium width with ``DP_CKPT_LAYERS`` layers over
+    ``build_mesh(data=world)``, 2 steps, ``save_checkpoint`` into
+    ``spec["dir"]`` (every rank its zero file), the gathered master then
+    (``spec["saved"]``, npz), one more step and the master after it
+    (``spec["next"]``)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=False,
+                          n_layers=DP_CKPT_LAYERS)
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, mesh=build_mesh(data=world),
+        config_params=_example_conf(DP_MICRO))[0]
+    assert engine.device.type == "cuda" and engine.dp_world_size == world
+    batch = dp_rows((spec["ids"], spec["ids"]), engine.dp_rank, DP_MICRO)
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(CKPT_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(spec["dir"], tag="t")
+    save_s = time.perf_counter() - t0
+    saved = _leaf_items(engine.get_master_params())
+    next_loss = float(engine.train_batch(batch=batch))
+    after = _leaf_items(engine.get_master_params())
+    if rank == 0:
+        np.savez(spec["saved"], **saved)
+        np.savez(spec["next"], **after)
+    return {"losses": losses, "next_loss": next_loss, "save_s": save_s,
+            "lr": engine.get_lr()[0],
+            "transport": torch.distributed.get_backend()}
+
+
+def dp_ckpt_spec(tmp):
+    """:func:`dp_ckpt_rank`'s spec: the global batch (seed 5), the tag
+    directory and the npz files of the masters, all under ``tmp``."""
+    import os
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 50304, size=(1, DP_MICRO * DP, TRAIN_SEQ)) \
+        .astype(np.int64)
+    return {"ids": ids, "dir": os.path.join(tmp, "tags"),
+            "saved": os.path.join(tmp, "saved.npz"),
+            "next": os.path.join(tmp, "next.npz")}
+
+
+def phase_train_dp_ckpt(launch_counters, loss_tol=1e-4, moved_rtol=0.25,
+                        spec=None, ranks=None):
+    """Elastic resume on the card: DP 2 (two gloo ranks on this card,
+    ZeRO-2, the example's config at gpt2_medium width, 2 layers) saves
+    after 2 steps and takes one more; DP 1 in this process (the same
+    global batch) loads the tag: its master equals DP 2's at the save bit
+    for bit, and after the next step the loss and masters agree with DP
+    2's within ``train_dp_parity``'s bf16 bounds (loss ``loss_tol``
+    relative; each leaf's move within ``moved_rtol`` of DP 2's). Counts
+    set to 0 just before the resumed step and read just after. ``spec``
+    and ``ranks``: the spec and the ranks' returns where train_dp_parity's
+    ranks ran :func:`dp_ckpt_rank`; without them it is spawned here."""
+    import os
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_ckpt_") as tmp:
+        if ranks is None:
+            spec = dp_ckpt_spec(tmp)
+            ranks = spawn(dp_ckpt_rank, DP, args=(spec,), timeout_s=900)
+        ids = spec["ids"]
+        torch.cuda.empty_cache()
+        saved, after = dict(np.load(spec["saved"])), dict(np.load(
+            spec["next"]))
+        files = sorted(os.listdir(os.path.join(spec["dir"], "t")))
+        cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                              loss_chunk=128, remat=False,
+                              n_layers=DP_CKPT_LAYERS)
+        engine = deepspeed_tpu_torch.initialize(
+            model=gpt2.make_gpt2_model(config=cfg, seed=1),
+            config_params=_example_conf(DP_MICRO * DP))[0]
+        t0 = time.perf_counter()
+        path, _ = engine.load_checkpoint(spec["dir"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    assert path is not None
+    loaded = _leaf_items(engine.get_master_params())
+    bit_equal = all(np.array_equal(loaded[k], v) for k, v in saved.items())
+    for counter in launch_counters:
+        counter.launches = 0
+    loss = float(engine.train_batch(batch=(ids, ids)))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in launch_counters}
+    diff = _master_diff(_leaf_items(engine.get_master_params()), after,
+                        cfg.d_model, saved)
+    r0 = ranks[0]
+    rel = abs(loss - r0["next_loss"]) / abs(r0["next_loss"])
+    result = {"phase": "train_dp_ckpt", "config": EXAMPLE_CONFIG,
+              "model": "gpt2_medium", "layers": DP_CKPT_LAYERS,
+              "seq": TRAIN_SEQ, "saved_at": {"data": DP, "zero_stage": 2,
+                                             "micro_per_rank": DP_MICRO},
+              "loaded_at": {"data": 1, "micro": DP_MICRO * DP},
+              "transport": r0["transport"], "tag_files": files,
+              "save_s_per_rank": [r["save_s"] for r in ranks],
+              "load_s": load_s, "losses_dp2": r0["losses"],
+              "next_loss_dp2": r0["next_loss"], "next_loss_dp1": loss,
+              "loss_rel_diff": rel, "master_bit_equal_at_load": bit_equal,
+              "master_after_next_step": diff,
+              "lr_dp2": r0["lr"], "lr_dp1": engine.get_lr()[0],
+              "launches_resumed": launches,
+              "tolerance": {"loss_rel": loss_tol, "moved_rel": moved_rtol}}
+    assert all(r["losses"] == r0["losses"] for r in ranks), result
+    assert bit_equal and rel <= loss_tol, result
+    assert diff["moved_rel"] <= moved_rtol, result
+    assert result["lr_dp1"] == result["lr_dp2"], result
+    for name in FLASH_GROUPS:
+        assert launches[name] == DP_CKPT_LAYERS, result
+    assert launches["fused_adam"] == 1, result
+    del engine
+    torch.cuda.empty_cache()
+    return result
+
+
+REMAT_MICRO, REMAT_WARMUP, REMAT_STEPS = 24, 1, 3    # bench.py's 3rd rung
+# "dots" keeps every layer's linear-layer outputs, which "full" recomputes:
+# 9 * d_model values a token a layer in bf16, 10.1 GiB at this rung, some
+# of which "full" holds at its peak too (7.8 GiB more measured on an
+# H100); a policy that matched no product would keep nothing more
+REMAT_DOTS_EXTRA_GB = 4.0     # GiB, as peak_memory_gb
+# kernel-name substrings of the profile: cuBLAS's GEMMs (either family),
+# the flash kernels, PyTorch's elementwise kernels
+REMAT_GROUPS = ("gemm", "nvjet", "flash_", "elementwise")
+
+
+def phase_train_remat(launch_counters, layers=None, micro=REMAT_MICRO,
+                      seq=TRAIN_SEQ, steps=REMAT_STEPS):
+    """bench.py's third rung, ``(24, True, True)``: gpt2_medium, micro 24,
+    remat on, bf16 state, once under ``remat_policy`` "full" and once
+    under "dots" (the linear layers' outputs kept), from one init. After
+    one step the losses and the fp32 masters of the two are equal bit for
+    bit; then ``REMAT_WARMUP`` + ``steps`` timed steps each (counts set to
+    0 just before the timed steps and read just after), with the peak
+    memory of the timed steps, which under "dots" must exceed "full"'s by
+    ``REMAT_DOTS_EXTRA_GB`` (the kept products); under "dots" then a
+    profile of 2 steps (device time by kernel group, the host's wait on a
+    full launch queue)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=seq,
+                          **({"n_layers": layers} if layers else {}))
+    state = {k: v.clone() for k, v in
+             gpt2.make_gpt2_model(config=cfg, seed=0).state_dict().items()}
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, micro, seq)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    runs, first = {}, {}
+    for policy in ("full", "dots"):
+        # an engine is a reference cycle: an earlier phase's (or policy's)
+        # would otherwise stay on the card and into this peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, cfg = _bench_engine(0, layers, micro, seq, remat=True,
+                                    policy=policy, state=state)
+        loss = float(engine.train_batch(batch=batch))
+        first[policy] = (loss, engine.flat.master.detach().clone())
+        for _ in range(REMAT_WARMUP):
+            engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in launch_counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        losses = [engine.train_batch(batch=batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[policy] = {
+            "step_ms": wall * 1e3 / steps,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "losses": [loss] + [float(x) for x in losses],
+            "launches": {c.__name__: c.launches for c in launch_counters}}
+        if policy == "dots":
+            runs[policy]["train_profile"] = train_profile(
+                engine, batch, kernel_groups=REMAT_GROUPS)
+        del engine
+        torch.cuda.empty_cache()
+    equal = first["full"][0] == first["dots"][0] and \
+        bool(torch.equal(first["full"][1], first["dots"][1]))
+    result = {"phase": "train_remat", "model": "gpt2_medium",
+              "layers": cfg.n_layers, "seq": seq, "micro_batch": micro,
+              "dtype": "bf16", "zero_stage": 2, "moments": "bf16",
+              "remat": True, "steps": steps, "policies": runs,
+              "first_step_bit_equal": equal,
+              "first_step_master_max_abs_diff": _max_abs(
+                  first["full"][1], first["dots"][1]),
+              "dots_vs_full_step": runs["dots"]["step_ms"] /
+              runs["full"]["step_ms"],
+              "dots_extra_peak_gb": runs["dots"]["peak_memory_gb"] -
+              runs["full"]["peak_memory_gb"],
+              "dots_extra_peak_gb_min": REMAT_DOTS_EXTRA_GB}
+    assert equal, result
+    assert result["dots_extra_peak_gb"] >= REMAT_DOTS_EXTRA_GB, result
+    for policy, run in runs.items():
+        assert all(np.isfinite(run["losses"])), result
+        for name in FLASH_GROUPS:
+            assert run["launches"][name] == cfg.n_layers * steps, result
+        assert run["launches"]["fused_adam"] == steps, result
+    return result
 
 
 KERNELS = [
@@ -3249,6 +3702,7 @@ def main():
     from deepspeed_tpu_torch.ops.sparse_attention import \
         block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    import tempfile
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3363,8 +3817,23 @@ def main():
     # the data-parallel path: two ranks on this card (gloo), each with its
     # own counts, reset just before its timed steps
     emit(phase_train_dp())
-    emit(phase_train_dp_parity())
+    # train_dp_parity's ranks also save train_dp_ckpt's DP 2 tag; DP 1
+    # resumes it here
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_ckpt_") as tmp:
+        dp_ckpt = dp_ckpt_spec(tmp)
+        parity = phase_train_dp_parity(ckpt=dp_ckpt)
+        dp_ckpt_ranks = parity.pop("dp_ckpt_ranks")
+        emit(parity)
+        emit(phase_train_dp_ckpt(train_counters, spec=dp_ckpt,
+                                 ranks=dp_ckpt_ranks))
     emit(phase_train_dp_tp_parity())
+
+    # checkpoints on the train path: save and resume; then bench.py's
+    # remat rung under both policies
+    emit(phase_train_ckpt(train_counters))
+    torch.cuda.empty_cache()
+    emit(phase_train_remat(train_counters))
+    torch.cuda.empty_cache()
 
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}

@@ -33,12 +33,17 @@ LAMB kernels, SGD, the ``scheduler`` section and the four LR schedules
 training_data=, model_parameters=)``, ``FP16_Optimizer``
 (``runtime/fp16/fused_optimizer.py``), :func:`add_config_arguments`, and
 twins of the repo's two examples (``examples/cifar_train.py``,
-``examples/gpt2_pretrain.py``).
+``examples/gpt2_pretrain.py``); checkpoints in the JAX package's tag
+format (``engine.save_checkpoint`` / ``load_checkpoint``, across
+packages and layouts) and activation checkpointing
+(:mod:`deepspeed_tpu_torch.checkpointing`, GPT-2's ``remat_policy``
+"full" and "dots").
 """
 from .version import __version__
 
 from .utils.logging import logger, log_dist
 from .models import bert, make_bert_model, make_bert_squad_model
+from .runtime.activation_checkpointing import checkpointing
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

@@ -21,9 +21,9 @@ def _tensor_of(array):
 
 
 def params_from_jax(tree):
-    """A JAX param tree (nested dicts and lists of numpy arrays) -> a
-    ``state_dict`` (dotted names -> CPU tensors, the same dtypes; bf16
-    leaves too)."""
+    """A JAX param tree (nested dicts and lists of numpy arrays or CPU
+    tensors) -> a ``state_dict`` (dotted names -> CPU tensors, the same
+    dtypes; bf16 leaves too)."""
     state = {}
 
     def walk(prefix, node):
@@ -33,6 +33,8 @@ def params_from_jax(tree):
         elif isinstance(node, (list, tuple)):
             for i, child in enumerate(node):
                 walk(prefix + (str(i),), child)
+        elif isinstance(node, torch.Tensor):
+            state[".".join(prefix)] = node.detach().cpu()
         else:
             state[".".join(prefix)] = _tensor_of(np.array(node))
 
@@ -40,11 +42,13 @@ def params_from_jax(tree):
     return state
 
 
-def params_to_jax(state_dict):
+def params_to_jax(state_dict, keep_dtype=False):
     """A ``state_dict`` (dotted names) -> the tree of numpy arrays as
     nested dicts (the inverse of :func:`params_from_jax` for a tree
     without lists). numpy has no bf16: a bf16 tensor comes out as fp32
-    holding the same values, which cast back to bf16 bit for bit."""
+    holding the same values, which cast back to bf16 bit for bit. With
+    ``keep_dtype`` the leaves stay CPU tensors of their own dtype (the
+    checkpoint writer's input)."""
     tree = {}
     for name, t in state_dict.items():
         node = tree
@@ -52,7 +56,11 @@ def params_to_jax(state_dict):
         for key in path:
             node = node.setdefault(key, {})
         t = t.detach().cpu()
-        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if keep_dtype:
+            node[leaf] = t
+        else:
+            node[leaf] = (t.float() if t.dtype == torch.bfloat16
+                          else t).numpy()
     return tree
 
 

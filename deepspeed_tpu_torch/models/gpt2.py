@@ -17,7 +17,8 @@ The block is :func:`make_block_fn`'s: on the flash path the fused LN + QKV
 + flash-attention op (``ops/transformer/flash_attention.py``, CUDA
 kernels) runs outside ``torch.utils.checkpoint`` and only
 :func:`_block_rest` is recomputed under ``remat``, as the JAX package's
-``jax.checkpoint`` does; the loss is chunked over the sequence
+``jax.checkpoint`` does (``remat_policy`` "full" recomputes all of it,
+"dots" keeps the linear layers' outputs); the loss is chunked over the sequence
 (:func:`chunked_causal_lm_loss`, each chunk checkpointed) so the full
 ``(b, s, vocab)`` logits never exist. Dropout draws from an explicit
 ``torch.Generator``: one seed per layer, so a recomputed block redraws
@@ -36,7 +37,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.paged_attention import paged_attention, paged_attention_reference
 from ..ops.sparse_attention import SparseSelfAttention
@@ -61,7 +63,7 @@ class GPT2Config:
     d_model: int = 768
     dropout: float = 0.0
     remat: bool = True             # activation checkpointing per block
-    remat_policy: str = "full"     # "full" only (see make_block_fn)
+    remat_policy: str = "full"     # "full" | "dots" (see make_block_fn)
     loss_chunk: int = 128          # CE seq-chunking (0 = dense logits)
     use_flash_attention: bool = True
     # Resolved transformer.flash_attention backend: "pallas" (the fused
@@ -323,10 +325,40 @@ def tp_gather_state_dicts(shards):
     return out
 
 
-def params_to_jax(state_dict):
+def tp_full_boxes(name, shard_shape, box, rank, size):
+    """A box ``((lo, hi), ...)`` of rank ``rank``'s shard of ``name`` (as
+    :func:`tp_shard_state_dict` cuts it for a ring of ``size``) -> the full
+    leaf's shape and ``[(box of the full leaf, index of that part within
+    the box's data)]``: one part, shifted along the sharded dimension, or
+    for the qkv kernel and bias up to three, one each of q, k and v."""
+    dim = _shard_dim(name)
+    if dim is None:
+        return tuple(shard_shape), [(tuple(box), ())]
+    full = list(shard_shape)
+    full[dim] *= size
+    n = shard_shape[dim]
+    if "qkv" not in name:
+        shifted = list(box)
+        lo, hi = box[dim]
+        shifted[dim] = (lo + rank * n, hi + rank * n)
+        return tuple(full), [(tuple(shifted), ())]
+    local, d = n // 3, n // 3 * size
+    lo, hi = box[-1]
+    parts = []
+    for j in range(3):
+        a, b = max(lo, j * local), min(hi, (j + 1) * local)
+        if a < b:
+            start = j * d + rank * local - j * local
+            parts.append((tuple(box[:-1]) + ((start + a, start + b),),
+                          (Ellipsis, slice(a - lo, b - lo))))
+    return tuple(full), parts
+
+
+def params_to_jax(state_dict, keep_dtype=False):
     """The inverse of :func:`params_from_jax`: a ``state_dict`` -> the
-    JAX-shaped tree of numpy arrays (``blocks`` a list)."""
-    tree = _tree.params_to_jax(state_dict)
+    JAX-shaped tree of numpy arrays (``blocks`` a list; CPU tensors of
+    their own dtype with ``keep_dtype``)."""
+    tree = _tree.params_to_jax(state_dict, keep_dtype)
     blocks = tree["blocks"]
     tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
     return tree
@@ -503,6 +535,28 @@ def _layer_rng(seed, device):
     return torch.Generator(device=device).manual_seed(seed)
 
 
+REMAT_POLICIES = ("full", "dots")
+# the products with no batch dimension: the linear layers (a (b, s, d) @
+# (d, f) product reaches aten.mm through matmul's fold), never attention's
+# batched products
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the output of every product with no batch dimension, recompute the
+    rest. A product inside a custom autograd op's forward (grad mode is
+    off there: the tensor-parallel ring ops) is recomputed with its op,
+    as the JAX package recomputes a ``pallas_call``."""
+    if op in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def make_block_fn(config, train, device):
     """One transformer block as ``block_fn(x, block_params, seed) -> x``
     with the config's remat / fused-attention choices, as the JAX
@@ -511,16 +565,26 @@ def make_block_fn(config, train, device):
     its backward) and ``torch.utils.checkpoint`` wraps only
     :func:`_block_rest`; otherwise it wraps the whole block. ``seed``
     (or None) seeds the layer's dropout generator inside the checkpointed
-    function, so the recompute redraws the same masks."""
-    if config.remat and config.remat_policy != "full":
-        raise NotImplementedError(
-            "remat_policy={!r} is not ported yet (only \"full\"): saving "
-            "matmul outputs needs selective checkpointing, a later "
-            "slice".format(config.remat_policy))
+    function, so the recompute redraws the same masks.
+
+    ``remat_policy``: "full" recomputes everything in the backward;
+    "dots" keeps the outputs of the products with no batch dimension (the
+    qkv, proj and fc matmuls, ``aten.mm``) and recomputes the rest (layer
+    norms, GeLU, biases, dropout, attention's batched products), through
+    ``torch.utils.checkpoint``'s selective checkpointing. Under tensor
+    parallelism the four TP products run as ring ops (custom autograd
+    functions over the CUDA ring kernels), which are not saveable dots:
+    they are recomputed, as the JAX package recomputes a ``pallas_call``
+    under this policy."""
+    if config.remat_policy not in REMAT_POLICIES:
+        raise ValueError("remat_policy must be one of {}, got {!r}".format(
+            "|".join(REMAT_POLICIES), config.remat_policy))
+    context = {"full": {}, "dots": {"context_fn": _dots_contexts}}[
+        config.remat_policy]
 
     def maybe_remat(fn, *args):
         if config.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False, **context)
         return fn(*args)
 
     if _use_fused_attn(config, device):

@@ -17,8 +17,10 @@ This slice runs ``bf16`` / ``fp16`` / ``amp`` mixed precision,
 ``data_types.grad_accum_dtype``, ``steps_per_print``,
 ``transformer.flash_attention``, ``sparse_attention`` (parsed per mode
 as the JAX package does; the model reads it through
-``engine.sparse_attention_config()``) and ``sparse_gradients`` (the
-model opts in, ``GPT2Config.sparse_embedding_grads``). Every other
+``engine.sparse_attention_config()``), ``sparse_gradients`` (the
+model opts in, ``GPT2Config.sparse_embedding_grads``), ``checkpoint``
+(tag validation, IO retries, retention) and
+``activation_checkpointing``. Every other
 section the JAX package accepts parses here too, but switching it on
 raises ``NotImplementedError`` naming the later slice that brings it
 (:data:`UNPORTED_SECTIONS`).
@@ -30,6 +32,8 @@ from .config_utils import (get_scalar_param,
                            dict_raise_error_on_duplicate_keys)
 from .zero.config import DeepSpeedZeroConfig
 from .comm.config import DeepSpeedCommConfig
+from .activation_checkpointing.config import \
+    DeepSpeedActivationCheckpointingConfig
 from .zero.constants import MAX_STAGE_ZERO_OPTIMIZATION
 from ..inference.config import DeepSpeedInferenceConfig, INFERENCE
 from ..utils.logging import logger
@@ -45,9 +49,7 @@ TRANSFORMER_FLASH_ATTENTION_MODES = ("auto", "pallas", "xla")
 # and switched on raises NotImplementedError; ``{"enabled": false}`` or
 # ``false`` is accepted.
 UNPORTED_SECTIONS = {
-    CHECKPOINT: "the checkpoint slice",
     "elasticity": "the elastic-training slice",
-    "activation_checkpointing": "the activation-checkpointing slice",
     "flops_profiler": "the observability slice",
     WALL_CLOCK_BREAKDOWN: "the observability slice",
     MEMORY_BREAKDOWN: "the observability slice",
@@ -61,6 +63,12 @@ UNPORTED_SECTIONS = {
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+class ValidationMode:
+    WARN = "WARN"
+    IGNORE = "IGNORE"
+    FAIL = "FAIL"
 
 
 def _section_on(value):
@@ -280,6 +288,56 @@ def get_scheduler_params(param_dict):
     return None
 
 
+def get_checkpoint_params(param_dict):
+    return param_dict.get(CHECKPOINT, {})
+
+
+def get_checkpoint_tag_validation_mode(checkpoint_params):
+    tag_validation_mode = checkpoint_params.get(
+        CHECKPOINT_TAG_VALIDATION, CHECKPOINT_TAG_VALIDATION_DEFAULT)
+    tag_validation_mode = tag_validation_mode.upper()
+    if tag_validation_mode in (ValidationMode.WARN, ValidationMode.IGNORE,
+                               ValidationMode.FAIL):
+        return tag_validation_mode
+    raise DeepSpeedConfigError(
+        "Checkpoint config contains invalid tag_validation "
+        "value of {}, expecting one of {}".format(
+            tag_validation_mode,
+            [ValidationMode.WARN, ValidationMode.IGNORE, ValidationMode.FAIL]))
+
+
+def get_checkpoint_io_retries(checkpoint_params):
+    val = checkpoint_params.get(CHECKPOINT_IO_RETRIES,
+                                CHECKPOINT_IO_RETRIES_DEFAULT)
+    if isinstance(val, bool) or not isinstance(val, int) or val < 0:
+        raise DeepSpeedConfigError(
+            "checkpoint.{} must be an int >= 0, got {!r}".format(
+                CHECKPOINT_IO_RETRIES, val))
+    return val
+
+
+def get_checkpoint_io_backoff(checkpoint_params):
+    val = checkpoint_params.get(CHECKPOINT_IO_RETRY_BACKOFF,
+                                CHECKPOINT_IO_RETRY_BACKOFF_DEFAULT)
+    if isinstance(val, bool) or not isinstance(val, (int, float)) or val < 0:
+        raise DeepSpeedConfigError(
+            "checkpoint.{} must be a number >= 0, got {!r}".format(
+                CHECKPOINT_IO_RETRY_BACKOFF, val))
+    return float(val)
+
+
+def get_checkpoint_keep_last_n(checkpoint_params):
+    val = checkpoint_params.get(CHECKPOINT_KEEP_LAST_N,
+                                CHECKPOINT_KEEP_LAST_N_DEFAULT)
+    if val is None:
+        return None
+    if isinstance(val, bool) or not isinstance(val, int) or val < 1:
+        raise DeepSpeedConfigError(
+            "checkpoint.{} must be an int >= 1 (or null to disable "
+            "pruning), got {!r}".format(CHECKPOINT_KEEP_LAST_N, val))
+    return val
+
+
 def _world_size():
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
@@ -401,6 +459,21 @@ class DeepSpeedConfig(object):
         self.pld_enabled = get_pld_enabled(param_dict)
         self.pld_params = get_pld_params(param_dict)
         self.comm_config = DeepSpeedCommConfig(param_dict)
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(param_dict)
+
+        checkpoint_params = get_checkpoint_params(param_dict)
+        validation_mode = get_checkpoint_tag_validation_mode(checkpoint_params)
+        self.checkpoint_tag_validation_enabled = \
+            validation_mode != ValidationMode.IGNORE
+        self.checkpoint_tag_validation_fail = \
+            validation_mode == ValidationMode.FAIL
+        self.checkpoint_io_retries = get_checkpoint_io_retries(
+            checkpoint_params)
+        self.checkpoint_io_backoff_seconds = \
+            get_checkpoint_io_backoff(checkpoint_params)
+        self.checkpoint_keep_last_n = \
+            get_checkpoint_keep_last_n(checkpoint_params)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size

@@ -75,8 +75,13 @@ handle (``optimizer=``: the port's ``FusedAdam``, ``FusedLamb`` or
 ``scheduler`` section, ``runtime/lr_schedules.py``) stepped after every
 apply step that was not skipped, ``training_data=`` through
 :meth:`deepspeed_io`, and ``model_parameters=`` as initial weights.
-Checkpoints and telemetry come with later slices and raise
-``NotImplementedError``.
+
+Checkpoints (:meth:`save_checkpoint`, :meth:`load_checkpoint`) are the
+JAX engine's tags (``runtime/checkpointing.py``): a tag either package
+writes loads in the other, at any data- and tensor-parallel layout. The
+``activation_checkpointing`` section configures
+``deepspeed_tpu_torch.checkpointing``. Telemetry comes with a later
+slice.
 """
 import inspect
 import os
@@ -93,9 +98,10 @@ from ..ops.sgd import SGD
 from ..ops.transformer.attention import resolve_flash_backend
 from ..parallel.collective_matmul import CollectiveMatmulBinding
 from ..parallel.topology import DATA_AXIS, MODEL_AXIS, build_mesh
-from ..utils.distributed import all_gather, all_reduce_
+from ..utils.distributed import all_gather, all_reduce_, broadcast_
 from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
+from . import checkpointing as ckpt
 from . import utils as rt_utils
 from .comm.config import warn_or_raise_noop
 from .config import DeepSpeedConfig
@@ -144,6 +150,11 @@ class DeepSpeedEngine:
         self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
         self._configure_pld()
+        self._configure_activation_checkpointing(mpu)
+        ckpt.set_retry_policy(
+            retries=self._config.checkpoint_io_retries,
+            backoff_seconds=self._config.checkpoint_io_backoff_seconds)
+        self._ckpt_futures = []
         self._init_state()
         self.training_dataloader = self.deepspeed_io(training_data) \
             if training_data is not None else None
@@ -440,6 +451,26 @@ class DeepSpeedEngine:
                 **(self._config.pld_params or {}))
         else:
             self.progressive_layer_drop = None
+
+    def _configure_activation_checkpointing(self, mpu):
+        """The ``activation_checkpointing`` section, as the JAX engine
+        applies it: when present and the module is not configured yet (a
+        user's own ``configure()`` call wins); a section ``configure``
+        refuses (contiguous memory without partitioned activations) warns:
+        such a section needs the explicit call."""
+        if "activation_checkpointing" not in (self._config._param_dict or {}):
+            return
+        from .activation_checkpointing import checkpointing as act_ckpt
+        if act_ckpt.is_configured():
+            return
+        try:
+            act_ckpt.configure(mpu if mpu is not None else self.mesh,
+                               deepspeed_config=self._config)
+        except (AssertionError, ValueError) as err:
+            logger.warning(
+                "activation_checkpointing config could not be applied "
+                "(%s); call deepspeed_tpu_torch.checkpointing.configure() "
+                "with explicit kwargs", err)
 
     def _init_state(self):
         accum = torch.bfloat16 if self._config.grad_accum_dtype == "bf16" \
@@ -750,17 +781,18 @@ class DeepSpeedEngine:
                 getattr(module, "__name__", module), name))
         return getattr(module, name)
 
-    def _full_tree(self, flat):
+    def _full_tree(self, flat, keep_dtype=False):
         """A flat buffer -> the full model's ``{dotted name: fp32 CPU
-        tensor}``: a partition is gathered over the data group, then under
-        tensor parallelism every rank's buffer over the model group (one
-        all-gather each; every rank must call) and the shards joined (the
-        module's ``tp_gather_state_dicts``)."""
+        tensor}`` (the buffer's dtype with ``keep_dtype``): a partition is
+        gathered over the data group, then under tensor parallelism every
+        rank's buffer over the model group (one all-gather each; every
+        rank must call) and the shards joined (the module's
+        ``tp_gather_state_dicts``)."""
         flat = self.flat.whole(flat)
         if not self._cm_tp:
-            return self.flat.tree_of(flat)
+            return self.flat.tree_of(flat, keep_dtype)
         parts = all_gather(flat.detach(), self._tp_group, dim=0)
-        shards = [self.flat.tree_of(p) for p in
+        shards = [self.flat.tree_of(p, keep_dtype) for p in
                   parts.chunk(self.mp_world_size)]
         return self._module_fn("tp_gather_state_dicts")(shards)
 
@@ -809,3 +841,379 @@ class DeepSpeedEngine:
             self.flat.load(self.flat.exp_avg_sq,
                            self._own_shard(state["exp_avg_sq"]))
             self.flat.step = state["step"]
+
+    # ---------------------------------------------------------- checkpoints
+
+    def _get_ckpt_tag(self, tag):
+        return tag if tag is not None else "global_step{}".format(
+            self.global_steps)
+
+    @staticmethod
+    def _world():
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _barrier(self):
+        if self._world() > 1:
+            dist.barrier()
+
+    def _validate_tag(self, tag):
+        """Every rank must save under one tag: rank 0's first 32 bytes of
+        it are broadcast and compared (``checkpoint.tag_validation``:
+        Warn logs a mismatch, Fail raises, Ignore skips)."""
+        if not self._config.checkpoint_tag_validation_enabled or \
+                self._world() == 1:
+            return
+        mine = torch.tensor(list(str(tag).encode()[:32].ljust(32)),
+                            dtype=torch.uint8, device=self.device)
+        agreed = broadcast_(mine.clone(), src=0)
+        if not torch.equal(agreed, mine):
+            msg = "Checkpoint tag '{}' differs across processes".format(tag)
+            if self._config.checkpoint_tag_validation_fail:
+                raise ValueError(msg)
+            logger.warning(msg)
+
+    def _jax_leaf_names(self):
+        """The full model's parameter names in the JAX flatten order."""
+        return ckpt.jax_leaf_order(
+            self._tree_converters()["params_to_jax"], self.flat.names)
+
+    def _tp_place(self):
+        """(this rank's model rank, the ring size, the module's
+        ``tp_full_boxes``, its ``partition_spec_fn``) under tensor
+        parallelism, else None."""
+        if not self._cm_tp:
+            return None
+        return (dist.get_rank(self._tp_group), self.mp_world_size,
+                self._module_fn("tp_full_boxes"),
+                self._module_fn("partition_spec_fn"))
+
+    def _full_shapes(self):
+        """name -> the full leaf's shape (a TP shard's grown back)."""
+        tp = self._tp_place()
+        if tp is None:
+            return dict(zip(self.flat.names, self.flat.shapes))
+        rank, size, full_boxes, _ = tp
+        return {name: full_boxes(name, shape, tuple((0, n) for n in shape),
+                                 rank, size)[0]
+                for name, shape in zip(self.flat.names, self.flat.shapes)}
+
+    def _zero_shard_payload(self):
+        """This rank's zero file (``checkpointing.zero_payload``): its
+        owned range of the master and the moments as boxes of the full
+        leaves; under TP the module's ``tp_full_boxes`` moves them, and a
+        leaf every model rank holds whole is written by model rank 0
+        only, so no two ranks write one element."""
+        flat, tp = self.flat, self._tp_place()
+        box_map = None
+        if tp is not None:
+            rank, size, full_boxes, spec_fn = tp
+
+            def box_map(name, shape, box):
+                if rank != 0 and spec_fn(name, shape) is None:
+                    return []
+                return full_boxes(name, shape, box, rank, size)[1]
+        bufs = {key: flat.own(getattr(flat, key)).detach().cpu()
+                for key in ("master", "exp_avg", "exp_avg_sq")}
+        return ckpt.zero_payload(
+            self._jax_leaf_names(),
+            (flat.names, flat.offsets, flat.shapes, flat.lo, flat.hi),
+            bufs, flat.step, self._full_shapes(), box_map)
+
+    def _jax_tree(self, buf, keep_dtype=False):
+        """A flat buffer's full JAX-shaped tree (every rank must call)."""
+        return self._tree_converters()["params_to_jax"](
+            self._full_tree(buf, keep_dtype), keep_dtype=keep_dtype)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, async_save=False):
+        """Save the model, optimizer, scheduler and counters as a tag the
+        JAX package reads (its ``save_checkpoint``; every rank must call).
+
+        Global rank 0 writes ``mp_rank_00_model_states.pt``: the
+        compute-dtype ``module`` tree (bf16 stays bf16), the scaler, the
+        LR schedule's state, the counters, the world sizes and
+        ``client_state``'s keys; without ZeRO also the fp32 ``master``
+        (mixed precision) and the ``optimizer`` state, full trees. Under
+        ZeRO every rank writes ``zero_pp_rank_{global rank}_mp_rank_00_
+        optim_states.pt``, its owned range of the master and the moments
+        as boxes of the full leaves, and the model file carries neither.
+        After a barrier rank 0 writes ``manifest.json`` (each file's CRC32
+        and size), moves ``latest`` and prunes to
+        ``checkpoint.keep_last_n``; a second barrier precedes the return.
+        ``async_save`` (one process only) pickles and writes on the
+        module's background writer once the state is on the host."""
+        tag = self._get_ckpt_tag(tag)
+        self._validate_tag(tag)
+        client_state = client_state or {}
+        async_save = async_save and self._world() == 1
+        self._drain_ckpt_writes()
+        ckpt.wait_pending_writes()
+        zero = self.zero_optimization()
+        flat = self.flat
+        sd = {
+            "module": self._jax_tree(flat.params, keep_dtype=True),
+            "optimizer": None if zero else dict(
+                step=np.asarray(flat.step, np.int32),
+                exp_avg=self._jax_tree(flat.exp_avg, keep_dtype=True),
+                exp_avg_sq=self._jax_tree(flat.exp_avg_sq,
+                                          keep_dtype=True)),
+            "master": self._jax_tree(flat.master)
+            if self.mixed_precision and not zero else None,
+            "scaler": {
+                "cur_scale": np.asarray(self.scaler.cur_scale, np.float32),
+                "cur_hysteresis": np.asarray(self.scaler.cur_hysteresis,
+                                             np.int32),
+                "last_overflow_iter": np.asarray(
+                    self.scaler.last_overflow_iter, np.int32),
+                "cur_iter": np.asarray(self.scaler.cur_iter, np.int32)},
+            "lr_scheduler": self.lr_scheduler.state_dict()
+            if hasattr(self.lr_scheduler, "state_dict") else None,
+            "qg_error": None,
+            "csr_tensor_module_names": set(self.csr_tensor_module_names),
+            "skipped_steps": self.skipped_steps,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "dp_world_size": self.dp_world_size,
+            "mp_world_size": self.mp_world_size,
+        }
+        sd.update(client_state)
+        futures, records = [], []
+
+        def note(res):
+            (futures if hasattr(res, "result") else records).append(res)
+
+        if self.global_rank == 0:
+            path = ckpt.model_ckpt_name(save_dir, tag)
+            note(ckpt.save_state_dict(path, sd, async_save=async_save))
+            logger.info("Saved checkpoint: {}".format(path))
+        if zero:
+            note(ckpt.save_state_dict(
+                ckpt.zero_ckpt_name(save_dir, tag, dp_rank=self.global_rank),
+                self._zero_shard_payload(), async_save=async_save))
+        # every rank's files land before the manifest and `latest` move
+        self._barrier()
+        if self.global_rank == 0:
+            self._finalize_ckpt_tag(save_dir, tag, records, futures,
+                                    save_latest, async_save)
+        self._ckpt_futures = futures
+        # no rank goes on (and perhaps loads) before the tag is whole
+        self._barrier()
+        return True
+
+    def _finalize_ckpt_tag(self, save_dir, tag, records, futures,
+                           save_latest, async_save):
+        """manifest.json last among the tag's files, then ``latest``, then
+        retention; async, each queued behind everything before it and
+        refused if any of it failed."""
+        meta = {"global_step": int(self.global_steps),
+                "dp_world_size": int(self.dp_world_size),
+                "mp_world_size": int(self.mp_world_size)}
+        if async_save:
+            futures.append(ckpt.write_manifest_after(save_dir, tag, futures,
+                                                     meta))
+        else:
+            records.append(ckpt.write_manifest(save_dir, tag, records, meta))
+        if not save_latest:
+            return
+        if async_save:
+            futures.append(ckpt.save_latest_after(save_dir, tag, futures))
+        else:
+            ckpt.save_latest(save_dir, tag)
+        keep_last_n = self._config.checkpoint_keep_last_n
+        if keep_last_n:
+            if async_save:
+                futures.append(ckpt.prune_after(save_dir, keep_last_n,
+                                                futures))
+            else:
+                ckpt.prune_checkpoints(save_dir, keep_last_n)
+
+    def wait_pending_writes(self):
+        """Block until every queued checkpoint write has landed, raising
+        the first failure of this engine's async saves."""
+        self._drain_ckpt_writes()
+        ckpt.wait_pending_writes()
+
+    def _drain_ckpt_writes(self):
+        futures, self._ckpt_futures = self._ckpt_futures, []
+        first_err = None
+        for fut in futures:
+            try:
+                fut.result()
+            except BaseException as err:  # noqa: BLE001 - re-raised below
+                first_err = first_err or err
+        if first_err is not None:
+            raise first_err
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_from_fp32_weights=True):
+        """Load a tag written by either package at any data- and
+        tensor-parallel layout; returns ``(path, client_state)`` (every
+        rank must call). The JAX engine's ``load_checkpoint``:
+
+        * the tag's manifest and checksums are verified first. With
+          ``tag=None`` the tag ``latest`` names is tried, then the newest
+          complete one (every rejection logged); a tag named explicitly
+          that fails gives ``(None, None)``, never another tag's weights.
+          A tag predating manifests loads unverified, with a warning;
+        * under ZeRO the full leaves are reassembled from every zero file
+          (the JAX engine's ``device_shards`` or ``offload_shards``) and
+          each rank keeps its range, through ``load_state_from_jax``'s
+          path;
+        * the fp32 master comes from the tag's fp32 leaves when
+          ``load_from_fp32_weights`` (else it is recast from ``module``);
+          the compute-dtype parameters are refreshed from it;
+        * the moments keep the live engine's dtype (the JAX engine casts
+          them to fp32 on load; a bf16 tag loads bit for bit here).
+
+        A file the process cannot unpickle for want of a module raises
+        ``CheckpointEnvironmentError``; it never falls back."""
+        self._drain_ckpt_writes()
+        ckpt.wait_pending_writes()
+        requested = tag
+        if tag is None:
+            tag = ckpt.read_latest(load_dir)
+
+        def _reject(bad_tag, why):
+            logger.error("checkpoint tag %r under %s rejected: %s",
+                         bad_tag, load_dir, why)
+
+        tried = []
+        verified_by_scan = False
+        while True:
+            if tag is None:
+                if requested is not None:
+                    break
+                tag = ckpt.newest_complete_tag(load_dir, exclude=tried,
+                                               on_reject=_reject)
+                if tag is None:
+                    break
+                verified_by_scan = True
+                logger.warning(
+                    "falling back to newest complete checkpoint tag %r "
+                    "under %s", tag, load_dir)
+            tried.append(tag)
+            ok, reason = (True, None) if verified_by_scan \
+                else ckpt.verify_tag(load_dir, tag)
+            if ok or reason == ckpt.NO_MANIFEST:
+                if not ok:
+                    logger.warning(
+                        "checkpoint %s/%s predates the manifest format — "
+                        "loading without integrity verification",
+                        load_dir, tag)
+                try:
+                    return self._load_checkpoint_tag(
+                        load_dir, tag, load_module_strict,
+                        load_optimizer_states, load_lr_scheduler_states,
+                        load_from_fp32_weights)
+                except ckpt.CheckpointCorruptionError as err:
+                    if ok:
+                        # the bytes verified, yet the load failed: every
+                        # other tag would fail the same way
+                        raise
+                    _reject(tag, err)
+            else:
+                _reject(tag, reason)
+            tag = None
+        logger.warning(
+            "Unable to find a loadable checkpoint under {} (requested "
+            "tag: {}); pass a valid tag or check the rejection log "
+            "above".format(load_dir, requested if requested is not None
+                           else "latest"))
+        return None, None
+
+    def _zero_state(self, load_dir, tag, sd, load_optimizer_states):
+        """The full master and moment leaves of a ZeRO tag from every zero
+        file (``checkpointing.zero_state``), None where it has none."""
+        import glob
+        paths = sorted(glob.glob(os.path.join(
+            load_dir, str(tag), "zero_pp_rank_*_mp_rank_00_optim_states.pt")))
+        if not paths:
+            if load_optimizer_states:
+                logger.warning(
+                    "checkpoint %s/%s carries no optimizer state (no "
+                    "gathered tree, no zero shard files) — optimizer "
+                    "state starts fresh", load_dir, tag)
+            return None, None
+        return ckpt.zero_state([ckpt.load_state_dict(p) for p in paths],
+                               self._jax_leaf_names(), sd["module"],
+                               load_optimizer_states)
+
+    def _checked(self, state, what, strict):
+        """A full state_dict from a tag, its names and shapes checked
+        against the model (missing names raise under ``strict``)."""
+        shapes = self._full_shapes()
+        missing = sorted(set(shapes) - set(state))
+        unexpected = sorted(set(state) - set(shapes))
+        if (missing and strict) or unexpected:
+            raise RuntimeError(
+                "checkpoint {} does not fit the model: missing {}, "
+                "unexpected {}".format(what, missing[:5], unexpected[:5]))
+        for name, t in state.items():
+            if tuple(t.shape) != tuple(shapes[name]):
+                raise RuntimeError(
+                    "checkpoint {} {} has shape {}, the model {}".format(
+                        what, name, tuple(t.shape), tuple(shapes[name])))
+        return state
+
+    def _load_checkpoint_tag(self, load_dir, tag, load_module_strict,
+                             load_optimizer_states,
+                             load_lr_scheduler_states,
+                             load_from_fp32_weights):
+        path = ckpt.model_ckpt_name(load_dir, tag)
+        if not os.path.isfile(path):
+            raise ckpt.CheckpointCorruptionError(
+                "model states file {} does not exist".format(path))
+        sd = ckpt.load_state_dict(path)
+        conv = self._tree_converters()
+        master, opt = None, None
+        if sd.get("master") is not None:
+            master = conv["params_from_jax"](sd["master"])
+        if sd.get("optimizer") is not None:
+            opt = dict(conv["optimizer_state_from_jax"](sd["optimizer"]))
+        else:
+            master, opt = self._zero_state(load_dir, tag, sd,
+                                           load_optimizer_states)
+        module = self._checked(conv["params_from_jax"](sd["module"]),
+                               "module", load_module_strict)
+        if master is not None:
+            master = self._checked(master, "master", load_module_strict)
+        src = master if load_from_fp32_weights and master is not None \
+            else module
+        flat = self.flat
+        flat.load(flat.master, self._own_shard(
+            {k: v.float() for k, v in src.items()}))
+        flat.refresh_params()
+        if load_optimizer_states and opt is not None:
+            for key in ("exp_avg", "exp_avg_sq"):
+                flat.load(getattr(flat, key), self._own_shard(
+                    self._checked(opt[key], key, load_module_strict)))
+            flat.step = int(opt["step"])
+        sc = sd.get("scaler")
+        if sc is not None:
+            self.scaler = self.scaler._replace(
+                cur_scale=float(np.asarray(sc["cur_scale"])),
+                cur_hysteresis=int(np.asarray(sc["cur_hysteresis"])),
+                last_overflow_iter=int(np.asarray(sc["last_overflow_iter"])),
+                cur_iter=int(np.asarray(sc["cur_iter"])))
+        sched = self.lr_scheduler
+        if load_lr_scheduler_states and sd.get("lr_scheduler") is not None \
+                and hasattr(sched, "load_state_dict"):
+            sched.load_state_dict(sd["lr_scheduler"])
+            if getattr(sched, "last_batch_iteration", -1) >= 0:
+                # the learning rate the saving run would step with next
+                sched.step(sched.last_batch_iteration)
+        self.global_steps = int(sd.get("global_steps", 0))
+        self.global_samples = int(sd.get(
+            "global_samples", self.global_steps * self.train_batch_size()))
+        self.skipped_steps = int(sd.get("skipped_steps", 0))
+        self.loaded_checkpoint_dp_world_size = sd.get("dp_world_size")
+        known = {"module", "optimizer", "master", "scaler", "lr_scheduler",
+                 "qg_error", "onebit_pristine", "csr_tensor_module_names",
+                 "skipped_steps", "global_steps", "global_samples",
+                 "dp_world_size", "mp_world_size"}
+        client_state = {k: v for k, v in sd.items() if k not in known}
+        logger.info("Loaded checkpoint: {} @ global_step={}".format(
+            path, self.global_steps))
+        return path, client_state

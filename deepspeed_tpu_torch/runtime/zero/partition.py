@@ -192,12 +192,14 @@ class FlatPartition:
             return all_gather(flat.detach(), self.group)
         return flat
 
-    def tree_of(self, flat):
+    def tree_of(self, flat, keep_dtype=False):
         """A flat buffer (whole, or this rank's partition: then gathered
         over the data group, every rank must call) -> ``{dotted name:
         fp32 CPU tensor}`` (the ``state_dict`` naming of the module; a bf16
-        buffer's values are exact in fp32)."""
-        host = self.whole(flat).detach().float().cpu()
+        buffer's values are exact in fp32), or in the buffer's own dtype
+        with ``keep_dtype``."""
+        host = self.whole(flat).detach()
+        host = host.cpu() if keep_dtype else host.float().cpu()
         out = {}
         for name, off, shape in zip(self.names, self.offsets, self.shapes):
             n = int(np.prod(shape)) if shape else 1

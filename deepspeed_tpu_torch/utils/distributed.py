@@ -104,6 +104,17 @@ def all_reduce_(tensor, group, op=dist.ReduceOp.SUM):
     return tensor
 
 
+def broadcast_(tensor, src=0, group=None):
+    """In-place broadcast of ``tensor`` from global rank ``src``."""
+    if host_staged(group, tensor):
+        host = host_copy(tensor)
+        dist.broadcast(host, src=src, group=group)
+        tensor.copy_(host)
+    else:
+        dist.broadcast(tensor, src=src, group=group)
+    return tensor
+
+
 def all_gather(tensor, group, dim=0):
     """Every rank's ``tensor`` concatenated along ``dim`` in rank order."""
     n = dist.get_world_size(group)

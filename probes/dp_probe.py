@@ -35,7 +35,8 @@ def main():
                   (item.split("=") for item in kw.split(",") if item)}
         fn = getattr(cs, "phase_" + name)
         t0 = time.perf_counter()
-        if name in ("train", "train_example"):
+        if name in ("train", "train_example", "train_ckpt", "train_dp_ckpt",
+                    "train_remat"):
             # the flash kernels' and Adam's counts
             res = fn(cs._dp_counters()[:4], **kwargs)
         else:

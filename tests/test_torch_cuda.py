@@ -32,6 +32,10 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   layer per step and one Adam launch per step; the same at data-parallel
   world 2 (two gloo ranks on the card), fp32 and bf16 ZeRO-2, Adam with
   both moment dtypes and LAMB.
+* checkpoints: a tiny bf16 ZeRO-2 GPT-2 saved after 2 steps (sync, and
+  async with fp32 moments) and resumed by a fresh engine takes the same
+  next 2 steps bit for bit (losses, master, moments); under
+  ``remat_policy="dots"`` it trains bit for bit as under "full".
 * LAMB (stage-1 and apply kernels): against the plain versions over
   aligned and misaligned segment tables, fp32 and bf16 moments, m, v and
   the trust ratios bit for bit, p within one ulp, repeated runs
@@ -743,6 +747,71 @@ def test_tiny_training_kernels_match_plain_versions(cuda):
         assert launches == want, (backend, launches)
     np.testing.assert_allclose(runs["pallas"], runs["xla"], rtol=1e-5)
     assert runs["pallas"][-1] < runs["pallas"][0]
+
+
+@pytest.mark.parametrize("moments,async_save", [("bf16", False),
+                                                 ("fp32", True)])
+def test_tiny_training_resumes_bit_for_bit(cuda, tmp_path, moments,
+                                           async_save):
+    """Checkpoints on the card: a tiny GPT-2 (bf16, ZeRO-2, the flash and
+    Adam kernels) saves after 2 steps and takes 2 more; a fresh engine
+    from another seed loads the tag and takes the same 2 steps: the
+    losses, the fp32 master and both moments equal bit for bit."""
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, remat=True, loss_chunk=32)
+    ids = np.random.RandomState(8).randint(0, 256, size=(1, 4, 128))
+    conf = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 2},
+            "optimizer": {"type": "Adam", "params": {
+                "lr": 1e-3, "fused_kernel": "pallas",
+                "moments_dtype": moments}},
+            "transformer": {"flash_attention": "pallas"}}
+
+    def engine(seed):
+        return deepspeed_tpu_torch.initialize(
+            model=gpt2.make_gpt2_model(config=gpt2.GPT2Config(**cfg),
+                                       seed=seed), config_params=conf)[0]
+
+    def state(e):
+        return [t.detach().clone() for t in (e.flat.master, e.flat.exp_avg,
+                                             e.flat.exp_avg_sq)]
+    first = engine(5)
+    for _ in range(2):
+        first.train_batch(batch=(ids, ids))
+    first.save_checkpoint(str(tmp_path), async_save=async_save)
+    kept = [float(first.train_batch(batch=(ids, ids))) for _ in range(2)]
+    first.wait_pending_writes()
+    assert ckpt.verify_tag(str(tmp_path), "global_step2")[0]
+    second = engine(6)
+    assert second.load_checkpoint(str(tmp_path))[0] is not None
+    resumed = [float(second.train_batch(batch=(ids, ids))) for _ in range(2)]
+    assert resumed == kept
+    for a, b in zip(state(second), state(first)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_tiny_training_dots_equals_full(cuda):
+    """remat_policy "dots" on the card (the flash and Adam kernels): after
+    3 steps from one init the losses and the fp32 master equal "full"'s
+    bit for bit."""
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, remat=True, loss_chunk=32)
+    ids = np.random.RandomState(9).randint(0, 256, size=(1, 4, 128))
+    runs = {}
+    for policy in ("full", "dots"):
+        model = gpt2.make_gpt2_model(config=gpt2.GPT2Config(
+            **cfg, remat_policy=policy), seed=5)
+        engine = deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 2},
+            "optimizer": {"type": "Adam", "params": {
+                "lr": 1e-3, "fused_kernel": "pallas"}},
+            "transformer": {"flash_attention": "pallas"}})[0]
+        runs[policy] = ([float(engine.train_batch(batch=(ids, ids)))
+                         for _ in range(3)], engine.flat.master.clone())
+    assert runs["dots"][0] == runs["full"][0]
+    assert torch.equal(runs["dots"][1], runs["full"][1])
 
 
 def test_dp2_training_kernels_match_plain_versions(cuda):

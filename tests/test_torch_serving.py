@@ -365,7 +365,7 @@ def test_init_inference_without_device_needs_cuda(port_model):
 
 @pytest.mark.parametrize("probe", [
     "mp_size", "mesh", "speculative", "fleet", "telemetry", "analysis",
-    "controller", "adapters", "submit_adapter", "uncached_forward"])
+    "controller", "adapters", "submit_adapter"])
 def test_unported_features_raise_not_implemented(port_model, probe):
     kw = dict(model=port_model, device="cpu")
     inference = {"max_batch_size": 2, "dtype": "fp32"}
@@ -389,16 +389,8 @@ def test_unported_features_raise_not_implemented(port_model, probe):
                 config={"inference": inference}, **kw)
             if probe == "adapters":
                 eng.attach_adapters(object())
-            elif probe == "submit_adapter":
-                ContinuousBatchingScheduler(eng).submit([1, 2], adapter=1)
             else:
-                # the uncached (training) forward exists since the
-                # training slice; its "dots" remat policy does not yet
-                import dataclasses
-                cfg = dataclasses.replace(eng.model_config,
-                                          remat_policy="dots")
-                tgpt2.forward_hidden(eng.params, torch.zeros(1, 2).long(),
-                                     cfg, train=True)
+                ContinuousBatchingScheduler(eng).submit([1, 2], adapter=1)
     # a section given but switched off is accepted
     deepspeed_tpu_torch.init_inference(
         config={"inference": inference, "telemetry": {"enabled": False}},

@@ -275,7 +275,7 @@ UNPORTED = {
     "zeropp_qwz": {"zero_optimization": {"stage": 2,
                                          "zero_quantized_gradients": True}},
     "telemetry": {"telemetry": {"enabled": True}},
-    "checkpoint": {"checkpoint": {"tag_validation": "Fail"}},
+    "elasticity": {"elasticity": {"enabled": True}},
     "flops_profiler": {"flops_profiler": {"enabled": True}},
     "comm": {"comm": {"quantized_collectives": {"enabled": True}}},
     "executor": {"runtime": {"executor": "off"}},
