@@ -8,13 +8,16 @@ with no ``ok`` line):
 
 1. device  — the card's name and power limit from ``nvidia-smi``;
 2. build   — every kernel source of the paths built with nvcc from the
-   checkout, all builds started together;
+   checkout, and the host data op ``csrc/ds_dataio.cpp`` with g++, all
+   builds started together;
 3. kernel  — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its time, the plain version's, the least time
    the card could take (``bound_ms``) and a PyTorch library call's where
-   one exists: paged attention (the serve path's decode shape, two runs
+   one exists: paged attention (the serve path's decode shape, the
+   speculative verify width s = 5 and TP 2's 8 heads a rank, two runs
    bit-identical, its splits, and timed with every slot at 64, 512 and
-   1024 live keys beside SDPA and the bound), the flash
+   1024 live keys beside SDPA and the bound; s = 5 at 512 and 1024 live
+   keys, 8 heads at the decode case and s = 5), the flash
    forward, dk/dv and dq kernels (b 16, s 1024, h 16, d 64, bf16, causal,
    q/k/v strided column blocks of one QKV tensor; two runs of each
    bit-identical), the same three in the
@@ -36,7 +39,12 @@ with no ``ok`` line):
    ``examples/gpt2/ds_config_zero2.json`` at gpt2_medium (WarmupDecayLR,
    betas (0.9, 0.95), weight decay 0.1, clipping 1.0), a few steps: the
    learning rate of every step held to WarmupDecayLR, the loss falling,
-   counts set to 0 just before and read just after;
+   counts set to 0 just before and read just after; then
+   ``train_example_data``: the twin with ``--data_prefix`` on a seeded
+   corpus of patterned documents written to a temporary directory,
+   read through the native loader (``csrc/ds_dataio.cpp``, built with
+   g++ in the build phase), a few steps, the loss falling, the loader's
+   host ms a batch and the step ms;
 6. block_sparse_attention kernel phase — the three block-sparse kernels
    against their plain versions at the long-context train shape (b 2,
    s 8192, h 16, d 64, bf16, causal), over the train config's shared
@@ -59,7 +67,20 @@ with no ``ok`` line):
    from the paged KV cache, counts set to 0 just before and read just
    after; then a few all-slot decode steps under torch.profiler;
 10. parity — fp32 greedy streams identical for the slot layout, the paged
-   layout's plain read path and the paged kernel, on the card;
+   layout's plain read path and the paged kernel, on the card; then
+   ``serve_spec``: the Serve configuration with n-gram speculation (k 4,
+   the paged kernel at s = 5 in every verify step) over 48 prompts cut
+   from a patterned document (bench_inference.py:140-170, seed 17), a
+   profile of a few verify steps, then 16 of them with a
+   gpt2_small-shaped model drafter; ``serve_spec_parity``: fp32, 2
+   layers, the n-gram and model-drafter (draft = target) streams equal
+   the plain greedy stream, the target as drafter accepting every
+   draft; ``serve_tp``: two spawned ranks sharing the card over gloo,
+   each ``init_inference(mp_size=2)`` on gpt2_medium (bf16, paged, the
+   kernel over its 8 heads), 16 Serve requests, streams equal across
+   ranks, counts set to 0 just before and read just after, per rank;
+   its ``serve_tp_parity`` part: fp32, 2 layers, TP 2 streams equal to
+   TP 1's with n-gram speculation off and on;
 11. flash3d — the JAX package's 3D flash API (``flash_attention``, (b * h,
    s, d) operands) at (32 * 16, 512, 64) bf16, causal and not: the same
    op through its autograd against direct kernel calls, the kernels
@@ -166,7 +187,14 @@ L2_FLUSH_BYTES = 512 * 2 ** 20   # > the 50 MB L2, and covers launch latency
 SERVE_LAYERS = 24                # gpt2_medium depth
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -192,22 +220,24 @@ def time_ms(fn, flush, reps=25):
 # ------------------------------------------------------------ kernel case
 
 
-def paged_case(s, seed, device, live=None):
-    """The serving path's paged-attention shapes: 16 slots, 16 heads,
-    d_head 64, pages of 16 tokens, the full gpt2_medium pool (1024 usable
-    pages + garbage page 0, 24 layers) in bf16, 64 pages per table.
-    Lengths spread to 1023 so windows cross page boundaries (``live``:
-    every slot at that many keys with its s queries); garbage page
-    0 and every unallocated page are NaN. With s > 1 the valid lengths
-    are padded (some slots have fewer real queries than s)."""
+def paged_case(s, seed, device, live=None, h=16, full_valid=False):
+    """The serving path's paged-attention shapes: 16 slots, 16 heads
+    (``h`` 8: a rank's heads under TP 2), d_head 64, pages of 16 tokens,
+    the full gpt2_medium pool (1024 usable pages + garbage page 0, 24
+    layers) in bf16, 64 pages per table. Lengths spread to 1023 so
+    windows cross page boundaries (``live``: every slot at that many
+    keys with its s queries); garbage page 0 and every unallocated page
+    are NaN. With s > 1 the valid lengths are padded (some slots have
+    fewer real queries than s) unless ``full_valid`` (the speculative
+    verify step: all k + 1 queries real)."""
     import torch
-    b, h, dh, ps, max_pages, layers, usable = 16, 16, 64, 16, 64, 24, 1024
+    b, dh, ps, max_pages, layers, usable = 16, 64, 16, 64, 24, 1024
     rng = np.random.RandomState(seed)
     positions = np.linspace(0, max_pages * ps - s, b).round().astype(np.int32)
     if live is not None:
         positions = np.full(b, live - s, np.int32)
     valid_lens = np.full(b, s, np.int32)
-    if s > 1:
+    if s > 1 and not full_valid:
         valid_lens = rng.randint(1, s + 1, size=b).astype(np.int32)
         valid_lens[0] = s
     page_tables = np.zeros((b, max_pages), np.int32)
@@ -261,27 +291,41 @@ def bound_ms(nbytes, flops, flops_per_s):
 def paged_library_ms(case, flush):
     """Yardstick: scaled_dot_product_attention over the case's rows
     gathered into contiguous memory beforehand (the gather itself is
-    excluded), the live window as a boolean mask."""
+    excluded), each query's causal live window as a boolean mask."""
     import torch
     import torch.nn.functional as F
     device = case["q"].device
-    b, _, h, dh = case["q"].shape
+    b, s, h, dh = case["q"].shape
     index = case["page_tables"].long()
     rows_of = lambda pool: torch.nan_to_num(pool[:, 0][index]).permute(
         0, 2, 1, 3, 4).reshape(b, h, -1, dh).contiguous()
     k_rows, v_rows = rows_of(case["k_pool"]), rows_of(case["v_pool"])
     live = (case["positions"] + case["valid_lens"] - 1).long()
-    mask = (torch.arange(k_rows.shape[2], device=device)[None, :] <=
-            live[:, None])[:, None, None, :]
+    q_pos = torch.minimum(case["positions"].long()[:, None] +
+                          torch.arange(s, device=device)[None, :],
+                          live[:, None])                          # (b, s)
+    mask = (torch.arange(k_rows.shape[2], device=device)[None, None, :] <=
+            q_pos[:, :, None])[:, None]
     qh = case["q"].transpose(1, 2).contiguous()
     return time_ms(lambda: F.scaled_dot_product_attention(
         qh, k_rows, v_rows, attn_mask=mask), flush)
 
 
+PAGED_CHECKS = ((1, 16), (4, 16), (5, 16), (1, 8), (5, 8))   # (s, heads)
+# the speculative verify step (s = k + 1 = 5) and TP 2's heads a rank
+PAGED_NEW_SHAPES = (("s5_h16_live512", 5, 16, 512),
+                    ("s5_h16_live1024", 5, 16, 1024),
+                    ("s1_h8_kernel_case", 1, 8, None),
+                    ("s5_h8_live1024", 5, 8, 1024))
+
+
 def phase_kernel(flush):
     """paged_attention vs paged_attention_reference on the card; two runs
-    bit for bit; timed at the decode shape of the path and with every slot
-    at 64, 512 and 1024 live keys."""
+    bit for bit; at the decode shape (s 1), a padded s 4, the speculative
+    verify width s 5 (k = 4) and TP 2's 8 heads a rank. Timed at the
+    decode shape of the path and with every slot at 64, 512 and 1024
+    live keys; the verify shape at 512 and 1024 live keys and the 8-head
+    shapes beside SDPA and the bound."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -289,8 +333,9 @@ def phase_kernel(flush):
         launch_plan
     device = torch.device("cuda", 0)
     max_err, checks, repeat_equal = 0.0, [], True
-    for s in (1, 4):
-        case = paged_case(s, seed=s, device=device)
+    for s, h in PAGED_CHECKS:
+        case = paged_case(s, seed=s + 16 - h, device=device, h=h,
+                          full_valid=s == 5)
         for layer in (0, SERVE_LAYERS - 1):
             args = (case["q"], case["k_pool"], case["v_pool"],
                     case["page_tables"], case["positions"],
@@ -312,7 +357,8 @@ def phase_kernel(flush):
             assert not torch.isnan(g).any(), "NaN in a live kernel row"
             assert torch.isfinite(w).all(), "non-finite reference row"
             err = float((g - w).abs().max())
-            checks.append({"s": s, "layer": layer, "max_abs_err": err})
+            checks.append({"s": s, "heads": h, "layer": layer,
+                           "max_abs_err": err})
             max_err = max(max_err, err)
     assert max_err <= 2e-5, "paged_attention off its plain version by " \
         "{} > 2e-5".format(max_err)
@@ -334,6 +380,23 @@ def phase_kernel(flush):
         if live is None:
             timed[name]["plain_ms"] = time_ms(
                 lambda: paged_attention_reference(*args, **kw), flush)
+    new_shapes = {}
+    for name, s, h, live in PAGED_NEW_SHAPES:
+        shape_case = paged_case(s, seed=1, device=device, live=live, h=h,
+                                full_valid=True)
+        args = (shape_case["q"], shape_case["k_pool"], shape_case["v_pool"],
+                shape_case["page_tables"], shape_case["positions"],
+                shape_case["valid_lens"])
+        kw = dict(layer_idx=0, page_size=shape_case["page_size"])
+        bound = paged_bound_ms(shape_case)
+        new_shapes[name] = {
+            "s": s, "heads": h, "live": live,
+            "kernel_ms": time_ms(lambda: paged_attention(*args, **kw), flush),
+            "plain_ms": time_ms(
+                lambda: paged_attention_reference(*args, **kw), flush),
+            "library_ms": paged_library_ms(shape_case, flush),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        del shape_case, args
     b, _, h, dh = case["q"].shape
     chunk, rounds, splits = launch_plan(case["q"].element_size(), dh,
                                         case["page_tables"].shape[1] *
@@ -343,6 +406,7 @@ def phase_kernel(flush):
             "max_abs_err": max_err, "tolerance": 2e-5,
             "repeat_bit_equal": repeat_equal, **row,
             "sweep_every_slot_at": timed,
+            "verify_and_tp_shapes": new_shapes,
             "launch": {"splits": splits, "keys_a_round": chunk,
                        "rounds_a_split": rounds,
                        "blocks": b * h * splits},
@@ -1211,6 +1275,95 @@ def phase_train_example(launch_counters):
             "peak_memory_gb": peak_gb, "launches": launches}
 
 
+DATA_STEPS = 6
+DATA_DOCS, DATA_SEED = 160, 17
+
+
+def write_corpus(prefix, vocab, docs=DATA_DOCS, seed=DATA_SEED):
+    """A seeded corpus of patterned documents in the ``.bin``/``.idx``
+    format (the port's IndexedDatasetBuilder): each document a window of
+    a 512-token block tiled over the document's first half, random
+    tokens after. Returns (prefix, tokens)."""
+    from deepspeed_tpu_torch.runtime.data import IndexedDatasetBuilder
+    rng = np.random.RandomState(seed)
+    block = rng.randint(0, vocab, size=512)
+    builder = IndexedDatasetBuilder(prefix)
+    tokens = 0
+    for _ in range(docs):
+        n = int(rng.randint(256, 1024))
+        doc = rng.randint(0, vocab, size=n)
+        doc[:n // 2] = np.resize(np.roll(block, -rng.randint(512)), n // 2)
+        builder.add_doc(doc.astype(np.int32))
+        tokens += n
+    return builder.finalize(), tokens
+
+
+def phase_train_example_data(launch_counters, steps=DATA_STEPS):
+    """The GPT-2 example's twin with ``--data_prefix``: a corpus written
+    to a temporary directory (enough tokens for every step's 8 x 1024
+    window without wrapping an epoch) read through the native loader
+    (csrc/ds_dataio.cpp) at gpt2_medium on the example's config; counts
+    set to 0 just before main() and read just after. The loss is finite
+    and falls: the first batch's loss after the run below its loss at
+    step 0. Prints the loader's host ms a batch and the step ms."""
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.examples import gpt2_pretrain
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime.data import (IndexedDataset,
+                                                  NativePrefetchLoader)
+    vocab = gpt2.config_for("gpt2_medium").vocab_size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        t0 = time.perf_counter()
+        prefix, tokens = write_corpus(tmp + "/corpus", vocab)
+        write_s = time.perf_counter() - t0
+        assert tokens >= steps * 8 * 1024, tokens
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in launch_counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        res = gpt2_pretrain.main(["--size", "gpt2_medium", "--seq_len",
+                                  "1024", "--steps", str(steps),
+                                  "--deepspeed_config", EXAMPLE_CONFIG,
+                                  "--data_prefix", prefix])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in launch_counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the loader's order is fixed: a new loader's first batch is the
+        # first step's
+        dataset = IndexedDataset(prefix)
+        loader = NativePrefetchLoader(dataset, batch_size=8, seq_len=1024)
+        first = next(loader)
+        loader.close()
+        dataset.close()
+    engine = res["engine"]
+    engine.eval()
+    first_after = float(engine(first, first))
+    losses = res["losses"]
+    layers = engine.module.config.n_layers
+    assert layers == 24 and engine.device.type == "cuda"
+    assert all(np.isfinite(losses)), losses
+    assert first_after < losses[0], (first_after, losses)
+    for name in FLASH_GROUPS:
+        assert launches[name] == layers * steps, launches
+    assert launches["fused_adam"] == steps, launches
+    load_ms = [t * 1e3 for t in res["load_seconds"]]
+    step_ms = statistics.median(res["step_seconds"][2:]) * 1e3
+    del engine, res
+    return {"phase": "train_example_data", "script":
+            "deepspeed_tpu_torch/examples/gpt2_pretrain.py --data_prefix",
+            "config": EXAMPLE_CONFIG, "model": "gpt2_medium", "seq": 1024,
+            "micro_batch": 8, "steps": steps, "corpus_docs": DATA_DOCS,
+            "corpus_tokens": tokens, "corpus_write_s": write_s,
+            "losses": losses, "first_batch_loss_after": first_after,
+            "loader_ms_per_batch_median": statistics.median(load_ms),
+            "loader_ms_per_batch_max": max(load_ms),
+            "step_ms_median_after_2": step_ms, "wall_s_incl_init": wall,
+            "peak_memory_gb": peak_gb, "launches": launches}
+
+
 # ------------------------------------------- block-sparse attention (slice 3)
 
 
@@ -1916,6 +2069,17 @@ SERVE_INFERENCE = {"max_batch_size": 16, "dtype": "bf16",
                    "kv_layout": "paged", "kv_block_size": 16,
                    "paged_attention_kernel": "auto"}
 SERVE_REQUESTS, SERVE_PROMPT_LENS = 48, (64, 180, 400)
+_SERVE_MODEL = []
+
+
+def serve_model():
+    """The serving phases' gpt2_medium (seed 0, on the host), built once:
+    init_inference copies the weights and leaves the model as it was."""
+    from deepspeed_tpu_torch.models import gpt2
+    if not _SERVE_MODEL:
+        cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
+        _SERVE_MODEL.append(gpt2.make_gpt2_model(config=cfg, seed=0))
+    return _SERVE_MODEL[0]
 
 
 def phase_serve(launch_counters):
@@ -1928,10 +2092,8 @@ def phase_serve(launch_counters):
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
     assert cfg.n_layers == SERVE_LAYERS
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
     engine = deepspeed_tpu_torch.init_inference(
-        model=model, config={"inference": SERVE_INFERENCE})
-    del model
+        model=serve_model(), config={"inference": SERVE_INFERENCE})
     init_s = time.perf_counter() - t0
     assert engine.device.type == "cuda"
     assert engine.paged_attention_kernel == "pallas"
@@ -1983,18 +2145,19 @@ def phase_serve(launch_counters):
             "decode_profile": profile}
 
 
-def decode_profile(engine, prompts, steps=8):
+def decode_profile(engine, prompts, steps=8, max_new=None):
     """Where a decode step's time goes: ``steps`` scheduler steps with
-    every slot decoding, under torch.profiler. Returns the window's wall
-    time, the device time summed over its kernels (one stream, so the
-    busy time), the busy share and the costliest kernels."""
+    every slot decoding (``max_new`` tokens a request, default ``steps``
+    + 2), under torch.profiler. Returns the window's wall time, the
+    device time summed over its kernels (one stream, so the busy time),
+    the busy share and the costliest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference.scheduler import \
         ContinuousBatchingScheduler
     sched = ContinuousBatchingScheduler(engine)
     for prompt in prompts[:engine.num_slots]:
-        sched.submit(prompt, max_new_tokens=steps + 2)
+        sched.submit(prompt, max_new_tokens=max_new or steps + 2)
     sched.step()                  # admit + prefill every slot + 1 decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2053,6 +2216,334 @@ def phase_parity():
             "dtype": "fp32", "requests": len(prompts),
             "tokens_per_stream": sum(len(o) for o in streams["slot"]),
             "identical": True}
+
+
+# ------------------------------------- speculative and TP serving (slice 13)
+
+
+SPEC_K = 4
+SPEC_NGRAM = {"enabled": True, "method": "ngram", "num_draft_tokens": SPEC_K}
+SPEC_MODEL = {"enabled": True, "method": "model", "num_draft_tokens": SPEC_K}
+SPEC_SEED = 17              # bench_inference.py's TRACE_SEED
+SPEC_MODEL_REQUESTS = 16
+SPEC_PROFILE_STEPS = 4
+
+
+def patterned_prompts(vocab, n, lens, seed=SPEC_SEED):
+    """``n`` prompts of ``lens`` (cycled) cut from one patterned
+    document, as bench_inference.py:140-170 builds its trace's bodies: a
+    192-token block tiled 4 times, each prompt a window of it at a
+    random start, so prompt-lookup drafting has repeats to find."""
+    rng = np.random.RandomState(seed)
+    doc = np.tile(rng.randint(0, vocab, size=192), 4)
+    prompts = []
+    for i in range(n):
+        length = lens[i % len(lens)]
+        start = rng.randint(0, len(doc) - length)
+        prompts.append(doc[start:start + length].tolist())
+    return prompts
+
+
+def _serve_run(engine, prompts, counter):
+    """Warm up (every prefill bucket and both decode widths), then
+    generate ``prompts`` with the paged kernel's count set to 0 just
+    before and read just after. -> (outputs, metrics, wall s, launches,
+    peak GB)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch.utils.monitor import ServingMetrics
+    engine.generate(prompts[:len(SERVE_PROMPT_LENS)], max_new_tokens=2)
+    # an engine is a reference cycle (its programs close over it): an
+    # earlier phase's must be gone before the peak is read
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = ServingMetrics()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, metrics=metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    snap = metrics.snapshot()
+    assert all(len(o) == SERVE_INFERENCE["max_new_tokens"] for o in outs), \
+        "a request returned {} tokens".format(sorted({len(o) for o in outs}))
+    # one verify (or plain decode) step = one launch a layer
+    assert launches == snap["decode_steps"] * engine.model_config.n_layers, \
+        (launches, snap["decode_steps"])
+    assert engine.last_logits is not None and \
+        bool(torch.isfinite(engine.last_logits).all()), "non-finite logits"
+    assert engine.allocator.pages_in_use == 0, engine.allocator.pages_in_use
+    return outs, metrics, wall, launches, \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _serve_summary(outs, metrics, wall, launches, peak_gb):
+    snap = metrics.snapshot()
+    new_tokens = sum(len(o) for o in outs)
+    return {"requests": len(outs), "new_tokens": new_tokens,
+            "wall_s": wall, "tokens_per_sec": new_tokens / wall,
+            "decode_steps": snap["decode_steps"],
+            "tokens_per_decode_step": snap["decode_tokens"] /
+            max(snap["decode_steps"], 1),
+            "decode_s_per_step": metrics.decode_seconds /
+            max(snap["decode_steps"], 1),
+            "decode_tokens_per_sec": snap["decode_tokens_per_sec"],
+            "ttft_p50_s": snap["ttft"]["p50_s"],
+            "tpot_p50_s": snap["tpot"]["p50_s"],
+            "speculative": snap.get("speculative"),
+            "paged_attention_launches": launches,
+            "peak_memory_gb": peak_gb}
+
+
+def phase_serve_spec(launch_counters):
+    """The Serve configuration with n-gram speculation (k = 4): 48
+    patterned prompts of 64/180/400 tokens; the paged kernel at s = 5
+    in every verify step, 24 launches a model step; a profile of a few
+    verify steps. Then 16 of the prompts with a gpt2_small-shaped model
+    drafter (12 layers, d 768, seed 1) on the same target."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    counter, = launch_counters
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
+    prompts = patterned_prompts(cfg.vocab_size, SERVE_REQUESTS,
+                                SERVE_PROMPT_LENS)
+    t0 = time.perf_counter()
+    model = serve_model()
+    engine = deepspeed_tpu_torch.init_inference(
+        model=model, config={"inference": dict(SERVE_INFERENCE,
+                                               speculative=SPEC_NGRAM)})
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda" and engine.spec_k == SPEC_K
+    assert engine.paged_attention_kernel == "pallas"
+    ngram = _serve_summary(*_serve_run(engine, prompts, counter))
+    assert ngram["speculative"]["proposed"] > 0, ngram
+    # a verify step emits up to k + 1 tokens: the budget keeps every slot
+    # verifying through the window
+    profile = decode_profile(engine, prompts, steps=SPEC_PROFILE_STEPS,
+                             max_new=SERVE_INFERENCE["max_new_tokens"])
+    del engine
+    torch.cuda.empty_cache()
+
+    drafter_cfg = gpt2.config_for("gpt2_small", max_seq_len=1024)
+    drafter = gpt2.make_gpt2_model(config=drafter_cfg, seed=1)
+    engine = deepspeed_tpu_torch.init_inference(
+        model=model, draft_model=drafter,
+        config={"inference": dict(SERVE_INFERENCE, speculative=SPEC_MODEL)})
+    del drafter
+    _SERVE_MODEL.clear()
+    assert type(engine.drafter).__name__ == "ModelDrafter"
+    drafted = _serve_summary(*_serve_run(
+        engine, prompts[:SPEC_MODEL_REQUESTS], counter))
+    del engine
+    torch.cuda.empty_cache()
+    return {"phase": "serve_spec", "model": "gpt2_medium",
+            "layers": cfg.n_layers, "dtype": "bf16", "k": SPEC_K,
+            "prompts": "patterned document (bench_inference.py:140-170), "
+                       "seed {}".format(SPEC_SEED),
+            "engine_init_s": init_s, "ngram": ngram,
+            "verify_profile": profile,
+            "model_drafter": dict(drafted, drafter="gpt2_small shape, "
+                                  "12 layers, d 768, seed 1")}
+
+
+def phase_serve_spec_parity(launch_counters):
+    """fp32, TF32 off, gpt2_medium width with 2 layers, the parity
+    phase's prompts, the paged kernel: the n-gram and the model-drafter
+    (draft = target) speculative streams equal the plain greedy stream,
+    and the target drafting for itself accepts every draft."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    counter, = launch_counters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
+    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in (17, 64, 130, 300, 5, 250, 33, 480, 90, 16)]
+    base = {"max_batch_size": 4, "dtype": "fp32",
+            "prefill_buckets": [128, 256, 512], "max_new_tokens": 24,
+            "greedy": True, "kv_layout": "paged", "kv_block_size": 16,
+            "paged_attention_kernel": "pallas"}
+    runs = {}
+    for name, spec in (("plain", None), ("ngram", SPEC_NGRAM),
+                       ("model", SPEC_MODEL)):
+        inference = dict(base, speculative=spec) if spec else base
+        engine = deepspeed_tpu_torch.init_inference(
+            model=model, config={"inference": inference},
+            draft_model=model if name == "model" else None)
+        counter.launches = 0
+        outs = engine.generate(prompts)
+        snap = engine.serving_metrics.snapshot()
+        assert counter.launches == snap["decode_steps"] * cfg.n_layers, \
+            (name, counter.launches, snap["decode_steps"])
+        runs[name] = {"streams": outs, "decode_steps": snap["decode_steps"],
+                      "speculative": snap.get("speculative"),
+                      "launches": counter.launches}
+        del engine
+    assert runs["ngram"]["streams"] == runs["plain"]["streams"], \
+        "n-gram speculative stream != plain greedy"
+    assert runs["model"]["streams"] == runs["plain"]["streams"], \
+        "model-drafter speculative stream != plain greedy"
+    assert runs["model"]["speculative"]["acceptance_rate"] == 1.0, runs
+    return {"phase": "serve_spec_parity", "layers": 2,
+            "d_model": cfg.d_model, "dtype": "fp32", "k": SPEC_K,
+            "requests": len(prompts), "identical": True,
+            **{name: {k: v for k, v in run.items() if k != "streams"}
+               for name, run in runs.items()}}
+
+
+TP_SERVE_REQUESTS = 16
+
+
+def tp_serve_rank(rank, world, spec):
+    """One rank of tensor-parallel serving: init_inference(mp_size=world)
+    on gpt2_medium at full width and depth, bf16, paged, the kernel over
+    this rank's heads; 16 Serve requests with the paged count set to 0
+    just before and read just after. Then the parity runs: fp32, TF32
+    off, 2 layers, n-gram speculation off and on."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.utils.monitor import ServingMetrics
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
+    t0 = time.perf_counter()
+    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    engine = deepspeed_tpu_torch.init_inference(
+        model=model, mp_size=world, config={"inference": SERVE_INFERENCE})
+    del model
+    init_s = time.perf_counter() - t0
+    assert engine.tp_size == world and engine.device.type == "cuda"
+    assert engine.paged_attention_kernel == "pallas"
+    assert engine.kv.k.shape[2] == cfg.n_heads // world, engine.kv.k.shape
+    prompts = spec["prompts"]
+    engine.generate(prompts[:len(SERVE_PROMPT_LENS)], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = ServingMetrics()
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, metrics=metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches
+    snap = metrics.snapshot()
+    finite = bool(torch.isfinite(engine.last_logits).all())
+    serve = {"rank": rank, "streams": outs, "launches": launches,
+             "decode_steps": snap["decode_steps"], "wall_s": wall,
+             "decode_s_per_step": metrics.decode_seconds /
+             max(snap["decode_steps"], 1),
+             "ttft_p50_s": snap["ttft"]["p50_s"],
+             "tpot_p50_s": snap["tpot"]["p50_s"],
+             "kv_pool_bytes": engine.kv.nbytes,
+             "kv_pool_shape": list(engine.kv.k.shape),
+             "logits_finite": finite, "init_s": init_s,
+             "transport": torch.distributed.get_backend(engine.tp_group),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del engine
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
+    model = gpt2.make_gpt2_model(config=pcfg, seed=1)
+    parity = {}
+    for name, inference in spec["parity"].items():
+        engine = deepspeed_tpu_torch.init_inference(
+            model=model, mp_size=world, config={"inference": inference})
+        paged_attention.launches = 0
+        parity[name] = {"streams": engine.generate(spec["parity_prompts"]),
+                        "launches": paged_attention.launches,
+                        "decode_steps":
+                        engine.serving_metrics.snapshot()["decode_steps"]}
+        del engine
+    return {"serve": serve, "parity": parity}
+
+
+def _tp_parity_configs():
+    base = {"max_batch_size": 4, "dtype": "fp32",
+            "prefill_buckets": [128, 256, 512], "max_new_tokens": 24,
+            "greedy": True, "kv_layout": "paged", "kv_block_size": 16,
+            "paged_attention_kernel": "pallas"}
+    return {"plain": base, "ngram": dict(base, speculative=SPEC_NGRAM)}
+
+
+def phase_serve_tp(world=2):
+    """Tensor-parallel serving: ``world`` spawned ranks sharing this card
+    over gloo (every all-reduce and the logits' all-gather through host
+    memory), each init_inference(mp_size=world) with its 16 / world heads
+    of the pool; streams equal across ranks, the paged kernel 24
+    launches a rank a decode step. Then ``serve_tp_parity``: fp32, 2
+    layers, the TP streams equal the TP 1 engine's (run here), n-gram
+    speculation off and on."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=SERVE_PROMPT_LENS[i % 3]).tolist()
+               for i in range(TP_SERVE_REQUESTS)]
+    prng = np.random.RandomState(1)
+    parity_prompts = [prng.randint(0, cfg.vocab_size, size=n).tolist()
+                      for n in (17, 64, 130, 300, 5, 250, 33, 480, 90, 16)]
+    configs = _tp_parity_configs()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(tp_serve_rank, world, args=({
+        "prompts": prompts, "parity": configs,
+        "parity_prompts": parity_prompts},), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    serve = [r["serve"] for r in ranks]
+    for r in serve:
+        assert r["logits_finite"], r["rank"]
+        assert all(len(o) == SERVE_INFERENCE["max_new_tokens"]
+                   for o in r["streams"]), r["rank"]
+        assert r["launches"] == r["decode_steps"] * SERVE_LAYERS, \
+            (r["rank"], r["launches"], r["decode_steps"])
+    assert all(r["streams"] == serve[0]["streams"] for r in serve), \
+        "the ranks' streams differ"
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
+    model = gpt2.make_gpt2_model(config=pcfg, seed=1)
+    parity = {}
+    for name, inference in configs.items():
+        engine = deepspeed_tpu_torch.init_inference(
+            model=model, config={"inference": inference})
+        paged_attention.launches = 0
+        tp1 = engine.generate(parity_prompts)
+        tp1_launches = paged_attention.launches
+        del engine
+        for r in ranks:
+            got = r["parity"][name]
+            assert got["streams"] == tp1, \
+                "TP {} {} stream != TP 1 (rank {})".format(
+                    world, name, r["serve"]["rank"])
+            assert got["launches"] == got["decode_steps"] * 2, got
+        parity[name] = {"identical": True, "tp1_launches": tp1_launches,
+                        "tp_launches_per_rank":
+                        [r["parity"][name]["launches"] for r in ranks],
+                        "tp_decode_steps":
+                        ranks[0]["parity"][name]["decode_steps"]}
+    torch.cuda.empty_cache()
+    return {"phase": "serve_tp", "model": "gpt2_medium",
+            "layers": SERVE_LAYERS, "tp": world, "dtype": "bf16",
+            "heads_per_rank": cfg.n_heads // world,
+            "requests": TP_SERVE_REQUESTS, "spawn_wall_s": spawn_s,
+            "streams_equal_across_ranks": True,
+            "ranks": [{k: v for k, v in r.items() if k != "streams"}
+                      for r in serve],
+            "serve_tp_parity": {"layers": 2, "dtype": "fp32",
+                                "requests": len(parity_prompts),
+                                "configs": parity}}
 
 
 # ------------------------------------------ tensor-parallel ring GEMMs (slice 5)
@@ -3694,7 +4185,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
-    from deepspeed_tpu_torch.ops import cuda_build
+    from deepspeed_tpu_torch.ops import cuda_build, dataio
     from deepspeed_tpu_torch.ops import ring_gemm as rg
     from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
     from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
@@ -3723,13 +4214,20 @@ def main():
     wrappers.update((name, getattr(rg, name)) for name in RING_NAMES)
     sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    # every nvcc and the host op's g++ started together
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        host = pool.submit(dataio.build)
         records = list(pool.map(cuda_build.build, sources))
+        host = host.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [{"source": src, "seconds": r.seconds,
                        "ptxas": [line.strip() for line in r.log.splitlines()
                                  if "registers" in line or "spill" in line]}
-                      for src, r in zip(sources, records)]})
+                      for src, r in zip(sources, records)],
+          "host_sources": [{"source": "csrc/ds_dataio.cpp",
+                            "flags": list(dataio.host_build.flags(
+                                dataio.host_build.compiler())),
+                            "seconds": host.seconds}]})
     if "--tp-nccl" in sys.argv[1:] or "--dp-nccl" in sys.argv[1:]:
         if "--tp-nccl" in sys.argv[1:]:
             main_tp_nccl()
@@ -3775,8 +4273,11 @@ def main():
     torch.cuda.empty_cache()
     emit(phase_train_parity())
     torch.cuda.empty_cache()
-    # the example twin's path (fp32 moments, the example's config)
+    # the example twin's path (fp32 moments, the example's config), on
+    # synthetic tokens and then on a written corpus
     emit(phase_train_example(train_counters))
+    torch.cuda.empty_cache()
+    emit(phase_train_example_data(train_counters))
     torch.cuda.empty_cache()
 
     # the BERT path: every dense-training kernel's count, so Adam is seen
@@ -3806,6 +4307,15 @@ def main():
     torch.cuda.empty_cache()
     emit(phase_parity())
     torch.cuda.empty_cache()
+    # the paged kernel at the verify width (s = k + 1) and over a TP
+    # rank's heads
+    serve_spec = phase_serve_spec([wrappers["paged_attention"]])
+    emit(serve_spec)
+    torch.cuda.empty_cache()
+    emit(phase_serve_spec_parity([wrappers["paged_attention"]]))
+    torch.cuda.empty_cache()
+    serve_tp = phase_serve_tp()
+    emit(serve_tp)
 
     # the tensor-parallel path: two ranks on this card (gloo), each with
     # its own counts, reset just before its timed steps
@@ -3866,6 +4376,13 @@ def main():
     measured.update(ring["kernels"])
     launches.update((name, train_tp["launches"][name])
                     for name in RING_NAMES)
+    # the paged kernel's launches on the other serving paths
+    extra = {"paged_attention": {"launches_by_path": {
+        "serve": serve["launches"]["paged_attention"],
+        "serve_spec_ngram": serve_spec["ngram"]["paged_attention_launches"],
+        "serve_spec_model":
+        serve_spec["model_drafter"]["paged_attention_launches"],
+        "serve_tp_per_rank": [r["launches"] for r in serve_tp["ranks"]]}}}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
@@ -3875,7 +4392,8 @@ def main():
         "bound_ms": measured[name]["bound_ms"],
         "bound_by": measured[name]["bound_by"],
         "library_ms": measured[name]["library_ms"],
-        **({"moments": "bf16"} if name in OPTIMIZER_NAMES else {})}
+        **({"moments": "bf16"} if name in OPTIMIZER_NAMES else {}),
+        **extra.get(name, {})}
         for name, source, replaces, _ in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

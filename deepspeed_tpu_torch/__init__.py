@@ -24,7 +24,11 @@ Two entry points, as in the JAX package:
   its four TP matmuls as ring GEMMs (``parallel/collective_matmul.py``,
   per-step CUDA kernels in ``ops/ring_gemm``);
 * :func:`init_inference` serves GPT-2 from a slot or paged KV cache, with
-  paged-attention decode in a CUDA kernel (``ops/paged_attention``).
+  paged-attention decode in a CUDA kernel (``ops/paged_attention``),
+  speculative decoding (``inference.speculative``: n-gram or draft-model
+  proposals checked by one verify pass, ``inference/speculative.py``)
+  and tensor-parallel serving (``mp_size`` or a ``mesh``: each rank holds
+  its heads of the KV cache and its shard of the weights).
 
 Around them, the JAX package's single-device training surface: bf16
 optimizer moments (``optimizer.params.moments_dtype``) in the Adam and
@@ -37,7 +41,9 @@ twins of the repo's two examples (``examples/cifar_train.py``,
 format (``engine.save_checkpoint`` / ``load_checkpoint``, across
 packages and layouts) and activation checkpointing
 (:mod:`deepspeed_tpu_torch.checkpointing`, GPT-2's ``remat_policy``
-"full" and "dots").
+"full" and "dots"); and token corpora in the JAX package's ``.bin`` /
+``.idx`` format read by a native C++ reader with a prefetch thread
+(``runtime/data``, ``ops/dataio.py``).
 """
 from .version import __version__
 
@@ -97,7 +103,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 def init_inference(model=None, config=None, mp_size=1, mesh=None,
-                   dtype=None, seed=0, device=None):
+                   dtype=None, seed=0, device=None, draft_model=None):
     """Initialize the inference engine.
 
     Mirrors ``deepspeed_tpu.init_inference``. Returns an
@@ -111,20 +117,39 @@ def init_inference(model=None, config=None, mp_size=1, mesh=None,
     path whose ``inference`` section is read as in the JAX package.
     ``device`` defaults to the current CUDA device and raises when CUDA
     is absent; only an explicit ``device="cpu"`` runs on the CPU.
-    Tensor parallelism (``mp_size > 1`` or a ``mesh``) comes with a
-    later slice and raises ``NotImplementedError``.
+
+    ``draft_model`` supplies the small GPT-2 drafter that
+    ``inference.speculative.method: "model"`` requires.
+
+    Tensor parallelism: inside a process group (``utils.distributed.
+    init_distributed``, or ``torchrun``), ``mp_size > 1`` builds
+    ``parallel.topology.build_mesh(model=mp_size)`` over the default
+    group (a world size that ``mp_size`` does not divide raises, and so
+    does a missing group); a ``mesh`` is taken as given. Every rank
+    calls this with the whole ``model`` (one seed) and the same prompts;
+    each serves its shard and returns the same tokens.
     """
+    import torch.distributed as dist
     from .inference.engine import InferenceEngine
 
     assert model is not None, "init_inference requires a model"
-    if mp_size != 1 or mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel serving (mp_size > 1 or a mesh) is not ported "
-            "yet: it comes with the tensor-parallel serving slice")
     log_dist("DeepSpeedTPUTorch inference info: version={}".format(
         __version__), ranks=[0])
+    if mesh is None and mp_size > 1:
+        from .parallel.topology import build_mesh
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "init_inference(mp_size={}) needs a process group: call "
+                "utils.distributed.init_distributed (or run under "
+                "torchrun) first".format(mp_size))
+        world = dist.get_world_size()
+        if world % mp_size:
+            raise ValueError("mp_size {} does not divide the world size "
+                             "{}".format(mp_size, world))
+        mesh = build_mesh(data=world // mp_size, model=mp_size)
     return InferenceEngine(model, config=config, dtype=dtype, seed=seed,
-                           device=device)
+                           device=device, mesh=mesh,
+                           draft_model=draft_model)
 
 
 def _add_core_arguments(parser):

@@ -6,7 +6,9 @@
   engine.py    — InferenceEngine: prefill chunks + batched decode
   sampling.py  — greedy/temperature/top-k/top-p
   scheduler.py — continuous batching at decode-step granularity with
-                 chunked-prefill admission and preemption
+                 chunked-prefill admission, preemption and speculative
+                 verify steps
+  speculative.py — n-gram and draft-model drafters
 """
 from .config import DeepSpeedInferenceConfig, DeepSpeedInferenceConfigError
 from .engine import InferenceEngine

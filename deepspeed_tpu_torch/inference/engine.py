@@ -21,6 +21,19 @@ for the CPU, and the caches are updated in place. The decode family of
 the paged layout reads through the CUDA paged-attention kernel when
 ``inference.paged_attention_kernel`` resolves to ``pallas``; prefill and
 the slot layout always take the plain gather path.
+
+Speculative decoding (``inference.speculative``): the engine holds the
+drafter (inference/speculative.py) and ``verify_step`` is the decode
+step at width ``k + 1``; the scheduler drafts, verifies and accepts.
+
+Tensor-parallel serving (a ``mesh`` whose ``model`` axis is > 1): every
+rank of the model group runs this engine on its own shard of the
+weights (``models/gpt2.py::tp_shard_state_dict``) with a KV cache of its
+``n_heads / tp`` heads; the forward all-reduces whole activations after
+the row-parallel products and all-gathers the logits in vocabulary
+order, so every rank samples the same tokens from the same seeded
+generator and runs the same host scheduler. The paged kernel runs over
+the rank's heads, as on one device.
 """
 import dataclasses
 import json
@@ -28,7 +41,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.topology import MODEL_AXIS
+from ..utils.distributed import all_gather
 from ..utils.logging import logger
 from ..utils.monitor import ServingMetrics
 from .config import DeepSpeedInferenceConfig
@@ -95,9 +111,13 @@ def resolve_device(device=None):
 class InferenceEngine:
     """Incremental-decode engine over a :class:`models.gpt2.GPT2Model`
     (whose ``.config`` is its GPT2Config). Prompt/token values are plain
-    ints; the weights and KV cache live on ``self.device``."""
+    ints; the weights and KV cache live on ``self.device`` (under a
+    ``mesh`` with a ``model`` axis > 1, the rank's shards of them).
+    ``draft_model`` is the small GPT-2 that
+    ``inference.speculative.method: "model"`` drafts with."""
 
-    def __init__(self, model, config=None, dtype=None, seed=0, device=None):
+    def __init__(self, model, config=None, dtype=None, seed=0, device=None,
+                 mesh=None, draft_model=None):
         model_config = getattr(model, "config", None)
         assert model_config is not None and \
             hasattr(model_config, "n_heads"), \
@@ -105,10 +125,6 @@ class InferenceEngine:
             "(e.g. models.gpt2.make_gpt2_model)"
         self.device = resolve_device(device)
         self.inference_config = ic = _parse_config(config)
-        if ic.spec_enabled:
-            raise NotImplementedError(
-                "inference.speculative is not ported yet: speculative "
-                "decoding comes with the speculative-verify slice")
         if ic.fleet_keys:
             raise NotImplementedError(
                 "inference.fleet is not ported yet: disaggregated roles "
@@ -134,6 +150,15 @@ class InferenceEngine:
             "table {}".format(self.max_seq_len, model_config.max_seq_len)
         self.num_slots = ic.max_batch_size
         self.prefill_buckets = ic.resolve_buckets(self.max_seq_len)
+
+        # tensor parallelism over the mesh's model group (None: one rank)
+        self.mesh = mesh
+        self.tp_size = 1 if mesh is None else \
+            int(mesh.shape.get(MODEL_AXIS, 1))
+        self.tp_group = mesh.get_group(MODEL_AXIS) \
+            if self.tp_size > 1 else None
+        self.tp_rank = 0 if self.tp_group is None else \
+            dist.get_rank(self.tp_group)
         self.params = self._place_params(model, self.dtype)
 
         # ------------------------------------------------- KV cache layout
@@ -146,7 +171,7 @@ class InferenceEngine:
                                              self.max_seq_len)
             self.kv = PagedKVCache.allocate(
                 num_pages, cfg.n_layers, cfg.n_heads, self.page_size,
-                cfg.d_head, self.dtype, self.device)
+                cfg.d_head, self.dtype, self.device, tp=self.tp_size)
             self.allocator = PageAllocator(num_pages)
             # per-slot logical->physical map; GARBAGE_PAGE everywhere a
             # slot has no allocation (writes there are redirected and
@@ -164,7 +189,7 @@ class InferenceEngine:
             self.max_pages = 0
             self.kv = KVCache.allocate(
                 self.num_slots, cfg.n_layers, cfg.n_heads, self.max_seq_len,
-                cfg.d_head, self.dtype, self.device)
+                cfg.d_head, self.dtype, self.device, tp=self.tp_size)
             self.allocator = None
             self.page_tables = None
             self.page_counts = None
@@ -178,6 +203,27 @@ class InferenceEngine:
         # the cache); the scheduler owns slot assignment on top of this
         self.lengths = np.zeros((self.num_slots,), np.int32)
 
+        # ------------------------------------------ speculative decoding
+        self.drafter = None
+        self.spec_k = 0
+        if ic.spec_enabled:
+            self.spec_k = ic.spec_num_draft_tokens
+            if ic.spec_method == "model":
+                from .speculative import ModelDrafter
+                assert draft_model is not None, \
+                    "inference.speculative.method 'model' needs " \
+                    "init_inference(..., draft_model=<small gpt2 model>)"
+                self.drafter = ModelDrafter(
+                    draft_model, self.num_slots, self.max_seq_len,
+                    self.dtype, self.device,
+                    vocab_size=model_config.vocab_size)
+            else:
+                from .speculative import NGramDrafter
+                self.drafter = NGramDrafter(ic.spec_ngram_max,
+                                            ic.spec_ngram_min)
+
+        # every rank of a model group draws from the same seed: the
+        # gathered logits are equal, so the sampled tokens are too
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._prefill_fns = {}     # (bucket, greedy, top_k) -> fn
@@ -193,14 +239,19 @@ class InferenceEngine:
         self.serving_metrics = ServingMetrics()
         logger.info(
             "InferenceEngine: device={} slots={} max_seq={} buckets={} "
-            "dtype={} layout={} kv_cache={:.1f} MB{}".format(
+            "dtype={} layout={} kv_cache={:.1f} MB{}{}{}".format(
                 self.device, self.num_slots, self.max_seq_len,
                 self.prefill_buckets, self.dtype_name, self.kv_layout,
                 self.kv.nbytes / 2 ** 20,
                 " pages={}x{} paged_attn={}".format(
                     self.allocator.num_pages, self.page_size,
                     self.paged_attention_kernel)
-                if self.kv_layout == "paged" else ""))
+                if self.kv_layout == "paged" else "",
+                " spec_k={} drafter={}".format(
+                    self.spec_k, type(self.drafter).__name__)
+                if self.drafter is not None else "",
+                " tp={} (rank {})".format(self.tp_size, self.tp_rank)
+                if self.tp_size > 1 else ""))
 
     def _resolve_paged_attention_kernel(self):
         """``inference.paged_attention_kernel`` tri-state -> the decode
@@ -222,11 +273,18 @@ class InferenceEngine:
 
     def _place_params(self, model, dtype):
         """A copy of the model's weights on the engine's device, cast to
-        the serving dtype (the caller's model is left as it was)."""
-        from ..models.gpt2 import GPT2Model
+        the serving dtype (the caller's model is left as it was); under
+        tensor parallelism the rank's Megatron shard of them
+        (``tp_shard_state_dict``: vocabulary rows of ``wte``, whole q/k/v
+        heads and fc columns, proj rows), the counterpart of the JAX
+        engine's stage-0 placement by ``partition_spec_fn``."""
+        from ..models.gpt2 import GPT2Model, tp_shard_state_dict
         params = GPT2Model(self.model_config, device=self.device,
-                           dtype=dtype)
-        params.load_state_dict(model.state_dict())
+                           dtype=dtype, tp_size=self.tp_size)
+        state = model.state_dict()
+        if self.tp_size > 1:
+            state = tp_shard_state_dict(state, self.tp_rank, self.tp_size)
+        params.load_state_dict(state)
         return params.requires_grad_(False)
 
     def attach_adapters(self, adapter_set):
@@ -248,10 +306,14 @@ class InferenceEngine:
         top_p = float(s.get("top_p", ic.top_p))
         return greedy, top_k, temperature, top_p
 
-    @staticmethod
-    def _last_logits(params, hidden):
-        # tied-embedding LM head, in the compute dtype
-        return hidden @ params.wte.to(hidden.dtype).T
+    def _last_logits(self, hidden):
+        """Tied-embedding LM head, in the compute dtype; under tensor
+        parallelism each rank's vocabulary rows, all-gathered in
+        vocabulary order."""
+        logits = hidden @ self.params.wte.to(hidden.dtype).T
+        if self.tp_group is None:
+            return logits
+        return all_gather(logits, self.tp_group, dim=-1)
 
     def _get_prefill_fn(self, bucket, greedy, top_k):
         key = (bucket, greedy, top_k)
@@ -274,9 +336,9 @@ class InferenceEngine:
                 hidden = gpt2.forward_hidden(
                     self.params, ids, cfg, cache=self.kv.buffers(),
                     positions=scalar(start), page_tables=page_row[None],
-                    valid_lens=scalar(length), page_size=ps)
-                logits = self._last_logits(self.params,
-                                           hidden[0, length - 1][None])
+                    valid_lens=scalar(length), page_size=ps,
+                    tp_group=self.tp_group)
+                logits = self._last_logits(hidden[0, length - 1][None])
                 return sampler(logits, self.generator, temperature,
                                top_p)[0]
         else:
@@ -286,9 +348,8 @@ class InferenceEngine:
                 v_row = self.kv.v[slot:slot + 1]
                 hidden = gpt2.forward_hidden(
                     self.params, ids, cfg, cache=(k_row, v_row),
-                    positions=scalar(start))
-                logits = self._last_logits(self.params,
-                                           hidden[0, length - 1][None])
+                    positions=scalar(start), tp_group=self.tp_group)
+                logits = self._last_logits(hidden[0, length - 1][None])
                 return sampler(logits, self.generator, temperature,
                                top_p)[0]
 
@@ -318,12 +379,12 @@ class InferenceEngine:
                     self.params, tokens, cfg, cache=self.kv.buffers(),
                     positions=lengths, page_tables=page_tables,
                     valid_lens=torch.full_like(lengths, tokens.shape[1]),
-                    page_size=ps)
+                    page_size=ps, tp_group=self.tp_group)
             else:
                 hidden = gpt2.forward_hidden(
                     self.params, tokens, cfg, cache=self.kv.buffers(),
-                    positions=lengths)
-            logits = self._last_logits(self.params, hidden)
+                    positions=lengths, tp_group=self.tp_group)
+            logits = self._last_logits(hidden)
             chosen = sampler(logits.reshape(-1, logits.shape[-1]),
                              self.generator, temperature, top_p)
             return chosen.reshape(tokens.shape), logits
@@ -536,8 +597,18 @@ class InferenceEngine:
         chosen = chosen.cpu().numpy().astype(np.int32)
         return chosen[:, 0] if squeeze else chosen
 
+    def verify_step(self, tokens, sampling=None):
+        """Speculative verify: ``tokens`` (slots, k+1) = each slot's
+        pending token followed by its k drafts. Returns (slots, k+1)
+        ``chosen`` tokens — row i's entry j is the target's choice for
+        the position AFTER tokens[i, :j+1]; the scheduler accepts the
+        longest prefix with drafts[j] == chosen[j-1]."""
+        return self.decode_step(tokens, sampling=sampling)
+
     def advance(self, slot, n=1):
-        """Account ``n`` committed cache writes for ``slot``."""
+        """Account ``n`` committed cache writes for ``slot`` (its live
+        length grew by n: 1 per plain decode step, accepted+1 per
+        speculative verify step)."""
         self.lengths[slot] += n
 
     def can_decode(self, slot):

@@ -13,6 +13,10 @@ its lifetime and its batch row in prefill/decode IS its slot index.
 tables (inference/paging.py). Physical page 0 is the reserved garbage
 page: never allocated, the target of every masked/padded write.
 
+Under tensor-parallel serving both layouts hold the rank's ``heads /
+tp`` heads (the JAX ``KV_CACHE_SPEC``: heads on the ``model`` axis), the
+heads of the rank's q/k/v columns.
+
 Freed slots and recycled pages are reused WITHOUT clearing — the
 absolute-position causal mask and the V-zeroing past the live window
 (``models/gpt2.py::_attend_cache_rows``, and the same contract in the
@@ -24,6 +28,14 @@ from dataclasses import dataclass
 import torch
 
 
+def local_heads(heads, tp):
+    """The heads one rank of a ``tp``-way model group holds."""
+    assert heads % tp == 0, \
+        "n_heads {} not divisible by model-parallel degree {}".format(
+            heads, tp)
+    return heads // tp
+
+
 @dataclass
 class KVCache:
     """The slot layout's ``(k, v)`` tensors."""
@@ -33,8 +45,8 @@ class KVCache:
 
     @classmethod
     def allocate(cls, slots, layers, heads, max_seq, d_head, dtype,
-                 device):
-        shape = (slots, layers, heads, max_seq, d_head)
+                 device, tp=1):
+        shape = (slots, layers, local_heads(heads, tp), max_seq, d_head)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -57,8 +69,9 @@ class PagedKVCache:
 
     @classmethod
     def allocate(cls, num_pages, layers, heads, page_size, d_head, dtype,
-                 device):
-        shape = (num_pages + 1, layers, heads, page_size, d_head)
+                 device, tp=1):
+        shape = (num_pages + 1, layers, local_heads(heads, tp), page_size,
+                 d_head)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    int(page_size))

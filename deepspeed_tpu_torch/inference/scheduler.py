@@ -11,7 +11,13 @@ package's segment-plan executor is held bit-exact against
 the controller come with the observability slice.
 
 With ``inference.prefill_chunk_tokens`` set, a long prefill does not
-stall the decode batch: decode keeps firing between chunks. Paged-pool
+stall the decode batch: decode keeps firing between chunks.
+
+Speculative decoding (``inference.speculative``): the drafter proposes
+``k`` tokens per decoding slot, one verify pass (the decode step at width
+``k + 1``) scores all slots' proposals, and the longest target-agreeing
+prefix (+1 bonus token) commits — greedy acceptance reproduces the
+autoregressive greedy stream byte for byte. Paged-pool
 pressure: admission that cannot allocate stays queued; mid-decode
 exhaustion preempts the YOUNGEST decoding request (pages freed, request
 requeued; its context re-prefills on re-admission).
@@ -121,6 +127,8 @@ class ContinuousBatchingScheduler:
         req.state = "done"
         self.slots[req.slot] = None
         self.engine.free_slot(req.slot)
+        if self.engine.drafter is not None:
+            self.engine.drafter.free_slot(req.slot)
         now = time.perf_counter()
         tpot = None
         if len(req.generated) > 1 and req.first_token_t is not None:
@@ -139,7 +147,9 @@ class ContinuousBatchingScheduler:
 
     def _append_tokens(self, req, tokens):
         """Commit generated tokens, honoring EOS and the budget. Returns
-        ``(appended, done)``."""
+        ``(appended, done)`` — how many tokens the request actually took
+        (speculative accounting must not count truncated ones) and
+        whether it retired."""
         appended = 0
         for tok in tokens:
             req.generated.append(int(tok))
@@ -165,6 +175,8 @@ class ContinuousBatchingScheduler:
             return False
         self.slots[victim.slot] = None
         self.engine.free_slot(victim.slot)
+        if self.engine.drafter is not None:
+            self.engine.drafter.free_slot(victim.slot)
         victim.slot = None
         victim.state = "queued"
         victim.resumed = True
@@ -231,6 +243,8 @@ class ContinuousBatchingScheduler:
                 continue
             # final chunk: the request becomes a decoder
             req.state = "decode"
+            if self.engine.drafter is not None:
+                self.engine.drafter.prefill(req.slot, req.context)
             if req.resumed:
                 # the pending token survived preemption; nothing sampled
                 continue
@@ -240,23 +254,42 @@ class ContinuousBatchingScheduler:
             if self._append_tokens(req, [token])[1]:
                 retired.append(req.uid)
 
+    def _spec_k_eff(self):
+        """Draft length this step: the configured k, or 0 (plain
+        decode) whenever ANY occupied slot — decoding OR mid-prefill,
+        the verify pass writes K/V for every slot — sits within k+1 of
+        max_seq (the write would leave the slot's cache row). All or
+        nothing, as in the JAX scheduler, so the decode family keeps two
+        widths."""
+        k = self.engine.spec_k
+        for req in self.slots:
+            if req is None:
+                continue
+            if int(self.engine.lengths[req.slot]) + 1 + k > \
+                    self.engine.max_seq_len:
+                return 0
+        return k
+
     def _decode(self, retired):
         active = [r for r in self.slots
                   if r is not None and r.state == "decode"]
         if not active:
             return
-        # paged capacity for this step's write — exhaustion preempts the
-        # youngest decoder
+        # paged capacity for this step's writes (plain decode: 1 token;
+        # verify: k+1) — exhaustion preempts the youngest decoder
+        drafter = self.engine.drafter
+        k_eff = self._spec_k_eff() if drafter is not None else 0
+        width = 1 + k_eff
         for req in list(active):
             if req.state != "decode":
                 # preempted by an earlier slot's capacity fight
                 active.remove(req)
                 continue
             ok = self.engine.ensure_pages(
-                req.slot, int(self.engine.lengths[req.slot]) + 1)
+                req.slot, int(self.engine.lengths[req.slot]) + width)
             while not ok and self._preempt_youngest(exclude=(req,)):
                 ok = self.engine.ensure_pages(
-                    req.slot, int(self.engine.lengths[req.slot]) + 1)
+                    req.slot, int(self.engine.lengths[req.slot]) + width)
             if not ok:
                 # starved even after preemption: sit this step out (its
                 # write would land in the garbage page)
@@ -270,6 +303,15 @@ class ContinuousBatchingScheduler:
         pending = [0] * self.engine.num_slots
         for req in active:
             pending[req.slot] = req.generated[-1]
+        if k_eff >= 1:
+            self._verify(active, pending, k_eff, retired)
+            return
+        if drafter is not None and drafter.needs_model:
+            # a k=0 propose embeds exactly the pending token into the
+            # drafter's cache: advancing its lengths without this write
+            # would leave a stale hole INSIDE the live window and poison
+            # every draft after speculation resumes
+            drafter.propose_batch(pending, 0)
         t = self.timers("decode")
         t.start()
         next_tokens = self.engine.decode_step(pending, sampling=self.sampling)
@@ -277,12 +319,55 @@ class ContinuousBatchingScheduler:
         self._account("record_decode", len(active), t.elapsed(reset=True))
         for req in active:
             self.engine.advance(req.slot)
+            if drafter is not None and drafter.needs_model:
+                drafter.advance(req.slot, 1)
             if self._append_tokens(req, [int(next_tokens[req.slot])])[1]:
                 retired.append(req.uid)
 
+    def _verify(self, active, pending, k_eff, retired):
+        """Speculative step: draft k, verify all slots in one pass,
+        commit each slot's accepted prefix plus the target's next
+        token."""
+        drafter = self.engine.drafter
+        slots = self.engine.num_slots
+        if drafter.needs_model:
+            drafts = drafter.propose_batch(pending, k_eff)
+        else:
+            drafts = [[0] * k_eff for _ in range(slots)]
+            for req in active:
+                # prompt + generated = the TRUE token stream; a
+                # preemption-resume folded earlier generations into
+                # req.context, so context+generated would duplicate them
+                drafts[req.slot] = drafter.propose(
+                    req.prompt + req.generated, k_eff)
+        tokens = [[pending[s]] + list(drafts[s])[:k_eff]
+                  for s in range(slots)]
+        t = self.timers("decode")
+        t.start()
+        chosen = self.engine.verify_step(tokens, sampling=self.sampling)
+        t.stop()
+        dt = t.elapsed(reset=True)
+        emitted = 0
+        for req in active:
+            row, s = chosen[req.slot], req.slot
+            accepted = 0
+            while accepted < k_eff and \
+                    int(tokens[s][accepted + 1]) == int(row[accepted]):
+                accepted += 1
+            new = [int(row[j]) for j in range(accepted + 1)]
+            self.engine.advance(s, accepted + 1)
+            if drafter.needs_model:
+                drafter.advance(s, accepted + 1)
+            self._account("record_spec", k_eff, accepted)
+            appended, done = self._append_tokens(req, new)
+            emitted += appended
+            if done:
+                retired.append(req.uid)
+        self._account("record_decode", emitted, dt)
+
     def step(self):
-        """Admit -> prefill chunks -> one decode step -> retire. Returns
-        the uids retired this step."""
+        """Admit -> prefill chunks -> one decode/verify step -> retire.
+        Returns the uids retired this step."""
         if not self.queue and self.num_active == 0:
             return []                  # idle poll: no work, no record
         retired = []

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -50,6 +51,7 @@ from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
 from ..parallel.collective_matmul import (gather_rows, sum_across,
                                           tp_column_matmul, tp_row_matmul)
 from ..parallel.topology import MODEL_AXIS
+from ..utils.distributed import all_reduce_
 from . import _tree
 from ._tree import params_from_jax
 
@@ -414,38 +416,46 @@ def _column_matmul(x, w, config):
     return x @ w if binding is None else tp_column_matmul(x, w, binding)
 
 
-def _row_matmul(x, w, config):
+def _row_matmul(x, w, config, reduce=None):
     """x @ w at a row-parallel site (attention proj, mlp proj): the ring
     matmul-reduce-scatter under a binding (the output leaves
-    sequence-sharded), the plain matmul otherwise."""
+    sequence-sharded), the plain matmul otherwise, summed over the ranks
+    by ``reduce`` when one is given (tensor-parallel serving: each rank
+    holds whole activations and its rows of ``w``)."""
     binding = _tp_binding(config)
-    return x @ w if binding is None else tp_row_matmul(x, w, binding)
+    if binding is not None:
+        return tp_row_matmul(x, w, binding)
+    y = x @ w
+    return y if reduce is None else reduce(y)
 
 
-def _mlp(x, block, config=None, rng=None, train=False):
+def _mlp(x, block, config=None, rng=None, train=False, reduce=None):
     h = fused_bias_gelu(_column_matmul(x, block.fc_kernel.to(x.dtype),
                                        config),
                         block.fc_bias.to(x.dtype))
-    out = _row_matmul(h, block.proj_kernel.to(x.dtype), config) + \
+    out = _row_matmul(h, block.proj_kernel.to(x.dtype), config, reduce) + \
         block.proj_bias.to(x.dtype)
     if train and rng is not None and config.dropout > 0.0:
         out = _dropout(out, config.dropout, rng)
     return out
 
 
-def _block_rest(x, ctx, block_params, config=None, rng=None, train=False):
+def _block_rest(x, ctx, block_params, config=None, rng=None, train=False,
+                reduce=None):
     """Everything after the attention context: proj + residual + MLP.
     Split out so per-block remat can wrap THIS while the fused attention
     op stays outside (it saves out/lse and recomputes LN+QKV in its own
-    backward). ``rng`` is a ``torch.Generator`` (dropout) or None."""
+    backward). ``rng`` is a ``torch.Generator`` (dropout) or None;
+    ``reduce`` sums each row-parallel product over the serving TP group
+    (before its bias, which is added once)."""
     attn = block_params.attn
-    out = _row_matmul(ctx, attn.proj_kernel.to(x.dtype), config) + \
+    out = _row_matmul(ctx, attn.proj_kernel.to(x.dtype), config, reduce) + \
         attn.proj_bias.to(x.dtype)
     if train and rng is not None and config.dropout > 0.0:
         out = _dropout(out, config.dropout, rng)
     x = x + out
     ln2 = _layer_norm(x, block_params.ln2.scale, block_params.ln2.bias)
-    return x + _mlp(ln2, block_params.mlp, config, rng, train)
+    return x + _mlp(ln2, block_params.mlp, config, rng, train, reduce)
 
 
 def _use_fused_attn(config, device):
@@ -714,11 +724,17 @@ def num_params(config):
 
 def _qkv_for_cache(x, block, config):
     """Shared QKV projection for the cached attention paths:
-    -> q (b, s, h, dh), k/v (b, h, s, dh) (views of one projection)."""
-    b, s, d = x.shape
-    h, dh = config.n_heads, config.d_head
+    -> q (b, s, h, dh), k/v (b, h, s, dh) (views of one projection).
+    ``h`` is the heads the block's qkv kernel holds: all of them, or
+    under tensor-parallel serving the rank's ``n_heads / tp``
+    (:func:`tp_shard_state_dict` gives each rank whole q, k and v
+    heads)."""
+    b, s, _ = x.shape
+    dh = config.d_head
     qkv = x @ block.qkv_kernel.to(x.dtype) + block.qkv_bias.to(x.dtype)
-    q, k, v = qkv.split(d, dim=-1)
+    d_local = qkv.shape[-1] // 3
+    h = d_local // dh
+    q, k, v = qkv.split(d_local, dim=-1)
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, h, dh).transpose(1, 2)
     v = v.reshape(b, s, h, dh).transpose(1, 2)
@@ -760,8 +776,9 @@ def _cached_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
     d_head)). The new K/V are written IN PLACE at ``positions[i] ..
     positions[i] + s``, which must lie inside the row (the engine
     asserts it; the reference instead clamps the write start), then the
-    queries attend over the whole row. Returns the context (b, s, d)."""
-    b, s, d = x.shape
+    queries attend over the whole row. Returns the context (b, s, h * dh)
+    over the cache's heads (the rank's under tensor-parallel serving)."""
+    b, s, _ = x.shape
     q, k, v = _qkv_for_cache(x, block, config)
     rows = torch.arange(b, device=x.device)[:, None]
     tok_pos = positions.long()[:, None] + \
@@ -772,7 +789,7 @@ def _cached_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
     k_rows[rows, :, tok_pos, :] = k.transpose(1, 2).to(k_cache.dtype)
     v_rows[rows, :, tok_pos, :] = v.transpose(1, 2).to(v_cache.dtype)
     ctx = _attend_cache_rows(q, k_rows, v_rows, positions, config.d_head)
-    return ctx.to(x.dtype).reshape(b, s, d)
+    return ctx.to(x.dtype).reshape(b, s, -1)
 
 
 def _paged_write_index(positions, page_tables, valid_lens, page_size, s):
@@ -806,8 +823,9 @@ def _paged_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
     given). Reads: ``config.paged_attention_kernel == "pallas"`` runs
     the page-walk kernel (ops/paged_attention), anything else the plain
     gather-back. The write is shared by both, and lands on the same
-    stream before the read. Returns the context (b, s, d)."""
-    b, s, d = x.shape
+    stream before the read. Returns the context (b, s, h * dh) over the
+    pool's heads (the rank's under tensor-parallel serving)."""
+    b, s, _ = x.shape
     dh = config.d_head
     q, k, v = _qkv_for_cache(x, block, config)
     if write_index is None:
@@ -824,12 +842,27 @@ def _paged_attn_ctx(x, block, config, k_cache, v_cache, layer_idx,
         else paged_attention_reference
     ctx = read(q.contiguous(), k_cache, v_cache, page_tables, positions,
                valid_lens, layer_idx=layer_idx, page_size=page_size)
-    return ctx.to(x.dtype).reshape(b, s, d)
+    return ctx.to(x.dtype).reshape(b, s, -1)
+
+
+def _embed_tokens(wte, ids, tp_group):
+    """``wte[ids]``; under tensor-parallel serving ``wte`` is the rank's
+    vocabulary rows, so each rank looks up the ids it holds (zeros
+    elsewhere) and the sum over the group, exact with one non-zero term,
+    is the whole lookup."""
+    if tp_group is None:
+        return wte[ids]
+    rows = wte.shape[0]
+    local = ids - dist.get_rank(tp_group) * rows
+    inside = (local >= 0) & (local < rows)
+    tok = torch.where(inside[..., None], wte[local.clamp(0, rows - 1)],
+                      torch.zeros((), dtype=wte.dtype, device=wte.device))
+    return all_reduce_(tok, tp_group)
 
 
 def _forward_hidden_cached(params, input_ids, config, cache, positions,
                            page_tables=None, valid_lens=None,
-                           page_size=None):
+                           page_size=None, tp_group=None):
     """Cache-threaded forward for serving -> final hidden states.
 
     ``cache`` is ``(k, v)``: the slot layout (rows, layers, heads,
@@ -838,17 +871,27 @@ def _forward_hidden_cached(params, input_ids, config, cache, positions,
     through ``page_tables`` (b, max_pages) int32 with ``valid_lens``
     (b,) int32 masking padded writes. ``positions`` (b,) int32 is the
     absolute position of ``input_ids[:, 0]`` per slot. The caches are
-    updated in place."""
+    updated in place.
+
+    Tensor-parallel serving (``tp_group``, the mesh's ``model`` group):
+    ``params`` is the rank's :func:`tp_shard_state_dict` shard and the
+    cache holds the rank's heads. Activations stay whole on every rank:
+    the vocabulary-parallel embedding and the two row-parallel products
+    of each block (attention proj, MLP proj) are each followed by one
+    all-reduce over the group, their biases added once after it (the
+    Megatron layout GSPMD gives the JAX engine)."""
     b, s = input_ids.shape
     k_cache, v_cache = cache
     compute_dtype = params.ln_f.scale.dtype
-    tok = params.wte[input_ids]
+    tok = _embed_tokens(params.wte, input_ids, tp_group)
     # padded prefill tokens may run past the position table; their rows
     # only ever feed the garbage page, so clamping them changes nothing
     pos_ids = (positions.long()[:, None] +
                torch.arange(s, device=input_ids.device)[None, :]).clamp(
                    max=params.wpe.shape[0] - 1)
     x = tok.to(compute_dtype) + params.wpe[pos_ids].to(compute_dtype)
+    reduce = None if tp_group is None else \
+        (lambda y: all_reduce_(y, tp_group))
     write_index = None
     if page_tables is not None:
         write_index = _paged_write_index(positions, page_tables, valid_lens,
@@ -862,19 +905,20 @@ def _forward_hidden_cached(params, input_ids, config, cache, positions,
         else:
             ctx = _cached_attn_ctx(ln1, bp.attn, config, k_cache, v_cache,
                                    i, positions)
-        x = _block_rest(x, ctx, bp)
+        x = _block_rest(x, ctx, bp, reduce=reduce)
     return _layer_norm(x, params.ln_f.scale, params.ln_f.bias)
 
 
 def forward_hidden(params, input_ids, config, cache=None, positions=None,
                    page_tables=None, valid_lens=None, page_size=None,
-                   generator=None, train=False):
+                   generator=None, train=False, tp_group=None):
     """Embedding + transformer stack -> final hidden states.
 
     With ``cache`` (a ``(k, v)`` KV-cache pair) the stack runs the
-    incremental serving path (see :func:`_forward_hidden_cached`);
-    without it, the training stack of :func:`make_block_fn` blocks, with
-    dropout drawn from ``generator`` when ``train``."""
+    incremental serving path (see :func:`_forward_hidden_cached`; under
+    tensor-parallel serving over ``tp_group``); without it, the training
+    stack of :func:`make_block_fn` blocks, with dropout drawn from
+    ``generator`` when ``train``."""
     if cache is not None:
         if positions is None:
             positions = torch.zeros((input_ids.shape[0],),
@@ -883,7 +927,8 @@ def forward_hidden(params, input_ids, config, cache=None, positions=None,
         return _forward_hidden_cached(params, input_ids, config, cache,
                                       positions, page_tables=page_tables,
                                       valid_lens=valid_lens,
-                                      page_size=page_size)
+                                      page_size=page_size,
+                                      tp_group=tp_group)
     hidden, _ = _forward_hidden_train(params, input_ids, config,
                                       generator, train)
     return hidden

@@ -11,7 +11,7 @@ import numpy as np
 
 class ServingMetrics:
     """Inference-serving counters: prefill vs decode tokens/s, slot
-    occupancy, queue depth, request latency.
+    occupancy, queue depth, request latency, speculative acceptance.
 
     Filled by the continuous-batching scheduler
     (inference/scheduler.py) at decode-step granularity."""
@@ -36,6 +36,10 @@ class ServingMetrics:
         self.tpots = deque(maxlen=self.LATENCY_WINDOW)
         self.completed_requests = 0
         self.completed_tokens = 0       # the goodput numerator
+        # speculative decoding: drafts scored / accepted by the target
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_steps = 0
 
     def record_prefill(self, tokens, seconds):
         self.prefill_tokens += int(tokens)
@@ -44,7 +48,8 @@ class ServingMetrics:
 
     def record_decode(self, tokens, seconds):
         """One fused decode step: ``tokens`` = tokens EMITTED this step
-        (the live slots)."""
+        (live slots for plain decode; sum of accepted+1 for a
+        speculative verify step)."""
         self.decode_tokens += int(tokens)
         self.decode_seconds += float(seconds)
         self.decode_steps += 1
@@ -60,6 +65,13 @@ class ServingMetrics:
         self.completed_tokens += int(n_tokens)
         if tpot_seconds is not None:
             self.tpots.append(float(tpot_seconds))
+
+    def record_spec(self, proposed, accepted):
+        """One slot's verify outcome: ``proposed`` drafts scored,
+        ``accepted`` of them matched the target."""
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+        self.spec_steps += 1
 
     def record_schedule(self, occupancy, queue_depth, step):
         self.schedule_steps += 1
@@ -82,6 +94,11 @@ class ServingMetrics:
         return (self.occupancy_sum / self.schedule_steps
                 if self.schedule_steps else 0.0)
 
+    @property
+    def spec_acceptance_rate(self):
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
+
     @staticmethod
     def _latency_dist(samples):
         """{count, mean_s, p50_s, p95_s} over a latency deque — None
@@ -100,6 +117,15 @@ class ServingMetrics:
     def tpot_dist(self):
         return self._latency_dist(self.tpots)
 
+    def spec_dist(self):
+        """{proposed, accepted, acceptance_rate} — None before the
+        first verify step (spec off, or still prefill-only)."""
+        if not self.spec_steps:
+            return None
+        return {"proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": round(self.spec_acceptance_rate, 4)}
+
     def snapshot(self):
         out = {
             "prefill_tokens": self.prefill_tokens,
@@ -113,7 +139,8 @@ class ServingMetrics:
             "completed_tokens": self.completed_tokens,
         }
         for name, dist in (("ttft", self.ttft_dist()),
-                           ("tpot", self.tpot_dist())):
+                           ("tpot", self.tpot_dist()),
+                           ("speculative", self.spec_dist())):
             if dist is not None:
                 out[name] = dist
         return out

@@ -5,7 +5,8 @@ kernels, on a machine with the card:
     python3 probes/dp_probe.py PHASE [PHASE ...]
 
 PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
-``train_dp_parity``, ``train_dp_tp_parity``, ``train``), optionally with
+``train_dp_parity``, ``train_dp_tp_parity``, ``train``, ``kernel``,
+``serve_spec``, ``serve_tp``, ``train_example_data``), optionally with
 integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
 JSON line. Not a test and on no path of the package.
 """
@@ -36,9 +37,16 @@ def main():
         fn = getattr(cs, "phase_" + name)
         t0 = time.perf_counter()
         if name in ("train", "train_example", "train_ckpt", "train_dp_ckpt",
-                    "train_remat"):
+                    "train_remat", "train_example_data"):
             # the flash kernels' and Adam's counts
             res = fn(cs._dp_counters()[:4], **kwargs)
+        elif name in ("serve", "serve_spec", "serve_spec_parity"):
+            from deepspeed_tpu_torch.ops.paged_attention import \
+                paged_attention
+            res = fn([paged_attention], **kwargs)
+        elif name == "kernel":
+            res = fn(torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda"), **kwargs)
         else:
             res = fn(**kwargs)
         res["probe_wall_s"] = time.perf_counter() - t0

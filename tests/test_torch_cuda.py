@@ -14,7 +14,9 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   order of the sums differs.
 * the engine: tiny fp32 GPT-2 greedy streams identical for the slot
   layout and the paged layout read through the kernel, with one launch
-  per layer per decode step.
+  per layer per decode step; speculative decoding (n-gram and model
+  drafter, the kernel at the verify width) and tensor-parallel serving
+  (two gloo ranks on the card, one head each) give the plain stream.
 * flash attention (forward, dk/dv and dq kernels): each against its
   plain version over d_head 32/64/128, ragged lengths, causal and not,
   a key bias, fp32/bf16/fp16, q/k/v as strided column blocks of one QKV
@@ -230,6 +232,70 @@ def test_engine_paged_kernel_streams_equal_slot_streams(cuda):
     assert got == want
     assert paged_attention.launches == metrics.decode_steps * cfg.n_layers
     assert paged.allocator.pages_in_use == 0
+
+
+@pytest.mark.parametrize("method", ["ngram", "model"])
+def test_engine_speculative_streams_equal_plain_streams(cuda, method):
+    """Speculative serving on the card, k 3 (the paged kernel at s = 4 in
+    every verify step): the greedy streams of plain paged decode, one
+    launch a layer a model step; the target drafting for itself accepts
+    every draft."""
+    cfg = gpt2.GPT2Config(vocab_size=256, max_seq_len=128, n_layers=2,
+                          n_heads=2, d_model=64)
+    model = gpt2.make_gpt2_model(config=cfg, seed=3)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 256, size=n).tolist() for n in (3, 17, 40, 9)]
+    base = {"max_batch_size": 3, "prefill_buckets": [16, 32, 64],
+            "dtype": "fp32", "greedy": True, "max_new_tokens": 20,
+            "kv_layout": "paged", "kv_block_size": 8}
+    plain = deepspeed_tpu_torch.init_inference(model=model, config={
+        "inference": base})
+    spec = deepspeed_tpu_torch.init_inference(
+        model=model, draft_model=model if method == "model" else None,
+        config={"inference": dict(base, speculative={
+            "enabled": True, "method": method, "num_draft_tokens": 3})})
+    assert spec.paged_attention_kernel == "pallas"
+    want = plain.generate(prompts)
+    metrics = ServingMetrics()
+    paged_attention.launches = 0
+    assert spec.generate(prompts, metrics=metrics) == want
+    assert paged_attention.launches == metrics.decode_steps * cfg.n_layers
+    assert metrics.spec_proposed > 0
+    if method == "model":
+        assert metrics.spec_acceptance_rate == 1.0
+
+
+def test_engine_tp2_streams_equal_tp1_streams(cuda):
+    """Tensor-parallel serving on the card: two gloo ranks sharing it
+    (``tests/torch_tp_workers.py::tp_serve``), each with one of the two
+    heads in its paged pool, read through the kernel, with and without
+    n-gram speculation: both ranks give the TP 1 stream, one launch a
+    layer a model step on each."""
+    import torch_tp_workers as workers
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    tiny = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+                d_model=64)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 256, size=n).tolist() for n in (3, 17, 40, 9)]
+    base = {"max_batch_size": 3, "prefill_buckets": [16, 32, 64],
+            "dtype": "fp32", "greedy": True, "kv_layout": "paged",
+            "kv_block_size": 8}
+    configs = [base, dict(base, speculative={
+        "enabled": True, "method": "ngram", "num_draft_tokens": 3})]
+    specs = [dict(model=tiny, inference=c, prompts=prompts, max_new=16,
+                  device="cuda") for c in configs]
+    ranks = spawn(workers.tp_serve, 2, args=(specs,), timeout_s=600)
+    model = gpt2.make_gpt2_model(config=gpt2.GPT2Config(**tiny), seed=0)
+    for i, inference in enumerate(configs):
+        want = deepspeed_tpu_torch.init_inference(
+            model=model, config={"inference": inference}).generate(
+                prompts, max_new_tokens=16)
+        for r in ranks:
+            got = r[i]
+            assert got["device"].startswith("cuda")
+            assert got["kernel"] == "pallas" and got["pool_shape"][2] == 1
+            assert got["streams"] == want
+            assert got["launches"] == got["decode_steps"] * 2
 
 
 # ------------------------------------------------------ flash attention

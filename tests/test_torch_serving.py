@@ -15,8 +15,11 @@ fp32):
 * rules: config error probes raise alike in both packages, sampling is
   reproducible from a seed and top-k keeps its support, the entry point
   refuses to run without CUDA unless asked for the CPU, unported
-  features raise ``NotImplementedError``, and the port imports neither
-  jax nor ``deepspeed_tpu`` (AST scan, and a run with jax blocked).
+  features (the fleet, telemetry, analysis, controller and adapters)
+  raise ``NotImplementedError``, and the port imports neither jax nor
+  ``deepspeed_tpu`` (AST scan, and a run with jax blocked). Speculative
+  decoding and tensor-parallel serving have their own files
+  (``test_torch_speculative.py``, ``test_torch_tp_serving.py``).
 
 Tolerances: 1e-5 (atol and rtol) where the two frameworks' fp32 matmuls
 and softmax round differently in the last bits.
@@ -364,20 +367,13 @@ def test_init_inference_without_device_needs_cuda(port_model):
 
 
 @pytest.mark.parametrize("probe", [
-    "mp_size", "mesh", "speculative", "fleet", "telemetry", "analysis",
-    "controller", "adapters", "submit_adapter"])
+    "fleet", "telemetry", "analysis", "controller", "adapters",
+    "submit_adapter"])
 def test_unported_features_raise_not_implemented(port_model, probe):
     kw = dict(model=port_model, device="cpu")
     inference = {"max_batch_size": 2, "dtype": "fp32"}
     with pytest.raises(NotImplementedError, match="slice"):
-        if probe == "mp_size":
-            deepspeed_tpu_torch.init_inference(mp_size=2, **kw)
-        elif probe == "mesh":
-            deepspeed_tpu_torch.init_inference(mesh=object(), **kw)
-        elif probe == "speculative":
-            deepspeed_tpu_torch.init_inference(config={"inference": dict(
-                inference, speculative={"enabled": True})}, **kw)
-        elif probe == "fleet":
+        if probe == "fleet":
             deepspeed_tpu_torch.init_inference(config={"inference": dict(
                 inference, kv_layout="paged", fleet={"role": "decode"})},
                 **kw)

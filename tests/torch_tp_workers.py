@@ -170,3 +170,59 @@ def rotate(rank, world, chunks):
                 ring_rotate(x, dist.group.WORLD, perm, c,
                             wire_dtype=torch.bfloat16).numpy())
             for c in chunks}
+
+
+def tp_serve(rank, world, specs):
+    """Per spec: build the whole seeded model (and a drafter where the
+    spec names one), serve ``prompts`` through ``init_inference`` with
+    ``mp_size=world`` (or ``mesh=build_mesh(model=world)`` when
+    ``spec["mesh"]``) on ``spec["device"]`` (default the CPU), and return
+    the streams, the rank's KV pool shape, the mesh's model size, the
+    speculative counts and the paged kernel's launches. A spec with
+    ``"raises"`` returns the exception's type name instead."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    single_threaded()
+    results = []
+    for spec in specs:
+        cfg = gpt2.GPT2Config(**spec["model"])
+        model = gpt2.make_gpt2_model(config=cfg, seed=spec.get("seed", 0))
+        kw = dict(model=model, config={"inference": spec["inference"]},
+                  device=spec.get("device", "cpu"),
+                  seed=spec.get("sample_seed", 0))
+        if spec.get("draft"):
+            kw["draft_model"] = gpt2.make_gpt2_model(
+                config=gpt2.GPT2Config(**spec["draft"]), seed=1)
+        if spec.get("raises"):
+            try:
+                deepspeed_tpu_torch.init_inference(mp_size=spec["mp_size"],
+                                                   **kw)
+            except Exception as err:  # noqa: BLE001 - reported by name
+                results.append({"raised": type(err).__name__,
+                                "message": str(err)})
+            else:
+                results.append({"raised": None})
+            continue
+        if spec.get("mesh"):
+            engine = deepspeed_tpu_torch.init_inference(
+                mesh=build_mesh(model=world), **kw)
+        else:
+            engine = deepspeed_tpu_torch.init_inference(mp_size=world, **kw)
+        paged_attention.launches = 0
+        streams = engine.generate(spec["prompts"],
+                                  max_new_tokens=spec["max_new"])
+        results.append({
+            "streams": streams, "pool_shape": tuple(engine.kv.k.shape),
+            "launches": paged_attention.launches,
+            "decode_steps": engine.serving_metrics.decode_steps,
+            "device": str(engine.device),
+            "model_axis": engine.mesh.shape["model"],
+            "tp_rank": engine.tp_rank,
+            "kernel": engine.paged_attention_kernel,
+            "spec": engine.serving_metrics.spec_dist(),
+            "wte_rows": engine.params.wte.shape[0],
+            "pages_in_use": engine.allocator.pages_in_use
+            if engine.allocator is not None else 0})
+    return results
