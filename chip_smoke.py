@@ -8,8 +8,8 @@ with no ``ok`` line):
 
 1. device  — the card's name and power limit from ``nvidia-smi``;
 2. build   — every kernel source of the paths built with nvcc from the
-   checkout, and the host data op ``csrc/ds_dataio.cpp`` with g++, all
-   builds started together;
+   checkout, and the host ops ``csrc/ds_dataio.cpp`` and
+   ``csrc/cpu_adam.cpp`` with g++, all builds started together;
 3. kernel  — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its time, the plain version's, the least time
    the card could take (``bound_ms``) and a PyTorch library call's where
@@ -121,8 +121,10 @@ with no ``ok`` line):
    this card (gloo, each hop through host memory), each
    ``initialize(mesh=build_mesh(model=2), ...)`` with the ds_config
    ``comm.collective_matmul`` section (backend "pallas"), gpt2_medium at
-   full width and depth, seq 1024, micro 16, bf16, ZeRO-2, Adam; counts
-   set to 0 just before the timed steps and read just after, per rank;
+   full width with 6 of its 24 layers (``ONE_CARD_LAYERS``; the
+   four-card mode runs all 24), seq 1024, micro 16, bf16, ZeRO-2, Adam;
+   counts set to 0 just before the timed steps and read just after, per
+   rank;
 17. train_tp_parity — fp32 loss trajectories at gpt2_medium width with 2
    layers: TP 2 through the ring kernels and through the plain ring, and
    the TP 1 engine, from the same init;
@@ -133,7 +135,8 @@ with no ``ok`` line):
    this card (gloo, every collective through host memory), each
    ``initialize(mesh=build_mesh(data=2), ...)`` on the GPT-2 example's
    ``examples/gpt2/ds_config_zero2.json`` (ZeRO-2, WarmupDecayLR,
-   clipping) at gpt2_medium, seq 1024, micro 8 a rank, each its rows of
+   clipping) at gpt2_medium (6 of its 24 layers; all 24 on four
+   cards), seq 1024, micro 8 a rank, each its rows of
    one global batch; counts set to 0 just before the timed steps and read
    just after, per rank (Adam once a step over numel / 2); a profile
    step (the ZeRO collectives' host time); the state a rank holds at
@@ -148,7 +151,8 @@ with no ``ok`` line):
 22. train_dp_tp_parity — four ranks on ``build_mesh(data=2, model=2)``
    (ring, flash and Adam kernels), 2 layers, fp32 and bf16 ZeRO-2,
    against DP 1 x TP 1;
-23. train_ckpt — the train path at bench.py's first rung saves after 2
+23. train_ckpt — the train path at bench.py's first rung (6 of its 24
+   layers) saves after 2
    steps (``save_checkpoint``, a temporary directory, deleted after),
    takes 2 more; a fresh engine from another seed loads the tag
    (``verify_tag`` first) and takes the same 2: losses, master and
@@ -158,6 +162,34 @@ with no ``ok`` line):
    ``remat_policy`` "full" and "dots": the first step bit-equal, step ms
    and peak GB each ("dots" keeping at least REMAT_DOTS_EXTRA_GB more),
    and a profile under "dots";
+25. train_xl_offload — BASELINE config 4, the ZeRO-Offload main path:
+   ``initialize(...).train_batch(...)`` on gpt2_xl at full width and
+   depth (48 layers, d 1600, 25 heads, vocabulary 50304; the weights
+   made on the card from a seed), seq 1024, micro 8, bf16, ZeRO stage 3
+   with ``cpu_offload`` (the host Adam of ``csrc/cpu_adam.cpp``), Adam lr
+   1e-4, remat on, loss chunk 128 (``tests/perf/bench_gpt2_xl.py:45-55``);
+   2 warm-up and 3 timed steps (counts set to 0 just before, read just
+   after): step ms, tokens/s, MFU, then one step split into the device's
+   forward and backward, the D2H, the host Adam and the H2D; the device
+   peak, the host bytes of master and moments, a falling loss. Before it,
+   after the Adam kernel phase, ``cpu_adam``: the host op against its
+   plain version on 64M elements (error, ms, GB/s, threads, whether the
+   OpenMP probe passed);
+26. train_offload_parity — gpt2_xl width at 2 layers, 5 steps: the
+   offload engine against a stage-2 engine with the state on the card
+   (losses within 1e-4 relative, masters by how far they moved, within
+   ``OFFLOAD_MOVED_RTOL``; a control with the host step 5% too long must
+   fall outside it, one with eps x10 is reported), and the offload step
+   overlapped against serial and at two ``sub_group_size`` values, 2
+   steps, bit for bit;
+27. train_dp3 — ZeRO-3 over a data group: two ranks sharing the card
+   over gloo (train_dp_parity's, after its runs), train_dp's config
+   without clipping at gpt2_medium width, 2 layers: stage 3 == stage 2
+   bit for bit (losses, masters), with and without ``cpu_offload``; a
+   rank's parameter bytes about half;
+28. train_offload_ckpt — an offload engine saves and a fresh one resumes
+   bit for bit; a device-state engine and an offload engine load each
+   other's tags;
 
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
@@ -167,10 +199,15 @@ only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
 step on both backends; ``--dp-nccl`` (four cards) runs train_dp at DP 4
 and at DP 2 x TP 2 with one rank per card, then resumes a DP 4 tag at
-DP 2 x TP 2 (``dp_nccl_ckpt``).
+DP 2 x TP 2 (``dp_nccl_ckpt``), then ``dp_nccl_zero3``: gpt2_xl at
+full depth, DP 4, stage 2, stage 3 and stage 3 with ``cpu_offload`` from
+one init (step ms, each rank's peak and parameter bytes, the all-gather
+and reduce-scatter kernel ms a step), stage 3 held to stage 2 and the
+offload run to stage 3 (losses, the whole masters).
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
 without a result when CUDA is unavailable.
 """
+import functools
 import json
 import statistics
 import subprocess
@@ -185,9 +222,34 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 L2_FLUSH_BYTES = 512 * 2 ** 20   # > the 50 MB L2, and covers launch latency
 SERVE_LAYERS = 24                # gpt2_medium depth
+# the depth train_tp, train_dp and train_ckpt run at on one card (of
+# gpt2_medium's 24), so that the script stays inside its time limit; the
+# four-card modes run them at full depth
+ONE_CARD_LAYERS = 6
 
 
 T0 = time.perf_counter()
+
+
+@functools.lru_cache(maxsize=2)
+def _init_tree(vocab, seq, layers, d_model, seed):
+    from deepspeed_tpu_torch.models import gpt2
+    return gpt2.init_params(gpt2.GPT2Config(
+        vocab_size=vocab, max_seq_len=seq, n_layers=layers,
+        d_model=d_model), seed=seed)
+
+
+def seeded_gpt2(cfg, seed):
+    """``gpt2.make_gpt2_model(config=cfg, seed=seed)``: the same weights
+    (the seeded numpy draws of ``init_params``, which depend only on the
+    vocabulary, sequence, depth and width), the draws kept for the next
+    model of that shape in this process (they take seconds at gpt2_medium
+    size, and the phases build the same shape again and again)."""
+    from deepspeed_tpu_torch.models import gpt2
+    model = gpt2.GPT2Model(cfg)
+    model.load_state_dict(gpt2.params_from_jax(_init_tree(
+        cfg.vocab_size, cfg.max_seq_len, cfg.n_layers, cfg.d_model, seed)))
+    return model
 
 
 def emit(obj):
@@ -1040,7 +1102,7 @@ def phase_train(launch_counters):
                           loss_chunk=128, remat=TRAIN_REMAT)
     assert cfg.n_layers == 24 and cfg.d_model == 1024
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         model=model, config_params=TRAIN_CONFIG)
     init_s = time.perf_counter() - t0
@@ -1181,7 +1243,7 @@ def phase_train_parity(steps=5, tol=1e-4):
             cfg = gpt2.config_for("gpt2_medium", n_layers=2,
                                   max_seq_len=TRAIN_SEQ, loss_chunk=128,
                                   remat=False)
-            model = gpt2.make_gpt2_model(config=cfg, seed=1)
+            model = seeded_gpt2(cfg, 1)
             engine = deepspeed_tpu_torch.initialize(
                 model=model, config_params={
                     "train_micro_batch_size_per_gpu": 4,
@@ -1614,7 +1676,7 @@ def phase_train_sparse(launch_counters):
                           sparse_attention=dict(SPARSE_TRAIN))
     assert cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
                                                      config_params=ds)
     init_s = time.perf_counter() - t0
@@ -1708,7 +1770,7 @@ def phase_train_sparse_parity(steps=5, tol=1e-4, seq=2048):
             cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=seq,
                                   loss_chunk=128, remat=False,
                                   sparse_attention=dict(SPARSE_PARITY))
-            model = gpt2.make_gpt2_model(config=cfg, seed=1)
+            model = seeded_gpt2(cfg, 1)
             engine = deepspeed_tpu_torch.initialize(model=model, config_params={
                 "train_micro_batch_size_per_gpu": 2,
                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
@@ -2078,7 +2140,7 @@ def serve_model():
     from deepspeed_tpu_torch.models import gpt2
     if not _SERVE_MODEL:
         cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
-        _SERVE_MODEL.append(gpt2.make_gpt2_model(config=cfg, seed=0))
+        _SERVE_MODEL.append(seeded_gpt2(cfg, 0))
     return _SERVE_MODEL[0]
 
 
@@ -2192,7 +2254,7 @@ def phase_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
-    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    model = seeded_gpt2(cfg, 1)
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in (17, 64, 130, 300, 5, 250, 33, 480, 90, 16)]
@@ -2327,7 +2389,7 @@ def phase_serve_spec(launch_counters):
     torch.cuda.empty_cache()
 
     drafter_cfg = gpt2.config_for("gpt2_small", max_seq_len=1024)
-    drafter = gpt2.make_gpt2_model(config=drafter_cfg, seed=1)
+    drafter = seeded_gpt2(drafter_cfg, 1)
     engine = deepspeed_tpu_torch.init_inference(
         model=model, draft_model=drafter,
         config={"inference": dict(SERVE_INFERENCE, speculative=SPEC_MODEL)})
@@ -2360,7 +2422,7 @@ def phase_serve_spec_parity(launch_counters):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
-    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    model = seeded_gpt2(cfg, 1)
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in (17, 64, 130, 300, 5, 250, 33, 480, 90, 16)]
@@ -2412,7 +2474,7 @@ def tp_serve_rank(rank, world, spec):
     from deepspeed_tpu_torch.utils.monitor import ServingMetrics
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine = deepspeed_tpu_torch.init_inference(
         model=model, mp_size=world, config={"inference": SERVE_INFERENCE})
     del model
@@ -2450,7 +2512,7 @@ def tp_serve_rank(rank, world, spec):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pcfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
-    model = gpt2.make_gpt2_model(config=pcfg, seed=1)
+    model = seeded_gpt2(pcfg, 1)
     parity = {}
     for name, inference in spec["parity"].items():
         engine = deepspeed_tpu_torch.init_inference(
@@ -2513,7 +2575,7 @@ def phase_serve_tp(world=2):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pcfg = gpt2.config_for("gpt2_medium", n_layers=2, max_seq_len=1024)
-    model = gpt2.make_gpt2_model(config=pcfg, seed=1)
+    model = seeded_gpt2(pcfg, 1)
     parity = {}
     for name, inference in configs.items():
         engine = deepspeed_tpu_torch.init_inference(
@@ -2772,7 +2834,7 @@ def tp_train_rank(rank, world, spec):
     conf = json.loads(json.dumps(TP_CONFIG))
     conf["comm"]["collective_matmul"]["backend"] = spec["backend"]
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine = deepspeed_tpu_torch.initialize(
         model=model, mesh=build_mesh(model=world), config_params=conf)[0]
     init_s = time.perf_counter() - t0
@@ -2933,7 +2995,7 @@ def tp_parity_rank(rank, world, spec):
         conf["comm"] = {"collective_matmul": {"enabled": True,
                                               "backend": spec["backend"]}}
         mesh = build_mesh(model=world)
-    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    model = seeded_gpt2(cfg, 1)
     if spec.get("scale_fc"):
         with torch.no_grad():
             for name, t in model.state_dict().items():
@@ -2951,21 +3013,31 @@ def tp_parity_rank(rank, world, spec):
     return out
 
 
-def phase_train_tp_parity(steps=5, tol=1e-5):
+def tp_parity_ranks(rank, world, specs):
+    """:func:`tp_parity_rank` for each of ``specs``, in one process."""
+    return [tp_parity_rank(rank, world, spec) for spec in specs]
+
+
+def phase_train_tp_parity(steps=5, tol=1e-5, lamb=None):
     """fp32 loss trajectories at gpt2_medium width with 2 layers, TF32 off,
     plain attention: TP 2 with the ring kernels ("pallas") and with the
     plain ring ("ppermute"), both on the one card over gloo, against the
-    port's TP 1 engine from the same init."""
+    port's TP 1 engine from the same init. With ``lamb``
+    (:func:`tp_lamb_spec`) the same two ranks then run train_tp_lamb's TP 2
+    part, sharing their start-up; its returns come back under
+    "lamb_ranks"."""
     import torch
     from deepspeed_tpu_torch.utils.distributed import spawn
     rng = np.random.RandomState(2)
     ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
+    specs = [{"backend": backend, "ids": ids, "steps": steps}
+             for backend in ("pallas", "ppermute")]
+    per_rank = spawn(tp_parity_ranks, 2, args=(specs + ([lamb] if lamb
+                                                         else []),),
+                     timeout_s=600)
     runs = {}
-    for backend in ("pallas", "ppermute"):
-        ranks = spawn(tp_parity_rank, 2, args=({"backend": backend,
-                                                "ids": ids,
-                                                "steps": steps},),
-                      timeout_s=600)
+    for i, backend in enumerate(("pallas", "ppermute")):
+        ranks = [r[i] for r in per_rank]
         assert ranks[0]["losses"] == ranks[1]["losses"]
         live = backend == "pallas"
         for r in ranks:
@@ -2981,13 +3053,25 @@ def phase_train_tp_parity(steps=5, tol=1e-5):
         abs(a - b) / abs(b) for a, b in zip(runs["tp2_pallas"],
                                             runs["tp2_ppermute"]))
     assert max(rel.values()) <= tol, (rel, runs)
-    return {"phase": "train_tp_parity", "layers": 2, "d_model": 1024,
-            "dtype": "fp32", "tp": 2, "steps": steps, "losses": runs,
-            "max_rel_diff": rel, "tolerance": tol}
+    out = {"phase": "train_tp_parity", "layers": 2, "d_model": 1024,
+           "dtype": "fp32", "tp": 2, "steps": steps, "losses": runs,
+           "max_rel_diff": rel, "tolerance": tol}
+    if lamb:
+        out["lamb_ranks"] = [r[2] for r in per_rank]
+    return out
 
 
-def phase_train_tp_lamb(steps=2, loss_tol=1e-5, master_atol=5e-5,
-                        scale=20.0):
+def tp_lamb_spec(steps=2, scale=20.0):
+    """train_tp_lamb's rank spec: LAMB lr 1e-3, rank 0's half of every fc
+    kernel scaled by ``scale``."""
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
+    return {"backend": "pallas", "ids": ids, "steps": steps,
+            "optimizer": "Lamb", "lr": 1e-3, "scale_fc": scale}
+
+
+def phase_train_tp_lamb(spec=None, ranks=None, loss_tol=1e-5,
+                        master_atol=5e-5):
     """LAMB under tensor parallelism on the card: fp32, gpt2_medium width
     with 2 layers, TF32 off, plain attention, rank 0's half of every fc
     kernel scaled x20 (shards of unequal norms), TP 2 through the ring and
@@ -2996,11 +3080,10 @@ def phase_train_tp_lamb(steps=2, loss_tol=1e-5, master_atol=5e-5,
     shows. Tolerances as the CPU test's (tests/test_torch_tp_training.py)."""
     import torch
     from deepspeed_tpu_torch.utils.distributed import spawn
-    rng = np.random.RandomState(3)
-    ids = rng.randint(0, 50304, size=(1, 4, TRAIN_SEQ)).astype(np.int64)
-    spec = {"backend": "pallas", "ids": ids, "steps": steps,
-            "optimizer": "Lamb", "lr": 1e-3, "scale_fc": scale}
-    ranks = spawn(tp_parity_rank, 2, args=(spec,), timeout_s=600)
+    spec = spec or tp_lamb_spec()
+    steps, scale = spec["steps"], spec["scale_fc"]
+    if ranks is None:
+        ranks = spawn(tp_parity_rank, 2, args=(spec,), timeout_s=600)
     tp1 = tp_parity_rank(0, 1, spec)
     torch.cuda.empty_cache()
     assert ranks[0]["losses"] == ranks[1]["losses"]
@@ -3072,7 +3155,7 @@ def dp_train_rank(rank, world, spec):
                           n_layers=spec["layers"])
     mesh = build_mesh(data=spec["data"], model=tp)
     t0 = time.perf_counter()
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine = deepspeed_tpu_torch.initialize(model=model, mesh=mesh,
                                             config_params=conf)[0]
     init_s = time.perf_counter() - t0
@@ -3264,7 +3347,7 @@ def dp_parity_model(layers, scale=None, data=DP):
     from deepspeed_tpu_torch.models import gpt2
     cfg = gpt2.config_for("gpt2_medium", n_layers=layers,
                           max_seq_len=TRAIN_SEQ, loss_chunk=128, remat=False)
-    model = gpt2.make_gpt2_model(config=cfg, seed=1)
+    model = seeded_gpt2(cfg, 1)
     if scale:
         name, count = _straddling_leaf(model, data)
         with torch.no_grad():
@@ -3279,7 +3362,8 @@ def dp_parity_rank(rank, world, spec):
     TF32 off; per run the losses, the launches, and the gathered masters'
     differences from the single-rank references in ``spec["ref_path"]``
     and from the runs named in ``spec["pairs"]``; with ``spec["ckpt"]``,
-    then :func:`dp_ckpt_rank` on it, under the key "ckpt"."""
+    then :func:`dp_ckpt_rank` on it, under the key "ckpt"; with
+    ``spec["dp3"]``, then :func:`dp3_rank`, under the key "dp3"."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.parallel.topology import build_mesh
@@ -3326,6 +3410,8 @@ def dp_parity_rank(rank, world, spec):
         torch.cuda.empty_cache()
     if spec.get("ckpt"):
         out["ckpt"] = dp_ckpt_rank(rank, world, spec["ckpt"])
+    if spec.get("dp3"):
+        out["dp3"] = dp3_rank(rank, world, spec["dp3"])
     return out
 
 
@@ -3365,7 +3451,7 @@ def _rel(a, b):
 
 
 def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
-                          scale=20.0, ckpt=None):
+                          scale=20.0, ckpt=None, dp3=None):
     """DP 2 on the card (two gloo ranks) at gpt2_medium width with 4
     layers, seq 1024, micro 2 a rank, TF32 off: with the kernels against
     DP 1 with the kernels on the same global batch, and against DP 2 with
@@ -3380,7 +3466,9 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
     their gradients differently each leaf's move within ``moved_rtol`` of
     the reference's. With ``ckpt`` (:func:`dp_ckpt_spec`) the ranks then
     run train_dp_ckpt's DP 2 part (:func:`dp_ckpt_rank`), sharing their
-    start-up; its returns come back under "dp_ckpt_ranks"."""
+    start-up; its returns come back under "dp_ckpt_ranks"; with ``dp3``
+    (train_dp3's rank spec) they then run train_dp3's four engines, whose
+    returns come back under "dp3_ranks"."""
     import os
     import tempfile
     import torch
@@ -3417,10 +3505,11 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
                           "lamb/pallas/s2": ("lamb/pallas/s0",)},
                 "keep": ("fp32/pallas/s0", "bf16/pallas/s0",
                          "bf16/pallas/s2", "lamb/pallas/s0"),
-                "ckpt": ckpt}
+                "ckpt": ckpt, "dp3": dp3}
         ranks = spawn(dp_parity_rank, DP, args=(spec,), timeout_s=900)
     torch.cuda.empty_cache()
     ckpt_ranks = [r.pop("ckpt") for r in ranks] if ckpt else None
+    dp3_ranks = [r.pop("dp3") for r in ranks] if dp3 else None
     r0 = ranks[0]
     for r in ranks:
         for name in r0:
@@ -3480,6 +3569,8 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
     _check_masters(masters, master_atol, moved_rtol, result)
     if ckpt:
         result["dp_ckpt_ranks"] = ckpt_ranks
+    if dp3:
+        result["dp3_ranks"] = dp3_ranks
     return result
 
 
@@ -3696,7 +3787,7 @@ def nccl_ckpt_rank(rank, world, spec):
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
                           loss_chunk=128, remat=False)
     state = {k: v.clone() for k, v in
-             gpt2.make_gpt2_model(config=cfg, seed=0).state_dict().items()}
+             seeded_gpt2(cfg, 0).state_dict().items()}
     out = {"transport": torch.distributed.get_backend()}
     for data, tp in ((world, 1), (world // 2, 2)):
         model = gpt2.GPT2Model(cfg)
@@ -3750,6 +3841,7 @@ def main_dp_nccl():
         res["phase"] = "dp_nccl"
         emit(res)
     emit(phase_dp_nccl_ckpt())
+    emit(phase_dp_nccl_zero3())
 
 
 def phase_dp_nccl_ckpt(loss_tol=5e-4):
@@ -3788,7 +3880,9 @@ def phase_dp_nccl_ckpt(loss_tol=5e-4):
 
 
 CKPT_STEPS = 2
-CKPT_TAG_GB = 3.55      # predicted: bf16 module + fp32 master + bf16 moments
+# predicted tag bytes a parameter: bf16 module + fp32 master + bf16 moments
+# (3.55 GB at gpt2_medium's full depth)
+CKPT_TAG_BYTES_PER_PARAM = 10
 
 
 def _bench_engine(seed, layers=None, micro=TRAIN_MICRO, seq=TRAIN_SEQ,
@@ -3802,7 +3896,7 @@ def _bench_engine(seed, layers=None, micro=TRAIN_MICRO, seq=TRAIN_SEQ,
                           remat=remat, remat_policy=policy,
                           **({"n_layers": layers} if layers else {}))
     if state is None:
-        model = gpt2.make_gpt2_model(config=cfg, seed=seed)
+        model = seeded_gpt2(cfg, seed)
     else:
         model = gpt2.GPT2Model(cfg)
         model.load_state_dict(state)
@@ -3839,7 +3933,9 @@ def phase_train_ckpt(launch_counters, layers=None, micro=TRAIN_MICRO,
     import tempfile
     import torch
     from deepspeed_tpu_torch.runtime import checkpointing as ckpt
+    from deepspeed_tpu_torch.models import gpt2
     engine, cfg = _bench_engine(0, layers, micro, seq)
+    tag_gb = CKPT_TAG_BYTES_PER_PARAM * gpt2.num_params(cfg) / 1e9
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size, size=(1, micro, seq)) \
         .astype(np.int64)
@@ -3849,8 +3945,8 @@ def phase_train_ckpt(launch_counters, layers=None, micro=TRAIN_MICRO,
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         free_gb = shutil.disk_usage(tmp).free / 1e9
-        assert free_gb > 2 * CKPT_TAG_GB, \
-            "{:.2f} GB free for a {} GB tag".format(free_gb, CKPT_TAG_GB)
+        assert free_gb > 2 * tag_gb, \
+            "{:.2f} GB free for a {:.2f} GB tag".format(free_gb, tag_gb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.save_checkpoint(tmp, tag="t")
@@ -3893,7 +3989,7 @@ def phase_train_ckpt(launch_counters, layers=None, micro=TRAIN_MICRO,
               "verify_s": verify_s, "load_s": load_s,
               "tag_bytes": tag_bytes,
               "tag_gb": sum(tag_bytes.values()) / 1e9,
-              "predicted_tag_gb": CKPT_TAG_GB,
+              "predicted_tag_gb": tag_gb, "layers": cfg.n_layers,
               "losses_before_save": losses, "losses_kept_going": kept,
               "losses_resumed": resumed, "state_bit_equal": equal,
               "state_max_abs_diff": diff, "launches_resumed": launches}
@@ -3930,7 +4026,7 @@ def dp_ckpt_rank(rank, world, spec):
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
                           loss_chunk=128, remat=False,
                           n_layers=DP_CKPT_LAYERS)
-    model = gpt2.make_gpt2_model(config=cfg, seed=0)
+    model = seeded_gpt2(cfg, 0)
     engine = deepspeed_tpu_torch.initialize(
         model=model, mesh=build_mesh(data=world),
         config_params=_example_conf(DP_MICRO))[0]
@@ -3996,7 +4092,7 @@ def phase_train_dp_ckpt(launch_counters, loss_tol=1e-4, moved_rtol=0.25,
                               loss_chunk=128, remat=False,
                               n_layers=DP_CKPT_LAYERS)
         engine = deepspeed_tpu_torch.initialize(
-            model=gpt2.make_gpt2_model(config=cfg, seed=1),
+            model=seeded_gpt2(cfg, 1),
             config_params=_example_conf(DP_MICRO * DP))[0]
         t0 = time.perf_counter()
         path, _ = engine.load_checkpoint(spec["dir"])
@@ -4069,7 +4165,7 @@ def phase_train_remat(launch_counters, layers=None, micro=REMAT_MICRO,
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=seq,
                           **({"n_layers": layers} if layers else {}))
     state = {k: v.clone() for k, v in
-             gpt2.make_gpt2_model(config=cfg, seed=0).state_dict().items()}
+             seeded_gpt2(cfg, 0).state_dict().items()}
     rng = np.random.RandomState(3)
     ids = rng.randint(0, cfg.vocab_size, size=(1, micro, seq)) \
         .astype(np.int64)
@@ -4126,6 +4222,689 @@ def phase_train_remat(launch_counters, layers=None, micro=REMAT_MICRO,
             assert run["launches"][name] == cfg.n_layers * steps, result
         assert run["launches"]["fused_adam"] == steps, result
     return result
+
+
+# ------------------------------------------------ ZeRO-3 and ZeRO-Offload
+
+# BASELINE config 4 as tests/perf/bench_gpt2_xl.py:45-55 runs it
+XL_SEQ, XL_MICRO, XL_WARMUP, XL_STEPS = 1024, 8, 2, 3
+XL_CONFIG = {"train_micro_batch_size_per_gpu": XL_MICRO,
+             "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+             "zero_optimization": {"stage": 3, "cpu_offload": True},
+             "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+             "steps_per_print": 10 ** 9}
+XL_HOST_GB = 18.69        # predicted: 12 bytes a parameter of 1,557,686,400
+CPU_ADAM_N = 64 * 2 ** 20
+CPU_ADAM_BYTES = 30       # an element: p, g, m, v read; p, m, v, bf16 written
+HOST_ULPS = 4             # at the scale of each output's operation
+OFFLOAD_PARITY_LAYERS, OFFLOAD_PARITY_STEPS = 2, 5
+# the offload engine's masters against the device engine's, each leaf's
+# difference by how far it moved: the sound reading was 0.0035 on the
+# H100; a step 5% too long should read about 0.05 (the phase's control)
+OFFLOAD_MOVED_RTOL = 0.02
+# the same reading on a leaf at gpt2_xl's full depth (dp_nccl_zero3): the
+# offload run against stage 3 read 0.0257 after 4 steps on four H100s
+DEEP_LEAF_MOVED_RTOL = 0.05
+DP3_LAYERS, DP3_STEPS = 2, 3
+OFFLOAD_CKPT_LAYERS = 2
+ZERO3_SPANS = ("zero3.all_gather", "zero3.reduce_scatter",
+               "zero.offload_step")
+
+
+def device_gpt2(cfg, seed, device="cuda"):
+    """A GPT-2 made on the card in bf16: N(0, 0.02) kernels and ``wte``
+    (the two projection kernels N(0, 0.02 / sqrt(2 L)), ``wpe`` N(0,
+    0.01)), unit scales, zero biases, drawn from a seeded generator on the
+    device (drawing gpt2_xl's 1.56e9 normals with numpy on the host would
+    take about half a minute)."""
+    import math
+    import torch
+    from deepspeed_tpu_torch.models import gpt2
+    model = gpt2.GPT2Model(cfg, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    proj = 0.02 / math.sqrt(2.0 * cfg.n_layers)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                std = proj if "proj_kernel" in name else \
+                    0.01 if name == "wpe" else 0.02
+                p.normal_(0.0, std, generator=gen)
+    return model
+
+
+def _scaled_err(got, want, *scales):
+    """max |got - want| in fp32 spacings of the largest of ``scales`` and
+    |got| (the scale the operation that made them rounds at)."""
+    import torch
+    scale = torch.stack([s.abs().float() for s in (got,) + scales]).amax(0)
+    spacing = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
+    return float(((got.double() - want.double()).abs() /
+                  spacing.double()).max())
+
+
+def phase_cpu_adam(n=CPU_ADAM_N):
+    """The host Adam (``csrc/cpu_adam.cpp``, ``ops/adam/cpu_adam.py``)
+    against its plain version on 64M elements at step 3 (AdamW, weight
+    decay 0.01, the fused bf16 copy): the worst error in fp32 spacings of
+    each output's scale, the bf16 copies bit for bit, the op's and the
+    plain version's ms, the op's GB/s over 30 bytes an element, its
+    threads and whether the compiler's OpenMP probe passed."""
+    import torch
+    from deepspeed_tpu_torch.ops import host_build
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as ca
+    gen = torch.Generator().manual_seed(0)
+    p = torch.randn(n, generator=gen)
+    g = torch.randn(n, generator=gen)
+    m = torch.randn(n, generator=gen) * 0.1
+    v = torch.rand(n, generator=gen) * 0.01
+    h = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+             bc1=1 - 0.9 ** 3, bc2=1 - 0.999 ** 3, adam_w_mode=True)
+    op = [t.clone() for t in (p, g, m, v)]
+    plain = [t.clone() for t in (p, g, m, v)]
+    half = torch.empty(n, dtype=torch.bfloat16)
+    plain_half = torch.empty(n, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    ca.cpu_adam(*op, p_bf16=half, **h)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ca.cpu_adam_reference(*plain, p_bf16=plain_half, **h)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = {"p": _scaled_err(op[0], plain[0], p),
+            "m": _scaled_err(op[2], plain[2], m, g),
+            "v": _scaled_err(op[3], plain[3], v, g * g * 1e-3)}
+    bf16_equal = bool(torch.equal(half.view(torch.int16),
+                                  plain_half.view(torch.int16)))
+    assert max(errs.values()) <= HOST_ULPS, errs
+    assert bf16_equal
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ca.cpu_adam(*op, p_bf16=half, **h)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    cxx = host_build.compiler()
+    return {"phase": "cpu_adam", "elements": n, "errors_in_spacings": errs,
+            "tolerance_spacings": HOST_ULPS, "bf16_copy_bit_equal":
+            bf16_equal, "op_ms": ms, "first_call_ms": first_ms,
+            "plain_ms": plain_ms, "op_gb_per_s": CPU_ADAM_BYTES * n / ms /
+            1e6, "bytes_per_element": CPU_ADAM_BYTES,
+            "pool_threads": ca.threads_for(n),
+            "openmp_threads": ca.openmp_threads(),
+            "usable_cores": ca.usable_cores(),
+            "openmp_probe_passed": host_build.OPENMP_FLAG in
+            host_build.flags(cxx), "flags": list(host_build.flags(cxx))}
+
+
+def _xl_cfg(layers=None):
+    from deepspeed_tpu_torch.models import gpt2
+    return gpt2.config_for("gpt2_xl", max_seq_len=XL_SEQ, remat=True,
+                           loss_chunk=128,
+                           **({"n_layers": layers} if layers else {}))
+
+
+def xl_flops_per_token(cfg):
+    """6 N + 12 L d s: the model's flops a token, recompute not counted."""
+    from deepspeed_tpu_torch.models import gpt2
+    return 6 * gpt2.num_params(cfg) + \
+        12 * cfg.n_layers * cfg.d_model * cfg.max_seq_len
+
+
+def phase_train_xl_offload(launch_counters=None, layers=None,
+                           steps=XL_STEPS):
+    """BASELINE config 4: ``initialize(...).train_batch(...)`` on gpt2_xl
+    at full width and depth (48 layers, d 1600, 25 heads, vocabulary
+    50304), seq 1024, micro 8, bf16, ZeRO stage 3 with ``cpu_offload``,
+    Adam lr 1e-4, remat on, loss chunk 128 (bench_gpt2_xl.py's config),
+    the weights made on the card from a seed. ``XL_WARMUP`` steps, then
+    counts set to 0 and ``steps`` timed steps (step ms, tokens/s, MFU over
+    6N + 12 L d s flops a token against 989 TFLOP/s); then one step
+    through ``forward`` / ``backward`` / ``step`` with the offload step
+    serial, for the split: the device's forward and backward, the
+    gradients' D2H, the host Adam, the weights' H2D. The device peak, the
+    host bytes of the master and moments, launches by kernel (each flash
+    kernel once a layer: at one rank stage 3 keeps every leaf whole, as
+    the JAX plan does, so nothing is gathered, and remat recomputes the
+    rest of each block but not its fused attention; the device Adam
+    never), and a falling loss."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import cpu_adam
+    if launch_counters is None:
+        launch_counters = _dp_counters()[:4]
+    cfg = _xl_cfg(layers)
+    t0 = time.perf_counter()
+    model = device_gpt2(cfg, seed=0)
+    made_s = time.perf_counter() - t0
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config_params=XL_CONFIG)[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert engine.device.type == "cuda" and engine.zero3 is None
+    assert engine.offload is not None
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, XL_MICRO, XL_SEQ)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = []
+    for _ in range(XL_WARMUP):
+        losses.append(float(engine.train_batch(batch=batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in launch_counters:
+        c.launches = 0
+    adam_calls = cpu_adam.calls
+    t0 = time.perf_counter()
+    timed = [engine.train_batch(batch=batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    host_adam_calls = cpu_adam.calls - adam_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    overlapped = dict(engine.offload.last_times)
+    losses += [float(x) for x in timed]
+    # the split, one step with the offload step serial
+    engine.offload.overlap = False
+    x = torch.as_tensor(ids[0], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = engine(x, x)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    serial = dict(engine.offload.last_times)
+    losses.append(float(loss.detach()))
+    engine.offload.overlap = True
+    step_ms = wall * 1e3 / steps
+    tokens = XL_MICRO * XL_SEQ
+    flops = xl_flops_per_token(cfg) * tokens
+    host = engine.offload.host_bytes()
+    n = gpt2.num_params(cfg)
+    per_step = {"flash_fwd": cfg.n_layers,
+                "flash_bwd_dkdv": cfg.n_layers, "flash_bwd_dq":
+                cfg.n_layers, "fused_adam": 0}
+    for name, k in per_step.items():
+        if name in launches:
+            assert launches[name] == k * steps, (name, launches)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    if layers is None:
+        assert abs(host["master_and_moments"] / 1e9 - XL_HOST_GB) < 0.05, \
+            host
+    return {"phase": "train_xl_offload", "model": "gpt2_xl",
+            "params": n, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": cfg.n_heads, "vocab": cfg.vocab_size, "seq": XL_SEQ,
+            "micro_batch": XL_MICRO, "config": XL_CONFIG, "remat": True,
+            "steps": steps, "step_ms": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "flops_per_step": flops,
+            "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+            "split_ms": {"device_fwd_bwd": (t1 - t0) * 1e3,
+                         "step_total": (t2 - t1) * 1e3,
+                         "d2h": serial["d2h_wait_ms"],
+                         "host_adam": serial["adam_ms"],
+                         "h2d": serial["h2d_ms"]},
+            "offload_overlapped_ms": overlapped,
+            "host_adam_gb_per_s": CPU_ADAM_BYTES * engine.flat.part_numel /
+            serial["adam_ms"] / 1e6,
+            "d2h_gb": 4 * engine.flat.part_numel / 1e9,
+            "h2d_gb": 2 * engine.flat.part_numel / 1e9,
+            "work_chunks": engine.offload_work_chunks,
+            "h2d_batches": engine.h2d_batches,
+            "host_adam_threads": engine.offload.threads(
+                max(b - a for a, b in engine.offload.chunks)),
+            "host_bytes": host, "peak_memory_gb": peak_gb,
+            "param_bytes": engine.flat.param_bytes(),
+            "persistent_leaves": len(engine.flat.persistent),
+            "model_made_s": made_s, "init_s": init_s,
+            "launches": launches, "launches_per_step": per_step,
+            "host_adam_calls": host_adam_calls, "losses": losses}
+
+
+def _offload_parity_engine(cfg, zero, steps, batch, sub_group=None,
+                           overlap=True, keep_at=None, keep_init=False,
+                           **adam):
+    """``steps`` steps of ``batch`` on a fresh engine at ``zero``: losses,
+    the final masters, the work chunks; with ``keep_at`` also the masters
+    after that many steps, with ``keep_init`` the initial ones; ``adam``
+    overrides the optimizer's params (a control)."""
+    import torch
+    import deepspeed_tpu_torch
+    conf = dict(XL_CONFIG, zero_optimization=dict(zero))
+    if adam:
+        conf["optimizer"] = {"type": "Adam", "params": dict(
+            XL_CONFIG["optimizer"]["params"], **adam)}
+    if sub_group:
+        conf["zero_optimization"]["sub_group_size"] = sub_group
+    engine = deepspeed_tpu_torch.initialize(model=device_gpt2(cfg, seed=0),
+                                            config_params=conf)[0]
+    if engine.offload is not None:
+        engine.offload.overlap = overlap
+    out = {"losses": []}
+    if keep_init:
+        out["init"] = _leaf_items(engine.get_master_params())
+    for step in range(steps):
+        out["losses"].append(float(engine.train_batch(batch=batch)))
+        if step + 1 == keep_at:
+            out["master_at"] = _leaf_items(engine.get_master_params())
+    out["master"] = _leaf_items(engine.get_master_params())
+    out["chunks"] = engine.offload_work_chunks
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_offload_parity(layers=OFFLOAD_PARITY_LAYERS,
+                               steps=OFFLOAD_PARITY_STEPS, bit_steps=2,
+                               loss_tol=1e-4, moved_rtol=OFFLOAD_MOVED_RTOL,
+                               key_bias_atol=1e-3, control_lr=1.05):
+    """gpt2_xl width at ``layers`` layers, ``steps`` steps of
+    train_xl_offload's batch and config: ZeRO-Offload (stage 3, the host
+    Adam) against a stage-2 engine with the state on the card (the CUDA
+    Adam kernel, fp32 moments). Losses within ``loss_tol`` relative;
+    masters by how far they moved, the difference's norm within
+    ``moved_rtol`` of the device engine's move by leaf (the qkv biases'
+    key part, whose exact gradient is 0, elementwise within
+    ``key_bias_atol``, about steps x lr). The two Adams order their
+    arithmetic differently (the kernel's FMAs against the host op's
+    separate roundings), so the two paths agree to a tolerance, not bit
+    for bit. Two controls hold the tolerance to a wrong host step: the
+    offload engine with its step ``control_lr`` times too long must fall
+    outside ``moved_rtol``; the reading with eps 10 times too large is
+    reported. Then the offload step serial, and overlapped at a second
+    ``sub_group_size`` (4M against 16M elements), ``bit_steps`` steps
+    each: equal bits to the first run's losses and masters there."""
+    cfg = _xl_cfg(layers)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, XL_MICRO, XL_SEQ)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    offload = XL_CONFIG["zero_optimization"]
+    lr = XL_CONFIG["optimizer"]["params"]["lr"]
+    device = _offload_parity_engine(cfg, {"stage": 2}, steps, batch,
+                                    keep_init=True)
+    ref = _offload_parity_engine(cfg, offload, steps, batch, 1 << 24,
+                                 keep_at=bit_steps)
+    runs = {"serial_sub16M": _offload_parity_engine(
+                cfg, offload, bit_steps, batch, 1 << 24, overlap=False),
+            "overlap_sub4M": _offload_parity_engine(
+                cfg, offload, bit_steps, batch, 1 << 22)}
+    controls = {"lr_x{}".format(control_lr): _offload_parity_engine(
+                    cfg, offload, steps, batch, 1 << 24,
+                    lr=lr * control_lr),
+                "eps_x10": _offload_parity_engine(
+                    cfg, offload, steps, batch, 1 << 24, eps=1e-7)}
+
+    def reading(run):
+        return dict(_master_diff(run["master"], device["master"],
+                                 cfg.d_model, device["init"]),
+                    loss_rel=max(abs(a - b) / abs(b) for a, b in
+                                 zip(run["losses"], device["losses"])))
+
+    sound = reading(ref)
+    control = {name: reading(run) for name, run in controls.items()}
+    assert sound["loss_rel"] <= loss_tol, (ref["losses"], device["losses"])
+    assert sound["moved_rel"] <= moved_rtol, sound
+    assert sound["key_bias_max_abs"] <= key_bias_atol, sound
+    # the tolerance lies between the sound reading and a wrong step's
+    assert control["lr_x{}".format(control_lr)]["moved_rel"] > moved_rtol, \
+        control
+    bit_equal = {}
+    for name, run in runs.items():
+        bit_equal[name] = run["losses"] == ref["losses"][:bit_steps] and \
+            all(np.array_equal(run["master"][k], w)
+                for k, w in ref["master_at"].items())
+        assert bit_equal[name], name
+    assert runs["overlap_sub4M"]["chunks"] > ref["chunks"]
+    return {"phase": "train_offload_parity", "model": "gpt2_xl",
+            "layers": layers, "steps": steps, "bit_steps": bit_steps,
+            "offload_losses": ref["losses"],
+            "device_losses": device["losses"],
+            "loss_rel": sound["loss_rel"], "loss_tol": loss_tol,
+            "master_diff": sound, "controls": control,
+            "tolerances": {"moved_rel": moved_rtol,
+                           "key_bias_max_abs": key_bias_atol},
+            "work_chunks": dict({k: r["chunks"] for k, r in runs.items()},
+                                overlap_sub16M=ref["chunks"]),
+            "bit_equal_to_overlap_sub16M": bit_equal}
+
+
+def dp3_rank(rank, world, spec):
+    """One rank of ``train_dp3``: for each of stage 2, stage 3, stage 2
+    with cpu_offload and stage 3 with cpu_offload, the GPT-2 example's
+    config (without clipping) on gpt2_medium at ``spec["layers"]`` layers,
+    this data coordinate's rows of one global batch, ``spec["steps"]``
+    steps from one init; stage 3 compared with stage 2 here (losses and
+    the gathered masters, bit for bit), each run's parameter and state
+    bytes and launches."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    with open(EXAMPLE_CONFIG) as f:
+        conf = json.load(f)
+    conf["steps_per_print"] = 10 ** 9
+    # no clipping: the norm's summation order follows the layout, and a
+    # clip coefficient an ulp apart would part the stages' bits
+    conf.pop("gradient_clipping", None)
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT,
+                          n_layers=spec["layers"])
+    mesh = build_mesh(data=world)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(
+        1, DP_MICRO * world, TRAIN_SEQ)).astype(np.int64)
+    counters = _dp_counters()[:4]
+    runs, masters = {}, {}
+    for name, zero in (("s2", {"stage": 2}), ("s3", {"stage": 3}),
+                       ("s2_offload", {"stage": 2, "cpu_offload": True}),
+                       ("s3_offload", {"stage": 3, "cpu_offload": True})):
+        engine = deepspeed_tpu_torch.initialize(
+            model=device_gpt2(cfg, seed=0), mesh=mesh,
+            config_params=dict(conf, zero_optimization=zero))[0]
+        batch = dp_rows((ids, ids.copy()), engine.dp_rank, DP_MICRO)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(engine.train_batch(batch=batch))
+                  for _ in range(spec["steps"])]
+        wall = time.perf_counter() - t0
+        masters[name] = _leaf_items(engine.get_master_params())
+        flat = engine.flat
+        runs[name] = {"losses": losses, "step_ms": wall * 1e3 /
+                      spec["steps"], "param_bytes": flat.param_bytes(),
+                      "state_bytes": flat.state_bytes(),
+                      "master_on": str(flat.master.device),
+                      "launches": {c.__name__: c.launches
+                                   for c in counters},
+                      "gathers": engine.zero3.gathers if engine.zero3
+                      else 0}
+        del engine, flat
+        torch.cuda.empty_cache()
+    equal = {}
+    for a, b in (("s3", "s2"), ("s3_offload", "s2_offload")):
+        equal[a] = runs[a]["losses"] == runs[b]["losses"] and all(
+            np.array_equal(masters[a][k], w) for k, w in masters[b].items())
+    return {"rank": rank, "runs": runs, "bit_equal_to_stage2": equal,
+            "transport": torch.distributed.get_backend(),
+            "whole_param_bytes": 2 * sum(int(np.prod(w.shape))
+                                         for w in masters["s2"].values())}
+
+
+def dp3_spec(layers=DP3_LAYERS, steps=DP3_STEPS):
+    return {"layers": layers, "steps": steps}
+
+
+def phase_train_dp3(world=DP, spec=None, ranks=None):
+    """ZeRO-3 over a data group: two spawned ranks sharing this card over
+    gloo (train_dp's config, gpt2_medium at ``layers`` layers): stage 3
+    equals stage 2 bit for bit in losses and masters, with and without
+    cpu_offload; a rank's compute-dtype parameter bytes at stage 3 about
+    1/2 of the whole (its pieces of each unit, plus the persistent leaves
+    whole); the launches of each run. ``ranks``: the ranks' returns when
+    train_dp_parity's ranks ran them (:func:`dp3_spec`)."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    spec = spec or dp3_spec()
+    layers, steps = spec["layers"], spec["steps"]
+    if ranks is None:
+        ranks = spawn(dp3_rank, world, args=(spec,), timeout_s=600)
+    for r in ranks:
+        assert all(r["bit_equal_to_stage2"].values()), r
+        s3 = r["runs"]["s3"]
+        share = s3["param_bytes"] / r["whole_param_bytes"]
+        assert share < 0.55, share
+        r["param_share_stage3"] = share
+        for run in r["runs"].values():
+            assert run["losses"][-1] < run["losses"][0], run
+        assert r["runs"]["s3_offload"]["master_on"] == "cpu"
+        assert r["runs"]["s3"]["launches"]["fused_adam"] == steps
+        assert r["runs"]["s3_offload"]["launches"]["fused_adam"] == 0
+    assert ranks[0]["runs"]["s3"]["losses"] == \
+        ranks[1]["runs"]["s3"]["losses"]
+    return {"phase": "train_dp3", "model": "gpt2_medium", "layers": layers,
+            "seq": TRAIN_SEQ, "micro_batch_per_rank": DP_MICRO,
+            "data": world, "config": EXAMPLE_CONFIG + " without clipping",
+            "transport": ranks[0]["transport"], "steps": steps,
+            "ranks": ranks}
+
+
+def phase_train_offload_ckpt(layers=OFFLOAD_CKPT_LAYERS, steps=2):
+    """Checkpoints of ZeRO-Offload at gpt2_medium width, ``layers``
+    layers: an offload engine (stage 3) saves after ``steps`` steps and
+    takes ``steps`` more; a fresh one from another seed loads the tag and
+    takes the same: losses, master and moments equal bit for bit. A
+    stage-2 engine with the state on the card loads that tag (master and
+    moments equal to the saved ones), saves its own after a step, and an
+    offload engine loads it, the same."""
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    with open(EXAMPLE_CONFIG) as f:
+        conf = json.load(f)
+    conf["steps_per_print"] = 10 ** 9
+    off = dict(conf, zero_optimization={"stage": 3, "cpu_offload": True})
+    dev = dict(conf, zero_optimization={"stage": 2})
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, n_layers=layers)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, DP_MICRO, TRAIN_SEQ)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+
+    def engine(c, seed):
+        return deepspeed_tpu_torch.initialize(
+            model=device_gpt2(cfg, seed=seed), config_params=c)[0]
+
+    def state(e):
+        opt = e.get_optimizer_state()
+        return (_leaf_items(e.get_master_params()),
+                _leaf_items(opt["exp_avg"]), _leaf_items(opt["exp_avg_sq"]))
+
+    def same(a, b):
+        return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b)
+                   for k in y)
+
+    out = {"phase": "train_offload_ckpt", "model": "gpt2_medium",
+           "layers": layers, "steps": steps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_offload_") as tmp:
+        a = engine(off, 0)
+        for _ in range(steps):
+            a.train_batch(batch=batch)
+        t0 = time.perf_counter()
+        a.save_checkpoint(tmp, tag="offload")
+        out["save_s"] = time.perf_counter() - t0
+        saved = state(a)
+        want = [float(a.train_batch(batch=batch)) for _ in range(steps)]
+        want_state = state(a)
+        del a
+        b = engine(off, 1)
+        t0 = time.perf_counter()
+        b.load_checkpoint(tmp, tag="offload")
+        out["load_s"] = time.perf_counter() - t0
+        got = [float(b.train_batch(batch=batch)) for _ in range(steps)]
+        out["resume_bit_equal"] = got == want and same(state(b),
+                                                       want_state)
+        del b
+        c = engine(dev, 1)
+        c.load_checkpoint(tmp, tag="offload")
+        out["device_loads_offload_tag"] = same(state(c), saved)
+        c.train_batch(batch=batch)
+        c.save_checkpoint(tmp, tag="device")
+        saved = state(c)
+        del c
+        d = engine(off, 2)
+        d.load_checkpoint(tmp, tag="device")
+        out["offload_loads_device_tag"] = same(state(d), saved)
+        out["next_loss_finite"] = bool(np.isfinite(
+            float(d.train_batch(batch=batch))))
+        del d
+    torch.cuda.empty_cache()
+    for key in ("resume_bit_equal", "device_loads_offload_tag",
+                "offload_loads_device_tag", "next_loss_finite"):
+        assert out[key], (key, out)
+    out["losses"] = want
+    return out
+
+
+def _whole_master(flat):
+    """``{name: fp32 leaf on the card}`` of a partition's master, whole
+    (every rank of its data group must call)."""
+    whole = flat.whole(flat.master).to(flat.device)
+    return {name: whole[off:off + int(np.prod(shape))]
+            for name, off, shape in zip(flat.names, flat.offsets,
+                                        flat.shapes)}
+
+
+def _master_diff_on_card(got, want, d_model, init):
+    """:func:`_master_diff` on leaves that stay on the card (gpt2_xl's
+    whole masters are 6.2 GB each), and the same over the whole model
+    (``moved_rel_model``: the difference's norm over every leaf against
+    the move's)."""
+    import torch
+    worst, key_bias, moved, diff2, move2 = 0.0, 0.0, 0.0, 0.0, 0.0
+    for name, w in want.items():
+        a, b, i = got[name], w, init[name]
+        if name.endswith("qkv_bias"):
+            key = slice(d_model, 2 * d_model)
+            key_bias = max(key_bias, float((a[key] - b[key]).abs().max()))
+            a, b, i = (torch.cat([t[:d_model], t[2 * d_model:]])
+                       for t in (a, b, i))
+        worst = max(worst, float((a - b).abs().max()))
+        norm = float((b - i).double().norm())
+        diff = float((a - b).double().norm())
+        diff2, move2 = diff2 + diff ** 2, move2 + norm ** 2
+        if norm > 0:
+            moved = max(moved, diff / norm)
+    return {"max_abs": worst, "key_bias_max_abs": key_bias,
+            "moved_rel": moved, "moved_rel_model": (diff2 / move2) ** 0.5}
+
+
+def nccl_zero3_rank(rank, world, spec):
+    """One rank of ``dp_nccl_zero3``: gpt2_xl at full depth over
+    ``build_mesh(data=world)`` (NCCL, one rank a card), bench_gpt2_xl.py's
+    config and batch shape a rank, at stage 2 (the reference), stage 3,
+    and stage 3 with cpu_offload, from one init: step ms, the rank's peak
+    and parameter bytes, a profiled step's all-gather and reduce-scatter
+    kernel ms; then stage 3 against stage 2 and the offload run against
+    stage 3: losses (relative) and the whole masters after the last step
+    (:func:`_master_diff_on_card`), and whether stage 3 equals stage 2 bit
+    for bit."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    cfg = _xl_cfg()
+    mesh = build_mesh(data=world)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(
+        1, XL_MICRO * world, XL_SEQ)).astype(np.int64)
+    out = {"rank": rank}
+    masters, init = {}, None
+    for name, zero in (("stage2", {"stage": 2}), ("stage3", {"stage": 3}),
+                       ("stage3_offload", {"stage": 3,
+                                           "cpu_offload": True})):
+        conf = dict(XL_CONFIG, zero_optimization=zero)
+        engine = deepspeed_tpu_torch.initialize(
+            model=device_gpt2(cfg, seed=0), mesh=mesh,
+            config_params=conf)[0]
+        if init is None:
+            init = _whole_master(engine.flat)
+        batch = dp_rows((ids, ids.copy()), engine.dp_rank, XL_MICRO)
+        losses = [float(engine.train_batch(batch=batch))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [float(engine.train_batch(batch=batch))
+                   for _ in range(spec["steps"])]
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = train_profile(engine, batch, steps=1,
+                             span_names=ZERO3_SPANS,
+                             kernel_groups=("AllGather", "ReduceScatter",
+                                            "AllReduce", "flash_"))
+        masters[name] = _whole_master(engine.flat)
+        out[name] = {"losses": losses,
+                     "step_ms": wall * 1e3 / spec["steps"],
+                     "peak_memory_gb": peak_gb,
+                     "param_bytes": engine.flat.param_bytes(),
+                     "state_bytes": engine.flat.state_bytes(),
+                     "collective_kernel_ms_per_step":
+                     prof.get("kernel_ms_per_step_by_group"),
+                     "host_ms_per_step_in_spans":
+                     prof.get("host_ms_per_step_in_spans"),
+                     "device_busy_share": prof["device_busy_share"],
+                     "offload_ms": dict(engine.offload.last_times)
+                     if engine.offload else None}
+        del engine
+        torch.cuda.empty_cache()
+    out["compared"] = {}
+    for a, b in (("stage3", "stage2"), ("stage3_offload", "stage3")):
+        out["compared"]["{}_vs_{}".format(a, b)] = dict(
+            _master_diff_on_card(masters[a], masters[b], cfg.d_model, init),
+            loss_rel=max(abs(x - y) / abs(y) for x, y in
+                         zip(out[a]["losses"], out[b]["losses"])),
+            bit_equal=out[a]["losses"] == out[b]["losses"] and all(
+                torch.equal(masters[a][k], w)
+                for k, w in masters[b].items()))
+    del masters, init
+    torch.cuda.empty_cache()
+    out["transport"] = torch.distributed.get_backend()
+    return out
+
+
+def phase_dp_nccl_zero3(world=4, steps=2, loss_tol=1e-4,
+                        leaf_moved_rtol=DEEP_LEAF_MOVED_RTOL,
+                        model_moved_rtol=OFFLOAD_MOVED_RTOL,
+                        key_bias_atol=1e-3):
+    """``--dp-nccl``'s ZeRO-3 part: gpt2_xl at full depth, DP 4 over NCCL,
+    one rank per card: stage 3 and stage 3 with cpu_offload, each held to
+    the run before it (stage 3 to stage 2, the offload run to stage 3):
+    losses within ``loss_tol`` relative; masters by how far they moved,
+    within ``leaf_moved_rtol`` on each leaf and ``model_moved_rtol`` over
+    the whole model; the qkv biases' key part within ``key_bias_atol``.
+    Stage 3 cuts each unit over the ranks where stage 2 cuts the whole
+    layout, so an element's four gradients reach it in another order: the
+    two agree to a tolerance at DP 4 (bit for bit at DP 2, train_dp3),
+    and the run reports whether they agreed bit for bit."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    ranks = spawn(nccl_zero3_rank, world, args=({"steps": steps},),
+                  timeout_s=1200)
+    failed = []
+    for r in ranks:
+        for name in ("stage2", "stage3", "stage3_offload"):
+            if not all(np.isfinite(r[name]["losses"])):
+                failed.append((r["rank"], name, "loss not finite"))
+        for pair, got in r["compared"].items():
+            for key, tol in (("loss_rel", loss_tol),
+                             ("moved_rel", leaf_moved_rtol),
+                             ("moved_rel_model", model_moved_rtol),
+                             ("key_bias_max_abs", key_bias_atol)):
+                if not got[key] <= tol:
+                    failed.append((r["rank"], pair, key, got[key], tol))
+        if not r["stage3"]["param_bytes"] < \
+                1.2 / world * r["stage2"]["param_bytes"]:
+            failed.append((r["rank"], "param_bytes"))
+        if r["stage3"]["losses"] != ranks[0]["stage3"]["losses"]:
+            failed.append((r["rank"], "ranks' losses differ"))
+    # every check read before any fails, so a failure shows all readings
+    assert not failed, (failed, [r["compared"] for r in ranks])
+    return {"phase": "dp_nccl_zero3", "model": "gpt2_xl", "data": world,
+            "seq": XL_SEQ, "micro_batch_per_rank": XL_MICRO,
+            "transport": ranks[0]["transport"], "steps": steps,
+            "tolerances": {"loss_rel": loss_tol,
+                           "moved_rel": leaf_moved_rtol,
+                           "moved_rel_model": model_moved_rtol,
+                           "key_bias_max_abs": key_bias_atol},
+            "ranks": ranks}
 
 
 KERNELS = [
@@ -4187,6 +4966,7 @@ def main():
         sys.exit("chip_smoke: no CUDA device is available")
     from deepspeed_tpu_torch.ops import cuda_build, dataio
     from deepspeed_tpu_torch.ops import ring_gemm as rg
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
     from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
     from deepspeed_tpu_torch.ops.lamb import fused_lamb, fused_lamb_apply
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
@@ -4215,19 +4995,21 @@ def main():
     sources = sorted({src for _, src, _, _ in KERNELS})
     t0 = time.perf_counter()
     # every nvcc and the host op's g++ started together
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
-        host = pool.submit(dataio.build)
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
+        hosts = [pool.submit(dataio.build), pool.submit(cpu_adam.build)]
         records = list(pool.map(cuda_build.build, sources))
-        host = host.result()
+        hosts = [h.result() for h in hosts]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [{"source": src, "seconds": r.seconds,
                        "ptxas": [line.strip() for line in r.log.splitlines()
                                  if "registers" in line or "spill" in line]}
                       for src, r in zip(sources, records)],
-          "host_sources": [{"source": "csrc/ds_dataio.cpp",
+          "host_sources": [{"source": src,
                             "flags": list(dataio.host_build.flags(
                                 dataio.host_build.compiler())),
-                            "seconds": host.seconds}]})
+                            "seconds": h.seconds}
+                           for src, h in zip(("csrc/ds_dataio.cpp",
+                                              "csrc/cpu_adam.cpp"), hosts)]})
     if "--tp-nccl" in sys.argv[1:] or "--dp-nccl" in sys.argv[1:]:
         if "--tp-nccl" in sys.argv[1:]:
             main_tp_nccl()
@@ -4255,6 +5037,7 @@ def main():
     adam = phase_adam(flush)
     emit(adam)
     torch.cuda.empty_cache()
+    emit(phase_cpu_adam())
     lamb = phase_lamb(flush)
     emit(lamb)
     torch.cuda.empty_cache()
@@ -4319,20 +5102,25 @@ def main():
 
     # the tensor-parallel path: two ranks on this card (gloo), each with
     # its own counts, reset just before its timed steps
-    train_tp = phase_train_tp()
+    train_tp = phase_train_tp(layers=ONE_CARD_LAYERS)
     emit(train_tp)
-    emit(phase_train_tp_parity())
-    emit(phase_train_tp_lamb())
+    lamb_spec = tp_lamb_spec()
+    tp_parity = phase_train_tp_parity(lamb=lamb_spec)
+    lamb_ranks = tp_parity.pop("lamb_ranks")
+    emit(tp_parity)
+    emit(phase_train_tp_lamb(lamb_spec, ranks=lamb_ranks))
 
     # the data-parallel path: two ranks on this card (gloo), each with its
     # own counts, reset just before its timed steps
-    emit(phase_train_dp())
+    emit(phase_train_dp(layers=ONE_CARD_LAYERS))
     # train_dp_parity's ranks also save train_dp_ckpt's DP 2 tag; DP 1
     # resumes it here
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_ckpt_") as tmp:
         dp_ckpt = dp_ckpt_spec(tmp)
-        parity = phase_train_dp_parity(ckpt=dp_ckpt)
+        dp3 = dp3_spec()
+        parity = phase_train_dp_parity(ckpt=dp_ckpt, dp3=dp3)
         dp_ckpt_ranks = parity.pop("dp_ckpt_ranks")
+        dp3_ranks = parity.pop("dp3_ranks")
         emit(parity)
         emit(phase_train_dp_ckpt(train_counters, spec=dp_ckpt,
                                  ranks=dp_ckpt_ranks))
@@ -4340,9 +5128,20 @@ def main():
 
     # checkpoints on the train path: save and resume; then bench.py's
     # remat rung under both policies
-    emit(phase_train_ckpt(train_counters))
+    emit(phase_train_ckpt(train_counters, layers=ONE_CARD_LAYERS))
     torch.cuda.empty_cache()
     emit(phase_train_remat(train_counters))
+    torch.cuda.empty_cache()
+
+    # ZeRO-3 and ZeRO-Offload: BASELINE config 4 at full depth, then the
+    # offload step against the device state, stage 3 over two ranks, and
+    # the offload checkpoints
+    emit(phase_train_xl_offload(train_counters))
+    torch.cuda.empty_cache()
+    emit(phase_train_offload_parity())
+    torch.cuda.empty_cache()
+    emit(phase_train_dp3(spec=dp3, ranks=dp3_ranks))
+    emit(phase_train_offload_ckpt())
     torch.cuda.empty_cache()
 
     measured = {"paged_attention": dict(

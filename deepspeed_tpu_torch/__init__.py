@@ -50,6 +50,7 @@ from .version import __version__
 from .utils.logging import logger, log_dist
 from .models import bert, make_bert_model, make_bert_squad_model
 from .runtime.activation_checkpointing import checkpointing
+from . import zero
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

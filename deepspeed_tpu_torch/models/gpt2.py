@@ -683,17 +683,19 @@ def chunked_causal_lm_loss(hidden, wte, labels, chunk):
 
 def lm_loss(params, input_ids, labels, config, generator=None, train=True):
     """Causal-LM cross-entropy (mean over tokens) with the tied
-    embedding as the head."""
+    embedding as the head. Under ZeRO stage 3 (the engine's runtime on
+    ``params._zero3``) the same computation runs unit by unit with each
+    unit's parameters gathered around it (:func:`_zero3_lm_loss`)."""
+    z3 = getattr(params, "_zero3", None)
+    if z3 is not None:
+        return _zero3_lm_loss(params, input_ids, labels, config, generator,
+                              train, z3)
     binding = _tp_binding(config)
     hidden, wte = _forward_hidden_train(params, input_ids, config,
                                         generator, train)
     if binding is not None:
         return _tp_lm_loss(hidden, wte, labels, config, binding)
-    chunk = config.loss_chunk
-    if chunk and hidden.shape[1] % chunk == 0 and hidden.shape[1] > chunk:
-        return chunked_causal_lm_loss(hidden, params.wte, labels, chunk)
-    logits = hidden @ params.wte.to(hidden.dtype).t()
-    return causal_lm_cross_entropy(logits, labels)
+    return _head_loss(hidden, params.wte, labels, config)
 
 
 def _tp_lm_loss(hidden, wte, labels, config, binding):
@@ -710,6 +712,66 @@ def _tp_lm_loss(hidden, wte, labels, config, binding):
         tot, _ = _chunk_ll(hidden, local, wte.to(hidden.dtype))
     cnt = (shifted != -100).sum().float()
     return -sum_across(tot, binding.group) / torch.clamp(cnt, min=1.0)
+
+
+def _head_loss(hidden, wte, labels, config):
+    """The loss from the final hidden states, the tied table as the head
+    (chunked over the sequence when ``loss_chunk`` divides it)."""
+    chunk = config.loss_chunk
+    if chunk and hidden.shape[1] % chunk == 0 and hidden.shape[1] > chunk:
+        return chunked_causal_lm_loss(hidden, wte, labels, chunk)
+    logits = hidden @ wte.to(hidden.dtype).t()
+    return causal_lm_cross_entropy(logits, labels)
+
+
+def zero3_units(module):
+    """ZeRO stage 3's gather units of a :class:`GPT2Model`, in forward
+    order: the embedding (``wte``, ``wpe``), each block, ``ln_f``."""
+    names = [n for n, _ in module.named_parameters()]
+    units = [("embed", [n for n in names if n in ("wte", "wpe")])]
+    units += [("blocks.{}".format(i),
+               [n for n in names if n.startswith("blocks.{}.".format(i))])
+              for i in range(len(module.blocks))]
+    units.append(("ln_f", [n for n in names if n.startswith("ln_f.")]))
+    return units
+
+
+def _zero3_lm_loss(params, input_ids, labels, config, generator, train, z3):
+    """:func:`lm_loss` under ZeRO stage 3: the embedding, each block and
+    the head (``ln_f`` and the loss, borrowing the embedding unit for the
+    tied ``wte``) each run as one ``z3.call``, which gathers the unit's
+    parameters around the call and again for its backward
+    (``runtime/zero/stage3.py``). The call recomputes its unit in the
+    backward, so the blocks run with ``remat`` off inside it. The
+    operations, and so the values, are those of the path without
+    ZeRO-3."""
+    if _tp_binding(config) is not None:
+        raise NotImplementedError(
+            "ZeRO stage 3 under tensor parallelism is not ported yet: it "
+            "comes with ROADMAP.md Queue 1 item 7c")
+    if config.sparse_embedding_grads:
+        raise NotImplementedError(
+            "ZeRO stage 3 with sparse_embedding_grads is not ported yet: it "
+            "comes with ROADMAP.md Queue 1 item 7c")
+    dtype = z3.flat.compute_dtype
+    s = input_ids.shape[1]
+
+    def embed(ids):
+        return params.wte[ids].to(dtype) + params.wpe[:s].to(dtype)
+
+    x = z3.call(embed, input_ids, units=("embed",))
+    block_fn = make_block_fn(dataclasses.replace(config, remat=False),
+                             train, x.device)
+    seeds = _layer_seeds(config, generator, train)
+    for i, (bp, seed) in enumerate(zip(params.blocks, seeds)):
+        x = z3.call(lambda h, bp=bp, seed=seed: block_fn(h, bp, seed), x,
+                    units=("blocks.{}".format(i),))
+
+    def head(h, lab):
+        hidden = _layer_norm(h, params.ln_f.scale, params.ln_f.bias)
+        return _head_loss(hidden, params.wte, lab, config)
+
+    return z3.call(head, x, labels, units=("ln_f",), borrow=("embed",))
 
 
 def num_params(config):

@@ -315,35 +315,59 @@ def jax_leaf_order(params_to_jax, names):
     return order
 
 
-def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
-    """One rank's zero file, ``device_shards`` as the JAX engine writes it
-    (``_device_zero_shard_payload``).
+def owned_boxes(layout, box_map=None):
+    """Per parameter name, the boxes this rank owns of the full leaf:
+    ``{name: [(full box ((lo, hi), ...), local flat lo, local flat hi,
+    box shape, index into the box's data)]}``.
 
-    ``layout`` is the flat buffers' ``(names, offsets, shapes, lo, hi)``:
-    each parameter at its offset, this rank owning ``[lo, hi)``;
-    ``bufs`` holds the owned ranges of ``master``, ``exp_avg`` and
-    ``exp_avg_sq`` on the host. Each parameter's owned elements are cut
-    into boxes (:func:`flat_range_boxes`); ``box_map(name, shape, box)``
-    moves a box of the rank's leaf to ``[(box of the full leaf, index
-    into the part), ...]`` (a tensor-parallel shard), ``[]`` where
-    another rank writes those elements. Per leaf, in ``order``:
-    ``(full_shapes[name], [(key, array), ...])``."""
-    names, offsets, shapes, lo, hi = layout
-
-    def lists(host):
-        entries = {name: [] for name in order}
-        for name, off, shape in zip(names, offsets, shapes):
-            n = int(np.prod(shape)) if shape else 1
+    ``layout`` is the flat buffers' ``(names, offsets, shapes, spans)``:
+    each parameter at its offset, this rank owning ``[lo, hi)`` of the
+    layout at local offset ``local`` for each span ``(lo, hi, local)``
+    (stages 0-2 own one span, stage 3 one a unit); the older ``(names,
+    offsets, shapes, lo, hi)`` is one span at local offset 0. Each
+    parameter's owned elements are cut into boxes
+    (:func:`flat_range_boxes`); ``box_map(name, shape, box)`` moves a box
+    of the rank's leaf to ``[(box of the full leaf, index into the part),
+    ...]`` (a tensor-parallel shard), ``[]`` where another rank writes
+    those elements."""
+    if len(layout) == 5:
+        names, offsets, shapes, lo, hi = layout
+        spans = [(lo, hi, 0)]
+    else:
+        names, offsets, shapes, spans = layout
+    out = {}
+    for name, off, shape in zip(names, offsets, shapes):
+        n = int(np.prod(shape)) if shape else 1
+        entries = out.setdefault(name, [])
+        for lo, hi, local in spans:
             a, b = max(off, lo), min(off + n, hi)
             for box, blo, bhi in flat_range_boxes(shape, a - off, b - off):
-                data = host[off + blo - lo:off + bhi - lo].view(
-                    tuple(z - y for y, z in box))
                 parts = [(box, ())] if box_map is None else \
                     box_map(name, shape, box)
-                entries[name] += [
-                    (tuple((y, z, None) for y, z in full), data[index])
-                    for full, index in parts]
-        return [(full_shapes[name], entries[name]) for name in order]
+                entries += [(full, local + off + blo - lo,
+                             local + off + bhi - lo,
+                             tuple(z - y for y, z in box), index)
+                            for full, index in parts]
+    return out
+
+
+def _key(full):
+    return tuple((y, z, None) for y, z in full)
+
+
+def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
+    """One rank's zero file, ``device_shards`` as the JAX engine writes it
+    (``_device_zero_shard_payload``): ``bufs`` holds the owned parts of
+    ``master``, ``exp_avg`` and ``exp_avg_sq`` on the host, cut into the
+    boxes of :func:`owned_boxes` (``layout``, ``box_map``). Per leaf, in
+    ``order``: ``(full_shapes[name], [(key, array), ...])``."""
+    boxes = owned_boxes(layout, box_map)
+
+    def lists(host):
+        return [(full_shapes[name],
+                 [(_key(full), host[a:b].view(shape)[index])
+                  for full, a, b, shape, index in boxes[name]])
+                for name in order]
 
     return {"device_shards": {
         "master": lists(bufs["master"]),
@@ -351,6 +375,27 @@ def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
                 "exp_avg": lists(bufs["exp_avg"]),
                 "exp_avg_sq": lists(bufs["exp_avg_sq"])},
         "qg_error": None}}
+
+
+def offload_payload(order, layout, bufs, step, torn_step=None):
+    """One rank's zero file of an offload run, as the JAX engine writes
+    it for a partitioned offload (``offload_shards``): per leaf, in
+    ``order``, ``[(key, master, exp_avg, exp_avg_sq), ...]``, fp32 numpy
+    arrays of each box this rank owns; ``offload_step``, and
+    ``torn_step`` (the step a failed host step left half done, else
+    None)."""
+    boxes = owned_boxes(layout)
+
+    def part(key, a, b, shape):
+        return bufs[key][a:b].view(shape).float().numpy()
+
+    return {"offload_shards": [
+        [(_key(full), part("master", a, b, shape),
+          part("exp_avg", a, b, shape), part("exp_avg_sq", a, b, shape))
+         for full, a, b, shape, _ in boxes[name]]
+        for name in order],
+        "offload_step": int(step),
+        "torn_step": torn_step}
 
 
 def zero_state(payloads, order, module_tree, load_optimizer_states=True):

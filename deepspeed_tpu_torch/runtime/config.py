@@ -57,7 +57,7 @@ UNPORTED_SECTIONS = {
     "telemetry": "the observability slice",
     "analysis": "the observability slice",
     "controller": "the observability and control slice",
-    "runtime": "the offload and executor slice",
+    "runtime": "the segment-executor item of ROADMAP.md (Queue 1 item 10)",
 }
 
 

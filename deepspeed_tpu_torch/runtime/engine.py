@@ -98,7 +98,8 @@ from ..ops.sgd import SGD
 from ..ops.transformer.attention import resolve_flash_backend
 from ..parallel.collective_matmul import CollectiveMatmulBinding
 from ..parallel.topology import DATA_AXIS, MODEL_AXIS, build_mesh
-from ..utils.distributed import all_gather, all_reduce_, broadcast_
+from ..utils.distributed import (all_gather, all_reduce_, broadcast_,
+                                 local_world_size)
 from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
 from . import checkpointing as ckpt
@@ -111,7 +112,9 @@ from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
 from .lr_schedules import SCHEDULE_CLASSES
 from .progressive_layer_drop import ProgressiveLayerDrop
+from .zero.offload import HostOffload
 from .zero.partition import FlatPartition
+from .zero.stage3 import Stage3
 
 FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
 
@@ -174,10 +177,10 @@ class DeepSpeedEngine:
         if self._config.dump_state:
             self._config.print("DeepSpeedEngine configuration")
         log_dist("DeepSpeedEngine ready: params={:,} zero_stage={} dtype={} "
-                 "device={}".format(
-                     rt_utils.count_parameters(model),
-                     self.zero_optimization_stage(), self.compute_dtype,
-                     self.device), ranks=[0])
+                 "device={} offload={}".format(
+                     self._num_params, self.zero_optimization_stage(),
+                     self.compute_dtype, self.device,
+                     self.offload is not None), ranks=[0])
 
     # ----------------------------------------------------------------- setup
 
@@ -367,7 +370,16 @@ class DeepSpeedEngine:
                 "hyperparameters too")
 
     def _configure_optimizer(self, client_optimizer=None):
+        offload = self.zero_cpu_offload()
         if client_optimizer is not None:
+            if offload and \
+                    getattr(client_optimizer, "adam_w_mode", None) is None:
+                # the host step implements Adam only; a client optimizer
+                # without Adam semantics would be silently replaced by it
+                raise ValueError(
+                    "zero_optimization.cpu_offload requires an Adam-family "
+                    "optimizer; got client optimizer {}".format(
+                        type(client_optimizer).__name__))
             if isinstance(client_optimizer, torch.optim.Optimizer) or \
                     not (hasattr(client_optimizer, "step_flat") and
                          hasattr(client_optimizer, "hyperparams")):
@@ -392,6 +404,11 @@ class DeepSpeedEngine:
                 "optimizer {!r} is not ported yet: this slice runs Adam, "
                 "AdamW, LAMB and SGD (OneBitAdam comes with the "
                 "compressed-communication slice)".format(name))
+        if offload and name not in (ADAM_OPTIMIZER, "adamw"):
+            # the host step is Adam-only (the JAX engine's refusal)
+            raise ValueError(
+                "zero_optimization.cpu_offload requires the Adam/AdamW "
+                "optimizer, got '{}'".format(name))
         params = dict(self._config.optimizer_params or {})
         max_grad_norm = params.pop(MAX_GRAD_NORM, None)
         if max_grad_norm and not self._config.gradient_clipping:
@@ -419,6 +436,9 @@ class DeepSpeedEngine:
             if name == "adamw":
                 params.setdefault("adam_w_mode", True)
             self.optimizer = FusedAdam(use_kernel=use_kernel, **params)
+            if offload:
+                # the step runs in the host op (csrc/cpu_adam.cpp)
+                self.fused_optimizer_kernel = "host"
         log_dist("Using DeepSpeed optimizer: {} (apply: {})".format(
             name, self.fused_optimizer_kernel), ranks=[0])
 
@@ -472,9 +492,60 @@ class DeepSpeedEngine:
                 "(%s); call deepspeed_tpu_torch.checkpointing.configure() "
                 "with explicit kwargs", err)
 
+    def _validate_zero_keys(self, zc):
+        """The zero_optimization keys the port cannot give a meaning warn,
+        or raise under ``zero_optimization.strict``, as the JAX engine's
+        ``_validate_zero_keys``; the live ones drive the partition
+        (``stage3_param_persistence_threshold``,
+        ``stage3_max_live_parameters``) and the offload step
+        (``sub_group_size``, ``stage3_prefetch_bucket_size``)."""
+        from .zero.constants import \
+            ZERO_OPTIMIZATION_MAX_REUSE_DISTANCE_DEFAULT
+        strict = bool(getattr(zc, "strict", False))
+        if zc.max_reuse_distance is not None and zc.max_reuse_distance != \
+                ZERO_OPTIMIZATION_MAX_REUSE_DISTANCE_DEFAULT:
+            warn_or_raise_noop(
+                "zero_optimization.stage3_max_reuse_distance has NO effect "
+                "in this port: stage 3 gathers each unit just before its "
+                "use and frees it just after, in the forward and again in "
+                "the backward; no gathered unit is kept for reuse",
+                strict, flag="zero_optimization.strict")
+        if zc.cpu_offload_use_pin_memory:
+            warn_or_raise_noop(
+                "zero_optimization.cpu_offload_use_pin_memory has NO "
+                "effect in this port: the offload step always pins its "
+                "transfer staging buffers and never the host master and "
+                "moments", strict, flag="zero_optimization.strict")
+
+    def zero_cpu_offload(self):
+        """ZeRO-Offload live: ``cpu_offload`` at a ZeRO stage (the flag is
+        ignored at stage 0, as the JAX engine does)."""
+        return bool(self.zero_optimization() and
+                    self._config.zero_config.cpu_offload)
+
     def _init_state(self):
+        zc = self._config.zero_config
+        stage = self.zero_optimization_stage()
+        offload = self.zero_cpu_offload()
+        if zc.cpu_offload and not offload:
+            logger.warning("zero_optimization.cpu_offload is ignored at "
+                           "stage 0 (offload is a ZeRO feature)")
+        self._validate_zero_keys(zc)
         accum = torch.bfloat16 if self._config.grad_accum_dtype == "bf16" \
             else torch.float32
+        moments = getattr(self.optimizer, "moments_dtype", torch.float32)
+        if offload:
+            # the JAX engine's warnings: the host step consumes fp32
+            if accum != torch.float32:
+                logger.warning(
+                    "data_types.grad_accum_dtype=bf16 ignored: the host "
+                    "offload step consumes fp32 accumulated grads")
+                accum = torch.float32
+            if moments != torch.float32:
+                logger.warning(
+                    "optimizer moments_dtype=bf16 ignored under "
+                    "cpu_offload: host shard moments are fp32")
+                moments = torch.float32
         if accum == torch.bfloat16 and self.gradient_accumulation_steps() > 1:
             logger.warning(
                 "grad_accum_dtype=bf16 with gradient_accumulation_steps=%d: "
@@ -482,15 +553,71 @@ class DeepSpeedEngine:
                 self.gradient_accumulation_steps())
         replicated = ()
         if self._cm_tp:
+            if stage >= 3:
+                raise NotImplementedError(
+                    "ZeRO stage 3 under tensor parallelism is not ported "
+                    "yet: it comes with ROADMAP.md Queue 1 item 7c")
             spec = self._module_fn("partition_spec_fn")
             replicated = [name for name, p in self.module.named_parameters()
                           if spec(name, tuple(p.shape)) is None]
+        units = None
+        model_units = self._module_attr("zero3_units")
+        if stage >= 3:
+            if getattr(getattr(self.module, "config", None),
+                       "sparse_embedding_grads", False):
+                raise NotImplementedError(
+                    "ZeRO stage 3 with sparse_embedding_grads is not ported "
+                    "yet: it comes with ROADMAP.md Queue 1 item 7c")
+            units = model_units(self.module) if model_units else \
+                [("module", [n for n, _ in self.module.named_parameters()])]
+        self._num_params = sum(
+            int(np.prod(getattr(p, "ds_shape", p.shape)))
+            for p in self.module.parameters())
+        max_live = int(zc.max_live_parameters) if stage >= 3 and \
+            zc.max_live_parameters is not None else None
+        # at one rank the JAX plan keeps every leaf whole (no data degree
+        # to shard over): stage 3 there is stage 2's layout, with no
+        # gathers and nothing recomputed
+        partitioned = stage >= 3 and self.dp_world_size > 1
         self.flat = FlatPartition(
             self.module, self.device, self.compute_dtype, accum_dtype=accum,
-            replicated=replicated,
-            moments_dtype=getattr(self.optimizer, "moments_dtype",
-                                  torch.float32),
-            group=self._dp_group, stage=self.zero_optimization_stage())
+            replicated=replicated, moments_dtype=moments,
+            group=self._dp_group, stage=stage if partitioned else
+            min(stage, 2), offload=offload, units=units,
+            persistence_threshold=zc.param_persistence_threshold,
+            max_live_parameters=max_live)
+        # a zero.Init module's pieces now live in the engine's buffers
+        self.module.__dict__.pop("_zero3_store", None)
+        self.zero3 = None
+        if partitioned:
+            self.zero3 = Stage3(self.flat, units)
+            # a model that knows its units runs its loss unit by unit;
+            # any other module's forward is one call (forward())
+            self._zero3_in_model = model_units is not None
+            if self._zero3_in_model:
+                self.module._zero3 = self.zero3
+        if stage >= 3:
+            flat = self.flat
+            # unpartitioned, every leaf is persistent
+            persistent_numel = flat.persistent_numel if partitioned else \
+                (self._num_params if max_live is not None else None)
+            if flat.demoted:
+                log_dist(
+                    "stage3_max_live_parameters={:,}: demoted {} persistent "
+                    "leaves to data-sharded (persistent set now {:,} "
+                    "elements)".format(max_live, len(flat.demoted),
+                                       persistent_numel), ranks=[0])
+            if persistent_numel is not None and persistent_numel > max_live:
+                warn_or_raise_noop(
+                    "zero_optimization.stage3_max_live_parameters has NO "
+                    "effect here: un-shardable persistent parameters alone "
+                    "hold {:,} elements > budget {:,}".format(
+                        persistent_numel, max_live),
+                    bool(getattr(zc, "strict", False)),
+                    flag="zero_optimization.strict")
+        self.offload = HostOffload(
+            self.flat, zc.sub_group_size, zc.prefetch_bucket_size,
+            host_ranks=local_world_size(self._world())) if offload else None
         if self._cm_tp and self.flat.sharded:
             # the model ranks of one data coordinate must own the same
             # range of the same layout: the ring's reductions pair them up
@@ -548,10 +675,18 @@ class DeepSpeedEngine:
                     kwargs.setdefault(key, value)
         if not self.module.training:
             with torch.no_grad():
-                return self.module(*inputs, **kwargs)
-        loss = self.module(*inputs, **kwargs)
+                return self._run_module(inputs, kwargs)
+        loss = self._run_module(inputs, kwargs)
         self._pending_backward = True
         return loss
+
+    def _run_module(self, inputs, kwargs):
+        """The module's forward; at stage 3 on a module that does not run
+        its own units, one call with every parameter gathered."""
+        if self.zero3 is None or self._zero3_in_model:
+            return self.module(*inputs, **kwargs)
+        return self.zero3.call(lambda *xs: self.module(*xs, **kwargs),
+                               *inputs, units=("module",))
 
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Back-propagate ``loss * loss_scale / gas`` into the flat
@@ -622,7 +757,20 @@ class DeepSpeedEngine:
         else:
             grad_norm = total_norm if total_norm is not None \
                 else rt_utils.get_grad_norm(grads)
-        if not overflow:
+        if not overflow and self.offload is not None:
+            # the host step (runtime/zero/offload.py): the gradients down
+            # and the weights up in chunks, then the gather (below stage
+            # 3: every rank's updated piece; at stage 3: the persistent
+            # unit)
+            opt = self.optimizer
+            with record_function("zero.offload_step"):
+                self.offload.step(
+                    grads, opt.hyperparams(), flat.step + 1,
+                    bias_correction=getattr(opt, "bias_correction", True),
+                    adam_w_mode=getattr(opt, "adam_w_mode", True))
+            flat.step += 1
+            flat.gather_params()
+        elif not overflow:
             self.optimizer.step_flat(
                 flat.master, grads, flat.exp_avg, flat.exp_avg_sq,
                 flat.step + 1, segments=flat.segments, group=tp,
@@ -687,6 +835,20 @@ class DeepSpeedEngine:
         return loss
 
     # ----------------------------------------------------------- accessors
+
+    @property
+    def offload_work_chunks(self):
+        """The offload step's work chunks (``sub_group_size``), as the JAX
+        engine counts them; None without offload."""
+        return self.offload.work_chunks if self.offload is not None \
+            else None
+
+    @property
+    def h2d_batches(self):
+        """Host-to-device copies of the last offload step
+        (``stage3_prefetch_bucket_size``); None without offload."""
+        return self.offload.h2d_batches if self.offload is not None \
+            else None
 
     def train_batch_size(self):
         return self._config.train_batch_size
@@ -773,6 +935,10 @@ class DeepSpeedEngine:
                 "define them".format(getattr(module, "__name__", module),
                                      ", ".join(missing)))
         return {n: getattr(module, n) for n in names}
+
+    def _module_attr(self, name):
+        """The model's module's ``name``, or None when it has none."""
+        return getattr(inspect.getmodule(type(self.module)), name, None)
 
     def _module_fn(self, name):
         module = inspect.getmodule(type(self.module))
@@ -914,10 +1080,12 @@ class DeepSpeedEngine:
                 return full_boxes(name, shape, box, rank, size)[1]
         bufs = {key: flat.own(getattr(flat, key)).detach().cpu()
                 for key in ("master", "exp_avg", "exp_avg_sq")}
-        return ckpt.zero_payload(
-            self._jax_leaf_names(),
-            (flat.names, flat.offsets, flat.shapes, flat.lo, flat.hi),
-            bufs, flat.step, self._full_shapes(), box_map)
+        layout = (flat.names, flat.offsets, flat.shapes, flat.spans)
+        if self.offload is not None:
+            return ckpt.offload_payload(self._jax_leaf_names(), layout, bufs,
+                                        flat.step, self.offload.torn_step)
+        return ckpt.zero_payload(self._jax_leaf_names(), layout, bufs,
+                                 flat.step, self._full_shapes(), box_map)
 
     def _jax_tree(self, buf, keep_dtype=False):
         """A flat buffer's full JAX-shaped tree (every rank must call)."""
@@ -930,13 +1098,18 @@ class DeepSpeedEngine:
         JAX package reads (its ``save_checkpoint``; every rank must call).
 
         Global rank 0 writes ``mp_rank_00_model_states.pt``: the
-        compute-dtype ``module`` tree (bf16 stays bf16), the scaler, the
-        LR schedule's state, the counters, the world sizes and
-        ``client_state``'s keys; without ZeRO also the fp32 ``master``
-        (mixed precision) and the ``optimizer`` state, full trees. Under
-        ZeRO every rank writes ``zero_pp_rank_{global rank}_mp_rank_00_
-        optim_states.pt``, its owned range of the master and the moments
-        as boxes of the full leaves, and the model file carries neither.
+        compute-dtype ``module`` tree (bf16 stays bf16; at stage 3 the
+        gathered module), the scaler, the LR schedule's state, the
+        counters, the world sizes and ``client_state``'s keys; without
+        ZeRO, and under ZeRO-Offload on one rank, also the fp32
+        ``master`` (mixed precision or offload) and the ``optimizer``
+        state, full trees. Under device-state ZeRO every rank writes
+        ``zero_pp_rank_{global rank}_mp_rank_00_optim_states.pt``, its
+        owned part of the master and the moments as boxes of the full
+        leaves (``device_shards``), and the model file carries neither;
+        under ZeRO-Offload over a data group the zero files hold the
+        host state as the JAX engine writes it (``offload_shards``,
+        ``offload_step``, ``torn_step``).
         After a barrier rank 0 writes ``manifest.json`` (each file's CRC32
         and size), moves ``latest`` and prunes to
         ``checkpoint.keep_last_n``; a second barrier precedes the return.
@@ -948,7 +1121,11 @@ class DeepSpeedEngine:
         async_save = async_save and self._world() == 1
         self._drain_ckpt_writes()
         ckpt.wait_pending_writes()
-        zero = self.zero_optimization()
+        offload = self.offload is not None
+        # the JAX engine's choice: device-state ZeRO and a partitioned
+        # offload write the state only into the zero files
+        zero = (self.zero_optimization() and not offload) or \
+            (offload and self._world() > 1)
         flat = self.flat
         sd = {
             "module": self._jax_tree(flat.params, keep_dtype=True),
@@ -958,7 +1135,7 @@ class DeepSpeedEngine:
                 exp_avg_sq=self._jax_tree(flat.exp_avg_sq,
                                           keep_dtype=True)),
             "master": self._jax_tree(flat.master)
-            if self.mixed_precision and not zero else None,
+            if (self.mixed_precision or offload) and not zero else None,
             "scaler": {
                 "cur_scale": np.asarray(self.scaler.cur_scale, np.float32),
                 "cur_hysteresis": np.asarray(self.scaler.cur_hysteresis,
@@ -976,6 +1153,8 @@ class DeepSpeedEngine:
             "dp_world_size": self.dp_world_size,
             "mp_world_size": self.mp_world_size,
         }
+        if offload and self.offload.torn_step is not None:
+            sd["torn_offload_step"] = self.offload.torn_step
         sd.update(client_state)
         futures, records = [], []
 
@@ -1136,9 +1315,15 @@ class DeepSpeedEngine:
                     "gathered tree, no zero shard files) — optimizer "
                     "state starts fresh", load_dir, tag)
             return None, None
-        return ckpt.zero_state([ckpt.load_state_dict(p) for p in paths],
-                               self._jax_leaf_names(), sd["module"],
-                               load_optimizer_states)
+        payloads = [ckpt.load_state_dict(p) for p in paths]
+        for path, payload in zip(paths, payloads):
+            if payload.get("torn_step") is not None:
+                logger.warning(
+                    "zero file %s records a torn offload step (%s): that "
+                    "rank's masters were partly stepped when it was "
+                    "written", path, payload["torn_step"])
+        return ckpt.zero_state(payloads, self._jax_leaf_names(),
+                               sd["module"], load_optimizer_states)
 
     def _checked(self, state, what, strict):
         """A full state_dict from a tag, its names and shapes checked
@@ -1209,10 +1394,15 @@ class DeepSpeedEngine:
             "global_samples", self.global_steps * self.train_batch_size()))
         self.skipped_steps = int(sd.get("skipped_steps", 0))
         self.loaded_checkpoint_dp_world_size = sd.get("dp_world_size")
+        if sd.get("torn_offload_step") is not None:
+            logger.warning(
+                "checkpoint %s records a torn offload step (%s): the host "
+                "masters were partly stepped when it was written",
+                path, sd["torn_offload_step"])
         known = {"module", "optimizer", "master", "scaler", "lr_scheduler",
                  "qg_error", "onebit_pristine", "csr_tensor_module_names",
                  "skipped_steps", "global_steps", "global_samples",
-                 "dp_world_size", "mp_world_size"}
+                 "dp_world_size", "mp_world_size", "torn_offload_step"}
         client_state = {k: v for k, v in sd.items() if k not in known}
         logger.info("Loaded checkpoint: {} @ global_step={}".format(
             path, self.global_steps))

@@ -1,9 +1,10 @@
-"""ZeRO stages 0-2 as flat-buffer partitions.
+"""ZeRO stages 0-3 as flat-buffer partitions.
 
 Port of ``deepspeed_tpu/runtime/zero/partition.py::ZeroShardingPlan``,
 re-expressed for PyTorch. The JAX package shards each leaf of the train
 state over the mesh's ``data`` axis (stage 1: master + optimizer state;
-stage 2: + gradients). Here the state is a few flat buffers:
+stage 2: + gradients; stage 3: + the compute-dtype parameters). Here the
+state is a few flat buffers:
 
 * one fp32 master buffer, the gradient accumulator (fp32, or bf16 with
   ``data_types.grad_accum_dtype``) and the optimizer moments
@@ -23,40 +24,125 @@ Each parameter starts at a multiple of :data:`ALIGN` elements (padding
 stays zero in every buffer: Adam and LAMB map p = g = m = v = 0 to zeros,
 so padding adds nothing to a LAMB norm either).
 
-Data parallelism over a ``group`` of ``dp_world`` ranks: the buffers'
-length is padded to a multiple of ``dp_world * ALIGN`` and rank r owns
-``[lo, hi) = [r * P, (r + 1) * P)``, P = numel / dp_world. From stage 1 the
-master and both moments hold only the owned range; from stage 2 the
-accumulator too (the engine reduce-scatters each micro-step's gradients
-into it). The compute-dtype ``params`` and ``grads`` stay whole: the
-forward reads every parameter and autograd writes every gradient.
-:meth:`refresh_params` all-gathers the updated owned ranges into
-``params`` (the reference's stage-1/2 parameter all-gather,
+Data parallelism over a ``group`` of ``dp_world`` ranks, stages 0-2: the
+buffers' length is padded to a multiple of ``dp_world * ALIGN`` and rank
+r owns ``[lo, hi) = [r * P, (r + 1) * P)``, P = numel / dp_world. From
+stage 1 the master and both moments hold only the owned range; from stage
+2 the accumulator too (the engine reduce-scatters each micro-step's
+gradients into it). The compute-dtype ``params`` and ``grads`` stay
+whole: the forward reads every parameter and autograd writes every
+gradient. :meth:`refresh_params` all-gathers the updated owned ranges
+into ``params`` (the reference's stage-1/2 parameter all-gather,
 ``stage1.py:624-708``). At stage 0, or one rank, the owned range is the
 whole buffer and nothing is gathered.
 
-``segments`` is the segment table of the owned range, one ``(offset,
-numel)`` per parameter (per JAX leaf), offsets relative to ``lo`` and
-each parameter clipped to the range (0 elements where the rank holds
-none of it), so entry i names the same leaf on every rank: LAMB takes one
+Stage 3: the layout is cut into gather units (``units``: the model's
+``zero3_units``, e.g. GPT-2's embedding, each block and ``ln_f``; one
+unit of every parameter otherwise), each laid out whole and padded to a
+multiple of ``dp_world * ALIGN``, and rank r owns the r-th 1/dp_world
+piece of each unit: its owned part is one piece a unit (``spans``: the
+``(global lo, global hi, local offset)`` of each), and the master,
+moments, accumulator AND the compute-dtype ``params`` hold only those
+pieces, concatenated. A unit's full parameters exist only while
+``runtime/zero/stage3.py`` has gathered it (one ``all_gather_into`` a
+unit); the leaves the JAX plan keeps replicated (under
+``stage3_param_persistence_threshold``, or with no dimension the data
+degree divides; ``stage3_max_live_parameters`` demotes the largest of
+them first, :func:`stage3_persistence`) form one more unit, laid out
+first, that stays gathered in ``persist`` between steps. Each unit's
+gradient is reduce-scattered into the rank's accumulator piece as soon
+as its backward ends (:meth:`deposit`, :meth:`reduce_unit`); the
+persistent unit's once a micro-step (:meth:`fold_grads`). Every stage
+sums in the accumulator's dtype, so stage 3 gives stage 2's bits. At one
+rank the JAX plan shards no leaf, so the engine builds stage 2's layout
+there; a ``zero.Init`` store keeps this layout at any size.
+
+ZeRO-Offload (``offload``): the master and both moments (fp32) live in
+host memory, this rank's owned part only; the accumulator and the
+compute-dtype parameters stay on the device, and
+``runtime/zero/offload.py`` steps the host state.
+
+``segments`` is the segment table of the owned part, one ``(offset,
+numel)`` per parameter (per JAX leaf), offsets local to the owned part
+and each parameter clipped to it (0 elements where the rank holds none
+of it), so entry i names the same leaf on every rank: LAMB takes one
 trust ratio per segment from its sums over the data group.
 
-Under tensor parallelism each rank's module holds its own shards, and each
-rank keeps one such set of buffers over them. The parameters every rank
-holds whole (``replicated``: layer norms, ``wpe``, the proj biases) are
-laid out first, so ``[0, replicated_end)`` is one slice the engine
-all-reduces over the ring and counts once in the global norm; in the
-owned range that slice is ``[0, own_replicated_end)``. Model ranks at one
-data coordinate hold the same layout and so own the same range.
+Under tensor parallelism (stages 0-2) each rank's module holds its own
+shards, and each rank keeps one such set of buffers over them. The
+parameters every rank holds whole (``replicated``: layer norms, ``wpe``,
+the proj biases) are laid out first, so ``[0, replicated_end)`` is one
+slice the engine all-reduces over the ring and counts once in the global
+norm; in the owned range that slice is ``[0, own_replicated_end)``.
+Model ranks at one data coordinate hold the same layout and so own the
+same range.
 """
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from ...utils.distributed import all_gather, all_gather_into, reduce_scatter
+from ...utils.distributed import (GLOO, all_gather, all_gather_into,
+                                  reduce_scatter)
 
 ALIGN = 64      # elements: 128-byte aligned bf16 views, 256-byte fp32
+
+
+def _numel(shape):
+    return int(np.prod(shape)) if shape else 1
+
+
+def _padded(n, unit=ALIGN):
+    return -(-n // unit) * unit
+
+
+# ---------------------------------------- the JAX plan's host logic (copy)
+
+
+def jax_path(name):
+    """A ``state_dict`` name -> the JAX tree path the plan keys on
+    (``blocks.0.attn.qkv_bias`` -> ``blocks/0/attn/qkv_bias``)."""
+    return name.replace(".", "/")
+
+
+def data_sharded(shape, threshold, ways):
+    """Whether the JAX plan shards a stage-3 leaf of ``shape`` over a data
+    degree of ``ways`` (``ZeroShardingPlan._zero_spec`` without a
+    tensor-parallel spec): not under ``max(threshold, ways)`` elements,
+    not a scalar, and some dimension ``ways`` divides."""
+    if ways <= 1 or not shape or _numel(shape) < max(threshold, ways):
+        return False
+    return any(size % ways == 0 for size in shape)
+
+
+def stage3_persistence(named_shapes, threshold, ways, max_live=None):
+    """The leaves the JAX plan keeps whole at stage 3, and the live
+    budget's demotions (``ZeroShardingPlan.configure_live_budget``):
+    persistent leaves are demoted to data-sharded, largest first (ties by
+    JAX path), while their elements exceed ``max_live``; a leaf no
+    dimension of which the degree divides cannot be demoted. Returns
+    ``(persistent names in the given order, sorted demoted JAX paths,
+    persistent elements or None when no budget applies)``."""
+    persistent = [(name, shape) for name, shape in named_shapes
+                  if not data_sharded(shape, threshold, ways)]
+    if max_live is None:
+        return [n for n, _ in persistent], (), None
+    entries = [(_numel(shape), jax_path(name), data_sharded(shape, 0, ways))
+               for name, shape in persistent]
+    total = sum(n for n, _, _ in entries)
+    demoted = set()
+    for numel, path, demotable in sorted(entries, reverse=True):
+        if total <= max_live:
+            break
+        if not demotable:
+            continue
+        demoted.add(path)
+        total -= numel
+    keep = [n for n, _ in persistent if jax_path(n) not in demoted]
+    return keep, tuple(sorted(demoted)), total
+
+
+# ------------------------------------------------------------ the buffers
 
 
 class FlatPartition:
@@ -65,71 +151,176 @@ class FlatPartition:
 
     def __init__(self, module, device, compute_dtype,
                  accum_dtype=torch.float32, replicated=(),
-                 moments_dtype=torch.float32, group=None, stage=0):
+                 moments_dtype=torch.float32, group=None, stage=0,
+                 offload=False, units=None, persistence_threshold=100000,
+                 max_live_parameters=None, train_state=True):
         self.device, self.compute_dtype = device, compute_dtype
         self.group = group
+        self.stage = stage
+        self.offload = bool(offload)
         self.dp_world = dist.get_world_size(group) if group is not None \
             else 1
         self.dp_rank = dist.get_rank(group) if group is not None else 0
-        self.names, self.shapes, self.offsets = [], [], []
-        params = []
-        total = 0
+        self.stage3 = stage >= 3
         named = list(module.named_parameters())
+        shape_of = {n: tuple(getattr(p, "ds_shape", p.shape))
+                    for n, p in named}
+        self.names, self.shapes, self.offsets = [], [], []
+        self.persistent, self.demoted, self.persistent_numel = [], (), None
         replicated = set(replicated)
-        named = [(n, p) for n, p in named if n in replicated] + \
-            [(n, p) for n, p in named if n not in replicated]
-        self.replicated_end = 0
-        for name, p in named:
-            self.names.append(name)
-            self.shapes.append(tuple(p.shape))
-            self.offsets.append(total)
-            params.append(p)
-            total += -(-p.numel() // ALIGN) * ALIGN
-            if name in replicated:
-                self.replicated_end = total
+        if self.stage3:
+            groups = self._stage3_groups(named, shape_of, units,
+                                         persistence_threshold,
+                                         max_live_parameters)
+        else:
+            groups = [("all", [n for n, _ in named if n in replicated] +
+                       [n for n, _ in named if n not in replicated])]
+        params_by_name = dict(named)
         unit = ALIGN * self.dp_world
-        total = -(-total // unit) * unit
+        # each unit: (name, start, padded numel, [leaf indices])
+        self.units = []
+        self.replicated_end = 0
+        total = 0
+        for uname, leaf_names in groups:
+            start, leaves = total, []
+            for name in leaf_names:
+                leaves.append(len(self.names))
+                self.names.append(name)
+                self.shapes.append(shape_of[name])
+                self.offsets.append(total)
+                total += _padded(_numel(shape_of[name]))
+                if not self.stage3 and name in replicated:
+                    self.replicated_end = total
+            total = start + _padded(total - start, unit)
+            self.units.append((uname, start, total - start, leaves))
         self.numel = total
         self.sharded = self.dp_world > 1 and stage >= 1
-        self.part_numel = total // self.dp_world if self.sharded else total
-        self.lo = self.dp_rank * self.part_numel if self.sharded else 0
-        self.hi = self.lo + self.part_numel
-        self.own_replicated_end = min(max(self.replicated_end - self.lo, 0),
-                                      self.part_numel)
-        # (n_params, 2) int64 on the device, built once
-        self.segments = torch.tensor(
-            [self._clip(off, p.numel())
-             for off, p in zip(self.offsets, params)],
-            dtype=torch.int64, device=device).reshape(-1, 2)
+        # (global lo, global hi, local offset) of each owned piece
+        self.spans, local = [], 0
+        for _, start, n, _ in self.units:
+            part = n // self.dp_world if self.sharded else n
+            lo = start + self.dp_rank * part if self.sharded else start
+            self.spans.append((lo, lo + part, local))
+            local += part
+        self.part_numel = local
+        if self.stage3:
+            self.lo = self.hi = None
+        else:
+            self.lo, self.hi = self.spans[0][0], self.spans[0][1]
+        self.own_replicated_end = 0 if self.stage3 else min(
+            max(self.replicated_end - self.lo, 0), self.part_numel)
+        self.unit_of = {}
+        for u, (_, _, _, leaves) in enumerate(self.units):
+            for i in leaves:
+                self.unit_of[self.names[i]] = u
         self.mixed = compute_dtype != torch.float32
-        whole = torch.zeros(total, dtype=torch.float32, device=device)
-        for p, off in zip(params, self.offsets):
-            whole[off:off + p.numel()].copy_(p.detach().reshape(-1))
-        self.master = whole[self.lo:self.hi].clone() if self.sharded \
-            else whole
-        self.params = whole.to(compute_dtype) if self.mixed else whole
-        del whole
-        self.grads = torch.zeros(total, dtype=compute_dtype, device=device)
+        module_params = [params_by_name[n] for n in self.names]
+        own = self._initial_own(module, module_params)
+        self.segments = torch.tensor(
+            [self._clip(i) for i in range(len(self.names))],
+            dtype=torch.int64, device=device).reshape(-1, 2)
+        host = torch.device("cpu")
+        if self.stage3:
+            self.params = own.to(compute_dtype) if self.mixed \
+                else own.clone()
+            self.master = own.to(host) if self.offload else own
+        else:
+            whole = own
+            own = whole[self.lo:self.hi]
+            self.master = own.to(host, copy=True) if self.offload else \
+                (own.clone() if self.sharded else whole)
+            self.params = whole.to(compute_dtype) if self.mixed else whole
+        del own
+        state_device = host if self.offload else device
+        if self.offload:
+            moments_dtype = torch.float32
         self.grads_sharded = self.sharded and stage >= 2
-        self.acc = torch.zeros(self.part_numel if self.grads_sharded
-                               else total, dtype=accum_dtype, device=device)
-        self.exp_avg = torch.zeros(self.part_numel, dtype=moments_dtype,
-                                   device=device)
-        self.exp_avg_sq = torch.zeros(self.part_numel, dtype=moments_dtype,
-                                      device=device)
+        if train_state:
+            self.acc = torch.zeros(self.part_numel if self.grads_sharded or
+                                   self.stage3 else self.numel,
+                                   dtype=accum_dtype, device=device)
+            self.exp_avg = torch.zeros(self.part_numel, dtype=moments_dtype,
+                                       device=state_device)
+            self.exp_avg_sq = torch.zeros(self.part_numel,
+                                          dtype=moments_dtype,
+                                          device=state_device)
+        else:
+            # the parameters only (zero.Init's store)
+            self.master = self.acc = self.exp_avg = self.exp_avg_sq = None
         self.step = 0
-        for p, off, shape in zip(params, self.offsets, self.shapes):
-            n = int(np.prod(shape)) if shape else 1
-            p.data = self.params[off:off + n].view(shape)
-            p.grad = self.grads[off:off + n].view(shape)
-        self._module_params = params
+        self._module_params = module_params
+        self._pending = {}
+        if self.stage3:
+            self._init_stage3_views(module_params)
+        else:
+            self.grads = torch.zeros(self.numel, dtype=compute_dtype,
+                                     device=device)
+            for p, off, shape in zip(module_params, self.offsets,
+                                     self.shapes):
+                n = _numel(shape)
+                p.data = self.params[off:off + n].view(shape)
+                p.grad = self.grads[off:off + n].view(shape)
 
-    def _clip(self, off, n):
-        """A parameter's ``(offset, numel)`` in the owned range, offsets
-        relative to ``lo``."""
-        a = min(max(off, self.lo), self.hi)
-        b = min(max(off + n, self.lo), self.hi)
-        return a - self.lo, b - a
+    # ------------------------------------------------------------- layout
+
+    def _stage3_groups(self, named, shape_of, units, threshold, max_live):
+        """Stage 3's units: the persistent leaves first (one unit), then
+        each of ``units``' ``(name, [parameter names])`` with its
+        data-sharded leaves (units left empty dropped)."""
+        names = [n for n, _ in named]
+        if units is None:
+            units = [("module", names)]
+        listed = [n for _, members in units for n in members]
+        if sorted(listed) != sorted(names):
+            raise ValueError(
+                "zero3 units must list every parameter once: missing {}, "
+                "extra {}".format(sorted(set(names) - set(listed))[:5],
+                                  sorted(set(listed) - set(names))[:5]))
+        keep, self.demoted, self.persistent_numel = stage3_persistence(
+            [(n, shape_of[n]) for n in names], threshold, self.dp_world,
+            max_live)
+        self.persistent = keep
+        persistent = set(keep)
+        groups = [("persistent", keep)] if keep else []
+        groups += [(uname, [n for n in members if n not in persistent])
+                   for uname, members in units]
+        return [g for g in groups if g[1]]
+
+    def _initial_own(self, module, module_params):
+        """The fp32 values of the owned part (stage 3) or of the whole
+        layout (stages 0-2), on the device: from the module's parameters,
+        or from a ``zero.Init`` module's partitioned store (its own pieces
+        when its layout is this one, else its gathered leaves)."""
+        store = getattr(module, "_zero3_store", None)
+        if store is not None and self.stage3 and \
+                store.layout_key() == self.layout_key():
+            return store.local.to(self.device, torch.float32, copy=True)
+        values = store.gather_full() if store is not None else None
+        whole = torch.zeros(self.numel, dtype=torch.float32,
+                            device=self.device)
+        for name, p, off, shape in zip(self.names, module_params,
+                                       self.offsets, self.shapes):
+            src = values[name] if values is not None else p.detach()
+            whole[off:off + _numel(shape)].copy_(src.reshape(-1))
+        if not self.stage3:
+            return whole
+        return torch.cat([whole[lo:hi] for lo, hi, _ in self.spans])
+
+    def layout_key(self):
+        """What two partitions must share for one's pieces to be the
+        other's: names, shapes, units and the rank's place."""
+        return (tuple(self.names), tuple(self.shapes),
+                tuple((u[1], u[2]) for u in self.units), self.dp_world,
+                self.dp_rank, self.stage3)
+
+    def _clip(self, i):
+        """Parameter i's ``(offset, numel)`` in the owned part (offset
+        local to it)."""
+        off, n = self.offsets[i], _numel(self.shapes[i])
+        lo, hi, local = self.spans[self.unit_of[self.names[i]]]
+        a = min(max(off, lo), hi)
+        b = min(max(off + n, lo), hi)
+        return local + a - lo, b - a
 
     def state_bytes(self):
         """Bytes this rank holds of master, moments and accumulator."""
@@ -137,10 +328,119 @@ class FlatPartition:
             ("master", self.master), ("exp_avg", self.exp_avg),
             ("exp_avg_sq", self.exp_avg_sq), ("acc", self.acc))}
 
+    def param_bytes(self):
+        """Bytes of compute-dtype parameters this rank keeps between
+        steps: the whole buffer (stages 0-2), or its pieces plus the
+        gathered persistent unit (stage 3)."""
+        size = self.params.numel() * self.params.element_size()
+        if self.stage3 and self.sharded and self.persist is not None:
+            size += self.persist.numel() * self.persist.element_size()
+        return size
+
+    # ------------------------------------------------------------ stage 3
+
+    def _init_stage3_views(self, module_params):
+        """Persistent leaves view the gathered persistent unit; the others
+        hold an empty placeholder until their unit is gathered."""
+        self.grads = None
+        self.persist_unit = 0 if self.persistent else None
+        self._placeholder = torch.empty(0, dtype=self.compute_dtype,
+                                        device=self.device)
+        self.persist = self.persist_grads = None
+        if self.persist_unit is not None:
+            _, start, n, _ = self.units[0]
+            if self.sharded:
+                self.persist = torch.empty(n, dtype=self.compute_dtype,
+                                           device=self.device)
+            else:
+                self.persist = self.params[:n]
+            self.persist_grads = torch.zeros(n, dtype=self.compute_dtype,
+                                             device=self.device)
+            self.gather_persistent()
+        for i, p in enumerate(module_params):
+            p.grad = None
+            p.ds_shape = self.shapes[i]
+            if self.unit_of[self.names[i]] == self.persist_unit:
+                off = self.offsets[i]
+                p.data = self.persist[off:off + _numel(self.shapes[i])].view(
+                    self.shapes[i])
+            else:
+                p.data = self._placeholder
+
+    def unit_leaves(self, u):
+        """``[(parameter, offset in the unit, shape)]`` of unit ``u``."""
+        _, start, _, leaves = self.units[u]
+        return [(self._module_params[i], self.offsets[i] - start,
+                 self.shapes[i]) for i in leaves]
+
+    def gather_persistent(self):
+        """The persistent unit's pieces all-gathered into ``persist``."""
+        if self.persist_unit is None or not self.sharded:
+            return
+        lo, hi, local = self.spans[0]
+        with record_function("zero3.all_gather"):
+            all_gather_into(self.persist,
+                            self.params[local:local + hi - lo], self.group)
+
+    def gather_unit(self, u):
+        """Unit ``u``'s full compute-dtype buffer: its pieces
+        all-gathered over the data group (one collective); its leaves are
+        then views of it. (The engine partitions only over two or more
+        ranks: at one rank stage 3 is stage 2's layout.)"""
+        if u == self.persist_unit:
+            return self.persist
+        lo, hi, local = self.spans[u]
+        full = torch.empty(self.units[u][2], dtype=self.compute_dtype,
+                           device=self.device)
+        with record_function("zero3.all_gather"):
+            all_gather_into(full, self.params[local:local + hi - lo],
+                            self.group)
+        for p, off, shape in self.unit_leaves(u):
+            p.data = full[off:off + _numel(shape)].view(shape)
+        return full
+
+    def release_unit(self, u):
+        """Unit ``u``'s leaves back to the placeholder (the gathered
+        buffer frees with its last reference)."""
+        if u == self.persist_unit:
+            return
+        for p, _, _ in self.unit_leaves(u):
+            p.data = self._placeholder
+
+    def deposit(self, u, grads):
+        """Add the gradients ``grads`` (one per leaf of unit ``u``, None
+        where unused) into the unit's compute-dtype gradient buffer, as
+        autograd adds into a ``.grad``."""
+        if u == self.persist_unit:
+            buf = self.persist_grads
+        else:
+            buf = self._pending.get(u)
+            if buf is None:
+                buf = self._pending[u] = torch.zeros(
+                    self.units[u][2], dtype=self.compute_dtype,
+                    device=self.device)
+        for (_, off, shape), g in zip(self.unit_leaves(u), grads):
+            if g is not None:
+                buf[off:off + _numel(shape)].view(shape).add_(g)
+
+    def reduce_unit(self, u):
+        """Unit ``u``'s summed gradient reduce-scattered, in the
+        accumulator's dtype, into the rank's accumulator piece; the
+        unit's buffer freed."""
+        buf = self._pending.pop(u, None)
+        if buf is not None:
+            self._fold_unit(u, buf)
+
+    def _fold_unit(self, u, buf):
+        lo, hi, local = self.spans[u]
+        with record_function("zero3.reduce_scatter"):
+            self.acc[local:local + hi - lo].add_(
+                reduce_scatter(buf.to(self.acc.dtype), self.group))
+
     # ------------------------------------------------------------ updates
 
     def own(self, flat):
-        """The owned range of a whole buffer (a partition-sized one as it
+        """The owned part of a whole buffer (a partition-sized one as it
         is)."""
         return flat if flat.numel() == self.part_numel else \
             flat[self.lo:self.hi]
@@ -150,7 +450,18 @@ class FlatPartition:
         stage 2 over a group the grads are first reduce-scattered over it
         in the accumulator's dtype, the dtype every stage sums in (one
         collective a micro-step, the reference's IPG bucket
-        reduce-scatter), and the owned slice of the sum is added."""
+        reduce-scatter), and the owned slice of the sum is added. At
+        stage 3 every gather unit was reduced when its backward ended:
+        the persistent unit's gradients are folded here."""
+        if self.stage3:
+            if self._pending:
+                raise RuntimeError(
+                    "zero3: units {} were never reduced (their backward "
+                    "did not end)".format(sorted(self._pending)))
+            if self.persist_unit is not None:
+                self._fold_unit(self.persist_unit, self.persist_grads)
+                self.persist_grads.zero_()
+            return
         if self.grads_sharded:
             with record_function("zero.reduce_scatter"):
                 part = reduce_scatter(self.grads.to(self.acc.dtype),
@@ -160,22 +471,48 @@ class FlatPartition:
             self.acc.add_(self.grads)
         self.grads.zero_()
 
-    def refresh_params(self):
-        """master -> compute-dtype params: the owned range cast, then (when
-        partitioned) every rank's range all-gathered into the whole
-        buffer. A no-op at fp32 compute when the params are views of the
-        whole master."""
-        if self.sharded:
-            own = self.params[self.lo:self.hi]
-            own.copy_(self.master)
+    def own_params(self):
+        """The compute-dtype parameters of the owned part (a view)."""
+        return self.params if self.stage3 else self.params[self.lo:self.hi]
+
+    def gather_params(self):
+        """After the owned part of ``params`` changed: every rank's part
+        all-gathered into the whole buffer (stages 1-2), or the
+        persistent unit re-gathered (stage 3)."""
+        if self.stage3:
+            self.gather_persistent()
+        elif self.sharded:
             with record_function("zero.all_gather"):
-                all_gather_into(self.params, own, self.group)
+                all_gather_into(self.params, self.own_params(), self.group)
+
+    def refresh_params(self):
+        """master -> compute-dtype params: the owned part cast (from host
+        memory under offload), then (when partitioned) gathered. A no-op
+        at fp32 compute when the params are views of the whole master."""
+        if self.sharded or self.stage3 or self.offload:
+            self.own_params().copy_(self.master)
+            self.gather_params()
         elif self.mixed:
             self.params.copy_(self.master)
 
     def check_views(self):
         """True while every parameter and ``.grad`` still views the flat
-        buffers (autograd accumulated in place)."""
+        buffers (autograd accumulated in place); at stage 3, while the
+        persistent leaves view ``persist``, the others hold the
+        placeholder and no ``.grad`` exists."""
+        if self.stage3:
+            _, start, _, _ = self.units[0]
+            for i, p in enumerate(self._module_params):
+                if p.grad is not None:
+                    return False
+                if self.unit_of[self.names[i]] == self.persist_unit:
+                    ok = p.data_ptr() == \
+                        self.persist[self.offsets[i] - start:].data_ptr()
+                else:
+                    ok = p.numel() == 0
+                if not ok:
+                    return False
+            return True
         return all(
             p.data_ptr() == self.params[off:].data_ptr() and
             p.grad is not None and
@@ -186,11 +523,25 @@ class FlatPartition:
 
     def whole(self, flat):
         """A buffer over the whole layout: a partition-sized one gathered
-        over the data group (every rank of it must call), a whole one as
-        it is."""
-        if self.sharded and flat.numel() == self.part_numel:
-            return all_gather(flat.detach(), self.group)
-        return flat
+        over the data group (every rank of it must call; a host buffer
+        crosses an NCCL group through the device), a whole one as it
+        is."""
+        if not self.sharded or flat.numel() != self.part_numel:
+            return flat
+        src = flat.detach()
+        if src.device.type == "cpu" and \
+                dist.get_backend(self.group) != GLOO:
+            src = src.to(self.device)
+        gathered = all_gather(src, self.group)
+        if not self.stage3:
+            return gathered
+        rows = gathered.view(self.dp_world, self.part_numel)
+        out = torch.empty(self.numel, dtype=gathered.dtype,
+                          device=gathered.device)
+        for (_, start, n, _), (lo, hi, local) in zip(self.units,
+                                                     self.spans):
+            out[start:start + n] = rows[:, local:local + hi - lo].reshape(-1)
+        return out
 
     def tree_of(self, flat, keep_dtype=False):
         """A flat buffer (whole, or this rank's partition: then gathered
@@ -202,21 +553,23 @@ class FlatPartition:
         host = host.cpu() if keep_dtype else host.float().cpu()
         out = {}
         for name, off, shape in zip(self.names, self.offsets, self.shapes):
-            n = int(np.prod(shape)) if shape else 1
-            out[name] = host[off:off + n].reshape(shape).clone()
+            out[name] = host[off:off + _numel(shape)].reshape(shape).clone()
         return out
 
     def load(self, flat, state):
         """``{dotted name: tensor}`` (whole tensors) -> into a flat buffer,
         whole or this rank's partition (each parameter sliced to the
-        owned range), cast to its dtype: values a bf16 buffer can hold
+        owned part), cast to its dtype: values a bf16 buffer can hold
         load bit for bit."""
-        lo, hi = (self.lo, self.hi) if flat.numel() == self.part_numel \
-            else (0, self.numel)
-        for name, off, shape in zip(self.names, self.offsets, self.shapes):
-            n = int(np.prod(shape)) if shape else 1
-            a, b = max(off, lo), min(off + n, hi)
-            if a < b:
-                src = torch.as_tensor(state[name]).reshape(-1)[a - off:
-                                                                b - off]
-                flat[a - lo:b - lo].copy_(src.to(flat.dtype))
+        spans = self.spans if flat.numel() == self.part_numel \
+            else [(0, self.numel, 0)]
+        for i, (name, off, shape) in enumerate(zip(self.names, self.offsets,
+                                                   self.shapes)):
+            n = _numel(shape)
+            for lo, hi, local in spans:
+                a, b = max(off, lo), min(off + n, hi)
+                if a < b:
+                    src = torch.as_tensor(state[name]).reshape(-1)[
+                        a - off:b - off]
+                    flat[local + a - lo:local + b - lo].copy_(
+                        src.to(flat.dtype))

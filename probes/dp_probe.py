@@ -6,7 +6,9 @@ kernels, on a machine with the card:
 
 PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
 ``train_dp_parity``, ``train_dp_tp_parity``, ``train``, ``kernel``,
-``serve_spec``, ``serve_tp``, ``train_example_data``), optionally with
+``serve_spec``, ``serve_tp``, ``train_example_data``, ``cpu_adam``,
+``train_xl_offload``, ``train_offload_parity``, ``train_dp3``,
+``train_offload_ckpt``; on four cards ``dp_nccl_zero3``), optionally with
 integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
 JSON line. Not a test and on no path of the package.
 """

@@ -269,9 +269,13 @@ def test_bad_configs_raise_alike(name):
             module.DeepSpeedConfig(None, param_dict=dict(cfg), **kw)
 
 
+# stage 3 and cpu_offload run now; what stays unported of them is the
+# streamed parameter offload (cpu_offload_params, a stage-3 mode)
 UNPORTED = {
-    "zero_stage_3": {"zero_optimization": {"stage": 3}},
-    "cpu_offload": {"zero_optimization": {"stage": 2, "cpu_offload": True}},
+    "zero_stage_3": {"zero_optimization": {"stage": 3,
+                                           "cpu_offload_params": True}},
+    "cpu_offload": {"zero_optimization": {"stage": 3, "cpu_offload": True,
+                                          "cpu_offload_params": True}},
     "zeropp_qwz": {"zero_optimization": {"stage": 2,
                                          "zero_quantized_gradients": True}},
     "telemetry": {"telemetry": {"enabled": True}},
@@ -656,12 +660,15 @@ def test_initialize_needs_cuda_unless_asked_for_the_cpu():
 def test_world_size_above_one_and_unported_arguments_raise(monkeypatch):
     model = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE))
     # a data-parallel world above one needs a process group of its size
-    # (tests/test_torch_zero_dp.py trains one); ZeRO-3 is a later slice
+    # (tests/test_torch_zero_dp.py trains one); ZeRO-3's streamed
+    # parameter offload is a later item
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh(data=2)
-    with pytest.raises(NotImplementedError, match="ZeRO-3/offload"):
+    streamed = _ds("bf16", 3, 1, 2)
+    streamed["zero_optimization"]["cpu_offload_params"] = True
+    with pytest.raises(NotImplementedError, match="streamed parameter"):
         deepspeed_tpu_torch.initialize(
-            model=model, config_params=_ds("bf16", 3, 1, 2), device="cpu")
+            model=model, config_params=streamed, device="cpu")
     # the batch triple follows the mesh's data axis (1 here), not the
     # size of a process group the mesh does not span
     monkeypatch.setattr(tconfig, "_world_size", lambda: 2)

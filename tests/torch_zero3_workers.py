@@ -1,0 +1,190 @@
+"""Rank bodies for the port's ZeRO-3 and ZeRO-Offload data-parallel
+tests, run by ``deepspeed_tpu_torch.utils.distributed.spawn`` in gloo
+processes on the CPU. This module imports nothing of JAX: the test files
+hold the JAX side and compare in the parent process. Inputs arrive as
+numpy arrays (the global batch; each rank takes its data coordinate's
+rows) and results leave as numpy arrays and plain values."""
+import numpy as np
+import torch
+from torch import nn
+
+from torch_tp_workers import single_threaded
+
+
+class Linear(nn.Module):
+    """``tests/unit/test_zero_offload.py``'s model: ``mean((x @ w - y) **
+    2)`` over the named parameters (``w`` (32, 8) zeros by default; more
+    through ``shapes``), with the JAX-tree converters the engine's
+    ``get_master_params`` reads from this module (the tree is the
+    ``state_dict``)."""
+
+    def __init__(self, shapes=(("w", (32, 8)),), fill=0.0):
+        super().__init__()
+        for name, shape in shapes:
+            self.register_parameter(name, nn.Parameter(
+                torch.full(shape, float(fill))))
+
+    def forward(self, x, y):
+        return ((x.float() @ self.w.float() - y.float()) ** 2).mean()
+
+
+def params_to_jax(state, keep_dtype=False):
+    return {k: (v if keep_dtype else v.float().numpy()) for k, v in
+            state.items()}
+
+
+def params_from_jax(tree):
+    return {k: v.float() if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v, np.float32))
+            for k, v in tree.items()}
+
+
+def optimizer_state_to_jax(state):
+    return {"step": state["step"],
+            "exp_avg": params_to_jax(state["exp_avg"]),
+            "exp_avg_sq": params_to_jax(state["exp_avg_sq"])}
+
+
+def optimizer_state_from_jax(state):
+    return {"step": int(np.asarray(state["step"])),
+            "exp_avg": params_from_jax(state["exp_avg"]),
+            "exp_avg_sq": params_from_jax(state["exp_avg_sq"])}
+
+
+def zero_config(spec):
+    conf = {"train_micro_batch_size_per_gpu": spec["micro"],
+            "gradient_accumulation_steps": spec.get("gas", 1),
+            "optimizer": {"type": "Adam", "params": {"lr": spec.get("lr",
+                                                                    1e-3)}},
+            "bf16": {"enabled": True},
+            "zero_optimization": dict(spec["zero"]),
+            "steps_per_print": 10 ** 9}
+    if spec.get("backend"):
+        conf["transformer"] = {"flash_attention": spec["backend"]}
+    return conf
+
+
+def _rows(batch, coord, micro):
+    return tuple(np.ascontiguousarray(x[:, coord * micro:(coord + 1) * micro])
+                 for x in batch)
+
+
+def zero_engine(rank, world, specs):
+    """Per spec: ``build_mesh(data=spec["data"])``, the seeded GPT-2 of
+    ``spec["model"]`` (built inside ``zero.Init`` with ``spec["init"]``),
+    the engine on ``spec["zero"]``, ``spec["steps"]`` steps on this data
+    coordinate's rows of ``spec["batch"]``; then, where asked, a save to
+    / load from ``spec["save"]`` / ``spec["load"]`` and ``spec["after"]``
+    more steps. Returns the losses, the gathered master tree and moments,
+    the rank's parameter and state bytes, the partition's persistence
+    lists and its unit layout, and the gathers."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    single_threaded()
+    results = []
+    for spec in specs:
+        mesh = build_mesh(data=spec["data"])
+        cfg = gpt2.GPT2Config(**spec["model"])
+        if spec.get("init") is not None:
+            with zero.Init(mesh=mesh, device="cpu", **spec["init"]):
+                model = gpt2.make_gpt2_model(config=cfg, seed=spec["seed"])
+            init_bytes = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+        else:
+            model = gpt2.make_gpt2_model(config=cfg, seed=spec["seed"])
+            init_bytes = None
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, mesh=mesh, config_params=zero_config(spec),
+            device="cpu")[0]
+        coord = engine.dp_rank
+        batch = _rows(spec["batch"], coord, spec["micro"])
+        res = {"init_bytes": init_bytes}
+        if spec.get("load"):
+            engine.load_checkpoint(spec["load"])
+        losses = [float(engine.train_batch(batch=batch))
+                  for _ in range(spec["steps"])]
+        if spec.get("save"):
+            engine.save_checkpoint(spec["save"], tag="t")
+            losses += [float(engine.train_batch(batch=batch))
+                       for _ in range(spec.get("after", 0))]
+        flat = engine.flat
+        opt = engine.get_optimizer_state()
+        res.update(
+            losses=losses, master=engine.get_master_params(),
+            exp_avg=opt["exp_avg"], step=opt["step"],
+            param_bytes=flat.param_bytes(), state_bytes=flat.state_bytes(),
+            numel=flat.numel, part_numel=flat.part_numel,
+            persistent=list(flat.persistent), demoted=list(flat.demoted),
+            units=[(u[0], u[2]) for u in flat.units],
+            views=flat.check_views(),
+            gathers=engine.zero3.gathers if engine.zero3 else 0,
+            offload_chunks=engine.offload_work_chunks,
+            master_device=str(flat.master.device))
+        results.append(res)
+    return results
+
+
+def context_cases(rank, world):
+    """``tests/unit/test_zero_context.py``'s cases that need a data group
+    of ``world`` ranks, on ``Linear`` models; returns plain values."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    single_threaded()
+    mesh = build_mesh(data=world)
+    out = {}
+    # partitioned at construction: w (128, 16) in pieces, b (4,) whole
+    with zero.Init(mesh=mesh, device="cpu", param_persistence_threshold=64):
+        model = Linear(shapes=(("w", (128, 16)), ("b", (4,))))
+    store = model._zero3_store
+    out["sharded"] = dict(
+        ds_sharded=bool(getattr(model, "ds_sharded", False)),
+        w_numel=model.w.numel(), w_shape=list(model.w.ds_shape),
+        b_numel=model.b.numel(), local=store.local.numel(),
+        persistent=list(store.flat.persistent))
+    # read and modify through GatheredParameters
+    with zero.Init(mesh=mesh, device="cpu", param_persistence_threshold=0):
+        model = Linear(shapes=(("w", (64, 8)),), fill=1.0)
+    with zero.GatheredParameters(model, modifier_rank=0) as full:
+        out["read"] = full["w"].numpy().copy()
+        full["w"][:] = 7.0 if rank == 0 else 5.0
+    with zero.GatheredParameters(model) as full:
+        out["after_modify"] = full["w"].numpy().copy()
+        full["w"][:] = 3.0
+    with zero.GatheredParameters(model) as full:
+        out["after_discard"] = full["w"].numpy().copy()
+    out["modified_numel"] = model.w.numel()
+    # on the host: the same layout
+    with zero.Init(mesh=mesh, remote_device="cpu",
+                   param_persistence_threshold=0):
+        model = Linear(shapes=(("w", (64, 8)),), fill=1.0)
+    out["remote"] = dict(device=str(model._zero3_store.local.device),
+                         local=model._zero3_store.local.numel(),
+                         w_numel=model.w.numel())
+    # a zero.Init model trains through the engine at stage 3
+    with zero.Init(mesh=mesh, device="cpu", param_persistence_threshold=0):
+        model = Linear()
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, mesh=mesh, device="cpu", config_params={
+            "train_batch_size": 16,
+            "optimizer": {"type": "Adam", "params": {"lr": 5e-2}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 3,
+                                  "stage3_param_persistence_threshold": 0}
+        })[0]
+    rs = np.random.RandomState(0)
+    w_true = rs.randn(32, 8).astype(np.float32)
+    x = rs.randn(16, 32).astype(np.float32)
+    y = x @ w_true
+    rows = slice(engine.dp_rank * 8, engine.dp_rank * 8 + 8)
+    losses = []
+    for _ in range(60):
+        loss = engine(torch.from_numpy(x[rows]), torch.from_numpy(y[rows]))
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss))
+    out["train"] = dict(losses=losses, gathers=engine.zero3.gathers,
+                        param_bytes=engine.flat.param_bytes())
+    return out
