@@ -190,6 +190,26 @@ with no ``ok`` line):
 28. train_offload_ckpt — an offload engine saves and a fresh one resumes
    bit for bit; a device-state engine and an offload engine load each
    other's tags;
+29. train_pipe — BASELINE config 5's pipeline, the PP main path:
+   ``initialize(model=make_gpt2_pipeline(...)).train_batch(...)`` on
+   gpt2_medium at full width and depth as PP 2, two spawned ranks sharing
+   this card over gloo (every hop and the tied-embedding sum through host
+   memory), the GPT-2 example's ``examples/gpt2/ds_config_zero2.json``
+   (bf16, ZeRO-2, clipping, WarmupDecayLR) at micro 4 and M = 8
+   micro-batches, seq 1024; 2 warm-up and 3 timed steps (counts set to 0
+   just before, read just after, per rank: each flash kernel and Adam at
+   the launches the recompute schedule gives): step ms, tokens/s, MFU,
+   each rank's peak, the hops' and the tied sum's host ms a step, a
+   profile step; the losses finite and the two tied copies equal;
+30. train_pipe_parity — 4 layers at gpt2_medium width, bf16, the
+   example's config at a constant lr 1e-4, TF32 off, from the dense
+   model's seeded weights: PP 2 against the one-rank engine on the same
+   micro-batches (the first loss within 1e-6 relative, the masters' move
+   within ``PIPE_MOVED_RTOL`` of the dense run's, which the control run
+   without the tied-gradient sum must exceed); v = 2 and
+   ``save_stage_residuals`` against the default; a tag saved at PP 2
+   (v = 1) after one step resumed at v = 2 against the run that kept
+   going; each rank's peak at M = 4 and M = 8 within 10%;
 
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
@@ -197,7 +217,11 @@ variant the main paths run) and, last, ``{"ok": true, "device":
 ``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
-step on both backends; ``--dp-nccl`` (four cards) runs train_dp at DP 4
+step on both backends; ``--pp-nccl`` (four cards) runs train_pipe at
+full depth over NCCL as PP 4, PP 2 x DP 2 (ZeRO-2) and PP 2 x TP 2
+(ZeRO-1, the ring GEMMs), with each rank's busy share and the NCCL
+send/recv kernels' time a step, and holds PP 2 x DP 2 against the dense
+DP 4 engine on the same global batch; ``--dp-nccl`` (four cards) runs train_dp at DP 4
 and at DP 2 x TP 2 with one rank per card, then resumes a DP 4 tag at
 DP 2 x TP 2 (``dp_nccl_ckpt``), then ``dp_nccl_zero3``: gpt2_xl at
 full depth, DP 4, stage 2, stage 3 and stage 3 with ``cpu_offload`` from
@@ -4907,6 +4931,258 @@ def phase_dp_nccl_zero3(world=4, steps=2, loss_tol=1e-4,
             "ranks": ranks}
 
 
+PIPE_LAYERS, PIPE_M, PIPE_WARMUP, PIPE_STEPS = 24, 8, 2, 3
+PIPE_PARITY_LAYERS, PIPE_PARITY_M, PIPE_PARITY_STEPS = 4, 4, 3
+PIPE_MOVED_RTOL = 0.1
+
+
+def _pipe_chip():
+    """``probes/pipe_chip.py``: the pipeline phases' rank bodies."""
+    import os
+    probes = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "probes")
+    if probes not in sys.path:
+        sys.path.insert(0, probes)
+    import pipe_chip
+    return pipe_chip
+
+
+def phase_train_pipe(world=2, stages=2, dp=1, tp=1, stage=2,
+                     layers=PIPE_LAYERS, M=PIPE_M, steps=PIPE_STEPS,
+                     parity=None, seed=None):
+    """The pipeline main path: ``world`` spawned ranks, ``stages`` x ``dp``
+    x ``tp`` (one card: every rank on it over gloo, so the step time only
+    shows that the path runs; four cards: NCCL, one rank a card). Every
+    rank launches each flash kernel at the counts the recompute schedule
+    gives (``pipe_chip.expected_launches``) and Adam once a step, the ring
+    kernels under TP; the ranks of a pipe line report the same losses,
+    finite and falling; the tied embedding's two copies are equal bit for
+    bit (sha256 of the master leaves). With ``parity``
+    (:func:`pipe_parity_spec`) the same ranks then run train_pipe_parity's
+    runs, returned under "parity_ranks". ``seed`` None: each rank draws
+    its own layers from the torch RNG, seeded per layer (the dense init's
+    numpy draws of all 24 layers take ~14 s a rank); an int: the dense
+    model's seeded weights, for a comparison with the dense engine."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    pc = _pipe_chip()
+    spec = {"S": stages, "dp": dp, "tp": tp, "stage": stage,
+            "layers": layers, "M": M, "warmup": PIPE_WARMUP,
+            "steps": steps, "seed": seed, "profile": True,
+            "parity": parity, "t_spawn": time.time()}
+    ranks = spawn(pc.train_rank, world, args=(spec,), timeout_s=900)
+    parity_ranks = [r.pop("parity") for r in ranks] if parity else None
+    for r in ranks:
+        assert all(np.isfinite(r["losses"])), r["losses"]
+        assert r["losses"] == ranks[0]["losses"], "ranks disagree"
+        assert r["views"] and r["device"].startswith("cuda"), r
+        for name, n in r["expected"].items():
+            assert r["launches"][name] == n * steps, (name, r["launches"],
+                                                      r["expected"])
+        for name in RING_NAMES:
+            assert (r["launches"][name] > 0) == (tp > 1), r["launches"]
+    digests = {}
+    for r in ranks:
+        if r["tied_digest"] is not None:
+            digests.setdefault(r["rank"] % (dp * tp), set()).add(
+                r["tied_digest"])
+    assert digests and all(len(d) == 1 for d in digests.values()), digests
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          n_layers=layers)
+    step_ms = max(r["step_ms"] for r in ranks)
+    tokens = M * pc.MICRO * dp * TRAIN_SEQ
+    cards = 1 if ranks[0]["transport"] == "gloo" else world
+    mfu = tokens / step_ms * 1e3 * xl_flops_per_token(cfg) / \
+        (BF16_FLOPS_PER_S * cards)
+    per_rank = {name: [r["launches"][name] // steps for r in ranks]
+                for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                             "fused_adam") + RING_NAMES}
+    return {"phase": "train_pipe", "config": pc.EXAMPLE_CONFIG,
+            "model": "gpt2_medium", "layers": layers, "seq": TRAIN_SEQ,
+            "micro_batch_per_rank": pc.MICRO, "micro_batches": M,
+            "stages": stages, "data": dp, "tp": tp, "zero_stage": stage,
+            "parts": ranks[0]["parts"], "transport": ranks[0]["transport"],
+            "devices": [r["device"] for r in ranks], "steps": steps,
+            "step_ms": step_ms, "step_ms_per_rank":
+                [r["step_ms"] for r in ranks],
+            "step_ms_note": "ranks share one card and cross host memory "
+                            "for every hop over gloo: this time only shows "
+                            "that the path runs"
+            if cards == 1 else "one rank a card, NCCL",
+            "tokens_per_s": tokens / step_ms * 1e3, "mfu": mfu,
+            "mfu_formula": "tokens/s * (6 N + 12 L d s) / (989e12 x {} "
+                           "card(s)), recompute not counted".format(cards),
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+            "p2p_host_ms_per_step_per_rank":
+                [r["p2p_host_ms_per_step"] for r in ranks],
+            "tied_reduce_ms_per_step_per_rank":
+                [r["tied_reduce_ms_per_step"] for r in ranks],
+            "device_busy_share_per_rank":
+                [r["train_profile"]["device_busy_share"] for r in ranks],
+            "kernel_ms_per_step_by_group_per_rank":
+                [r["train_profile"]["kernel_ms_per_step_by_group"]
+                 for r in ranks],
+            "host_ms_per_step_in_spans_rank0":
+                ranks[0]["train_profile"]["host_ms_per_step_in_spans"],
+            "launches_per_rank_per_step": per_rank,
+            "losses": ranks[0]["losses"],
+            "stats_rank0": ranks[0]["stats"],
+            "parity_ranks": parity_ranks,
+            "ranks": [{k: v for k, v in r.items() if k != "train_profile"}
+                      for r in ranks]}
+
+
+def pipe_parity_spec(layers=PIPE_PARITY_LAYERS, M=PIPE_PARITY_M,
+                     steps=PIPE_PARITY_STEPS, lr=1e-4):
+    """train_pipe_parity's rank spec: its runs (v1's last step is its
+    peak-memory step at M; the resumed run is the check of v = 2 against
+    v = 1) and a temporary directory for the tag (the caller removes it
+    with ``pipe_chip.remove``)."""
+    pc = _pipe_chip()
+    base = {"S": 2, "layers": layers, "M": M, "seed": 1,
+            "constant_lr": lr}
+    return {"seed": 2, "dir": pc.temp_dir(), "base": base, "steps": steps,
+            "runs": [
+                ("v1", dict(base), [1, "save"] + [1] * (steps - 2) +
+                 ["peak", "master"]),
+                ("control", dict(base, no_tied_sum=True),
+                 [steps, "master"]),
+                ("save", dict(base, save=True), [steps, "master"]),
+                ("v2_resume", dict(base, v=2),
+                 ["load", steps - 1, "master"]),
+                ("peak_2m", dict(base, M=2 * M), ["peak"])]}
+
+
+def phase_train_pipe_parity(spec=None, ranks=None,
+                            moved_rtol=PIPE_MOVED_RTOL):
+    """PP 2 at gpt2_medium width with ``layers`` layers, bf16, the
+    example's config at a constant ``lr``, TF32 off, from the dense
+    model's seeded weights, two gloo ranks on the card (one spawn):
+
+    * against the one-rank engine on the same micro-batches
+      (``gradient_accumulation_steps`` = M): the first loss within 1e-6
+      relative, each master leaf's move within ``moved_rtol`` of the dense
+      run's (``_master_diff``; the tied ``wte`` sums its two uses in fp32
+      here and in bf16 there); the control, the same run with the
+      tied-gradient sum skipped, must exceed ``moved_rtol``;
+    * ``save_stage_residuals`` against the default: bit for bit;
+    * v = 2 against v = 1: a tag saved at v = 1 after one step, resumed
+      at v = 2, against the v = 1 run that kept going: the losses within
+      1e-6 relative and the masters' move within 1e-3 (bit for bit but
+      for the clipping coefficient, whose global norm sums the stages'
+      squares in another grouping), whether bit-equal reported (the CPU
+      tests hold v = 2 from the start against v = 1 bit for bit);
+    * each rank's peak memory of one step at M (v = 1's last step) and
+      at 2 M within 10%.
+
+    ``spec`` (:func:`pipe_parity_spec`) and ``ranks``: the runs already
+    made by train_pipe's ranks (one spawn for both phases); without them
+    the phase spawns its own two ranks."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    pc = _pipe_chip()
+    if ranks is None:
+        spec = pipe_parity_spec()
+        try:
+            ranks = spawn(pc.parity_rank, 2, args=(spec,), timeout_s=900)
+        finally:
+            pc.remove(spec["dir"])
+    base, steps = spec["base"], spec["steps"]
+    layers, M, lr = base["layers"], base["M"], base["constant_lr"]
+    dense_losses, init, dense = pc.dense_reference(
+        dict(base, batch_seed=spec["seed"]), layers, M, steps, base["seed"])
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    for r in ranks:
+        for name in r0:
+            assert r[name]["losses"] == r0[name]["losses"], name
+    from deepspeed_tpu_torch.models import gpt2
+    d_model = gpt2.SIZES["gpt2_medium"]["d_model"]
+    master = {name: r0[name]["masters"][-1] for name in
+              ("v1", "control", "save", "v2_resume")}
+    vs_dense = {name: _master_diff(master[name], dense, d_model, init)
+                for name in ("v1", "control")}
+    vs_v1 = {name: _master_diff(master[name], master["v1"], d_model, init)
+             for name in ("save", "v2_resume")}
+    bit_equal = {name: all(np.array_equal(v, master["v1"][k])
+                           for k, v in master[name].items()) and
+                 r0[name]["losses"] == r0["v1"]["losses"][
+                     -len(r0[name]["losses"]):]
+                 for name in ("save", "v2_resume")}
+    peaks = [(r["v1"]["peak_gb"], r["peak_2m"]["peak_gb"]) for r in ranks]
+    rel = {"first loss: pp2 vs dense": abs(
+        r0["v1"]["losses"][0] - dense_losses[0]) / abs(dense_losses[0]),
+        "pp2 vs dense": _rel(r0["v1"]["losses"], dense_losses),
+        "v2 resumed vs v1 kept going": _rel(r0["v2_resume"]["losses"],
+                                            r0["v1"]["losses"][1:])}
+    result = {"phase": "train_pipe_parity", "layers": layers,
+              "d_model": d_model, "seq": TRAIN_SEQ, "micro_batches": M,
+              "micro_batch_per_rank": pc.MICRO, "steps": steps, "lr": lr,
+              "losses": {"dense": dense_losses,
+                         **{n: r0[n]["losses"] for n in r0}},
+              "loss_rel_diff": rel, "master_vs_dense": vs_dense,
+              "master_vs_v1": vs_v1, "bit_equal_to_v1": bit_equal,
+              "peak_gb_per_rank_m_2m": peaks,
+              "launches_rank0": {n: r0[n]["launches"] for n in r0},
+              "run_s_rank0": {n: r0[n]["run_s"] for n in r0},
+              "tolerance": {"first_loss_rel": 1e-6,
+                            "moved_rel": moved_rtol,
+                            "layout_loss_rel": 1e-6,
+                            "layout_moved_rel": 1e-3, "peak_ratio": 1.10}}
+    assert rel["first loss: pp2 vs dense"] <= 1e-6, result
+    assert vs_dense["v1"]["moved_rel"] <= moved_rtol, result
+    assert vs_dense["control"]["moved_rel"] > moved_rtol, result
+    assert bit_equal["save"], result
+    assert rel["v2 resumed vs v1 kept going"] <= 1e-6, result
+    assert vs_v1["v2_resume"]["moved_rel"] <= 1e-3, result
+    for m, m2 in peaks:
+        assert m2 <= 1.10 * m, result
+    return result
+
+
+def main_pp_nccl():
+    """``--pp-nccl``: the pipeline main path with one rank per card over
+    NCCL (needs 4 cards) at full depth: PP 4, PP 2 x DP 2 (ZeRO-2) and
+    PP 2 x TP 2 (ZeRO-1, collective matmul); each with the step, each
+    rank's busy share and the NCCL kernels' time a step; then the dense
+    DP 4 engine on PP 2 x DP 2's global batch from the same seeded
+    weights, the losses within 2e-3 relative (bf16 runs that sum in other
+    groupings)."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    count = torch.cuda.device_count()
+    assert count >= 4, "--pp-nccl needs 4 cards, found {}".format(count)
+    pc = _pipe_chip()
+    results = {}
+    for name, (stages, dp, tp, stage) in (("pp4", (4, 1, 1, 2)),
+                                          ("pp2_dp2", (2, 2, 1, 2)),
+                                          ("pp2_tp2", (2, 1, 2, 1))):
+        # PP 2 x DP 2 from the dense model's seeded weights, for the
+        # comparison with the dense DP 4 engine below
+        res = phase_train_pipe(world=4, stages=stages, dp=dp, tp=tp,
+                               stage=stage,
+                               seed=0 if name == "pp2_dp2" else None)
+        assert res["transport"] == "nccl", res["transport"]
+        res["phase"] = "pp_nccl_" + name
+        res.pop("parity_ranks")
+        results[name] = res
+        emit(res)
+    spec = {"layers": PIPE_LAYERS, "M": PIPE_M, "dp": 2, "micro": pc.MICRO,
+            "gas": PIPE_M * 2 // 4, "seed": 0, "warmup": PIPE_WARMUP,
+            "steps": PIPE_STEPS}
+    dense = spawn(pc.dense_dp_rank, 4, args=(spec,), timeout_s=900)
+    pipe = results["pp2_dp2"]["losses"]
+    losses = dense[0]["losses"]
+    rel = _rel(pipe, losses)
+    result = {"phase": "pp_nccl_vs_dp4", "pp2_dp2_losses": pipe,
+              "dp4_losses": losses, "loss_max_rel_diff": rel,
+              "tolerance": 2e-3,
+              "dp4_step_ms_same_batch": max(r["step_ms"] for r in dense),
+              "step_ms": {n: r["step_ms"] for n, r in results.items()}}
+    emit(result)
+    assert rel <= 2e-3, result
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, the path that launches it
     ("paged_attention",
@@ -5010,11 +5286,12 @@ def main():
                             "seconds": h.seconds}
                            for src, h in zip(("csrc/ds_dataio.cpp",
                                               "csrc/cpu_adam.cpp"), hosts)]})
-    if "--tp-nccl" in sys.argv[1:] or "--dp-nccl" in sys.argv[1:]:
-        if "--tp-nccl" in sys.argv[1:]:
-            main_tp_nccl()
-        if "--dp-nccl" in sys.argv[1:]:
-            main_dp_nccl()
+    modes = {"--tp-nccl": main_tp_nccl, "--dp-nccl": main_dp_nccl,
+             "--pp-nccl": main_pp_nccl}
+    if any(flag in sys.argv[1:] for flag in modes):
+        for flag, run in modes.items():
+            if flag in sys.argv[1:]:
+                run()
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -5144,6 +5421,17 @@ def main():
     emit(phase_train_offload_ckpt())
     torch.cuda.empty_cache()
 
+    # BASELINE config 5: GPT-2 as a pipeline, two stages on this card;
+    # train_pipe's ranks then make train_pipe_parity's runs
+    pipe_parity = pipe_parity_spec()
+    try:
+        train_pipe = phase_train_pipe(parity=pipe_parity)
+    finally:
+        _pipe_chip().remove(pipe_parity["dir"])
+    pipe_parity_ranks = train_pipe.pop("parity_ranks")
+    emit(train_pipe)
+    emit(phase_train_pipe_parity(pipe_parity, pipe_parity_ranks))
+
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}
     # rows at the GPT-2 train shape; the error over both modes (causal,
@@ -5176,12 +5464,18 @@ def main():
     launches.update((name, train_tp["launches"][name])
                     for name in RING_NAMES)
     # the paged kernel's launches on the other serving paths
-    extra = {"paged_attention": {"launches_by_path": {
+    # the pipeline path's launches a step, per rank (rows 2-4 and 14)
+    extra = {name: {"launches_by_path": {
+        "train": launches[name], "train_pipe_per_rank_per_step":
+            train_pipe["launches_per_rank_per_step"][name]}}
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                     "fused_adam")}
+    extra["paged_attention"] = {"launches_by_path": {
         "serve": serve["launches"]["paged_attention"],
         "serve_spec_ngram": serve_spec["ngram"]["paged_attention_launches"],
         "serve_spec_model":
         serve_spec["model_drafter"]["paged_attention_launches"],
-        "serve_tp_per_rank": [r["launches"] for r in serve_tp["ranks"]]}}}
+        "serve_tp_per_rank": [r["launches"] for r in serve_tp["ranks"]]}}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -84,21 +84,40 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     beside ``model=m``) is the ZeRO data group: each rank passes its own
     micro batch's rows to ``train_batch`` and keeps its range of the
     master, moments (stage 1) and gradient accumulator (stage 2).
+
+    Pipeline parallelism: ``model`` a :class:`deepspeed_tpu_torch.pipe.
+    PipelineModule` (``models.gpt2_pipe.make_gpt2_pipeline``), built on
+    every rank of the process group (each builds its own stage), returns a
+    :class:`deepspeed_tpu_torch.pipe.PipelineEngine` over the module's own
+    grid (``mpu`` must be None); ``train_batch(batch=(inputs, labels))``
+    takes each stacked ``(gas, micro, ...)`` on every rank.
     """
     from .runtime.engine import DeepSpeedEngine
+    from .runtime.pipe.engine import PipelineEngine
+    from .runtime.pipe.module import PipelineModule
 
     assert model is not None, "deepspeed.initialize requires a model"
     log_dist("DeepSpeedTPUTorch info: version={}".format(__version__),
              ranks=[0])
     if config is None and config_params is not None:
         config = config_params
-    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
-                             model_parameters=model_parameters,
-                             training_data=training_data,
-                             lr_scheduler=lr_scheduler, mpu=mpu,
-                             dist_init_required=dist_init_required,
-                             collate_fn=collate_fn, config_params=config,
-                             device=device, mesh=mesh)
+    if isinstance(model, PipelineModule):
+        assert mpu is None, "mpu must be None with pipeline parallelism"
+        assert mesh is None, "a PipelineModule brings its own mesh"
+        engine = PipelineEngine(args=args, model=model, optimizer=optimizer,
+                                model_parameters=model_parameters,
+                                training_data=training_data,
+                                lr_scheduler=lr_scheduler, mpu=model.mpu(),
+                                dist_init_required=dist_init_required,
+                                collate_fn=collate_fn, config_params=config,
+                                device=device)
+    else:
+        engine = DeepSpeedEngine(
+            args=args, model=model, optimizer=optimizer,
+            model_parameters=model_parameters, training_data=training_data,
+            lr_scheduler=lr_scheduler, mpu=mpu,
+            dist_init_required=dist_init_required, collate_fn=collate_fn,
+            config_params=config, device=device, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
 

@@ -611,6 +611,14 @@ def zero_ckpt_name(checkpoints_path, tag, dp_rank=0, mp_rank=0):
                                                                 mp_rank))
 
 
+def layer_ckpt_name(checkpoints_path, tag, layer_id, model_rank=0):
+    """A pipeline's per-layer file (the JAX package's name)."""
+    return os.path.join(
+        checkpoints_path, str(tag),
+        "layer_{:02d}-model_{:02d}-model_states.pt".format(layer_id,
+                                                           model_rank))
+
+
 def manifest_path(checkpoints_path, tag):
     return os.path.join(checkpoints_path, str(tag), MANIFEST_NAME)
 

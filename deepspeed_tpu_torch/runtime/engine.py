@@ -76,6 +76,13 @@ handle (``optimizer=``: the port's ``FusedAdam``, ``FusedLamb`` or
 apply step that was not skipped, ``training_data=`` through
 :meth:`deepspeed_io`, and ``model_parameters=`` as initial weights.
 
+Pipeline parallelism (``runtime/pipe/engine.py``) subclasses this
+engine: its stage's parameters fill the flat buffers, and the apply step
+and the checkpoints call the hooks it overrides (``_reduce_tied_grads``
+before the data reduction, ``_grad_squares``, the pipe group in the
+flag's and the norm's reduction, ``_save_extra_files``,
+``_adapt_state_dict``); here they do nothing.
+
 Checkpoints (:meth:`save_checkpoint`, :meth:`load_checkpoint`) are the
 JAX engine's tags (``runtime/checkpointing.py``): a tag either package
 writes loads in the other, at any data- and tensor-parallel layout. The
@@ -223,6 +230,8 @@ class DeepSpeedEngine:
         self.dp_rank = dist.get_rank(self._dp_group) \
             if self._dp_group is not None else 0
         self._tp_group = None
+        # the pipeline engine's stage group (runtime/pipe/engine.py)
+        self._pipe_group = None
         if self.mp_world_size > 1:
             self._tp_group = tp_group if tp_group is not None \
                 else mesh.get_group(MODEL_AXIS)
@@ -720,6 +729,8 @@ class DeepSpeedEngine:
         flat = self.flat
         tp = self._tp_group if self._cm_tp else None
         dp = self._dp_group
+        pipe = self._pipe_group
+        self._reduce_tied_grads()
         if dp is not None and not flat.grads_sharded:
             with record_function("zero.all_reduce"):
                 all_reduce_(flat.acc, dp)
@@ -736,17 +747,19 @@ class DeepSpeedEngine:
         if inv != 1.0:
             grads.mul_(inv)
         total_norm = None
-        if flat.sharded or tp is not None:
+        if flat.sharded or tp is not None or pipe is not None:
             # the flag and the squares in one collective a group: each
             # owned range's squares once over the data group, each TP
-            # shard's once per model rank, each replicated element once
+            # shard's once per model rank, each replicated element once,
+            # each pipeline stage's once
             stats = torch.stack([overflow.float(),
-                                 grads[rep_end:].pow(2).sum(),
-                                 grads[:rep_end].pow(2).sum()])
+                                 *self._grad_squares(grads, rep_end)])
             if flat.sharded:
                 all_reduce_(stats, dp)
             if tp is not None:
                 all_reduce_(stats[:2], tp)
+            if pipe is not None:
+                all_reduce_(stats, pipe)
             overflow = stats[0] > 0
             total_norm = (stats[1] + stats[2]).sqrt()
         overflow = bool(overflow)
@@ -783,6 +796,16 @@ class DeepSpeedEngine:
                    "loss_scale": scale}
         self.scaler = ls.update_scale(self.scaler, overflow)
         return metrics
+
+    def _reduce_tied_grads(self):
+        """Before the data-parallel reduction: the tied parameters'
+        gradients summed over the stages that hold them (the pipeline
+        engine's; nothing here)."""
+
+    def _grad_squares(self, grads, rep_end):
+        """The squares of the owned gradients this rank counts in the
+        global norm: ``(past the replicated slice, in it)``."""
+        return grads[rep_end:].pow(2).sum(), grads[:rep_end].pow(2).sum()
 
     def _take_model_step(self, lr_kwargs=None):
         metrics = self._apply_step()
@@ -1169,6 +1192,7 @@ class DeepSpeedEngine:
             note(ckpt.save_state_dict(
                 ckpt.zero_ckpt_name(save_dir, tag, dp_rank=self.global_rank),
                 self._zero_shard_payload(), async_save=async_save))
+        self._save_extra_files(save_dir, tag, note, async_save)
         # every rank's files land before the manifest and `latest` move
         self._barrier()
         if self.global_rank == 0:
@@ -1178,6 +1202,15 @@ class DeepSpeedEngine:
         # no rank goes on (and perhaps loads) before the tag is whole
         self._barrier()
         return True
+
+    def _save_extra_files(self, save_dir, tag, note, async_save):
+        """More files of the tag, written before the manifest (the
+        pipeline engine's per-layer files; none here)."""
+
+    def _adapt_state_dict(self, sd):
+        """A loaded model file's state, adapted to this engine (the
+        pipeline engine reads its stage layout; as it is here)."""
+        return sd
 
     def _finalize_ckpt_tag(self, save_dir, tag, records, futures,
                            save_latest, async_save):
@@ -1350,7 +1383,7 @@ class DeepSpeedEngine:
         if not os.path.isfile(path):
             raise ckpt.CheckpointCorruptionError(
                 "model states file {} does not exist".format(path))
-        sd = ckpt.load_state_dict(path)
+        sd = self._adapt_state_dict(ckpt.load_state_dict(path))
         conv = self._tree_converters()
         master, opt = None, None
         if sd.get("master") is not None:

@@ -12,6 +12,9 @@ process is one rank of a ``torch.distributed`` group:
   that is the shared-card transport, not a fallback. An NCCL failure
   raises; nothing retries on gloo.
 
+:func:`post_p2p` / :func:`wait_p2p` (and :func:`send` / :func:`recv`)
+move one tensor to or from a rank, for the pipeline's stage hops.
+
 :func:`spawn` starts ``world_size`` ranks on this host, each with its
 group initialised, and joins them under a deadline: a rank that raises
 or a ring that hangs fails the call within the deadline, and every child
@@ -157,6 +160,53 @@ def reduce_scatter(tensor, group, dim=0):
         dist.reduce_scatter(out, [c.contiguous()
                                   for c in tensor.chunk(n, dim)], group=group)
     return out
+
+
+# ------------------------------------------------------- point-to-point
+
+
+def post_p2p(sends, recvs, group):
+    """Post the sends ``[(tensor, global dst[, tag])]`` and receives
+    ``[(tensor, global src[, tag])]`` of one process ``group`` as one
+    matched batch
+    (``batch_isend_irecv``: a rank that sends and receives in the same
+    batch cannot deadlock on its peer's order). Over NCCL the tensors stay
+    on the card; over gloo a CUDA tensor crosses through pinned host
+    memory. Returns a handle for :func:`wait_p2p`."""
+    ops, back = [], []
+    for tensor, dst, *tag in sends:
+        src = host_copy(tensor) if host_staged(group, tensor) \
+            else tensor.contiguous()
+        ops.append(dist.P2POp(dist.isend, src, dst, group, *tag))
+    for tensor, src, *tag in recvs:
+        buf = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True) \
+            if host_staged(group, tensor) else tensor
+        ops.append(dist.P2POp(dist.irecv, buf, src, group, *tag))
+        back.append((tensor, buf))
+    return (dist.batch_isend_irecv(ops) if ops else [], back)
+
+
+def wait_p2p(handles):
+    """Wait for every batch :func:`post_p2p` posted; a host-staged receive
+    is copied to its CUDA tensor."""
+    for works, back in handles:
+        for work in works:
+            work.wait()
+        for tensor, buf in back:
+            if buf is not tensor:
+                tensor.copy_(buf)
+
+
+def send(tensor, dst, group=None):
+    """Send ``tensor`` to global rank ``dst`` (its receive is
+    :func:`recv`); blocks until the transfer is posted and done."""
+    wait_p2p([post_p2p([(tensor, dst)], [], group)])
+
+
+def recv(tensor, src, group=None):
+    """Receive into ``tensor`` from global rank ``src``."""
+    wait_p2p([post_p2p([], [(tensor, src)], group)])
+    return tensor
 
 
 # ------------------------------------------------------------ spawning

@@ -8,7 +8,8 @@ PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
 ``train_dp_parity``, ``train_dp_tp_parity``, ``train``, ``kernel``,
 ``serve_spec``, ``serve_tp``, ``train_example_data``, ``cpu_adam``,
 ``train_xl_offload``, ``train_offload_parity``, ``train_dp3``,
-``train_offload_ckpt``; on four cards ``dp_nccl_zero3``), optionally with
+``train_offload_ckpt``, ``train_pipe``, ``train_pipe_parity``; on four
+cards ``dp_nccl_zero3``), optionally with
 integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
 JSON line. Not a test and on no path of the package.
 """
@@ -27,6 +28,12 @@ def main():
     from deepspeed_tpu_torch.ops import cuda_build
     if not torch.cuda.is_available():
         sys.exit("dp_probe: no CUDA device is available")
+    import subprocess
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cs.emit({"phase": "device", "nvidia_smi": smi})
     sources = sorted({src for _, src, _, _ in cs.KERNELS})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
