@@ -210,6 +210,28 @@ with no ``ok`` line):
    ``save_stage_residuals`` against the default; a tag saved at PP 2
    (v = 1) after one step resumed at v = 2 against the run that kept
    going; each rank's peak at M = 4 and M = 8 within 10%;
+31. train_onebit — compressed communication, OneBitAdam: two spawned
+   ranks sharing this card over gloo, ``initialize(mesh=build_mesh(
+   data=2), ...)`` on gpt2_medium at full width with 6 of its 24 layers
+   (``ONE_CARD_LAYERS``: the depth is cut, not the steps, to keep the
+   script inside its limit), seq 1024, micro 8 a rank, bf16, ZeRO stage
+   0, the 1-bit Adam tutorial's optimizer block (betas (0.9, 0.999),
+   weight decay 0.01, lr 4e-4) with ``freeze_step`` 2: 2 warmup and 3
+   frozen steps. The warmup losses and masters against stage 0 Adam in
+   plain math from the same init; the second frozen step's exchange
+   recomputed by the port's code on CPU tensors from the same per-rank
+   inputs (scales within 1e-5, no sign flip away from 0); the error
+   state non-zero after the frozen steps and zero after a forced
+   overflow (the step skipped, the master unchanged); the bytes handed to
+   all_to_all and all_gather a frozen step equal to
+   ``onebit_exchange_bytes``; the loss finite, falling over the warmup;
+32. train_qc — the same ranks and model on the GPT-2 example's config
+   (ZeRO-2, Adam, clipping 1.0) with ``comm.quantized_collectives`` flat,
+   3 steps, against the same config with the fp32 exchange (losses
+   within 1e-3); Adam's kernel once a step a rank; the bytes a step equal
+   to ``quantized_allreduce_bytes``; then rank 0 times the codec
+   (quantize, dequantize, sign pack and unpack) over 354,871,296 lanes,
+   gpt2_medium's exchange buffer. Both phases share one spawn;
 
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
@@ -227,7 +249,14 @@ DP 2 x TP 2 (``dp_nccl_ckpt``), then ``dp_nccl_zero3``: gpt2_xl at
 full depth, DP 4, stage 2, stage 3 and stage 3 with ``cpu_offload`` from
 one init (step ms, each rank's peak and parameter bytes, the all-gather
 and reduce-scatter kernel ms a step), stage 3 held to stage 2 and the
-offload run to stage 3 (losses, the whole masters).
+offload run to stage 3 (losses, the whole masters); ``--comm-nccl``
+(four cards) trains gpt2_medium at full depth at DP 4, one rank per
+card: the example's config with the fp32 exchange (the reference run),
+with ``quantized_collectives`` flat and with ``hierarchical: 2``, and
+OneBitAdam (train_onebit's block at stage 0, ``freeze_step`` 3, 3
+frozen steps), each with its step ms, the NCCL kernels' ms a step, the
+bytes a step by formula and by count and its losses against the
+reference run's.
 Weights are random, from a seed; nothing is downloaded. Exits non-zero
 without a result when CUDA is unavailable.
 """
@@ -5183,6 +5212,474 @@ def main_pp_nccl():
     assert rel <= 2e-3, result
 
 
+# --------------------------------------------------- compressed communication
+
+
+# the 1-bit Adam tutorial's optimizer block (docs/_tutorials/onebit-adam.md),
+# freeze_step 2; ZeRO stage 0 (the JAX engine refuses weight decay above it)
+ONEBIT_PARAMS = {"lr": 4e-4, "betas": [0.9, 0.999], "weight_decay": 0.01,
+                 "freeze_step": 2}
+ONEBIT_FROZEN, QC_STEPS = 3, 3
+# lanes of gpt2_medium's fused exchange buffer: its 354,871,296 parameters
+# (vocabulary 50304, 24 layers, d 1024, 1024 positions), no padding
+GPT2_MEDIUM_NUMEL = 354_871_296
+COMM_SPANS = ("comm.quantized_exchange", "onebit.exchange",
+              "onebit.warmup_average", "zero.all_reduce", "zero.all_gather",
+              "zero.reduce_scatter")
+NCCL_GROUPS = ("AllReduce", "AllGather", "ReduceScatter", "SendRecv",
+               "nccl")
+# the card's exchange against the port's code on CPU tensors: scales (the
+# norm sums in another order) within SCALE_RTOL; a lane re-signed by the
+# server phase may differ where |chunk mean + server error| is within
+# SIGN_RTOL of the server scale
+EXCHANGE_SCALE_RTOL, EXCHANGE_SIGN_RTOL = 1e-5, 1e-4
+WARMUP_LOSS_RTOL, WARMUP_MOVED_RTOL = 5e-4, 1e-3
+QC_LOSS_RTOL = 1e-3
+
+
+def _onebit_conf(micro, freeze=None, stage=0):
+    return {"train_micro_batch_size_per_gpu": micro,
+            "steps_per_print": 10 ** 9,
+            "optimizer": {"type": "OneBitAdam", "params": dict(
+                ONEBIT_PARAMS, **({} if freeze is None else
+                                  {"freeze_step": freeze}))},
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": stage},
+            "transformer": {"flash_attention": "auto"}}
+
+
+def _plain_adam_conf(micro):
+    """Stage 0 Adam in plain math with OneBitAdam's hyperparameters: L2
+    weight decay (adam_w_mode off), the plain version of the update."""
+    conf = _onebit_conf(micro)
+    params = dict(ONEBIT_PARAMS, adam_w_mode=False, fused_kernel="xla")
+    params.pop("freeze_step")
+    conf["optimizer"] = {"type": "Adam", "params": params}
+    return conf
+
+
+def _qc_conf(micro, hierarchical=None):
+    conf = _example_conf(micro)
+    if hierarchical is not None:
+        conf["comm"] = {"quantized_collectives": {
+            "enabled": True, "hierarchical": hierarchical}}
+    return conf
+
+
+def _capture_exchange(opt, store):
+    """Wrap ``opt.exchange`` to keep the inputs and outputs of its next call
+    on the host (the card's exchange, for the CPU recompute)."""
+    real = opt.exchange
+
+    def exchange(g_fused, wd_fused=None):
+        cpu = lambda t: None if t is None else t.detach().cpu().clone()
+        store["in"] = {"g": cpu(g_fused), "wd": cpu(wd_fused),
+                       "m": cpu(opt.exp_avg), "we": cpu(opt.worker_error),
+                       "se": cpu(opt.server_error)}
+        real(g_fused, wd_fused)
+        store["out"] = {"m": cpu(opt.exp_avg), "we": cpu(opt.worker_error),
+                        "se": cpu(opt.server_error)}
+        opt.exchange = real
+
+    opt.exchange = exchange
+
+
+def _exchange_on_cpu(opt, captured, group):
+    """The captured frozen step's exchange again, by the port's code on CPU
+    tensors over the same gloo group; its comparison with the card's
+    result."""
+    import torch
+    from deepspeed_tpu_torch.runtime.comm.onebit import (
+        onebit_all_gather_local, onebit_reduce_scatter_local)
+    inp, out = captured["in"], captured["out"]
+    layout = opt.layout
+    beta1 = np.float32(opt.betas[0])
+    g = inp["g"] if inp["wd"] is None else inp["g"] + inp["wd"]
+    m_w = float(beta1) * inp["m"] + float(np.float32(1.0) - beta1) * g
+    mean, cmask, ccount, we = onebit_reduce_scatter_local(
+        m_w, inp["we"], group, real_size=layout.numel)
+    full, se = onebit_all_gather_local(mean, inp["se"], group, cmask,
+                                       ccount)
+    full = full * (torch.arange(layout.padded) < layout.numel).float()
+    rank = opt.rank
+    chunk = layout.padded // opt.world_size
+    own = slice(rank * chunk, (rank + 1) * chunk)
+    server_in = (mean + inp["se"]).abs()
+    # every chunk's server scale: |m| of its lanes
+    scales = full.abs().reshape(opt.world_size, chunk).amax(dim=1)
+    my_scale = float(scales[rank])
+    near = server_in <= EXCHANGE_SIGN_RTOL * max(my_scale, 1e-30)
+    card_m, card_we, card_se = out["m"], out["we"], out["se"]
+    worker_scale = float((inp["we"] + m_w).abs().max())
+    we_err = float((card_we - we).abs().max())
+    se_err = (card_se - se).abs()
+    m_diff = (card_m - full).abs().reshape(opt.world_size, chunk)
+    flips = (card_m >= 0) != (full >= 0)
+    card_scales = card_m.abs().reshape(opt.world_size, chunk).amax(dim=1)
+    res = {"lanes": layout.numel, "padded": layout.padded,
+           "server_scales_card": card_scales.tolist(),
+           "server_scales_cpu": scales.tolist(),
+           "scale_max_rel_err": float(((card_scales - scales).abs() /
+                                       scales.clamp(min=1e-30)).max()),
+           "worker_error_max_abs_err": we_err,
+           "worker_error_tol": EXCHANGE_SCALE_RTOL * worker_scale,
+           "sign_flips": int(flips.sum()),
+           "sign_flips_in_my_chunk_away_from_0": int(
+               (flips[own] & ~near).sum()),
+           "lanes_near_0_in_my_chunk": int(near.sum()),
+           "server_error_max_abs_err_away_from_0": float(
+               se_err[~near].max()) if bool((~near).any()) else 0.0,
+           "momentum_max_abs_err_unflipped": float(
+               m_diff.reshape(-1)[~flips].max())}
+    res["ok"] = (res["scale_max_rel_err"] <= EXCHANGE_SCALE_RTOL and
+                 we_err <= res["worker_error_tol"] and
+                 res["sign_flips_in_my_chunk_away_from_0"] == 0 and
+                 res["server_error_max_abs_err_away_from_0"] <=
+                 EXCHANGE_SCALE_RTOL * my_scale and
+                 res["momentum_max_abs_err_unflipped"] <=
+                 EXCHANGE_SCALE_RTOL * float(scales.max()))
+    return res
+
+
+def _comm_engine(conf, layers, data, seed=0):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT, n_layers=layers)
+    model = seeded_gpt2(cfg, seed)
+    return deepspeed_tpu_torch.initialize(
+        model=model, mesh=build_mesh(data=data), config_params=conf)[0]
+
+
+def _comm_batch(engine, data, seed=0):
+    micro = engine.train_micro_batch_size_per_gpu()
+    ids = np.random.RandomState(seed).randint(
+        0, 50304, size=(1, micro * data, TRAIN_SEQ)).astype(np.int64)
+    return dp_rows((ids, ids.copy()), engine.dp_rank, micro)
+
+
+def _timed_steps(engine, batch, steps):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t0) * 1e3 / \
+        steps
+
+
+def _codec_ms(numel):
+    """The codec on the card over ``numel`` fp32 lanes (one buffer of the
+    gpt2_medium exchange's size): quantize, dequantize (256-lane blocks),
+    sign pack and unpack; CUDA events, median of 10, L2 flushed; beside
+    each, the bound of its bytes (each input read once, each output
+    written once) at the card's memory rate."""
+    import torch
+    from deepspeed_tpu_torch.runtime.comm.quantize import (
+        dequantize_blockwise, pack_signs, quantize_blockwise, unpack_signs)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(numel, generator=gen, device="cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    q, s = quantize_blockwise(x)
+    packed = pack_signs(x)
+    scale = torch.tensor(0.5, device="cuda")
+    nb = numel // 256
+    cases = {
+        "quantize": (lambda: quantize_blockwise(x), numel * 4 + numel +
+                     nb * 4),
+        "dequantize": (lambda: dequantize_blockwise(q, s, numel),
+                       numel + nb * 4 + numel * 4),
+        "pack_signs": (lambda: pack_signs(x), numel * 4 + numel // 8),
+        "unpack_signs": (lambda: unpack_signs(packed, scale),
+                         numel // 8 + numel * 4)}
+    out = {}
+    for name, (fn, nbytes) in cases.items():
+        ms = time_ms(fn, flush, reps=10)
+        out[name] = {"ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bytes": nbytes}
+    del x, q, s, packed, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def comm_rank(rank, world, spec):
+    """The compressed-communication runs of one rank, each on this data
+    coordinate's rows of one global batch at gpt2_medium width and
+    ``spec["layers"]`` deep: per run of ``spec["runs"]`` (name, kind,
+    warmup, steps) the losses, the step ms, the launches a step, the bytes
+    handed to torch.distributed a step; a profile step; for OneBitAdam the
+    captured exchange recomputed on the CPU, the error state after a
+    frozen step and after a forced overflow; with ``spec["codec"]``, rank
+    0 times the codec at the exchange's full size."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.runtime.comm import WIRE
+    data = spec["data"]
+    counters = _dp_counters()[:4]
+    out = {"rank": rank, "transport": dist.get_backend(), "runs": {}}
+    # the CPU recompute of the exchange crosses a gloo group
+    cpu_group = dist.new_group(list(range(world)), backend="gloo")
+    for name, kind, warmup, steps in spec["runs"]:
+        micro = DP_MICRO
+        conf = {"onebit": lambda: _onebit_conf(micro, spec.get("freeze")),
+                "plain_adam": lambda: _plain_adam_conf(micro),
+                "baseline": lambda: _qc_conf(micro),
+                "qc": lambda: _qc_conf(micro, 0),
+                "qc_hier": lambda: _qc_conf(micro, 2)}[kind]()
+        t0 = time.perf_counter()
+        engine = _comm_engine(conf, spec["layers"], data)
+        init_s = time.perf_counter() - t0
+        assert engine.device.type == "cuda"
+        assert engine.flash_attention_backend == "pallas"
+        batch = _comm_batch(engine, data)
+        run = {"init_s": init_s, "mode": engine._local_grad_mode()}
+        captured = {}
+        for c in counters:
+            c.launches = 0
+        if kind == "onebit":
+            run["numel"] = engine.optimizer.layout.numel
+            losses, _ = _timed_steps(engine, batch, warmup)
+            warm_master = engine.flat.master.detach().clone()
+            # the second frozen step's exchange (non-zero errors), then the
+            # bytes of the third
+            losses += _timed_steps(engine, batch, 1)[0]
+            _capture_exchange(engine.optimizer, captured)
+            more, step_ms = _timed_steps(engine, batch, 1)
+            WIRE.reset()
+            last, step_ms2 = _timed_steps(engine, batch, 1)
+            run["wire_bytes_per_step"] = WIRE.bytes
+            run["wire_calls_per_step"] = WIRE.calls
+            losses += more + last
+            # the captured step also copies its inputs to the host
+            run["frozen_step_ms"] = step_ms2
+            run["captured_frozen_step_ms"] = step_ms
+            run["warm_master"] = warm_master
+            opt = engine.optimizer
+            run["errors_after_frozen"] = [float(opt.worker_error.abs().sum()),
+                                          float(opt.server_error.abs().sum())]
+            run["launches_per_step"] = {c.__name__: c.launches /
+                                        (warmup + steps) for c in counters}
+            run["exchange_vs_cpu"] = _exchange_on_cpu(opt, captured,
+                                                      cpu_group)
+            # a forced overflow: the step is skipped and the errors zeroed
+            master = engine.flat.master.detach().clone()
+            skipped = engine.skipped_steps
+            xs = tuple(torch.as_tensor(x[0]) for x in batch)
+            loss = engine(*xs)
+            engine.backward(loss)
+            engine.flat.acc.fill_(float("inf"))
+            engine.step()
+            run["overflow"] = {
+                "skipped": engine.skipped_steps - skipped,
+                "master_unchanged": bool(torch.equal(master,
+                                                     engine.flat.master)),
+                "errors": [float(opt.worker_error.abs().sum()),
+                           float(opt.server_error.abs().sum())]}
+            run["frozen_at_end"] = engine._onebit_frozen()
+            del master
+        else:
+            losses = _timed_steps(engine, batch, warmup)[0] if warmup \
+                else []
+            if kind == "plain_adam":
+                run["warm_master"] = engine.flat.master.detach().clone()
+            WIRE.reset()
+            for c in counters:
+                c.launches = 0
+            more, step_ms = _timed_steps(engine, batch, steps)
+            losses += more
+            run["step_ms"] = step_ms
+            run["wire_bytes_per_step"] = WIRE.bytes / steps
+            run["launches_per_step"] = {c.__name__: c.launches / steps
+                                        for c in counters}
+            if kind.startswith("qc"):
+                run["numel"] = engine._qc_layout.numel
+        run["losses"] = losses
+        if spec.get("profile") and kind != "plain_adam":
+            prof = train_profile(engine, batch, steps=1,
+                                 span_names=COMM_SPANS,
+                                 kernel_groups=NCCL_GROUPS)
+            run["host_ms_per_step_in_spans"] = prof.get(
+                "host_ms_per_step_in_spans")
+            run["collective_kernel_ms_per_step"] = prof.get(
+                "kernel_ms_per_step_by_group")
+            run["device_busy_share"] = prof["device_busy_share"]
+            run["profile_wall_s_per_step"] = prof["wall_s_per_step"]
+        run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["runs"][name] = run
+        del engine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # OneBitAdam's warmup against stage 0 Adam in plain math
+    runs = out["runs"]
+    if "onebit" in runs and "plain_adam" in runs:
+        a = runs["onebit"].pop("warm_master")
+        b = runs["plain_adam"].pop("warm_master")
+        out["warm_master_max_abs_diff"] = float((a - b).abs().max())
+    for run in runs.values():
+        run.pop("warm_master", None)
+    dist.barrier()
+    if spec.get("codec") and rank == 0:
+        out["codec"] = _codec_ms(spec["codec"])
+    dist.barrier()
+    return out
+
+
+def _comm_checks(ranks, layers, data, frozen_steps):
+    """Shared assertions and summaries of a comm_rank result set."""
+    from deepspeed_tpu_torch.runtime.comm.wire import (
+        onebit_exchange_bytes, quantized_allreduce_bytes)
+    r0 = ranks[0]["runs"]
+    summary = {}
+    for name, run in r0.items():
+        losses = run["losses"]
+        assert all(np.isfinite(losses)), (name, losses)
+        for r in ranks[1:]:
+            assert r["runs"][name]["losses"] == losses, name
+        lp = run["launches_per_step"]
+        for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            assert lp[k] == layers, (name, lp)
+        row = {"losses": losses, "mode": run["mode"],
+               "launches_per_step": lp, "init_s": run["init_s"],
+               "peak_memory_gb": max(r["runs"][name]["peak_memory_gb"]
+                                     for r in ranks)}
+        for key in ("step_ms", "frozen_step_ms", "captured_frozen_step_ms",
+                    "host_ms_per_step_in_spans",
+                    "collective_kernel_ms_per_step", "device_busy_share",
+                    "profile_wall_s_per_step"):
+            if key in run:
+                row[key] = run[key]
+        for key in ("step_ms", "frozen_step_ms"):
+            if key in run:
+                row[key] = max(r["runs"][name][key] for r in ranks)
+        if name.startswith("qc"):
+            levels = (2, data // 2) if name == "qc_hier" else None
+            formula = quantized_allreduce_bytes(run["numel"], data,
+                                                levels=levels)
+            row["wire_bytes_per_step"] = {"count": run["wire_bytes_per_step"],
+                                          "formula": formula}
+            assert all(r["runs"][name]["wire_bytes_per_step"] == formula
+                       for r in ranks), (name, formula)
+            assert lp["fused_adam"] == 1, lp
+        if name == "onebit":
+            formula = onebit_exchange_bytes(run["numel"], data)
+            row["wire_bytes_per_step"] = {"count": run["wire_bytes_per_step"],
+                                          "formula": formula,
+                                          "calls": run["wire_calls_per_step"]}
+            assert all(r["runs"][name]["wire_bytes_per_step"] == formula
+                       for r in ranks), (name, formula)
+            assert lp["fused_adam"] == 0, lp
+            for r in ranks:
+                rr = r["runs"][name]
+                assert rr["exchange_vs_cpu"]["ok"], rr["exchange_vs_cpu"]
+                assert min(rr["errors_after_frozen"]) > 0, rr
+                assert rr["overflow"]["skipped"] == 1, rr["overflow"]
+                assert rr["overflow"]["master_unchanged"], rr["overflow"]
+                assert rr["overflow"]["errors"] == [0.0, 0.0], rr["overflow"]
+            row["exchange_vs_cpu_by_rank"] = [r["runs"][name][
+                "exchange_vs_cpu"] for r in ranks]
+            row["errors_after_frozen_by_rank"] = [
+                r["runs"][name]["errors_after_frozen"] for r in ranks]
+            row["overflow_by_rank"] = [r["runs"][name]["overflow"]
+                                       for r in ranks]
+        summary[name] = row
+    return summary
+
+
+def phase_train_comm(world=DP, layers=ONE_CARD_LAYERS, freeze=2,
+                     frozen=ONEBIT_FROZEN, qc_steps=QC_STEPS):
+    """``train_onebit`` and ``train_qc``: two spawned ranks sharing this
+    card over gloo (every collective through host memory: the times only
+    show that the paths run), gpt2_medium width, ``layers`` deep, micro 8
+    a rank, seq 1024, one global batch; one spawn for both. Returns their
+    two lines."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    t0 = time.perf_counter()
+    spec = {"layers": layers, "data": world, "freeze": freeze,
+            "profile": False, "codec": GPT2_MEDIUM_NUMEL,
+            "runs": [("onebit", "onebit", freeze, frozen),
+                     ("plain_adam", "plain_adam", freeze, 1),
+                     ("qc", "qc", 0, qc_steps),
+                     ("baseline", "baseline", 0, qc_steps)]}
+    ranks = spawn(comm_rank, world, args=(spec,), timeout_s=600)
+    wall = time.perf_counter() - t0
+    summary = _comm_checks(ranks, layers, world, frozen)
+    ob, plain = summary["onebit"], ranks[0]["runs"]["plain_adam"]
+    # the warmup steps: the losses before the frozen regime, and the
+    # masters after the warmup, against stage 0 Adam in plain math
+    warm = [_rel([a], [b]) for a, b in zip(ob["losses"][:freeze + 1],
+                                           plain["losses"][:freeze + 1])]
+    moved = ranks[0]["warm_master_max_abs_diff"]
+    assert max(warm) <= WARMUP_LOSS_RTOL, (warm, ob["losses"],
+                                           plain["losses"])
+    # the loss falls over the warmup; in the frozen regime at freeze_step
+    # 2 the variance of two steps is tiny on many lanes, the update lr * m
+    # / sqrt(v) large there, and the loss rises in the JAX package too
+    # (PERF.md): that regime is held to the JAX package's exchange and to
+    # finite losses
+    assert ob["losses"][freeze] < ob["losses"][0], ob["losses"]
+    onebit = {"phase": "train_onebit", "model": "gpt2_medium",
+              "layers": layers, "seq": TRAIN_SEQ,
+              "micro_batch_per_rank": DP_MICRO, "data": world,
+              "transport": ranks[0]["transport"], "zero_stage": 0,
+              "optimizer": dict(ONEBIT_PARAMS, freeze_step=freeze),
+              "warmup_steps": freeze, "frozen_steps": frozen,
+              "warmup_loss_rel_diff_vs_plain_adam": warm,
+              "warmup_loss_tol": WARMUP_LOSS_RTOL,
+              "warm_master_max_abs_diff_vs_plain_adam": moved,
+              "seconds_both_phases": wall, **ob,
+              "step_ms_note": "ranks share one card over gloo: the times "
+                              "only show that the path runs"}
+    qc, base = summary["qc"], summary["baseline"]
+    rel = _rel(qc["losses"], base["losses"])
+    assert rel <= QC_LOSS_RTOL, (qc["losses"], base["losses"])
+    codec = ranks[0]["codec"]
+    train_qc = {"phase": "train_qc", "config": EXAMPLE_CONFIG,
+                "comm": {"quantized_collectives": {"enabled": True}},
+                "model": "gpt2_medium", "layers": layers, "seq": TRAIN_SEQ,
+                "micro_batch_per_rank": DP_MICRO, "data": world,
+                "zero_stage": 2, "transport": ranks[0]["transport"],
+                "loss_max_rel_diff_vs_fp32_exchange": rel,
+                "loss_tol": QC_LOSS_RTOL, "fp32_exchange": base, **qc,
+                "codec_ms_at_numel": {"numel": GPT2_MEDIUM_NUMEL, **codec},
+                "step_ms_note": "ranks share one card over gloo: the times "
+                                "only show that the path runs"}
+    return onebit, train_qc
+
+
+def main_comm_nccl():
+    """``--comm-nccl``: DP 4 over NCCL, one rank a card (needs 4 cards),
+    gpt2_medium at full depth, micro 8 a rank: the example's config with
+    the fp32 exchange (the reference run), with ``quantized_collectives``
+    flat and with ``hierarchical: 2``, and OneBitAdam (``train_onebit``'s
+    block at stage 0, ``freeze_step`` 3, 3 frozen steps); each the step
+    ms, the NCCL kernels' ms a step, the bytes a step by formula and by
+    count, and its losses against the reference run's."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    count = torch.cuda.device_count()
+    assert count >= 4, "--comm-nccl needs 4 cards, found {}".format(count)
+    spec = {"layers": 24, "data": 4, "freeze": 3, "profile": True,
+            "runs": [("baseline", "baseline", 2, QC_STEPS),
+                     ("qc", "qc", 2, QC_STEPS),
+                     ("qc_hier", "qc_hier", 2, QC_STEPS),
+                     ("onebit", "onebit", 3, ONEBIT_FROZEN)]}
+    t0 = time.perf_counter()
+    ranks = spawn(comm_rank, 4, args=(spec,), timeout_s=1500)
+    summary = _comm_checks(ranks, 24, 4, ONEBIT_FROZEN)
+    assert ranks[0]["transport"] == "nccl", ranks[0]["transport"]
+    base = summary["baseline"]["losses"]
+    for name, row in summary.items():
+        row["loss_rel_diff_vs_reference"] = [
+            _rel([a], [b]) for a, b in zip(row["losses"], base)]
+    emit({"phase": "comm_nccl", "model": "gpt2_medium", "layers": 24,
+          "seq": TRAIN_SEQ, "micro_batch_per_rank": DP_MICRO, "data": 4,
+          "transport": "nccl", "config": EXAMPLE_CONFIG,
+          "onebit_optimizer": dict(ONEBIT_PARAMS, freeze_step=3),
+          "seconds": time.perf_counter() - t0, "runs": summary})
+
+
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, the path that launches it
     ("paged_attention",
@@ -5287,7 +5784,7 @@ def main():
                            for src, h in zip(("csrc/ds_dataio.cpp",
                                               "csrc/cpu_adam.cpp"), hosts)]})
     modes = {"--tp-nccl": main_tp_nccl, "--dp-nccl": main_dp_nccl,
-             "--pp-nccl": main_pp_nccl}
+             "--pp-nccl": main_pp_nccl, "--comm-nccl": main_comm_nccl}
     if any(flag in sys.argv[1:] for flag in modes):
         for flag, run in modes.items():
             if flag in sys.argv[1:]:
@@ -5432,6 +5929,12 @@ def main():
     emit(train_pipe)
     emit(phase_train_pipe_parity(pipe_parity, pipe_parity_ranks))
 
+    # compressed communication: OneBitAdam and the int8 gradient exchange,
+    # two ranks on this card, one spawn
+    train_onebit, train_qc = phase_train_comm()
+    emit(train_onebit)
+    emit(train_qc)
+
     measured = {"paged_attention": dict(
         kernel, max_abs_err=kernel["max_abs_err"])}
     # rows at the GPT-2 train shape; the error over both modes (causal,
@@ -5467,7 +5970,10 @@ def main():
     # the pipeline path's launches a step, per rank (rows 2-4 and 14)
     extra = {name: {"launches_by_path": {
         "train": launches[name], "train_pipe_per_rank_per_step":
-            train_pipe["launches_per_rank_per_step"][name]}}
+            train_pipe["launches_per_rank_per_step"][name],
+        "train_onebit_per_rank_per_step":
+            train_onebit["launches_per_step"][name],
+        "train_qc_per_rank_per_step": train_qc["launches_per_step"][name]}}
         for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                      "fused_adam")}
     extra["paged_attention"] = {"launches_by_path": {

@@ -64,17 +64,43 @@ def params_to_jax(state_dict, keep_dtype=False):
     return tree
 
 
+def _fused(tree):
+    """Whether ``tree`` is a fused flat buffer subtree ``{"_flat": array}``
+    (OneBitAdam's ``exp_avg``, ``worker_error``, ``server_error``)."""
+    return isinstance(tree, dict) and set(tree) == {"_flat"}
+
+
 def optimizer_state_from_jax(state, from_jax=params_from_jax):
     """A JAX optimizer state ``{"step", "exp_avg": tree, "exp_avg_sq":
     tree}`` (Adam's or LAMB's) -> ``{"step": int, "exp_avg": state_dict,
-    "exp_avg_sq": state_dict}``, each tree through ``from_jax``."""
-    return {"step": int(np.asarray(state["step"])),
-            "exp_avg": from_jax(state["exp_avg"]),
-            "exp_avg_sq": from_jax(state["exp_avg_sq"])}
+    "exp_avg_sq": state_dict}``, each tree through ``from_jax``. OneBitAdam's
+    fused subtrees ``{"_flat": array}`` (the momentum, and the error rows
+    ``(world, ...)``) pass through as ``{"_flat": fp32 CPU tensor}``."""
+    out = {"step": int(np.asarray(state["step"]))}
+    for key, tree in state.items():
+        if key == "step":
+            continue
+        if _fused(tree):
+            flat = tree["_flat"]
+            out[key] = {"_flat": flat.detach().cpu().float()
+                        if isinstance(flat, torch.Tensor) else
+                        torch.from_numpy(np.array(flat, np.float32))}
+        else:
+            out[key] = from_jax(tree)
+    return out
 
 
 def optimizer_state_to_jax(state, to_jax=params_to_jax):
     """The inverse of :func:`optimizer_state_from_jax`."""
-    return {"step": np.int32(state["step"]),
-            "exp_avg": to_jax(state["exp_avg"]),
-            "exp_avg_sq": to_jax(state["exp_avg_sq"])}
+    out = {"step": np.int32(state["step"])}
+    for key, tree in state.items():
+        if key == "step":
+            continue
+        if _fused(tree):
+            flat = tree["_flat"]
+            out[key] = {"_flat": flat.detach().cpu().float().numpy()
+                        if isinstance(flat, torch.Tensor) else
+                        np.asarray(flat, np.float32)}
+        else:
+            out[key] = to_jax(tree)
+    return out

@@ -18,6 +18,10 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
+# the data axis factored into (replica, shard) sub-axes, shard inner
+# (stride 1 in data order), as the JAX package's factor_data_axis
+DATA_REPLICA_AXIS = "data_replica"
+DATA_SHARD_AXIS = "data_shard"
 
 
 def _world():
@@ -113,6 +117,51 @@ class ProcessMesh:
         line; ``(None, None)`` without a process group or a pipe axis."""
         key = tuple(sorted((a, b)))
         return self._pairs.get(key, (None, None))
+
+
+def factor_data_axis(mesh, shard_size):
+    """Factor ``mesh``'s data axis into ``(data_replica, data_shard)`` of
+    sizes ``(data // shard_size, shard_size)``, as the JAX package's
+    ``factor_data_axis`` (shard inner: data coordinate d is shard d %
+    shard of replica d // shard): a copy of the mesh whose ``shape`` gains
+    both sizes and which holds both sub-groups; every rank and group keeps
+    its number, and the given mesh is unchanged. Every rank must call (it
+    makes the sub-groups)."""
+    import copy
+    data = mesh.shape[DATA_AXIS]
+    shard_size = int(shard_size)
+    if shard_size <= 1 or data % shard_size:
+        raise ValueError(
+            "the data shard size {} must be >1 and divide the "
+            "data-parallel degree {}".format(shard_size, data))
+    replica = data // shard_size
+    model = mesh.shape[MODEL_AXIS]
+    pipe = mesh.shape.get(PIPE_AXIS, 1)
+    out = copy.copy(mesh)
+    out._groups = dict(mesh._groups)
+    out.shape = dict(mesh.shape, **{DATA_REPLICA_AXIS: replica,
+                                    DATA_SHARD_AXIS: shard_size})
+    if not dist.is_initialized():
+        return out
+    me = mesh._coords
+    dm = data * model
+    for p in range(pipe):
+        for m in range(model):
+            for r in range(replica):
+                group = mesh._new_group([
+                    p * dm + (r * shard_size + s) * model + m
+                    for s in range(shard_size)])
+                if (p, m, r) == (me[PIPE_AXIS], me[MODEL_AXIS],
+                                 me[DATA_AXIS] // shard_size):
+                    out._groups[DATA_SHARD_AXIS] = group
+            for s in range(shard_size):
+                group = mesh._new_group([
+                    p * dm + (r * shard_size + s) * model + m
+                    for r in range(replica)])
+                if (p, m, s) == (me[PIPE_AXIS], me[MODEL_AXIS],
+                                 me[DATA_AXIS] % shard_size):
+                    out._groups[DATA_REPLICA_AXIS] = group
+    return out
 
 
 def build_mesh(data=None, model=None, pipe=None, topology=None):

@@ -369,12 +369,30 @@ def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
                   for full, a, b, shape, index in boxes[name]])
                 for name in order]
 
+    opt = {"step": np.asarray(step, np.int32)}
+    opt.update((key, lists(bufs[key])) for key in ("exp_avg", "exp_avg_sq")
+               if key in bufs)
     return {"device_shards": {
         "master": lists(bufs["master"]),
-        "opt": {"step": np.asarray(step, np.int32),
-                "exp_avg": lists(bufs["exp_avg"]),
-                "exp_avg_sq": lists(bufs["exp_avg_sq"])},
+        "opt": opt,
         "qg_error": None}}
+
+
+def fused_entry(flat, write):
+    """The shard list of a fused ``{"_flat": (n,)}`` subtree the same on
+    every rank (OneBitAdam's momentum): the whole buffer, written by the
+    writer rank only (``write``), as the JAX engine writes a replicated
+    leaf."""
+    n = int(flat.numel())
+    return [((n,), [(_key(((0, n),)), flat.numpy())] if write else [])]
+
+
+def row_entry(row, rank, world):
+    """The shard list of a per-rank ``{"_flat": (world, n)}`` subtree
+    (OneBitAdam's error rows): this rank's row ``rank``."""
+    n = int(row.numel())
+    return [((int(world), n), [(_key(((rank, rank + 1), (0, n))),
+                                row.reshape(1, n).numpy())])]
 
 
 def offload_payload(order, layout, bufs, step, torn_step=None):
@@ -398,13 +416,16 @@ def offload_payload(order, layout, bufs, step, torn_step=None):
         "torn_step": torn_step}
 
 
-def zero_state(payloads, order, module_tree, load_optimizer_states=True):
+def zero_state(payloads, order, module_tree, load_optimizer_states=True,
+               fused_keys=()):
     """The full master and moment leaves of a ZeRO tag, reassembled from
     every zero file's payload (the JAX engine's ``device_shards`` or
     ``offload_shards``; ``module_tree``, the model file's, gives the
     offload layout's shapes): ``(master, optimizer)`` as ``{name:
     tensor}`` and ``{"step", "exp_avg", "exp_avg_sq"}``, None where the
-    tag has none."""
+    tag has none. ``fused_keys``: the optimizer subtrees that are one
+    fused leaf ``{"_flat": tensor}`` (OneBitAdam's ``exp_avg``,
+    ``worker_error``, ``server_error``) instead of parameter-shaped."""
     def as_state(lists, what):
         if len(lists[0]) != len(order):
             raise RuntimeError(
@@ -434,14 +455,24 @@ def zero_state(payloads, order, module_tree, load_optimizer_states=True):
         return master, None
     saved = device[0]["opt"]
     opt = {"step": int(np.asarray(saved["step"]))}
-    for key in ("exp_avg", "exp_avg_sq"):
-        if key not in saved:
+    param_shapes = [tuple(shape) for shape, _ in device[0]["master"]] \
+        if device[0].get("master") is not None else None
+    for key in ("exp_avg", "exp_avg_sq") + tuple(
+            k for k in fused_keys if k not in ("exp_avg", "exp_avg_sq")):
+        fused = key in fused_keys
+        shapes = [tuple(shape) for shape, _ in saved.get(key, ())]
+        # a fused subtree is one leaf that is not the parameters' shape
+        is_fused = len(shapes) == 1 and (len(order) != 1 or
+                                         shapes != param_shapes)
+        if key not in saved or fused != is_fused:
             logger.warning(
-                "zero shard files carry no '%s' optimizer state (saved "
-                "under a different optimizer) — optimizer state starts "
-                "fresh", key)
+                "zero shard files carry no '%s' optimizer state of this "
+                "optimizer's layout (saved under a different optimizer) — "
+                "optimizer state starts fresh", key)
             return master, None
-        opt[key] = as_state([d["opt"][key] for d in device], "opt/" + key)
+        lists = [d["opt"][key] for d in device]
+        opt[key] = {"_flat": assemble_shard_lists(lists, "opt/" + key)[0]} \
+            if fused else as_state(lists, "opt/" + key)
     return master, opt
 
 

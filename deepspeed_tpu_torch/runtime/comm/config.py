@@ -20,8 +20,21 @@ and messages. Shape::
                                    // ops/ring_gemm)
         "strict": false            // unknown/unhonorable keys raise
       },
-      "quantized_collectives": {...}   // parsed; enabled raises: a later slice
+      "quantized_collectives": {
+        "enabled": false,          // master switch: the data-parallel gradient
+                                   // average through the in-collective int8
+                                   // ring (runtime/comm/quantize.py)
+        "dtype": "int8",           // wire dtype of every hop (the only codec)
+        "block_size": 256,         // lanes per quantization block
+        "hierarchical": 0,         // 0 = flat ring; N > 1 = factor the data
+                                   // group (dp / N, N) for the two-level form
+        "strict": false            // unknown/unhonorable keys raise
+      }
     }
+
+``comm.quantized_collectives.cuda_aware`` (the reference's NCCL-backend
+key) raises: the exchange's transport is ``torch.distributed``, and no
+CUDA-aware MPI path exists here.
 
 Validated with the no-silent-no-ops policy: unknown keys warn, and raise
 when the sub-section's ``strict`` is set.
@@ -138,8 +151,8 @@ class CollectiveMatmulConfig(object):
 
 class QuantizedCollectivesConfig(object):
     """Typed view of ``comm.quantized_collectives``: the keys are checked
-    as in the JAX package, and ``enabled: true`` raises
-    ``NotImplementedError`` (the exchange is not ported yet)."""
+    as in the JAX package; the engine checks ``hierarchical`` against the
+    data degree (``_configure_quantized_collectives``)."""
 
     def __init__(self, d):
         d = d or {}
@@ -149,13 +162,13 @@ class QuantizedCollectivesConfig(object):
                     type(d).__name__))
         self.strict = bool(d.get(QC_STRICT, False))
         if QC_CUDA_AWARE in d:
-            # the reference NcclBackend key: the quantized exchange is not
-            # ported, so accepting it would claim a transport that is not
-            # there
+            # the reference NcclBackend key: accepting it would claim a
+            # CUDA-aware MPI transport that is not there
             raise ValueError(
                 "comm.quantized_collectives.cuda_aware names a transport "
-                "this runtime does not have: the quantized exchange is not "
-                "ported yet; remove the key")
+                "this runtime does not have: the exchange runs over "
+                "torch.distributed (NCCL between cards, gloo where ranks "
+                "share one); remove the key")
         unknown = sorted(k for k in d
                          if k not in KNOWN_QUANTIZED_COLLECTIVES_KEYS)
         if unknown:
@@ -166,11 +179,6 @@ class QuantizedCollectivesConfig(object):
                     sorted(KNOWN_QUANTIZED_COLLECTIVES_KEYS)),
                 self.strict, flag="comm.quantized_collectives.strict")
         self.enabled = bool(d.get(QC_ENABLED, QC_ENABLED_DEFAULT))
-        if self.enabled:
-            raise NotImplementedError(
-                "comm.quantized_collectives is not ported yet: the int8 "
-                "gradient exchange comes with the compressed-communication "
-                "slice")
         dtype = str(d.get(QC_DTYPE, QC_DTYPE_DEFAULT)).lower()
         if dtype not in QC_DTYPES:
             raise ValueError(

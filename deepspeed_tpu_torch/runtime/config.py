@@ -345,6 +345,39 @@ def _world_size():
     return 1
 
 
+
+def reject_local_grad_combinations(param_dict):
+    """The JAX engine's refusals (``_certify_local_grad_comm``) of the
+    features that exchange each worker's LOCAL gradients
+    (``comm.quantized_collectives``, ``OneBitAdam``) that the port must
+    raise before the ``zero_optimization`` section is parsed (which
+    refuses qgZ as unported): ZeRO stage 3, and qgZ. The JAX wording."""
+    comm = param_dict.get("comm")
+    qc = comm.get("quantized_collectives") if isinstance(comm, dict) \
+        else None
+    features = []
+    if isinstance(qc, dict) and qc.get("enabled"):
+        features.append("comm.quantized_collectives")
+    if str(get_optimizer_name(param_dict) or "").lower() == \
+            ONEBIT_ADAM_OPTIMIZER:
+        features.append("OneBitAdam")
+    zero = param_dict.get("zero_optimization")
+    if not features or not isinstance(zero, dict):
+        return
+    for feature in features:
+        if int(zero.get("stage") or 0) >= 3:
+            raise ValueError(
+                "{} is not compatible with ZeRO stage 3 (data-sharded "
+                "compute params cannot feed the local-grad exchange; "
+                "stages 0-2 are supported — use zero_quantized_weights/"
+                "zero_quantized_gradients at stage 3)".format(feature))
+        if zero.get("zero_quantized_gradients"):
+            raise ValueError(
+                "{} with zero_quantized_gradients (qgZ) double-quantizes "
+                "the gradient reduction — enable one (the local-grad "
+                "exchange moves real compressed wire)".format(feature))
+
+
 class DeepSpeedConfig(object):
     """Typed view of a ``ds_config`` dict (or JSON file path)."""
 
@@ -425,6 +458,7 @@ class DeepSpeedConfig(object):
         self.sparse_gradients_enabled = g(SPARSE_GRADIENTS,
                                           SPARSE_GRADIENTS_DEFAULT)
 
+        reject_local_grad_combinations(param_dict)
         self.zero_config = DeepSpeedZeroConfig(param_dict)
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0

@@ -104,7 +104,8 @@ from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.sgd import SGD
 from ..ops.transformer.attention import resolve_flash_backend
 from ..parallel.collective_matmul import CollectiveMatmulBinding
-from ..parallel.topology import DATA_AXIS, MODEL_AXIS, build_mesh
+from ..parallel.topology import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                 build_mesh, factor_data_axis)
 from ..utils.distributed import (all_gather, all_reduce_, broadcast_,
                                  local_world_size)
 from ..utils.logging import log_dist, logger
@@ -112,11 +113,15 @@ from ..utils.timer import ThroughputTimer
 from . import checkpointing as ckpt
 from . import utils as rt_utils
 from .comm.config import warn_or_raise_noop
+from .comm.quantize import (FusedFlatLayout, fma,
+                            hierarchical_all_reduce_local, qc_padded_size,
+                            quantized_all_reduce_local)
 from .config import DeepSpeedConfig
 from .constants import (ADAM_OPTIMIZER, LAMB_OPTIMIZER, MAX_GRAD_NORM,
-                        ROUTE_TRAIN)
+                        ONEBIT_ADAM_OPTIMIZER, ROUTE_TRAIN)
 from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
+from .fp16.onebit_adam import OnebitAdam
 from .lr_schedules import SCHEDULE_CLASSES
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero.offload import HostOffload
@@ -246,6 +251,7 @@ class DeepSpeedEngine:
         gather has no site at stages 0-2. Tensor parallelism runs only
         through the ring ops here: a ``model`` axis > 1 without the
         section raises."""
+        self._configure_quantized_collectives()
         cm = self._config.comm_config.collective_matmul
         self._cm = cm
         self._cm_tp = False
@@ -287,6 +293,112 @@ class DeepSpeedEngine:
                      "dtype={} backend={} transport={}".format(
                          self.mp_world_size, cm.chunks, cm.dtype,
                          cm.backend, self.comm_transport), ranks=[0])
+
+    def _certify_local_grad_comm(self, feature):
+        """The JAX engine's gate for the features that exchange each
+        worker's LOCAL gradients (``comm.quantized_collectives``,
+        OneBitAdam): no model or pipe axis > 1 (the JAX body runs the model
+        fully manual over the data axis). ZeRO stage 3 and qgZ are refused
+        with the config (``config.reject_local_grad_combinations``)."""
+        for axis in (PIPE_AXIS, MODEL_AXIS):
+            if int(self.mesh.shape.get(axis, 1)) > 1:
+                raise ValueError(
+                    "{} is not a certified combination with the '{}' mesh "
+                    "axis (the local-grad exchange runs the model fully "
+                    "manual over the data axis only)".format(feature, axis))
+
+    def _configure_quantized_collectives(self):
+        """``comm.quantized_collectives``, as the JAX engine's
+        ``_configure_quantized_collectives``: each micro-step's local
+        gradients are averaged through the in-collective int8 ring in
+        place of the fp32 reduction (``FlatPartition.exchange``).
+        ``hierarchical: N`` factors the data group (dp / N, N) for the
+        two-level form and must divide the data degree; a data degree of
+        1 is a warned no-op (raises under ``strict``)."""
+        qc = self._config.comm_config.quantized_collectives
+        self._qc = qc
+        self._qc_enabled = False
+        self._qc_exchange = None
+        if not qc.enabled:
+            return
+        dp = self.dp_world_size
+        if qc.hierarchical >= 2 and dp > 1 and dp % qc.hierarchical:
+            raise ValueError(
+                "comm.quantized_collectives.hierarchical={} must divide the "
+                "data-parallel degree {}".format(qc.hierarchical, dp))
+        self._certify_local_grad_comm("comm.quantized_collectives")
+        if dp <= 1:
+            warn_or_raise_noop(
+                "comm.quantized_collectives has NO effect: the mesh has no "
+                "data-parallel degree to exchange over", qc.strict,
+                flag="comm.quantized_collectives.strict")
+            return
+        block = qc.block_size
+        if qc.hierarchical >= 2:
+            from ..parallel.topology import DATA_REPLICA_AXIS, \
+                DATA_SHARD_AXIS
+            self.mesh = factor_data_axis(self.mesh, qc.hierarchical)
+            shard = self.mesh.get_group(DATA_SHARD_AXIS)
+            replica = self.mesh.get_group(DATA_REPLICA_AXIS)
+            self._qc_exchange = lambda flat: hierarchical_all_reduce_local(
+                flat, shard, replica, block)
+        else:
+            group = self._dp_group
+            self._qc_exchange = lambda flat: quantized_all_reduce_local(
+                flat, group, block)
+        self._qc_enabled = True
+        log_dist("quantized_collectives ON: dtype={} block_size={} "
+                 "hierarchical={} dp={}".format(
+                     qc.dtype, block, qc.hierarchical or "flat", dp),
+                 ranks=[0])
+
+    def _local_grad_mode(self):
+        """Which local-gradient variant is live, as the JAX engine:
+        "stacked" (OneBitAdam: each rank keeps its own accumulated
+        gradients for the 1-bit momentum exchange), "exchange"
+        (``quantized_collectives`` with a plain optimizer: each micro-step
+        averages through the int8 ring), or None."""
+        if getattr(self, "_onebit_mode", False):
+            return "stacked"
+        if getattr(self, "_qc_enabled", False):
+            return "exchange"
+        return None
+
+    def _resolve_onebit_mode(self):
+        """OneBitAdam's certified combinations (the JAX engine's
+        ``_resolve_onebit_mode``): not under a model or pipe axis, not
+        with ``cpu_offload``, not with ``gradient_clipping`` (the global
+        norm is never formed in the compressed regime), weight decay only
+        at stage 0 (the L2 term feeds the fused momentum from the whole
+        master)."""
+        self._onebit_mode = isinstance(self.optimizer, OnebitAdam)
+        if not self._onebit_mode:
+            return
+        self._certify_local_grad_comm("OneBitAdam")
+        if self.zero_cpu_offload():
+            raise ValueError(
+                "OneBitAdam is not compatible with cpu_offload (the "
+                "compressed exchange runs on device; the host step is "
+                "plain Adam)")
+        if self.gradient_clipping():
+            raise ValueError(
+                "OneBitAdam does not support gradient_clipping: the global "
+                "grad norm is never materialized in the compressed regime "
+                "(grads stay per-worker local)")
+        if float(self.optimizer.weight_decay or 0.0) and \
+                self.zero_optimization_stage() >= 1:
+            raise ValueError(
+                "OneBitAdam weight_decay needs replicated params (the L2 "
+                "term feeds the fused flat momentum on every worker); use "
+                "ZeRO stage 0 or weight_decay=0")
+        self.optimizer.configure_comm(self._dp_group)
+
+    def _onebit_frozen(self):
+        """Whether the next optimizer step runs OneBitAdam's compressed
+        regime: ``global_steps`` (attempted steps, skipped ones included)
+        at or past ``freeze_step``."""
+        return getattr(self, "_onebit_mode", False) and \
+            self.optimizer.frozen_at(self.global_steps)
 
     def _configure_sparse_gradients(self):
         """The sparse embedding-gradient exchange, as the JAX engine: a
@@ -406,13 +518,12 @@ class DeepSpeedEngine:
             self.optimizer = client_optimizer
             log_dist("Using client optimizer {}".format(
                 type(client_optimizer).__name__), ranks=[0])
+            self._resolve_onebit_mode()
             return
         name = (self._config.optimizer_name or ADAM_OPTIMIZER).lower()
-        if name not in (ADAM_OPTIMIZER, "adamw", LAMB_OPTIMIZER, "sgd"):
-            raise NotImplementedError(
-                "optimizer {!r} is not ported yet: this slice runs Adam, "
-                "AdamW, LAMB and SGD (OneBitAdam comes with the "
-                "compressed-communication slice)".format(name))
+        if name not in (ADAM_OPTIMIZER, "adamw", LAMB_OPTIMIZER, "sgd",
+                        ONEBIT_ADAM_OPTIMIZER):
+            raise ValueError("Unknown optimizer: {}".format(name))
         if offload and name not in (ADAM_OPTIMIZER, "adamw"):
             # the host step is Adam-only (the JAX engine's refusal)
             raise ValueError(
@@ -435,6 +546,13 @@ class DeepSpeedEngine:
         use_kernel = self.fused_optimizer_kernel == "pallas"
         if name == LAMB_OPTIMIZER:
             self.optimizer = FusedLamb(use_kernel=use_kernel, **params)
+        elif name == ONEBIT_ADAM_OPTIMIZER:
+            # plain math, as the JAX package's OnebitAdam
+            if fused_kernel is not None:
+                logger.warning("optimizer.params.fused_kernel has NO "
+                               "effect: OneBitAdam has no kernel")
+            self.fused_optimizer_kernel = None
+            self.optimizer = OnebitAdam(**params)
         elif name == "sgd":
             if fused_kernel is not None:
                 logger.warning("optimizer.params.fused_kernel has NO "
@@ -448,6 +566,7 @@ class DeepSpeedEngine:
             if offload:
                 # the step runs in the host op (csrc/cpu_adam.cpp)
                 self.fused_optimizer_kernel = "host"
+        self._resolve_onebit_mode()
         log_dist("Using DeepSpeed optimizer: {} (apply: {})".format(
             name, self.fused_optimizer_kernel), ranks=[0])
 
@@ -555,6 +674,12 @@ class DeepSpeedEngine:
                     "optimizer moments_dtype=bf16 ignored under "
                     "cpu_offload: host shard moments are fp32")
                 moments = torch.float32
+        onebit = self._onebit_mode
+        if onebit and accum != torch.float32:
+            logger.warning(
+                "grad_accum_dtype=bf16 ignored under OneBitAdam: the "
+                "compressed exchange consumes fp32 local grads")
+            accum = torch.float32
         if accum == torch.bfloat16 and self.gradient_accumulation_steps() > 1:
             logger.warning(
                 "grad_accum_dtype=bf16 with gradient_accumulation_steps=%d: "
@@ -594,7 +719,8 @@ class DeepSpeedEngine:
             group=self._dp_group, stage=stage if partitioned else
             min(stage, 2), offload=offload, units=units,
             persistence_threshold=zc.param_persistence_threshold,
-            max_live_parameters=max_live)
+            max_live_parameters=max_live, local_grads=onebit)
+        self._configure_local_grad_state()
         # a zero.Init module's pieces now live in the engine's buffers
         self.module.__dict__.pop("_zero3_store", None)
         self.zero3 = None
@@ -639,6 +765,61 @@ class DeepSpeedEngine:
                     "model ranks hold different flat layouts (numel, lo, "
                     "hi, replicated_end): {}".format(seen.tolist()))
         self.scaler = ls.loss_scaler_from_config(self._config)
+
+    def _jax_leaves(self):
+        """``(name, shape)`` of every parameter in the JAX package's tree
+        flatten order: through the model module's ``params_to_jax``, or as
+        nested dicts of the dotted names when it has no converters."""
+        module = inspect.getmodule(type(self.module))
+        to_jax = getattr(module, "params_to_jax", None)
+        if to_jax is None:
+            from ..models._tree import params_to_jax as to_jax
+        order = ckpt.jax_leaf_order(to_jax, self.flat.names)
+        shapes = dict(zip(self.flat.names, self.flat.shapes))
+        return [(name, shapes[name]) for name in order]
+
+    def _configure_local_grad_state(self):
+        """The fused layouts of the local-gradient features and their
+        bridges from the flat partition (``FlatBridge``): OneBitAdam's
+        momentum layout (``onebit_padded_size``) and its state, and the
+        int8 exchange's layout (``qc_padded_size``), which at "exchange"
+        mode becomes the partition's ``exchange``."""
+        flat = self.flat
+        self._onebit_bridge = self._qc_bridge = None
+        # OneBitAdam's elastic sidecar: the original per-worker error rows
+        # of a resharded load, re-emitted by a save before any step
+        self._onebit_pristine = None
+        if not (self._onebit_mode or self._qc_enabled):
+            return
+        leaves = self._jax_leaves()
+        offsets = dict(zip(flat.names, flat.offsets))
+        if self._onebit_mode:
+            layout = self.optimizer.init_flat_state(leaves, self.device)
+            self._onebit_bridge = layout.bridge(offsets)
+            # the momentum in the flat layout, for the update of the owned
+            # range (the alignment gaps stay zero)
+            self._onebit_m_flat = torch.zeros(flat.numel,
+                                              dtype=torch.float32,
+                                              device=self.device)
+            # the momentum is OneBitAdam's fused buffer
+            flat.exp_avg = torch.zeros(0, dtype=torch.float32,
+                                       device=self.device)
+        if self._qc_enabled:
+            dp, block = self.dp_world_size, self._qc.block_size
+            self._qc_layout = FusedFlatLayout(
+                leaves, lambda n: qc_padded_size(n, dp, block))
+            self._qc_bridge = self._qc_layout.bridge(offsets)
+            if not self._onebit_mode:
+                flat.exchange = self._qc_average
+
+    def _qc_average(self, grads):
+        """The int8 exchange of a whole flat buffer: its fused form summed
+        over the data group through the in-collective ring, times ``1 /
+        dp``, written back over ``grads`` in their dtype (the JAX engine's
+        ``unflatten_like``); returns ``grads``."""
+        fused = self._qc_bridge.to_fused(grads)
+        mean = self._qc_exchange(fused) * np.float32(1.0 / self.dp_world_size)
+        return self._qc_bridge.from_fused(mean, grads)
 
     # ------------------------------------------------------------ training
 
@@ -726,12 +907,16 @@ class DeepSpeedEngine:
         """Reduce over the data group (stages 0/1), overflow check,
         unscale and average, clip, the optimizer over the owned range,
         params refresh (the all-gather when partitioned), zero acc."""
+        if self._onebit_mode:
+            return self._onebit_apply_step()
         flat = self.flat
         tp = self._tp_group if self._cm_tp else None
         dp = self._dp_group
         pipe = self._pipe_group
+        # "exchange" mode: the accumulator already holds the average
+        exchanged = self._qc_enabled
         self._reduce_tied_grads()
-        if dp is not None and not flat.grads_sharded:
+        if dp is not None and not flat.grads_sharded and not exchanged:
             with record_function("zero.all_reduce"):
                 all_reduce_(flat.acc, dp)
         acc = flat.own(flat.acc)
@@ -743,7 +928,7 @@ class DeepSpeedEngine:
         overflow = rt_utils.CheckOverflow.has_overflow(grads)
         scale = self.scaler.cur_scale
         # one division after the sum: the mean over the global batch
-        inv = 1.0 / scale / self.dp_world_size
+        inv = 1.0 / scale / (1 if exchanged else self.dp_world_size)
         if inv != 1.0:
             grads.mul_(inv)
         total_norm = None
@@ -791,6 +976,76 @@ class DeepSpeedEngine:
                 **({"dp_group": dp} if flat.sharded else {}))
             flat.step += 1
             flat.refresh_params()
+        flat.acc.zero_()
+        metrics = {"overflow": overflow, "grad_norm": grad_norm,
+                   "loss_scale": scale}
+        self.scaler = ls.update_scale(self.scaler, overflow)
+        return metrics
+
+    def _onebit_apply_step(self):
+        """OneBitAdam's apply step (the JAX engine's OneBitAdam branch):
+        the overflow flag over the data group; the local gradients
+        unscaled; warmup: averaged over the group (the fp32 all-reduce, or
+        the int8 ring with ``quantized_collectives``) and exact Adam on the
+        average; frozen: this rank's own gradients feed the 1-bit momentum
+        exchange and the variance stays frozen, the grad norm the RMS over
+        workers ``sqrt(sum_w ||g_w||^2 / w)``. Each rank steps its owned
+        range of the master from the whole momentum, then the parameters
+        are refreshed (all-gathered when partitioned). An overflowed step
+        is skipped and zeroes the worker and server errors."""
+        flat, opt, dp = self.flat, self.optimizer, self._dp_group
+        world = self.dp_world_size
+        frozen = self._onebit_frozen()
+        grads = flat.acc
+        overflow = rt_utils.CheckOverflow.has_overflow(grads).float()
+        if dp is not None:
+            overflow = all_reduce_(overflow.reshape(1), dp,
+                                   op=dist.ReduceOp.MAX)[0]
+        overflow = bool(overflow > 0)
+        scale = self.scaler.cur_scale
+        inv = float(np.float32(1.0) / np.float32(scale))
+        if inv != 1.0:
+            grads.mul_(inv)
+        if frozen:
+            sq = grads.pow(2).sum().reshape(1)
+            if dp is not None:
+                all_reduce_(sq, dp)
+            grad_norm = sq[0].sqrt() / float(np.sqrt(np.float32(world)))
+        else:
+            if dp is not None:
+                with record_function("onebit.warmup_average"):
+                    if self._qc_enabled:
+                        self._qc_average(grads)
+                    else:
+                        all_reduce_(grads, dp)
+                        grads.div_(torch.tensor(float(world),
+                                                device=grads.device))
+            grad_norm = rt_utils.get_grad_norm(grads)
+        if not overflow:
+            lo, hi = (flat.lo, flat.hi) if flat.sharded else \
+                (0, flat.numel)
+            master, v = flat.master, flat.exp_avg_sq
+            bridge = self._onebit_bridge
+            wd = float(opt.weight_decay or 0.0)
+            if frozen:
+                wd_fused = bridge.to_fused(master) * np.float32(wd) \
+                    if wd else None
+                with record_function("onebit.exchange"):
+                    opt.exchange(bridge.to_fused(grads), wd_fused)
+            else:
+                # the L2 term in one rounding, as XLA fuses it (and as the
+                # plain Adam's fma_f32)
+                g = fma(master, torch.tensor(np.float32(wd),
+                                             device=master.device),
+                        grads) if wd else grads
+                opt.warmup_momentum(bridge.to_fused(g))
+                opt.warmup_variance(v, g[lo:hi])
+            m = bridge.from_fused(opt.exp_avg, self._onebit_m_flat)
+            opt.apply_update(master, m[lo:hi], v, flat.step + 1)
+            flat.step += 1
+            flat.refresh_params()
+        else:
+            opt.reset_error_state()
         flat.acc.zero_()
         metrics = {"overflow": overflow, "grad_norm": grad_norm,
                    "loss_scale": scale}
@@ -1006,10 +1261,64 @@ class DeepSpeedEngine:
         the same values (numpy has no bf16), which cast back to bf16 bit
         for bit."""
         to_jax = self._tree_converters()["optimizer_state_to_jax"]
+        if self._onebit_mode:
+            return to_jax(self._onebit_state())
         return to_jax({
             "step": self.flat.step,
             "exp_avg": self._full_tree(self.flat.exp_avg),
             "exp_avg_sq": self._full_tree(self.flat.exp_avg_sq)})
+
+    def _rows(self, row):
+        """Every data rank's ``row`` stacked ``(world, ...)`` (an all-gather
+        over the data group; every rank must call)."""
+        if self._dp_group is None:
+            return row.detach().reshape(1, -1).cpu()
+        return all_gather(row.detach(), self._dp_group).reshape(
+            self.dp_world_size, -1).cpu()
+
+    def _onebit_state(self, keep_dtype=False):
+        """OneBitAdam's state as the JAX engine holds it (``step``; the
+        fused ``exp_avg``; ``exp_avg_sq`` as a state_dict; the worker and
+        server error rows of every rank, ``(world, ...)``), CPU tensors
+        (every rank must call)."""
+        opt = self.optimizer
+        return {"step": self.flat.step,
+                "exp_avg": {"_flat": opt.exp_avg.detach().cpu()},
+                "exp_avg_sq": self._full_tree(self.flat.exp_avg_sq,
+                                              keep_dtype),
+                "worker_error": {"_flat": self._rows(opt.worker_error)},
+                "server_error": {"_flat": self._rows(opt.server_error)}}
+
+    def _load_onebit_state(self, state, saved_world=None, pristine=None):
+        """OneBitAdam's state (``optimizer_state_from_jax``'s form: the
+        fused buffers ``{"_flat": tensor}``, the error rows ``(world,
+        ...)``) into the optimizer and the partition; a state saved at
+        another world goes through ``reshard_state`` first (the JAX
+        engine's elastic restore, with the ``onebit_pristine`` sidecar)."""
+        opt = self.optimizer
+        fused = ("exp_avg", "worker_error", "server_error")
+        if saved_world is not None and int(saved_world) != self.dp_world_size:
+            numpy_state = {k: ({"_flat": state[k]["_flat"].numpy()}
+                               if k in fused else state[k])
+                           for k in state}
+            state = dict(numpy_state)
+            state.update(opt.reshard_state(numpy_state, int(saved_world),
+                                           pristine=pristine))
+            pristine = opt._reshard_pristine
+        if pristine is not None:
+            self._onebit_pristine = {"payload": pristine, "steps": None}
+        dev = self.device
+        flat_of = {k: torch.as_tensor(np.asarray(state[k]["_flat"]),
+                                      dtype=torch.float32)
+                   for k in fused if k in state}
+        if "exp_avg" in flat_of:
+            opt.exp_avg = flat_of["exp_avg"].reshape(-1).to(dev).clone()
+        for key in ("worker_error", "server_error"):
+            if key in flat_of:
+                rows = flat_of[key].reshape(self.dp_world_size, -1)
+                setattr(opt, key, rows[self.dp_rank].to(dev).clone())
+        self.flat.load(self.flat.exp_avg_sq, state["exp_avg_sq"])
+        self.flat.step = int(state["step"])
 
     def load_state_from_jax(self, master=None, optimizer_state=None):
         """Start from a JAX engine's state: an fp32 master tree and/or an
@@ -1023,7 +1332,10 @@ class DeepSpeedEngine:
             self.flat.load(self.flat.master,
                            self._own_shard(conv["params_from_jax"](master)))
             self.flat.refresh_params()
-        if optimizer_state is not None:
+        if optimizer_state is not None and self._onebit_mode:
+            self._load_onebit_state(
+                conv["optimizer_state_from_jax"](optimizer_state))
+        elif optimizer_state is not None:
             state = conv["optimizer_state_from_jax"](optimizer_state)
             self.flat.load(self.flat.exp_avg,
                            self._own_shard(state["exp_avg"]))
@@ -1101,14 +1413,26 @@ class DeepSpeedEngine:
                 if rank != 0 and spec_fn(name, shape) is None:
                     return []
                 return full_boxes(name, shape, box, rank, size)[1]
+        keys = ("master", "exp_avg_sq") if self._onebit_mode else \
+            ("master", "exp_avg", "exp_avg_sq")
         bufs = {key: flat.own(getattr(flat, key)).detach().cpu()
-                for key in ("master", "exp_avg", "exp_avg_sq")}
+                for key in keys}
         layout = (flat.names, flat.offsets, flat.shapes, flat.spans)
         if self.offload is not None:
             return ckpt.offload_payload(self._jax_leaf_names(), layout, bufs,
                                         flat.step, self.offload.torn_step)
-        return ckpt.zero_payload(self._jax_leaf_names(), layout, bufs,
-                                 flat.step, self._full_shapes(), box_map)
+        payload = ckpt.zero_payload(self._jax_leaf_names(), layout, bufs,
+                                    flat.step, self._full_shapes(), box_map)
+        if self._onebit_mode:
+            # the fused momentum once (rank 0), each rank its error rows
+            opt, opt_sd = self.optimizer, payload["device_shards"]["opt"]
+            opt_sd["exp_avg"] = ckpt.fused_entry(
+                opt.exp_avg.detach().cpu(), self.global_rank == 0)
+            for key in ("worker_error", "server_error"):
+                opt_sd[key] = ckpt.row_entry(
+                    getattr(opt, key).detach().cpu(), self.dp_rank,
+                    self.dp_world_size)
+        return payload
 
     def _jax_tree(self, buf, keep_dtype=False):
         """A flat buffer's full JAX-shaped tree (every rank must call)."""
@@ -1150,13 +1474,22 @@ class DeepSpeedEngine:
         zero = (self.zero_optimization() and not offload) or \
             (offload and self._world() > 1)
         flat = self.flat
-        sd = {
-            "module": self._jax_tree(flat.params, keep_dtype=True),
-            "optimizer": None if zero else dict(
+        if zero:
+            optimizer = None
+        elif self._onebit_mode:
+            state = self._onebit_state(keep_dtype=True)
+            optimizer = dict(
+                state, step=np.asarray(flat.step, np.int32),
+                exp_avg_sq=self._tree_converters()["params_to_jax"](
+                    state["exp_avg_sq"], keep_dtype=True))
+        else:
+            optimizer = dict(
                 step=np.asarray(flat.step, np.int32),
                 exp_avg=self._jax_tree(flat.exp_avg, keep_dtype=True),
-                exp_avg_sq=self._jax_tree(flat.exp_avg_sq,
-                                          keep_dtype=True)),
+                exp_avg_sq=self._jax_tree(flat.exp_avg_sq, keep_dtype=True))
+        sd = {
+            "module": self._jax_tree(flat.params, keep_dtype=True),
+            "optimizer": optimizer,
             "master": self._jax_tree(flat.master)
             if (self.mixed_precision or offload) and not zero else None,
             "scaler": {
@@ -1178,6 +1511,12 @@ class DeepSpeedEngine:
         }
         if offload and self.offload.torn_step is not None:
             sd["torn_offload_step"] = self.offload.torn_step
+        pristine = self._onebit_pristine
+        if pristine is not None and pristine.get("steps") == \
+                self.global_steps:
+            # no step has consumed the folded worker residuals since the
+            # resharded load: the original rows are still the truth
+            sd["onebit_pristine"] = pristine["payload"]
         sd.update(client_state)
         futures, records = [], []
 
@@ -1355,8 +1694,11 @@ class DeepSpeedEngine:
                     "zero file %s records a torn offload step (%s): that "
                     "rank's masters were partly stepped when it was "
                     "written", path, payload["torn_step"])
+        fused = ("exp_avg", "worker_error", "server_error") \
+            if self._onebit_mode else ()
         return ckpt.zero_state(payloads, self._jax_leaf_names(),
-                               sd["module"], load_optimizer_states)
+                               sd["module"], load_optimizer_states,
+                               fused_keys=fused)
 
     def _checked(self, state, what, strict):
         """A full state_dict from a tag, its names and shapes checked
@@ -1403,7 +1745,22 @@ class DeepSpeedEngine:
         flat.load(flat.master, self._own_shard(
             {k: v.float() for k, v in src.items()}))
         flat.refresh_params()
-        if load_optimizer_states and opt is not None:
+        self._onebit_pristine = None
+        if load_optimizer_states and opt is not None and self._onebit_mode:
+            if all(k in opt and isinstance(opt[k], dict) and "_flat" in
+                   opt[k] for k in ("exp_avg", "worker_error",
+                                    "server_error")):
+                self._checked(opt["exp_avg_sq"], "exp_avg_sq",
+                              load_module_strict)
+                self._load_onebit_state(
+                    opt, saved_world=sd.get("dp_world_size"),
+                    pristine=sd.get("onebit_pristine"))
+            else:
+                logger.warning(
+                    "checkpoint %s carries no OneBitAdam state (saved under "
+                    "a different optimizer) — optimizer state starts fresh",
+                    path)
+        elif load_optimizer_states and opt is not None:
             for key in ("exp_avg", "exp_avg_sq"):
                 flat.load(getattr(flat, key), self._own_shard(
                     self._checked(opt[key], key, load_module_strict)))
@@ -1423,6 +1780,8 @@ class DeepSpeedEngine:
                 # the learning rate the saving run would step with next
                 sched.step(sched.last_batch_iteration)
         self.global_steps = int(sd.get("global_steps", 0))
+        if self._onebit_pristine is not None:
+            self._onebit_pristine["steps"] = self.global_steps
         self.global_samples = int(sd.get(
             "global_samples", self.global_steps * self.train_batch_size()))
         self.skipped_steps = int(sd.get("skipped_steps", 0))

@@ -153,7 +153,8 @@ class FlatPartition:
                  accum_dtype=torch.float32, replicated=(),
                  moments_dtype=torch.float32, group=None, stage=0,
                  offload=False, units=None, persistence_threshold=100000,
-                 max_live_parameters=None, train_state=True):
+                 max_live_parameters=None, train_state=True,
+                 local_grads=False):
         self.device, self.compute_dtype = device, compute_dtype
         self.group = group
         self.stage = stage
@@ -234,7 +235,13 @@ class FlatPartition:
         state_device = host if self.offload else device
         if self.offload:
             moments_dtype = torch.float32
-        self.grads_sharded = self.sharded and stage >= 2
+        # local_grads (OneBitAdam): the accumulator stays whole and this
+        # rank's own; nothing is reduced when a micro-step is folded
+        self.grads_sharded = self.sharded and stage >= 2 and not local_grads
+        # the in-collective exchange (comm.quantized_collectives): a
+        # callable averaging the whole compute-dtype grads over the group
+        # in place, which fold_grads runs in place of the reduce-scatter
+        self.exchange = None
         if train_state:
             self.acc = torch.zeros(self.part_numel if self.grads_sharded or
                                    self.stage3 else self.numel,
@@ -450,7 +457,9 @@ class FlatPartition:
         stage 2 over a group the grads are first reduce-scattered over it
         in the accumulator's dtype, the dtype every stage sums in (one
         collective a micro-step, the reference's IPG bucket
-        reduce-scatter), and the owned slice of the sum is added. At
+        reduce-scatter), and the owned slice of the sum is added. With an
+        ``exchange`` (the int8 ring) the grads are averaged by it instead
+        and the owned part of the average added. At
         stage 3 every gather unit was reduced when its backward ended:
         the persistent unit's gradients are folded here."""
         if self.stage3:
@@ -462,7 +471,12 @@ class FlatPartition:
                 self._fold_unit(self.persist_unit, self.persist_grads)
                 self.persist_grads.zero_()
             return
-        if self.grads_sharded:
+        if self.exchange is not None:
+            with record_function("comm.quantized_exchange"):
+                mean = self.exchange(self.grads)
+            self.acc.add_(mean[self.lo:self.hi] if self.grads_sharded
+                          else mean)
+        elif self.grads_sharded:
             with record_function("zero.reduce_scatter"):
                 part = reduce_scatter(self.grads.to(self.acc.dtype),
                                       self.group)

@@ -12,7 +12,8 @@ process is one rank of a ``torch.distributed`` group:
   that is the shared-card transport, not a fallback. An NCCL failure
   raises; nothing retries on gloo.
 
-:func:`post_p2p` / :func:`wait_p2p` (and :func:`send` / :func:`recv`)
+:func:`all_to_all` exchanges equal chunks (the 1-bit exchange's worker
+phase). :func:`post_p2p` / :func:`wait_p2p` (and :func:`send` / :func:`recv`)
 move one tensor to or from a rank, for the pipeline's stage hops.
 
 :func:`spawn` starts ``world_size`` ranks on this host, each with its
@@ -119,13 +120,30 @@ def broadcast_(tensor, src=0, group=None):
 
 
 def all_gather(tensor, group, dim=0):
-    """Every rank's ``tensor`` concatenated along ``dim`` in rank order."""
+    """Every rank's ``tensor`` concatenated along ``dim`` in rank order,
+    for any dtype both transports carry (the compressed exchanges gather
+    int8 blocks and uint8 sign bytes); a 0-dim tensor gathers as one
+    element a rank."""
+    if tensor.dim() == 0:
+        tensor = tensor.reshape(1)
     n = dist.get_world_size(group)
     staged = host_staged(group, tensor)
     src = host_copy(tensor) if staged else tensor.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
+    return out.to(tensor.device) if staged else out
+
+
+def all_to_all(tensor, group):
+    """``tensor``'s ``world`` equal chunks along dim 0 exchanged over
+    ``group`` (``all_to_all_single``): chunk i goes to rank i, and chunk i
+    of the result is what rank i sent this rank. NCCL moves the card's
+    tensor directly; on gloo a CUDA tensor crosses through host memory."""
+    staged = host_staged(group, tensor)
+    src = host_copy(tensor) if staged else tensor.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
     return out.to(tensor.device) if staged else out
 
 

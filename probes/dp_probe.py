@@ -8,7 +8,8 @@ PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
 ``train_dp_parity``, ``train_dp_tp_parity``, ``train``, ``kernel``,
 ``serve_spec``, ``serve_tp``, ``train_example_data``, ``cpu_adam``,
 ``train_xl_offload``, ``train_offload_parity``, ``train_dp3``,
-``train_offload_ckpt``, ``train_pipe``, ``train_pipe_parity``; on four
+``train_offload_ckpt``, ``train_pipe``, ``train_pipe_parity``,
+``train_comm`` (``train_onebit`` and ``train_qc``, one spawn); on four
 cards ``dp_nccl_zero3``), optionally with
 integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
 JSON line. Not a test and on no path of the package.
@@ -58,8 +59,10 @@ def main():
                                  device="cuda"), **kwargs)
         else:
             res = fn(**kwargs)
-        res["probe_wall_s"] = time.perf_counter() - t0
-        cs.emit(res)
+        # train_comm gives two lines (train_onebit, train_qc)
+        for line in res if isinstance(res, tuple) else (res,):
+            line["probe_wall_s"] = time.perf_counter() - t0
+            cs.emit(line)
         torch.cuda.empty_cache()
 
 

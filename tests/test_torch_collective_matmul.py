@@ -277,9 +277,15 @@ def test_comm_section_parses_and_validates_as_jax(name):
 
 
 def test_quantized_collectives_enabled_names_its_later_slice():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcomm.DeepSpeedCommConfig(
-            {"comm": {"quantized_collectives": {"enabled": True}}})
+    # the int8 exchange is ported: ``enabled: true`` parses as in the JAX
+    # package (the engine checks ``hierarchical`` against the data degree)
+    section = {"comm": {"quantized_collectives": {
+        "enabled": True, "block_size": 64, "hierarchical": 2}}}
+    t = tcomm.DeepSpeedCommConfig(section).quantized_collectives
+    j = jcomm.DeepSpeedCommConfig(section).quantized_collectives
+    for key in ("enabled", "dtype", "block_size", "hierarchical", "strict"):
+        assert getattr(t, key) == getattr(j, key), key
+    assert t.enabled
 
 
 def test_unknown_collective_matmul_key_warns(caplog):

@@ -615,26 +615,82 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda, bad):
     assert fa.flash_fwd.launches == before
 
 
+def _online_float64(arrays, mask, block=64):
+    """The plain forward's online softmax over key tiles of ``block`` in
+    float64 (non-causal, the key bias added): per tile S, P, the running
+    row sums l and the running P.V, as ``flash_fwd_reference`` traces them
+    in fp32."""
+    q, k, v = (np.transpose(a.astype(np.float64), (0, 2, 1, 3))
+               for a in arrays[:3])
+    b, h, s, d = q.shape
+    bias = mask.astype(np.float64)[:, None, None, :]
+    m = np.full((b, h, s, 1), -1e30)
+    l = np.zeros((b, h, s, 1))
+    acc = np.zeros((b, h, s, d))
+    tiles = []
+    for k0 in range(0, s, block):
+        sc = q @ np.swapaxes(k[:, :, k0:k0 + block], -1, -2) / np.sqrt(d) + \
+            bias[..., k0:k0 + block]
+        m_new = np.maximum(m, sc.max(-1, keepdims=True))
+        p = np.exp(sc - m_new)
+        corr = np.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdims=True)
+        acc = acc * corr + p @ v[:, :, k0:k0 + block]
+        m = m_new
+        tiles.append({"S": sc, "P": p, "l": l, "PV": acc})
+    return tiles
+
+
+def _cpu_intermediates(trace, exact):
+    """Each traced op's largest |fp32 - float64| over the key tiles of the
+    CPU run (S over the unmasked keys: a masked score is -1e9 in both)."""
+    errs = {}
+    for op in ("S", "P", "l", "PV"):
+        worst = 0.0
+        for tile, want in zip(trace, exact):
+            diff = np.abs(tile[op].double().numpy() - want[op])
+            if op == "S":
+                diff = np.where(want[op] > -1e8, diff, 0.0)
+            worst = max(worst, float(diff.max()))
+        errs[op] = worst
+    return errs
+
+
 def test_flash_attention_bshd_mask_bias_grads_match_plain(cuda):
     """The (b, s, h, d) op with a key-padding mask through the kernels
-    against the same op on CPU copies (the plain versions), fp32."""
+    against the same op on CPU copies (the plain versions), fp32. A failure
+    message carries ``cpu_intermediates``: the CPU forward's S, P, l and
+    P.V against float64, so it names the operation that moved."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import flash_attention_bshd
     rng = np.random.RandomState(1)
     b, s, h, d = 2, 96, 2, 32
     arrays = [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
     mask = np.where(rng.rand(b, s) < 0.25, -1e9, 0.0).astype(np.float32)
     mask[:, 0] = 0.0
-    results = []
+    results, trace = [], []
+    plain = fa.flash_fwd_reference
     for dev in (cuda, torch.device("cpu")):
         q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
                    for a in arrays[:3])
-        out = flash_attention_bshd(q, k, v, causal=False,
-                                   mask_bias=torch.from_numpy(mask).to(dev))
+        if dev.type == "cpu":
+            fa.flash_fwd_reference = \
+                lambda *a, **kw: plain(*a, trace=trace, **kw)
+        try:
+            out = flash_attention_bshd(
+                q, k, v, causal=False,
+                mask_bias=torch.from_numpy(mask).to(dev))
+        finally:
+            fa.flash_fwd_reference = plain
         out.backward(torch.from_numpy(arrays[3]).to(dev))
         results.append([t.detach().cpu() for t in (out, q.grad, k.grad,
                                                   v.grad)])
+    cpu_intermediates = _cpu_intermediates(trace, _online_float64(arrays,
+                                                                  mask))
     for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
-        assert _rel_err(got, want) <= 1e-5, (name, _rel_err(got, want))
+        assert _rel_err(got, want) <= 1e-5, (
+            name, _rel_err(got, want),
+            {"cpu_intermediates": cpu_intermediates})
 
 
 def test_flash_attention_bshd_mask_bias_bit_stable_over_repeats(cuda):
