@@ -141,7 +141,8 @@ with no ``ok`` line):
    just after, per rank (Adam once a step over numel / 2); a profile
    step (the ZeRO collectives' host time); the state a rank holds at
    stages 0, 1 and 2;
-20. train_dp_parity — DP 2 at gpt2_medium width with 4 layers against DP
+20. train_dp_parity — DP 2 at gpt2_medium width with 2 layers (4 before
+   the ZeRO-3 phases came: the script's time limit) against DP
    1 and against the plain versions, fp32 and bf16 (stages 0, 1 and 2 bit
    for bit), and LAMB with one rank's part of a leaf scaled x20 (stage 2
    against stage 0 and DP 1): losses and masters;
@@ -150,7 +151,17 @@ with no ``ok`` line):
    bit for bit, the next step within train_dp_parity's bounds;
 22. train_dp_tp_parity — four ranks on ``build_mesh(data=2, model=2)``
    (ring, flash and Adam kernels), 2 layers, fp32 and bf16 ZeRO-2,
-   against DP 1 x TP 1;
+   against DP 1 x TP 1; then ZeRO-3 under TP (the units hold each rank's
+   TP shards) equal to ZeRO-2 under TP bit for bit, and ZeRO-3 with
+   ``sparse_embedding_grads`` against the dense-gradient ZeRO-3;
+   train_pipe3 — the same four ranks as PP 2 x DP 2 (gpt2_medium width,
+   4 layers, 2 steps): ZeRO-3 under PP against ZeRO-2 (the first loss
+   within 1e-6 relative, masters' moves within ``PIPE_MOVED_RTOL``, as
+   train_pipe_parity holds PP 2 to the dense engine), each rank's
+   flash launches as ``pipe_chip.expected_launches`` states them (at
+   stage 3 the forward twice a layer and micro-batch on every stage),
+   and a pipeline tag under ``cpu_offload`` resumed equal to the run that
+   kept going;
 23. train_ckpt — the train path at bench.py's first rung (6 of its 24
    layers) saves after 2
    steps (``save_checkpoint``, a temporary directory, deleted after),
@@ -175,6 +186,18 @@ with no ``ok`` line):
    after the Adam kernel phase, ``cpu_adam``: the host op against its
    plain version on 64M elements (error, ms, GB/s, threads, whether the
    OpenMP probe passed);
+   train_xl_stream — the same configuration with streamed parameter
+   offload (``cpu_offload_params``, ``stage3_max_live_parameters`` 3e8:
+   the asserted plan of 16 groups of 3 blocks), 1 warm-up and 2 timed
+   steps: step ms, the split (uploads, device compute, D2H, the host's
+   adds, norm and Adam), the device peak (under train_xl_offload's) and
+   the losses (within 2e-4 of train_xl_offload's at each step), host
+   bytes, upload batches and bytes a step, launches a step (flash forward
+   96, dk/dv and dq 48, the device Adam 0); train_stream_parity —
+   gpt2_xl width at 2 layers, one block a group: the streamed loss bit
+   for bit the segment-by-segment recompute from the host masters, and 3
+   steps and eval within 2e-4 relative of the classic stage 3 + offload
+   engine;
 26. train_offload_parity — gpt2_xl width at 2 layers, 5 steps: the
    offload engine against a stage-2 engine with the state on the card
    (losses within 1e-4 relative, masters by how far they moved, within
@@ -239,11 +262,14 @@ variant the main paths run) and, last, ``{"ok": true, "device":
 ``python3 chip_smoke.py --tp-nccl`` (four cards) runs, after the build,
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
-step on both backends; ``--pp-nccl`` (four cards) runs train_pipe at
-full depth over NCCL as PP 4, PP 2 x DP 2 (ZeRO-2) and PP 2 x TP 2
-(ZeRO-1, the ring GEMMs), with each rank's busy share and the NCCL
-send/recv kernels' time a step, and holds PP 2 x DP 2 against the dense
-DP 4 engine on the same global batch; ``--dp-nccl`` (four cards) runs train_dp at DP 4
+step on both backends, then DP 2 x TP 2 at ZeRO stage 3 against stage 2
+at gpt2_medium full depth (step ms, the NCCL and ring kernels' ms a
+step; ``tp_nccl_zero3``); ``--pp-nccl`` (four cards) runs train_pipe at
+full depth over NCCL as PP 4, PP 2 x DP 2 (ZeRO-2 and ZeRO-3) and PP 2 x
+TP 2 (ZeRO-1, the ring GEMMs), with each rank's busy share and the NCCL
+send/recv kernels' time a step, holds PP 2 x DP 2 against the dense DP 4
+engine on the same global batch and its ZeRO-3 run against its ZeRO-2
+run (``pp_nccl_zero3``); ``--dp-nccl`` (four cards) runs train_dp at DP 4
 and at DP 2 x TP 2 with one rank per card, then resumes a DP 4 tag at
 DP 2 x TP 2 (``dp_nccl_ckpt``), then ``dp_nccl_zero3``: gpt2_xl at
 full depth, DP 4, stage 2, stage 3 and stage 3 with ``cpu_offload`` from
@@ -2517,7 +2543,10 @@ TP_SERVE_REQUESTS = 16
 def tp_serve_rank(rank, world, spec):
     """One rank of tensor-parallel serving: init_inference(mp_size=world)
     on gpt2_medium at full width and depth, bf16, paged, the kernel over
-    this rank's heads; 16 Serve requests with the paged count set to 0
+    this rank's heads (the weights drawn on the card from a seed,
+    :func:`device_gpt2`: every rank draws the same bits, and the numpy
+    draws of 24 layers took ~14 s a rank); 16 Serve requests with the
+    paged count set to 0
     just before and read just after. Then the parity runs: fp32, TF32
     off, 2 layers, n-gram speculation off and on."""
     import torch
@@ -2527,7 +2556,7 @@ def tp_serve_rank(rank, world, spec):
     from deepspeed_tpu_torch.utils.monitor import ServingMetrics
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=1024)
     t0 = time.perf_counter()
-    model = seeded_gpt2(cfg, 0)
+    model = device_gpt2(cfg, seed=0)
     engine = deepspeed_tpu_torch.init_inference(
         model=model, mp_size=world, config={"inference": SERVE_INFERENCE})
     del model
@@ -3203,6 +3232,7 @@ def dp_train_rank(rank, world, spec):
     if tp > 1:
         conf["comm"] = {"collective_matmul": {"enabled": True,
                                               "backend": "pallas"}}
+    conf["zero_optimization"] = {"stage": spec.get("stage", 2)}
     cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
                           loss_chunk=128, remat=TRAIN_REMAT,
                           n_layers=spec["layers"])
@@ -3213,7 +3243,8 @@ def dp_train_rank(rank, world, spec):
                                             config_params=conf)[0]
     init_s = time.perf_counter() - t0
     assert engine.device.type == "cuda" and engine.dp_world_size == \
-        spec["data"] and engine.zero_optimization_stage() == 2
+        spec["data"] and engine.zero_optimization_stage() == \
+        spec.get("stage", 2)
     assert engine.flash_attention_backend == "pallas"
     assert engine.fused_optimizer_kernel == "pallas"
     micro = engine.train_micro_batch_size_per_gpu()
@@ -3250,7 +3281,7 @@ def dp_train_rank(rank, world, spec):
     out["train_profile"] = train_profile(engine, batch, steps=1,
                                          span_names=DP_SPANS,
                                          kernel_groups=groups)
-    state = {2: flat.state_bytes()}
+    state = {spec.get("stage", 2): flat.state_bytes()}
     del engine, flat
     torch.cuda.empty_cache()
     for stage in (1, 0) if spec.get("stage_bytes") else ():
@@ -3320,7 +3351,8 @@ def phase_train_dp(world=DP, layers=24, tp=1, steps=DP_STEPS):
             "losses": ranks[0]["losses"], "ranks": ranks}
 
 
-DP_PARITY_LAYERS, DP_PARITY_MICRO, DP_PARITY_STEPS = 4, 2, 3
+# 2 layers (4 before the ZeRO-3 phases came: the script's time limit)
+DP_PARITY_LAYERS, DP_PARITY_MICRO, DP_PARITY_STEPS = 2, 2, 3
 
 
 def _dp_parity_conf(prec, stage, backend, optimizer="Adam", lr=1e-4,
@@ -3416,7 +3448,10 @@ def dp_parity_rank(rank, world, spec):
     differences from the single-rank references in ``spec["ref_path"]``
     and from the runs named in ``spec["pairs"]``; with ``spec["ckpt"]``,
     then :func:`dp_ckpt_rank` on it, under the key "ckpt"; with
-    ``spec["dp3"]``, then :func:`dp3_rank`, under the key "dp3"."""
+    ``spec["dp3"]``, then :func:`dp3_rank`, under the key "dp3"; the runs
+    named in ``spec["sparse"]`` turn on the sparse embedding-gradient
+    exchange over the mesh's data group; with ``spec["pipe3"]``, then
+    ``pipe_chip.pipe3_rank`` on it, under the key "pipe3"."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.parallel.topology import build_mesh
@@ -3429,6 +3464,9 @@ def dp_parity_rank(rank, world, spec):
         mesh = build_mesh(data=spec["data"], model=spec["tp"])
         model = dp_parity_model(spec["layers"], scale=scaled,
                                 data=spec["data"])
+        if name in spec.get("sparse", ()):
+            model.config.sparse_embedding_grads = True
+            model.config.embedding_grad_mesh = mesh
         engine = deepspeed_tpu_torch.initialize(
             model=model, mesh=mesh, config_params=_dp_parity_conf(
                 prec, stage, backend, optimizer, spec["lr"][optimizer],
@@ -3465,6 +3503,8 @@ def dp_parity_rank(rank, world, spec):
         out["ckpt"] = dp_ckpt_rank(rank, world, spec["ckpt"])
     if spec.get("dp3"):
         out["dp3"] = dp3_rank(rank, world, spec["dp3"])
+    if spec.get("pipe3"):
+        out["pipe3"] = _pipe_chip().pipe3_rank(rank, world, spec["pipe3"])
     return out
 
 
@@ -3505,8 +3545,10 @@ def _rel(a, b):
 
 def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
                           scale=20.0, ckpt=None, dp3=None):
-    """DP 2 on the card (two gloo ranks) at gpt2_medium width with 4
-    layers, seq 1024, micro 2 a rank, TF32 off: with the kernels against
+    """DP 2 on the card (two gloo ranks) at gpt2_medium width with
+    ``DP_PARITY_LAYERS`` layers (2; 4 before the ZeRO-3 phases came, cut
+    for the script's time limit), seq 1024, micro 2 a rank, TF32 off:
+    with the kernels against
     DP 1 with the kernels on the same global batch, and against DP 2 with
     the plain versions; fp32 (stage 0: ZeRO needs bf16) and bf16 at stages
     0, 1 and 2 (equal bit for bit: every stage sums in the accumulator's
@@ -3642,13 +3684,22 @@ def _check_masters(masters, atol, moved_rtol, result):
 
 
 def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
-                             moved_rtol=0.25):
+                             moved_rtol=0.25, pipe3=None):
     """DP 2 x TP 2 on the card: four gloo ranks over ``build_mesh(data=2,
     model=2)`` (the ring kernels for the TP matmuls, flash, Adam), fp32
     stage 0 and bf16 stage 2, at gpt2_medium width with ``layers`` layers,
     TF32 off, against DP 1 x TP 1 on the same global batch: losses within
     ``loss_tol`` relative, masters as :func:`_check_masters` holds them.
-    Depth 2 keeps the phase inside the script's time limit."""
+    Then ZeRO stage 3 under TP (bf16; its units hold each rank's TP
+    shards, gathered over the data group): equal to stage 2 bit for bit,
+    losses and masters; and stage 3 with ``sparse_embedding_grads`` (the
+    ``(ids, rows)`` exchange over the data group inside the embedding
+    unit's recompute) against the dense-gradient stage 3: losses within
+    ``loss_tol``, masters' moves within ``moved_rtol``. The flash forward
+    runs twice a layer at stage 3 (the unit's recompute), the ring
+    kernels more than at stage 2. Depth 2 keeps the phase inside the
+    script's time limit. With ``pipe3`` (:func:`pipe3_spec`) the same four
+    ranks then run train_pipe3's runs, returned under "pipe3_ranks"."""
     import os
     import tempfile
     import torch
@@ -3659,21 +3710,34 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
     lr = {"Adam": 1e-4}
     runs = [("fp32", "fp32", 0, "pallas", "Adam", None),
             ("bf16", "bf16", 2, "pallas", "Adam", None)]
+    zero3 = [("bf16_s3", "bf16", 3, "pallas", "Adam", None),
+             ("bf16_s3_sparse", "bf16", 3, "pallas", "Adam", None)]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dp1.npz")
         dp1 = dp1_reference([("dp1/" + r[0],) + r[1:] for r in runs],
                             layers, ids, lr, DP_PARITY_STEPS, path)
-        spec = {"runs": runs, "data": 2, "tp": 2, "ids": ids, "lr": lr,
-                "layers": layers, "steps": DP_PARITY_STEPS,
+        spec = {"runs": runs + zero3, "data": 2, "tp": 2, "ids": ids,
+                "lr": lr, "layers": layers, "steps": DP_PARITY_STEPS,
                 "ref_path": path,
                 "refs": {"fp32": "dp1/fp32", "bf16": "dp1/bf16"},
-                "pairs": {}, "keep": ()}
+                "pairs": {"bf16_s3": ("bf16",),
+                          "bf16_s3_sparse": ("bf16_s3",)},
+                "keep": ("bf16", "bf16_s3"),
+                "sparse": ("bf16_s3_sparse",), "pipe3": pipe3}
         ranks = spawn(dp_parity_rank, 4, args=(spec,), timeout_s=900)
     torch.cuda.empty_cache()
+    pipe3_ranks = [r.pop("pipe3") for r in ranks] if pipe3 else None
     r0 = ranks[0]
+    names = [r[0] for r in runs]
     rel = {name: _rel(r0[name]["losses"], dp1["dp1/" + name]["losses"])
-           for name in r0}
-    masters = {name: r0[name]["vs_dp1/" + name] for name in r0}
+           for name in names}
+    masters = {name: r0[name]["vs_dp1/" + name] for name in names}
+    stage3 = {
+        "bit_equal_stage3_vs_stage2": r0["bf16_s3"]["bit_equal_bf16"] and
+        r0["bf16_s3"]["losses"] == r0["bf16"]["losses"],
+        "sparse_vs_dense_loss_rel": _rel(r0["bf16_s3_sparse"]["losses"],
+                                         r0["bf16_s3"]["losses"]),
+        "sparse_vs_dense_master": r0["bf16_s3_sparse"]["vs_bf16_s3"]}
     result = {"phase": "train_dp_tp_parity", "layers": layers,
               "d_model": 1024, "seq": TRAIN_SEQ, "data": 2, "tp": 2,
               "micro_batch_per_rank": DP_PARITY_MICRO,
@@ -3682,6 +3746,7 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
                          "dp1_tp1": {n: d["losses"]
                                      for n, d in dp1.items()}},
               "loss_max_rel_diff": rel, "master_max_abs_diff": masters,
+              "stage3": stage3,
               "launches_rank0": {n: r0[n]["launches"] for n in r0},
               "tolerance": {"loss_rel": loss_tol,
                             "master_atol": master_atol,
@@ -3690,12 +3755,25 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
         for name in r0:
             assert r[name]["losses"] == r0[name]["losses"], name
             counts = r[name]["launches"]
-            assert all(counts[n] == 4 * 2 * layers * DP_PARITY_STEPS
-                       for n in RING_NAMES), (name, counts)
-            assert counts["flash_fwd"] == layers * DP_PARITY_STEPS, counts
+            recompute = 2 if name.startswith("bf16_s3") else 1
+            assert counts["flash_fwd"] == \
+                recompute * layers * DP_PARITY_STEPS, counts
+            for kernel in ("flash_bwd_dkdv", "flash_bwd_dq"):
+                assert counts[kernel] == layers * DP_PARITY_STEPS, counts
             assert counts["fused_adam"] == DP_PARITY_STEPS, counts
+            if recompute == 1:
+                assert all(counts[n] == 4 * 2 * layers * DP_PARITY_STEPS
+                           for n in RING_NAMES), (name, counts)
+            else:
+                assert all(counts[n] >= r["bf16"]["launches"][n] > 0
+                           for n in RING_NAMES), (name, counts)
     assert max(rel.values()) <= loss_tol, result
     _check_masters(masters, master_atol, moved_rtol, result)
+    assert stage3["bit_equal_stage3_vs_stage2"], result
+    assert stage3["sparse_vs_dense_loss_rel"] <= loss_tol, result
+    assert stage3["sparse_vs_dense_master"]["moved_rel"] <= moved_rtol, \
+        result
+    result["pipe3_ranks"] = pipe3_ranks
     return result
 
 
@@ -3826,6 +3904,35 @@ def main_tp_nccl():
               "launches_rank0": ranks[0]["train"]["pallas"]["launches"],
               "shape": {"b": TP_B, "s": TP_S, "d_model": TP_D,
                         "layers": TP_LAYERS, "dtype": "bf16"}})
+    # ZeRO stage 3 under TP: DP 2 x TP 2 at gpt2_medium full depth (the
+    # example's config), stage 3 against stage 2 from the same weights
+    runs = {}
+    for stage in (2, 3):
+        ranks = spawn(dp_train_rank, 4, args=(dict(
+            data=2, tp=2, layers=24, warmup=DP_WARMUP, steps=DP_STEPS,
+            stage=stage),), timeout_s=900)
+        assert all(r["transport"] == "nccl" for r in ranks), ranks
+        runs[stage] = ranks
+    r2, r3 = runs[2][0], runs[3][0]
+    result = {
+        "phase": "tp_nccl_zero3", "data": 2, "tp": 2, "layers": 24,
+        "transport": "nccl",
+        "step_ms": {s: max(r["step_ms"] for r in runs[s]) for s in runs},
+        "losses": {s: runs[s][0]["losses"] for s in runs},
+        "loss_max_rel_diff": _rel(r3["losses"], r2["losses"]),
+        "bit_equal_losses": r3["losses"] == r2["losses"],
+        "peak_memory_gb": {s: max(r["peak_memory_gb"] for r in runs[s])
+                           for s in runs},
+        "nccl_and_ring_kernel_ms_per_step_rank0": {
+            s: runs[s][0]["train_profile"]["kernel_ms_per_step_by_group"]
+            for s in runs},
+        "device_busy_share_rank0": {
+            s: runs[s][0]["train_profile"]["device_busy_share"]
+            for s in runs},
+        "launches_rank0": {s: runs[s][0]["launches"] for s in runs},
+        "tolerance": {"loss_rel": 1e-3}}
+    emit(result)
+    assert result["loss_max_rel_diff"] <= 1e-3, result
 
 
 def nccl_ckpt_rank(rank, world, spec):
@@ -4522,6 +4629,222 @@ def phase_train_xl_offload(launch_counters=None, layers=None,
             "host_adam_calls": host_adam_calls, "losses": losses}
 
 
+# -------------------------------------------- streamed parameter offload
+
+# BASELINE config 4 as train_xl_offload runs it, plus cpu_offload_params
+# and a live-parameter budget that the runner's plan cuts into 16 groups
+# of 3 blocks: a block is 30,740,800 elements, the embed segment
+# 82,124,800, so (3e8 - 82,124,800) / 2 = 108,937,600 a group
+XL_STREAM_LIVE = 300000000
+XL_STREAM_WARMUP, XL_STREAM_STEPS = 1, 2
+XL_STREAM_CONFIG = dict(XL_CONFIG, zero_optimization=dict(
+    XL_CONFIG["zero_optimization"], cpu_offload_params=True,
+    stage3_max_live_parameters=XL_STREAM_LIVE))
+STREAM_PARITY_LAYERS, STREAM_PARITY_STEPS = 2, 3
+STREAM_RTOL = 2e-4          # the JAX test's bound against classic offload
+
+
+def stream_plan(cfg, budget):
+    """The group plan the runner must make for ``cfg`` at ``budget``
+    (``runtime/zero/stream.py::plan_groups``, the JAX runner's)."""
+    from deepspeed_tpu_torch.runtime.zero.stream import plan_groups
+    d, v, s = cfg.d_model, cfg.vocab_size, cfg.max_seq_len
+    block = 12 * d * d + 13 * d
+    return plan_groups([block] * cfg.n_layers,
+                       max(v * d + s * d, v * d + 2 * d), budget)
+
+
+def phase_train_xl_stream(launch_counters=None, offload=None, layers=None,
+                          steps=XL_STREAM_STEPS, tol=STREAM_RTOL):
+    """BASELINE config 4 with streamed parameter offload: train_xl_offload's
+    configuration (gpt2_xl at full width and depth, seq 1024, micro 8,
+    bf16, Adam lr 1e-4, loss chunk 128, stage 3 + ``cpu_offload``) plus
+    ``cpu_offload_params`` and ``stage3_max_live_parameters`` 3e8, from
+    the same seeded weights (made on the card again, then moved to host
+    memory by the engine: no parameter stays on the card). The plan the
+    runner made is asserted (16 groups of 3 blocks); ``XL_STREAM_WARMUP``
+    steps, then the counts set to 0 and ``steps`` timed steps: the step
+    ms, the split of the last step (uploads, device compute, D2H, the host
+    adds, norm and Adam; device times by CUDA events on their streams,
+    which overlap), the device peak beside train_xl_offload's (its
+    result, ``offload``: the peak must stay under it, and each loss
+    within ``tol`` relative of its loss at the same step: from one batch
+    at lr 1e-4 the loss rises at the third step in both engines), the
+    host bytes, the upload batches and bytes a step, and launches a step:
+    the flash forward twice a layer (the forward, then the group's
+    recompute in the backward), dk/dv and dq once, the device Adam
+    never."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import cpu_adam
+    if launch_counters is None:
+        launch_counters = _dp_counters()[:4]
+    cfg = _xl_cfg(layers)
+    t0 = time.perf_counter()
+    model = device_gpt2(cfg, seed=0)
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config_params=XL_STREAM_CONFIG)[0]
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    runner = engine.stream_runner
+    assert engine.device.type == "cuda" and runner is not None
+    assert engine.offload is None and engine.zero3 is None
+    plan = stream_plan(cfg, XL_STREAM_LIVE)
+    assert runner.groups == plan, (runner.groups, plan)
+    if layers is None:
+        assert plan == [(3 * i, 3 * i + 3) for i in range(16)], plan
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, XL_MICRO, XL_SEQ)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(XL_STREAM_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in launch_counters:
+        c.launches = 0
+    runner.reset_step_counters()
+    adam_calls = cpu_adam.calls
+    t0 = time.perf_counter()
+    timed = [engine.train_batch(batch=batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in launch_counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    snap = runner.transfer_snapshot()
+    phases = {k: v * 1e3 for k, v in engine.offload_phase_times.items()}
+    losses += [float(x) for x in timed]
+    step_ms = wall * 1e3 / steps
+    per_step = {"flash_fwd": 2 * cfg.n_layers,
+                "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "fused_adam": 0}
+    for name, k in per_step.items():
+        if name in launches:
+            assert launches[name] == k * steps, (name, launches)
+    assert all(np.isfinite(losses)), losses
+    offload_peak_gb = offload_losses = None
+    if offload is not None:
+        offload_peak_gb = offload["peak_memory_gb"]
+        offload_losses = offload["losses"][:len(losses)]
+        assert peak_gb < offload_peak_gb, (peak_gb, offload_peak_gb)
+        assert _rel(losses, offload_losses) <= tol, (losses, offload_losses)
+    flat = engine.flat
+    host = {name: t.numel() * t.element_size() for name, t in (
+        ("master", flat.master), ("exp_avg", flat.exp_avg),
+        ("exp_avg_sq", flat.exp_avg_sq), ("acc", flat.acc),
+        ("params_pinned", flat.params))}
+    host["staging_pinned"] = sum(t.numel() * t.element_size()
+                                 for t in runner._staging)
+    tokens = XL_MICRO * XL_SEQ
+    flops = xl_flops_per_token(cfg) * tokens
+    return {"phase": "train_xl_stream", "model": "gpt2_xl",
+            "params": gpt2.num_params(cfg), "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "seq": XL_SEQ, "micro_batch": XL_MICRO,
+            "config": XL_STREAM_CONFIG, "groups": runner.groups,
+            "group_numel": [seg.numel for seg in runner.segments],
+            "terminal_numel": max(runner.embed.numel, runner.head.numel),
+            "steps": steps, "step_ms": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+            "split_ms_last_step": phases,
+            "split_note": "h2d_s, compute_*, d2h_grads_s: device time by "
+                          "CUDA events on each stream (they overlap); "
+                          "h2d_wait_s, d2h_wait_s, host_*: host clock",
+            "peak_memory_gb": peak_gb,
+            "train_xl_offload_peak_memory_gb": offload_peak_gb,
+            "train_xl_offload_losses": offload_losses,
+            "loss_max_rel_diff_vs_offload": _rel(losses, offload_losses)
+            if offload_losses else None, "loss_tolerance": tol,
+            "resident_after_init_gb": resident, "host_bytes": host,
+            "upload_batches_per_step": snap["upload_batches"] / steps,
+            "upload_bytes_per_step": snap["upload_bytes"] / steps,
+            "transfer_snapshot": snap, "init_s": init_s,
+            "host_adam_calls": cpu_adam.calls - adam_calls,
+            "launches": launches, "launches_per_step": per_step,
+            "losses": losses}
+
+
+def phase_train_stream_parity(layers=STREAM_PARITY_LAYERS,
+                              steps=STREAM_PARITY_STEPS, tol=STREAM_RTOL):
+    """gpt2_xl width at ``layers`` layers, train_xl_stream's batch and
+    config with a budget of two blocks and the embed segment (one block a
+    group, so more than one group): (1) the streamed loss of the first
+    micro-step equals, bit for bit, a plain segment-by-segment recompute
+    on the card from the host masters cast to bf16, group for group (the
+    JAX test ``test_streamed_step_matches_segment_reference_bitwise``);
+    (2) over ``steps`` steps the streamed losses track the classic stage
+    3 + offload engine's within ``tol`` relative, and so does eval (the
+    JAX bounds)."""
+    import torch
+    import deepspeed_tpu_torch
+    cfg = _xl_cfg(layers)
+    d, v, s = cfg.d_model, cfg.vocab_size, cfg.max_seq_len
+    budget = v * d + s * d + 2 * (12 * d * d + 13 * d)
+    conf = dict(XL_STREAM_CONFIG, zero_optimization=dict(
+        XL_STREAM_CONFIG["zero_optimization"],
+        stage3_max_live_parameters=budget))
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(1, XL_MICRO, XL_SEQ)) \
+        .astype(np.int64)
+    batch = (ids, ids.copy())
+    streamed = deepspeed_tpu_torch.initialize(model=device_gpt2(cfg, seed=0),
+                                              config_params=conf)[0]
+    runner = streamed.stream_runner
+    assert len(runner.groups) > 1, runner.groups
+    # the reference: every leaf a view of one bf16 copy of the host
+    # parameters on the card (the masters rounded), at the layout's
+    # offsets, the segments run group for group
+    flat = streamed.flat
+    assert torch.equal(flat.params, flat.master.to(torch.bfloat16))
+    dev = flat.params.to(streamed.device)
+    tree = {n: dev[o:o + int(np.prod(sh))].view(sh) for n, o, sh in
+            zip(flat.names, flat.offsets, flat.shapes)}
+    spec = streamed.module.stream_spec
+    x_ids = torch.as_tensor(ids[0], device=streamed.device)
+    with torch.no_grad():
+        e, blocks, h = spec.split(tree)
+        x = spec.embed_apply(e, (x_ids, x_ids), None, True)
+        for start, stop in runner.groups:
+            for bt in blocks[start:stop]:
+                x = spec.block_apply(bt, x, None, True)
+    with torch.enable_grad():
+        ref = float(spec.head_apply(h, x, (x_ids, x_ids), None, True))
+    del dev, tree, x
+    losses = {"streamed": [], "classic": []}
+    losses["streamed"] = [float(streamed.train_batch(batch=batch))
+                          for _ in range(steps)]
+    bit_equal = losses["streamed"][0] == ref
+    streamed.eval()
+    evals = {"streamed": float(streamed(x_ids, x_ids))}
+    del streamed, runner, flat
+    torch.cuda.empty_cache()
+    classic = deepspeed_tpu_torch.initialize(model=device_gpt2(cfg, seed=0),
+                                             config_params=XL_CONFIG)[0]
+    losses["classic"] = [float(classic.train_batch(batch=batch))
+                         for _ in range(steps)]
+    classic.eval()
+    evals["classic"] = float(classic(x_ids, x_ids))
+    del classic
+    torch.cuda.empty_cache()
+    rel = _rel(losses["streamed"], losses["classic"])
+    eval_rel = abs(evals["streamed"] - evals["classic"]) / \
+        abs(evals["classic"])
+    result = {"phase": "train_stream_parity", "model": "gpt2_xl",
+              "layers": layers, "steps": steps, "budget": budget,
+              "groups": len(stream_plan(cfg, budget)),
+              "segment_reference_loss": ref,
+              "bit_equal_to_segment_reference": bit_equal,
+              "losses": losses, "loss_max_rel_diff": rel, "evals": evals,
+              "eval_rel_diff": eval_rel, "tolerance": tol}
+    assert bit_equal, result
+    assert rel <= tol and eval_rel <= tol, result
+    return result
+
+
 def _offload_parity_engine(cfg, zero, steps, batch, sub_group=None,
                            overlap=True, keep_at=None, keep_init=False,
                            **adam):
@@ -5169,6 +5492,90 @@ def phase_train_pipe_parity(spec=None, ranks=None,
     return result
 
 
+def pipe3_spec(layers=PIPE_PARITY_LAYERS, M=PIPE_PARITY_M, steps=2,
+               lr=1e-4):
+    """train_pipe3's rank spec (PP 2 x DP 2, gpt2_medium width at
+    ``layers`` layers) and a temporary directory for its tag (the caller
+    removes it with ``pipe_chip.remove``)."""
+    pc = _pipe_chip()
+    return {"seed": 2, "dir": pc.temp_dir(), "steps": steps,
+            "base": {"S": 2, "dp": 2, "layers": layers, "M": M, "seed": 1,
+                     "constant_lr": lr}}
+
+
+def phase_train_pipe3(spec=None, ranks=None, moved_rtol=PIPE_MOVED_RTOL):
+    """ZeRO stage 3 under pipeline parallelism: PP 2 x DP 2 at gpt2_medium
+    width with ``layers`` layers, four gloo ranks on the card (by default
+    the ranks of train_dp_tp_parity's spawn), the example's config at a
+    constant learning rate, TF32 off, from the dense model's seeded
+    weights, 2 steps: stage 3 against stage 2 at train_pipe_parity's
+    limits (the first loss within 1e-6 relative, each master leaf's move
+    within ``moved_rtol``; every loss's difference and whether the
+    masters are bit-equal reported: on the CPU they are, on the card the
+    two runs' kernels may sum in other orders); every rank launches the
+    flash kernels at the counts it states (``pipe_chip.
+    expected_launches``: at stage 3 the forward twice a layer and
+    micro-batch on every stage, the backward kernels once) and Adam once
+    a step; then a pipeline tag under ``cpu_offload`` (stage 3, the host
+    Adam) saved after one step and resumed by a fresh engine: the
+    resumed losses and masters equal the run that kept going, bit for
+    bit."""
+    import torch
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    pc = _pipe_chip()
+    if ranks is None:
+        spec = pipe3_spec()
+        try:
+            ranks = spawn(pc.pipe3_rank, 4, args=(spec,), timeout_s=900)
+        finally:
+            pc.remove(spec["dir"])
+    torch.cuda.empty_cache()
+    base, steps = spec["base"], spec["steps"]
+    runs = ("s2", "s3", "offload_save", "offload_resume")
+    r0 = ranks[0]
+    # the losses are the same on every rank (the pipe group's sum)
+    for r in ranks:
+        for name in runs:
+            assert r[name]["losses"] == r0[name]["losses"], name
+    s2, s3 = r0["s2"]["losses"], r0["s3"]["losses"]
+    first_rel = abs(s3[0] - s2[0]) / abs(s2[0])
+    moved = max(r["master_s3_vs_s2"]["moved_rel"] for r in ranks)
+    save, resume = r0["offload_save"], r0["offload_resume"]
+    resumed_equal = resume["losses"] == save["losses"][1:] and \
+        all(r["resumed_equal"] for r in ranks)
+    result = {"phase": "train_pipe3", "layers": base["layers"],
+              "d_model": 1024, "seq": TRAIN_SEQ, "stages": 2, "data": 2,
+              "micro_batches": base["M"], "micro_batch_per_rank": pc.MICRO,
+              "steps": steps, "lr": base["constant_lr"],
+              "losses": {n: r0[n]["losses"] for n in runs},
+              "first_loss_rel_stage3_vs_stage2": first_rel,
+              "loss_max_rel_stage3_vs_stage2": _rel(s3, s2),
+              "master_stage3_vs_stage2_per_rank":
+                  [r["master_s3_vs_s2"] for r in ranks],
+              "bit_equal_stage3_vs_stage2": s3 == s2 and
+              all(r["bit_equal_s3_vs_s2"] for r in ranks),
+              "offload_resumed_equal_kept_going": resumed_equal,
+              "launches_per_rank": [{n: r[n]["launches"] for n in runs}
+                                    for r in ranks],
+              "expected_per_step_per_rank": [r["s3"]["expected"]
+                                             for r in ranks],
+              "gathers_per_rank_stage3": [r["s3"]["gathers"] for r in ranks],
+              "run_s_rank0": {n: r0[n]["run_s"] for n in runs},
+              "tolerance": {"first_loss_rel": 1e-6,
+                            "moved_rel": moved_rtol}}
+    for r in ranks:
+        for name in ("s2", "s3", "offload_save"):
+            run = r[name]
+            for kernel, n in run["expected"].items():
+                assert run["launches"][kernel] == n * run["launch_steps"], \
+                    (name, kernel, run["launches"], run["expected"])
+    assert first_rel <= 1e-6, result
+    assert moved <= moved_rtol, result
+    assert resumed_equal, result
+    assert all(np.isfinite(s3)), result
+    return result
+
+
 def main_pp_nccl():
     """``--pp-nccl``: the pipeline main path with one rank per card over
     NCCL (needs 4 cards) at full depth: PP 4, PP 2 x DP 2 (ZeRO-2) and
@@ -5185,12 +5592,15 @@ def main_pp_nccl():
     results = {}
     for name, (stages, dp, tp, stage) in (("pp4", (4, 1, 1, 2)),
                                           ("pp2_dp2", (2, 2, 1, 2)),
+                                          ("pp2_dp2_s3", (2, 2, 1, 3)),
                                           ("pp2_tp2", (2, 1, 2, 1))):
         # PP 2 x DP 2 from the dense model's seeded weights, for the
-        # comparison with the dense DP 4 engine below
+        # comparison with the dense DP 4 engine below and of stage 3
+        # with stage 2
         res = phase_train_pipe(world=4, stages=stages, dp=dp, tp=tp,
                                stage=stage,
-                               seed=0 if name == "pp2_dp2" else None)
+                               seed=0 if name.startswith("pp2_dp2")
+                               else None)
         assert res["transport"] == "nccl", res["transport"]
         res["phase"] = "pp_nccl_" + name
         res.pop("parity_ranks")
@@ -5210,6 +5620,23 @@ def main_pp_nccl():
               "step_ms": {n: r["step_ms"] for n, r in results.items()}}
     emit(result)
     assert rel <= 2e-3, result
+    s3 = results["pp2_dp2_s3"]
+    zero3 = {"phase": "pp_nccl_zero3", "stage2_losses": pipe,
+             "stage3_losses": s3["losses"],
+             "loss_max_rel_diff": _rel(s3["losses"], pipe),
+             "bit_equal_losses": s3["losses"] == pipe,
+             "step_ms": {"stage2": results["pp2_dp2"]["step_ms"],
+                         "stage3": s3["step_ms"]},
+             "nccl_kernel_ms_per_step_per_rank": {
+                 "stage2": results["pp2_dp2"][
+                     "kernel_ms_per_step_by_group_per_rank"],
+                 "stage3": s3["kernel_ms_per_step_by_group_per_rank"]},
+             "peak_memory_gb_per_rank": {
+                 "stage2": results["pp2_dp2"]["peak_memory_gb_per_rank"],
+                 "stage3": s3["peak_memory_gb_per_rank"]},
+             "tolerance": 1e-3}
+    emit(zero3)
+    assert zero3["loss_max_rel_diff"] <= 1e-3, zero3
 
 
 # --------------------------------------------------- compressed communication
@@ -5898,7 +6325,17 @@ def main():
         emit(parity)
         emit(phase_train_dp_ckpt(train_counters, spec=dp_ckpt,
                                  ranks=dp_ckpt_ranks))
-    emit(phase_train_dp_tp_parity())
+    # DP 2 x TP 2 (with its stage-3 and sparse legs); the same four ranks
+    # then run train_pipe3 (PP 2 x DP 2 at stage 3, the offload tag)
+    pipe3 = pipe3_spec()
+    try:
+        dp_tp = phase_train_dp_tp_parity(pipe3=pipe3)
+    finally:
+        _pipe_chip().remove(pipe3["dir"])
+    pipe3_ranks = dp_tp.pop("pipe3_ranks")
+    emit(dp_tp)
+    train_pipe3 = phase_train_pipe3(pipe3, pipe3_ranks)
+    emit(train_pipe3)
 
     # checkpoints on the train path: save and resume; then bench.py's
     # remat rung under both policies
@@ -5910,7 +6347,16 @@ def main():
     # ZeRO-3 and ZeRO-Offload: BASELINE config 4 at full depth, then the
     # offload step against the device state, stage 3 over two ranks, and
     # the offload checkpoints
-    emit(phase_train_xl_offload(train_counters))
+    xl_offload = phase_train_xl_offload(train_counters)
+    emit(xl_offload)
+    torch.cuda.empty_cache()
+    # the same configuration with streamed parameter offload, its peak
+    # held under train_xl_offload's; then the streamed step's checks
+    train_xl_stream = phase_train_xl_stream(train_counters,
+                                            offload=xl_offload)
+    emit(train_xl_stream)
+    torch.cuda.empty_cache()
+    emit(phase_train_stream_parity())
     torch.cuda.empty_cache()
     emit(phase_train_offload_parity())
     torch.cuda.empty_cache()
@@ -5973,9 +6419,23 @@ def main():
             train_pipe["launches_per_rank_per_step"][name],
         "train_onebit_per_rank_per_step":
             train_onebit["launches_per_step"][name],
-        "train_qc_per_rank_per_step": train_qc["launches_per_step"][name]}}
+        "train_qc_per_rank_per_step": train_qc["launches_per_step"][name],
+        "train_xl_stream_per_step":
+            train_xl_stream["launches_per_step"][name],
+        "train_pipe3_stage3_per_rank_per_step": [
+            r["s3"][name] // train_pipe3["steps"]
+            for r in train_pipe3["launches_per_rank"]],
+        "train_dp_tp_parity_stage3_rank0":
+            dp_tp["launches_rank0"]["bf16_s3"][name]}}
         for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                      "fused_adam")}
+    for name in RING_NAMES:
+        extra[name] = {"launches_by_path": {
+            "train_tp": launches[name],
+            "train_dp_tp_parity_stage2_rank0":
+                dp_tp["launches_rank0"]["bf16"][name],
+            "train_dp_tp_parity_stage3_rank0":
+                dp_tp["launches_rank0"]["bf16_s3"][name]}}
     extra["paged_attention"] = {"launches_by_path": {
         "serve": serve["launches"]["paged_attention"],
         "serve_spec_ngram": serve_spec["ngram"]["paged_attention_launches"],

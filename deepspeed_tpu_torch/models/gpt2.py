@@ -33,6 +33,7 @@ attention context.
 import dataclasses
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -51,7 +52,8 @@ from ..ops.transformer.fused_ops import fused_bias_gelu, fused_layer_norm
 from ..parallel.collective_matmul import (gather_rows, sum_across,
                                           tp_column_matmul, tp_row_matmul)
 from ..parallel.topology import MODEL_AXIS
-from ..utils.distributed import all_reduce_
+from ..utils.distributed import (all_gather, all_reduce_,
+                                 reduce_scatter)
 from . import _tree
 from ._tree import params_from_jax
 
@@ -261,6 +263,16 @@ class GPT2Model(nn.Module):
         has it and the module is training) draws from ``generator``."""
         return lm_loss(self, input_ids, labels, self.config,
                        generator=generator, train=self.training)
+
+    @property
+    def stream_spec(self):
+        """The streamed-offload decomposition (:func:`stream_spec_for`),
+        None for the configs it does not compose with (the engine then
+        refuses ``cpu_offload_params``), as the JAX package attaches
+        none."""
+        if self.config.sparse_embedding_grads:
+            return None
+        return stream_spec_for(self.config)
 
 
 # ------------------------------------------------- tensor-parallel layout
@@ -736,28 +748,63 @@ def zero3_units(module):
     return units
 
 
+class _TiedRows(torch.autograd.Function):
+    """``gather_rows`` for the two stage-3 calls that share the vocabulary
+    shards of ``wte`` under tensor parallelism: the head's call (whose
+    backward runs first) keeps its gradient of the gathered table in
+    ``held``, and the embedding's call reduce-scatters the sum of both
+    over the ring once, as autograd sums the two uses of one gathered
+    table before ``gather_rows``' reduce-scatter on the path without
+    ZeRO-3."""
+
+    @staticmethod
+    def forward(ctx, w, group, held, last):
+        ctx.group, ctx.held, ctx.last = group, held, last
+        return all_gather(w, group, dim=0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.last:
+            ctx.held["grad"] = grad
+            return None, None, None, None
+        kept = ctx.held.pop("grad", None)
+        if kept is not None:
+            grad = grad + kept
+        return reduce_scatter(grad.contiguous(), ctx.group, dim=0), \
+            None, None, None
+
+
 def _zero3_lm_loss(params, input_ids, labels, config, generator, train, z3):
     """:func:`lm_loss` under ZeRO stage 3: the embedding, each block and
     the head (``ln_f`` and the loss, borrowing the embedding unit for the
     tied ``wte``) each run as one ``z3.call``, which gathers the unit's
-    parameters around the call and again for its backward
-    (``runtime/zero/stage3.py``). The call recomputes its unit in the
-    backward, so the blocks run with ``remat`` off inside it. The
-    operations, and so the values, are those of the path without
-    ZeRO-3."""
-    if _tp_binding(config) is not None:
-        raise NotImplementedError(
-            "ZeRO stage 3 under tensor parallelism is not ported yet: it "
-            "comes with ROADMAP.md Queue 1 item 7c")
-    if config.sparse_embedding_grads:
-        raise NotImplementedError(
-            "ZeRO stage 3 with sparse_embedding_grads is not ported yet: it "
-            "comes with ROADMAP.md Queue 1 item 7c")
+    parameters over the data group around the call and again for its
+    backward (``runtime/zero/stage3.py``). The call recomputes its unit in
+    the backward, so the blocks run with ``remat`` off inside it. The
+    operations, and so the values, are those of the path without ZeRO-3:
+    under tensor parallelism the units hold the rank's shards, the calls
+    run the ring ops over the model group (again in each recompute), and
+    the two uses of the gathered ``wte`` reduce-scatter their summed
+    gradient once (:class:`_TiedRows`); with ``sparse_embedding_grads``
+    the lookup's ``(ids, rows)`` exchange runs inside the embedding's
+    recompute."""
+    binding = _tp_binding(config)
     dtype = z3.flat.compute_dtype
     s = input_ids.shape[1]
+    rows = _local_rows(s, binding)
+    held = {}
+
+    def table(last):
+        if binding is None:
+            return params.wte
+        return _TiedRows.apply(params.wte, binding.group, held, last)
 
     def embed(ids):
-        return params.wte[ids].to(dtype) + params.wpe[:s].to(dtype)
+        wte, ids = table(True), ids[:, rows]
+        tok = sparse_embedding_lookup(wte, ids,
+                                      mesh=config.embedding_grad_mesh) \
+            if config.sparse_embedding_grads else wte[ids]
+        return tok.to(dtype) + params.wpe[rows].to(dtype)
 
     x = z3.call(embed, input_ids, units=("embed",))
     block_fn = make_block_fn(dataclasses.replace(config, remat=False),
@@ -769,9 +816,77 @@ def _zero3_lm_loss(params, input_ids, labels, config, generator, train, z3):
 
     def head(h, lab):
         hidden = _layer_norm(h, params.ln_f.scale, params.ln_f.bias)
+        if binding is not None:
+            return _tp_lm_loss(hidden, table(False), lab, config, binding)
         return _head_loss(hidden, params.wte, lab, config)
 
     return z3.call(head, x, labels, units=("ln_f",), borrow=("embed",))
+
+
+def _tree_view(tree):
+    """``{"ln1.scale": t, ...}`` -> a namespace read as ``.ln1.scale``
+    (what :func:`make_block_fn`'s block reads from a module)."""
+    out = {}
+    for name, value in tree.items():
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+
+    def build(node):
+        return SimpleNamespace(**{k: build(v) if isinstance(v, dict) else v
+                                  for k, v in node.items()})
+
+    return build(out)
+
+
+def stream_spec_for(config):
+    """:class:`runtime.model.StreamSpec` for GPT-2, the decomposition the
+    streamed-offload runner (``cpu_offload_params``) drives; port of the
+    JAX package's ``stream_spec_for``. The composition equals
+    :func:`lm_loss` segment for segment: embed (``wte`` gather + ``wpe``
+    add), per-layer :func:`make_block_fn` blocks (the fused flash op on
+    the flash path), head (``ln_f`` + the tied-``wte`` loss, chunked by
+    ``loss_chunk``). ``split`` returns the same ``wte`` object in the
+    embed and head segments, so the runner sums the two gradient
+    contributions. The blocks run with ``remat`` off: the runner
+    recomputes each layer group in its backward, which is the
+    checkpoint."""
+    from ..runtime.model import StreamSpec
+    if getattr(config, "sequence_parallel", None) or \
+            config.sparse_embedding_grads:
+        raise ValueError(
+            "streamed parameter offload does not compose with "
+            "sequence_parallel or sparse_embedding_grads")
+
+    def split(params):
+        blocks = {}
+        for name, value in params.items():
+            if name.startswith("blocks."):
+                _, i, inner = name.split(".", 2)
+                blocks.setdefault(int(i), {})[inner] = value
+        return ({"wte": params["wte"], "wpe": params["wpe"]},
+                [blocks[i] for i in sorted(blocks)],
+                {"ln_f.scale": params["ln_f.scale"],
+                 "ln_f.bias": params["ln_f.bias"], "wte": params["wte"]})
+
+    def embed_apply(embed, batch, seed, train):
+        input_ids = batch[0]
+        s = input_ids.shape[1]
+        dtype = embed["wpe"].dtype
+        return embed["wte"][input_ids].to(dtype) + embed["wpe"][:s].to(dtype)
+
+    def block_apply(bp, x, seed, train):
+        block = make_block_fn(dataclasses.replace(config, remat=False),
+                              train, x.device)
+        return block(x, _tree_view(bp), seed)
+
+    def head_apply(head, x, batch, seed, train):
+        hidden = _layer_norm(x, head["ln_f.scale"], head["ln_f.bias"])
+        return _head_loss(hidden, head["wte"], batch[1], config)
+
+    return StreamSpec(split, embed_apply, block_apply, head_apply)
 
 
 def num_params(config):

@@ -131,10 +131,14 @@ class LambPlan:
 
     def sharded_index(self, start):
         """The indices (int64, on the plan's device) of the segments
-        whose offset is at or past ``start``, built on first use."""
-        if self._sharded is None or self._sharded[0] != start:
-            idx = np.flatnonzero(self.offsets >= start)
-            self._sharded = (start, torch.from_numpy(idx).to(self.device))
+        whose offset is at or past ``start`` (or, given a sequence, those
+        segment indices: ZeRO-3's units interleave the leaves every model
+        rank holds whole with the sharded ones), built on first use."""
+        key = tuple(start) if isinstance(start, (tuple, list)) else start
+        if self._sharded is None or self._sharded[0] != key:
+            idx = np.asarray(key, dtype=np.int64) if isinstance(key, tuple) \
+                else np.flatnonzero(self.offsets >= key)
+            self._sharded = (key, torch.from_numpy(idx).to(self.device))
         return self._sharded[1]
 
     def extent(self):

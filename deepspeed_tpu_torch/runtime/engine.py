@@ -76,6 +76,18 @@ handle (``optimizer=``: the port's ``FusedAdam``, ``FusedLamb`` or
 apply step that was not skipped, ``training_data=`` through
 :meth:`deepspeed_io`, and ``model_parameters=`` as initial weights.
 
+ZeRO stage 3 (``runtime/zero/stage3.py``) gathers each unit over the
+data group around its call; under tensor parallelism the units hold the
+rank's TP shards (the replicated leaves' ranges of each unit,
+``FlatPartition.own_replicated``, are all-reduced over the model group
+and counted once in the norm). Streamed parameter offload
+(``zero_optimization.cpu_offload_params``, one process; the JAX engine's
+refusals with its messages) keeps every parameter in host memory:
+``forward`` runs the runner's streamed forward and backward
+(``runtime/zero/stream.py``, ``stream_runner``), ``backward`` is
+bookkeeping, and the apply step is its host Adam
+(``offload_phase_times`` holds the step's phase clocks).
+
 Pipeline parallelism (``runtime/pipe/engine.py``) subclasses this
 engine: its stage's parameters fill the flat buffers, and the apply step
 and the checkpoints call the hooks it overrides (``_reduce_tied_grads``
@@ -127,14 +139,16 @@ from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero.offload import HostOffload
 from .zero.partition import FlatPartition
 from .zero.stage3 import Stage3
+from .zero.stream import StreamedOffloadRunner
 
 FUSED_KERNEL_MODES = ("auto", "pallas", "xla")
 
 
 class DeepSpeedEngine:
-    """Train a module with ZeRO stages 0-2 over a data-parallel group,
+    """Train a module with ZeRO stages 0-3 over a data-parallel group,
     optionally tensor-parallel over a ``model`` group, mixed precision
-    over fp32 master weights and Adam/AdamW, LAMB or SGD."""
+    over fp32 master weights and Adam/AdamW, LAMB or SGD; ZeRO-Offload
+    and streamed parameter offload on the host."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
@@ -192,7 +206,8 @@ class DeepSpeedEngine:
                  "device={} offload={}".format(
                      self._num_params, self.zero_optimization_stage(),
                      self.compute_dtype, self.device,
-                     self.offload is not None), ranks=[0])
+                     "streamed" if self.stream_runner is not None
+                     else self.offload is not None), ranks=[0])
 
     # ----------------------------------------------------------------- setup
 
@@ -289,6 +304,14 @@ class DeepSpeedEngine:
                 "model; the ZeRO-3 ring gather needs stage 3)", cm.strict,
                 flag="comm.collective_matmul.strict")
         else:
+            if cm.zero_gather and self.zero_optimization_stage() >= 3 and \
+                    self.dp_world_size > 1:
+                warn_or_raise_noop(
+                    "comm.collective_matmul.zero_gather has NO effect in "
+                    "this port yet: stage 3 gathers each unit with one "
+                    "all-gather over the data group (the ring gather comes "
+                    "with ROADMAP.md Queue 1 item 7b)", cm.strict,
+                    flag="comm.collective_matmul.strict")
             log_dist("collective_matmul ON: tp_fused=True tp={} chunks={} "
                      "dtype={} backend={} transport={}".format(
                          self.mp_world_size, cm.chunks, cm.dtype,
@@ -327,6 +350,11 @@ class DeepSpeedEngine:
                 "comm.quantized_collectives.hierarchical={} must divide the "
                 "data-parallel degree {}".format(qc.hierarchical, dp))
         self._certify_local_grad_comm("comm.quantized_collectives")
+        if bool(self._config.zero_config.cpu_offload_params):
+            raise ValueError(
+                "comm.quantized_collectives is not a certified "
+                "combination with cpu_offload_params (the streamed "
+                "runner owns its own gradient path)")
         if dp <= 1:
             warn_or_raise_noop(
                 "comm.quantized_collectives has NO effect: the mesh has no "
@@ -647,13 +675,45 @@ class DeepSpeedEngine:
 
     def zero_cpu_offload(self):
         """ZeRO-Offload live: ``cpu_offload`` at a ZeRO stage (the flag is
-        ignored at stage 0, as the JAX engine does)."""
+        ignored at stage 0, as the JAX engine does), or streamed parameter
+        offload (its optimizer state lives in host memory by
+        construction)."""
         return bool(self.zero_optimization() and
-                    self._config.zero_config.cpu_offload)
+                    (self._config.zero_config.cpu_offload or
+                     self.zero_params_offload()))
+
+    def zero_params_offload(self):
+        """Streamed parameter offload live (``cpu_offload_params``): the
+        compute parameters live in host memory and are uploaded a layer
+        group at a time inside the step (``runtime/zero/stream.py``)."""
+        return bool(self.zero_optimization() and
+                    self._config.zero_config.cpu_offload_params)
+
+    def _check_params_offload(self, zc, stage):
+        """The JAX engine's refusals of ``cpu_offload_params``, with its
+        messages (the single-process and model ones are the runner's)."""
+        if zc.cpu_offload_params and not self.zero_optimization():
+            raise ValueError(
+                "zero_optimization.cpu_offload_params requires ZeRO "
+                "(zero_optimization.stage=3)")
+        if not self.zero_params_offload():
+            return
+        if stage < 3:
+            raise ValueError(
+                "zero_optimization.cpu_offload_params is a ZeRO-3 "
+                "feature (params must be partitionable); got stage {}"
+                .format(stage))
+        if not zc.cpu_offload:
+            log_dist(
+                "cpu_offload_params without cpu_offload: the fp32 master "
+                "and Adam moments are host-resident anyway (the streamed "
+                "step's optimizer runs on host)", ranks=[0])
 
     def _init_state(self):
         zc = self._config.zero_config
         stage = self.zero_optimization_stage()
+        self._check_params_offload(zc, stage)
+        streamed = self.zero_params_offload()
         offload = self.zero_cpu_offload()
         if zc.cpu_offload and not offload:
             logger.warning("zero_optimization.cpu_offload is ignored at "
@@ -687,21 +747,16 @@ class DeepSpeedEngine:
                 self.gradient_accumulation_steps())
         replicated = ()
         if self._cm_tp:
-            if stage >= 3:
-                raise NotImplementedError(
-                    "ZeRO stage 3 under tensor parallelism is not ported "
-                    "yet: it comes with ROADMAP.md Queue 1 item 7c")
+            # the parameters every model rank holds whole (stage 3: the
+            # rank's units hold its TP shards, partitioned over the data
+            # group)
             spec = self._module_fn("partition_spec_fn")
             replicated = [name for name, p in self.module.named_parameters()
-                          if spec(name, tuple(p.shape)) is None]
+                          if spec(name, tuple(getattr(p, "ds_shape",
+                                                      p.shape))) is None]
         units = None
         model_units = self._module_attr("zero3_units")
         if stage >= 3:
-            if getattr(getattr(self.module, "config", None),
-                       "sparse_embedding_grads", False):
-                raise NotImplementedError(
-                    "ZeRO stage 3 with sparse_embedding_grads is not ported "
-                    "yet: it comes with ROADMAP.md Queue 1 item 7c")
             units = model_units(self.module) if model_units else \
                 [("module", [n for n, _ in self.module.named_parameters()])]
         self._num_params = sum(
@@ -711,15 +766,17 @@ class DeepSpeedEngine:
             zc.max_live_parameters is not None else None
         # at one rank the JAX plan keeps every leaf whole (no data degree
         # to shard over): stage 3 there is stage 2's layout, with no
-        # gathers and nothing recomputed
-        partitioned = stage >= 3 and self.dp_world_size > 1
+        # gathers and nothing recomputed; streamed offload is one rank
+        partitioned = stage >= 3 and self.dp_world_size > 1 and \
+            not streamed
         self.flat = FlatPartition(
             self.module, self.device, self.compute_dtype, accum_dtype=accum,
             replicated=replicated, moments_dtype=moments,
             group=self._dp_group, stage=stage if partitioned else
             min(stage, 2), offload=offload, units=units,
             persistence_threshold=zc.param_persistence_threshold,
-            max_live_parameters=max_live, local_grads=onebit)
+            max_live_parameters=max_live, local_grads=onebit,
+            streamed=streamed)
         self._configure_local_grad_state()
         # a zero.Init module's pieces now live in the engine's buffers
         self.module.__dict__.pop("_zero3_store", None)
@@ -731,7 +788,7 @@ class DeepSpeedEngine:
             self._zero3_in_model = model_units is not None
             if self._zero3_in_model:
                 self.module._zero3 = self.zero3
-        if stage >= 3:
+        if stage >= 3 and not streamed:
             flat = self.flat
             # unpartitioned, every leaf is persistent
             persistent_numel = flat.persistent_numel if partitioned else \
@@ -752,18 +809,23 @@ class DeepSpeedEngine:
                     flag="zero_optimization.strict")
         self.offload = HostOffload(
             self.flat, zc.sub_group_size, zc.prefetch_bucket_size,
-            host_ranks=local_world_size(self._world())) if offload else None
+            host_ranks=local_world_size(self._world())) \
+            if offload and not streamed else None
+        self.stream_runner = StreamedOffloadRunner(self) if streamed \
+            else None
+        # the streamed step's phase clocks (the JAX engine's name)
+        self.offload_phase_times = {}
         if self._cm_tp and self.flat.sharded:
             # the model ranks of one data coordinate must own the same
-            # range of the same layout: the ring's reductions pair them up
-            mine = torch.tensor([self.flat.numel, self.flat.lo,
-                                 self.flat.hi, self.flat.replicated_end],
+            # ranges of the same layout: the ring's reductions pair them up
+            mine = torch.tensor(self.flat.layout_signature(),
                                 dtype=torch.int64, device=self.device)
-            seen = all_gather(mine, self._tp_group).view(-1, 4)
+            seen = all_gather(mine, self._tp_group).view(
+                self.mp_world_size, -1)
             if not bool((seen == mine).all()):
                 raise RuntimeError(
-                    "model ranks hold different flat layouts (numel, lo, "
-                    "hi, replicated_end): {}".format(seen.tolist()))
+                    "model ranks hold different flat layouts (numel, owned "
+                    "pieces, replicated ranges): {}".format(seen.tolist()))
         self.scaler = ls.loss_scaler_from_config(self._config)
 
     def _jax_leaves(self):
@@ -863,6 +925,17 @@ class DeepSpeedEngine:
             for key, value in self.progressive_layer_drop.get_state().items():
                 if key in self._forward_kwargs:
                     kwargs.setdefault(key, value)
+        if self.stream_runner is not None:
+            # the forward AND the backward run as one streamed pass (the
+            # gradients land in the host accumulator); backward() is
+            # bookkeeping
+            if not self.module.training:
+                return self.stream_runner.eval_loss(inputs)
+            loss = self.stream_runner.micro_step(
+                inputs, self.stream_runner.layer_seeds(
+                    kwargs.get("generator")))
+            self._pending_backward = True
+            return loss
         if not self.module.training:
             with torch.no_grad():
                 return self._run_module(inputs, kwargs)
@@ -885,6 +958,8 @@ class DeepSpeedEngine:
         assert self._pending_backward, \
             "backward() called without a prior train-mode forward()"
         self._pending_backward = False
+        if self.stream_runner is not None:
+            return loss
         scale = self.scaler.cur_scale / self.gradient_accumulation_steps()
         (loss.float() * scale).backward()
         self.flat.fold_grads()
@@ -909,6 +984,8 @@ class DeepSpeedEngine:
         params refresh (the all-gather when partitioned), zero acc."""
         if self._onebit_mode:
             return self._onebit_apply_step()
+        if self.stream_runner is not None:
+            return self._stream_apply_step()
         flat = self.flat
         tp = self._tp_group if self._cm_tp else None
         dp = self._dp_group
@@ -920,10 +997,10 @@ class DeepSpeedEngine:
             with record_function("zero.all_reduce"):
                 all_reduce_(flat.acc, dp)
         acc = flat.own(flat.acc)
-        rep_end = flat.own_replicated_end
+        rep_ranges = flat.own_replicated
         if tp is not None:
             # the whole-on-every-rank parameters saw only this rank's rows
-            all_reduce_(acc[:rep_end], tp)
+            self._tp_reduce_replicated(acc, rep_ranges, tp)
         grads = acc if acc.dtype == torch.float32 else acc.float()
         overflow = rt_utils.CheckOverflow.has_overflow(grads)
         scale = self.scaler.cur_scale
@@ -938,7 +1015,7 @@ class DeepSpeedEngine:
             # shard's once per model rank, each replicated element once,
             # each pipeline stage's once
             stats = torch.stack([overflow.float(),
-                                 *self._grad_squares(grads, rep_end)])
+                                 *self._grad_squares(grads, rep_ranges)])
             if flat.sharded:
                 all_reduce_(stats, dp)
             if tp is not None:
@@ -969,10 +1046,13 @@ class DeepSpeedEngine:
             flat.step += 1
             flat.gather_params()
         elif not overflow:
+            # the segments a TP rank holds a shard of (stage 3: the
+            # unreplicated leaves, interleaved with the others)
             self.optimizer.step_flat(
                 flat.master, grads, flat.exp_avg, flat.exp_avg_sq,
                 flat.step + 1, segments=flat.segments, group=tp,
-                sharded_from=rep_end,
+                sharded_from=flat.sharded_leaves if flat.stage3
+                else flat.own_replicated_end,
                 **({"dp_group": dp} if flat.sharded else {}))
             flat.step += 1
             flat.refresh_params()
@@ -1052,15 +1132,59 @@ class DeepSpeedEngine:
         self.scaler = ls.update_scale(self.scaler, overflow)
         return metrics
 
+    def _stream_apply_step(self):
+        """The streamed offload's apply step (the host Adam over the host
+        accumulator) and the loss scaler's update; its phase clocks move
+        to ``offload_phase_times``, the name the JAX engine gives them."""
+        metrics = self.stream_runner.apply_step()
+        self.scaler = ls.update_scale(self.scaler, metrics["overflow"])
+        self.offload_phase_times = self.stream_runner.phase_times
+        self.stream_runner.phase_times = {}
+        return metrics
+
+    @staticmethod
+    def _tp_reduce_replicated(acc, ranges, group):
+        """The replicated leaves' ranges of ``acc`` summed over the model
+        group (one all-reduce: the ranges packed when there are several)."""
+        if len(ranges) == 1:
+            a, b = ranges[0]
+            all_reduce_(acc[a:b], group)
+        elif ranges:
+            packed = torch.cat([acc[a:b] for a, b in ranges])
+            all_reduce_(packed, group)
+            at = 0
+            for a, b in ranges:
+                acc[a:b].copy_(packed[at:at + b - a])
+                at += b - a
+
     def _reduce_tied_grads(self):
         """Before the data-parallel reduction: the tied parameters'
         gradients summed over the stages that hold them (the pipeline
         engine's; nothing here)."""
 
-    def _grad_squares(self, grads, rep_end):
+    @staticmethod
+    def _squares(grads, ranges):
+        total = grads.new_zeros((), dtype=torch.float32)
+        for a, b in ranges:
+            if a < b:
+                total = total + grads[a:b].pow(2).sum()
+        return total
+
+    @staticmethod
+    def _complement(ranges, n):
+        out, at = [], 0
+        for a, b in sorted(ranges):
+            out.append((at, a))
+            at = b
+        out.append((at, n))
+        return [(a, b) for a, b in out if a < b]
+
+    def _grad_squares(self, grads, rep_ranges):
         """The squares of the owned gradients this rank counts in the
-        global norm: ``(past the replicated slice, in it)``."""
-        return grads[rep_end:].pow(2).sum(), grads[:rep_end].pow(2).sum()
+        global norm: ``(outside the replicated ranges, in them)``."""
+        return (self._squares(grads, self._complement(rep_ranges,
+                                                      grads.numel())),
+                self._squares(grads, rep_ranges))
 
     def _take_model_step(self, lr_kwargs=None):
         metrics = self._apply_step()
@@ -1468,13 +1592,16 @@ class DeepSpeedEngine:
         async_save = async_save and self._world() == 1
         self._drain_ckpt_writes()
         ckpt.wait_pending_writes()
-        offload = self.offload is not None
+        offload = self.offload is not None or \
+            self.stream_runner is not None
         # the JAX engine's choice: device-state ZeRO and a partitioned
-        # offload write the state only into the zero files
+        # offload write the state only into the zero files (a pipeline
+        # under offload also writes the gathered trees: _gathered_offload)
         zero = (self.zero_optimization() and not offload) or \
             (offload and self._world() > 1)
+        gathered = not zero or (offload and self._gathered_offload())
         flat = self.flat
-        if zero:
+        if not gathered:
             optimizer = None
         elif self._onebit_mode:
             state = self._onebit_state(keep_dtype=True)
@@ -1491,7 +1618,7 @@ class DeepSpeedEngine:
             "module": self._jax_tree(flat.params, keep_dtype=True),
             "optimizer": optimizer,
             "master": self._jax_tree(flat.master)
-            if (self.mixed_precision or offload) and not zero else None,
+            if (self.mixed_precision or offload) and gathered else None,
             "scaler": {
                 "cur_scale": np.asarray(self.scaler.cur_scale, np.float32),
                 "cur_hysteresis": np.asarray(self.scaler.cur_hysteresis,
@@ -1509,7 +1636,7 @@ class DeepSpeedEngine:
             "dp_world_size": self.dp_world_size,
             "mp_world_size": self.mp_world_size,
         }
-        if offload and self.offload.torn_step is not None:
+        if self.offload is not None and self.offload.torn_step is not None:
             sd["torn_offload_step"] = self.offload.torn_step
         pristine = self._onebit_pristine
         if pristine is not None and pristine.get("steps") == \
@@ -1541,6 +1668,12 @@ class DeepSpeedEngine:
         # no rank goes on (and perhaps loads) before the tag is whole
         self._barrier()
         return True
+
+    def _gathered_offload(self):
+        """Whether an offload tag written over several ranks also carries
+        the gathered master and optimizer trees in its model file (the
+        pipeline engine's; not here, as the JAX engine)."""
+        return False
 
     def _save_extra_files(self, save_dir, tag, note, async_save):
         """More files of the tag, written before the manifest (the

@@ -45,15 +45,28 @@ group: the reference's ``_aggregate_total_loss``) and the data group.
 ``eval_batch`` runs forward only through
 ``schedule.packed_inference_schedule_tables`` with dropout off.
 
-ZeRO stages 0-2 partition each stage's flat buffers over its data group
-(stage 2 with ``cpu_offload`` runs the host Adam); tensor parallelism
+ZeRO stages 0-3 partition each stage's flat buffers over its data group
+(with ``cpu_offload`` the host Adam steps them); tensor parallelism
 inside a stage runs through ``comm.collective_matmul`` as in the dense
-engine. Refused, as in the JAX package: ``forward``/``backward``/
-``step`` (:class:`PipelineError`), ZeRO stage >= 2 under PP x TP,
-elasticity. Checkpoints are the JAX engine's tags with
+engine. At stage 3 each stage's units (``PipelineModule.zero3_units``:
+the tied layer, each pre, body and post layer) are gathered over the
+stage's data group around their calls (``Stage3.call``): the forward
+phase runs under autograd, keeping only each unit call's input, and the
+backward phase back-propagates from the stashed output, so each layer
+runs its forward twice a micro-batch (the phase, the call's recompute)
+on every stage, the last included. The tied leaves' gradients are kept
+whole (``FlatPartition.hold``) and summed over the two stages, then the
+data group, as at stage 2. Refused, as in the JAX package: ``forward``/
+``backward``/``step`` (:class:`PipelineError`), ZeRO stage >= 2 under PP
+x TP, elasticity. Checkpoints are the JAX engine's tags with
 ``client_state["pipe_layout"]`` and one ``layer_NN-model_00-model_states.pt``
-per real body layer; a tag written at one (S, v) loads at another.
+per real body layer; a tag written at one (S, v) loads at another. Under
+``cpu_offload`` each rank's zero file holds its host state as
+``offload_shards`` (the stacked body's boxes) and the model file also
+carries the gathered master and optimizer trees, as the single-process
+JAX pipeline engine writes them, so the tag loads in either package.
 """
+import dataclasses
 import json
 import os
 import time
@@ -150,11 +163,14 @@ class PipelineEngine(DeepSpeedEngine):
                 "or drop tensor parallelism for ZeRO stage 2/3 under PP. "
                 "See docs/_tutorials/parallelism.md for the support "
                 "matrix.".format(stage))
-        if stage >= 3:
-            raise NotImplementedError(
-                "ZeRO stage 3 under pipeline parallelism is not ported yet: "
-                "it comes with ROADMAP.md Queue 1 item 8b")
         super()._init_state()
+        if self.zero3 is not None:
+            # the unit calls recompute each layer: no checkpoint inside
+            for chunk in self.module.body:
+                for layer in chunk:
+                    cfg = getattr(layer, "config", None)
+                    if getattr(cfg, "remat", False):
+                        layer.config = dataclasses.replace(cfg, remat=False)
         self._configure_tied()
 
     def _configure_tied(self):
@@ -167,7 +183,8 @@ class PipelineEngine(DeepSpeedEngine):
             {k for kind, k, _ in module.post_layers if kind == "tied"}
         tied = [i for i, n in enumerate(flat.names) if n.startswith("tied.")]
         self._tied_end = 0
-        if tied:
+        self._tied_ranges = flat.owned_ranges(tied)
+        if tied and not flat.stage3:
             last = max(tied)
             if tied != list(range(last + 1)):
                 raise RuntimeError("tied parameters must lead the flat "
@@ -181,7 +198,11 @@ class PipelineEngine(DeepSpeedEngine):
         self._tied_skip = bool(tied) and any(
             module.tied_owner(k) != r for k in module.tied)
         self._tied_acc = None
-        if self._tied_group is not None and flat.grads_sharded:
+        if self._tied_group is not None and flat.stage3:
+            # stage 3: the tied leaves' gradients bypass their unit's
+            # reduce-scatter, whole in fp32 until the pair sum
+            flat.hold([flat.names[i] for i in tied])
+        elif self._tied_group is not None and flat.grads_sharded:
             # at stage 2 the tied slice is kept whole (fp32) through the
             # micro-steps, so the pair sum precedes the data reduction
             self._tied_acc = torch.zeros(self._tied_end, dtype=torch.float32,
@@ -203,7 +224,12 @@ class PipelineEngine(DeepSpeedEngine):
         t0 = time.perf_counter()
         flat, end = self.flat, self._tied_end
         with record_function("pipe.tied_reduce"):
-            if self._tied_acc is None:
+            if flat.held:
+                all_reduce_(flat.held_acc, self._tied_group)
+                if self._dp_group is not None:
+                    all_reduce_(flat.held_acc, self._dp_group)
+                flat.fold_held()
+            elif self._tied_acc is None:
                 all_reduce_(flat.acc[:end], self._tied_group)
             else:
                 all_reduce_(self._tied_acc, self._tied_group)
@@ -218,9 +244,15 @@ class PipelineEngine(DeepSpeedEngine):
             torch.cuda.synchronize(self.device)
         self.pipe_stats["tied_reduce_s"] = time.perf_counter() - t0
 
-    def _grad_squares(self, grads, rep_end):
+    def _grad_squares(self, grads, rep_ranges):
         if not self._tied_skip:
-            return super()._grad_squares(grads, rep_end)
+            return super()._grad_squares(grads, rep_ranges)
+        if self.flat.stage3:
+            # no TP under PP at stage 3: every owned element but the tied
+            # leaves' ranges
+            return (self._squares(grads, self._complement(
+                self._tied_ranges, grads.numel())), grads.new_zeros(()))
+        rep_end = rep_ranges[0][1] if rep_ranges else 0
         # the tied slice leads the layout: [0, b) in owned coordinates
         b = min(max(self._tied_end - self.flat.lo, 0), grads.numel())
 
@@ -340,7 +372,9 @@ class PipelineEngine(DeepSpeedEngine):
         bwd_m, bwd_c = tabs["bwd_m"], tabs["bwd_c"]
         W = tabs["buffer_slots"]
         shape, dtype = self._activation_meta(inputs)
-        save = module.save_residuals
+        # stage 3: the forward phase keeps each unit call's input (its
+        # recompute is the checkpoint), so nothing runs a third time
+        save = module.save_residuals or self.zero3 is not None
         seed_scale = self.scaler.cur_scale / M
         base = self._dropout_base()
         hop = p2p.Hop(self.mesh, r, S)
@@ -388,7 +422,7 @@ class PipelineEngine(DeepSpeedEngine):
                             entry.detach().requires_grad_()
                         y = run(c, x, m)
                     if last(r, c):
-                        loss = module.loss(module.apply_post(y), labels[m])
+                        loss = module.post_loss(y, labels[m])
                         torch.autograd.backward(loss.float() * seed_scale)
                         loss_sum += loss.detach().float()
                     else:
@@ -441,8 +475,8 @@ class PipelineEngine(DeepSpeedEngine):
                             if r == 0 and c == 0 else recv_f
                         y = module.run_chunk(c, x)
                         if r == S - 1 and c == v - 1:
-                            loss_sum += module.loss(module.apply_post(y),
-                                                    labels[m]).float()
+                            loss_sum += module.post_loss(
+                                y, labels[m]).float()
                         else:
                             hop.send_forward(y)
                     recv_f = None
@@ -530,10 +564,6 @@ class PipelineEngine(DeepSpeedEngine):
         ``layer_NN-model_00-model_states.pt`` per real body layer (the
         compute-dtype layer tree), written by each stage's first data and
         model rank; the manifest and ``latest`` only after every file."""
-        if self.offload is not None:
-            raise NotImplementedError(
-                "checkpoints of a pipeline under cpu_offload are not "
-                "ported yet: they come with ROADMAP.md Queue 1 item 8b")
         client_state = dict(client_state or {})
         client_state["pipe_layout"] = self.module.layout()
         self._saving = True
@@ -544,6 +574,9 @@ class PipelineEngine(DeepSpeedEngine):
                                            async_save=async_save)
         finally:
             self._saving = False
+
+    def _gathered_offload(self):
+        return True
 
     def _save_extra_files(self, save_dir, tag, note, async_save):
         state = self._full_tree(self.flat.params, keep_dtype=True)
@@ -562,9 +595,9 @@ class PipelineEngine(DeepSpeedEngine):
                     async_save=async_save))
 
     def _zero_shard_payload(self):
-        """This rank's zero file (``device_shards``): its owned range of
-        the master and the moments as boxes of the whole pipeline tree's
-        leaves. A body layer's boxes sit at its stage (and chunk) and slot
+        """This rank's zero file (``device_shards``; under offload
+        ``offload_shards``): its owned range of the master and the moments
+        as boxes of the whole pipeline tree's leaves. A body layer's boxes sit at its stage (and chunk) and slot
         of the stacked leaf; its stage's padded slots (ragged partitions)
         get the first layer's boxes, as the JAX module fills them; a tied
         leaf is written by the stage that owns it, a leaf every model rank
@@ -626,6 +659,21 @@ class PipelineEngine(DeepSpeedEngine):
         def as_lists(what):
             return [(shapes[path], lists[what][path]) for path in order]
 
+        if self.offload is not None:
+            # (key, master, exp_avg, exp_avg_sq), each the box's shape of
+            # the stacked leaf, as the JAX engine's host shards
+            def host(t, key):
+                return np.ascontiguousarray(t.float().numpy()).reshape(
+                    tuple(b - a for a, b, _ in key))
+
+            return {"offload_shards": [
+                [(key, host(p, key), host(m, key), host(v, key))
+                 for (key, p), (_, m), (_, v) in zip(
+                     lists["master"][path], lists["exp_avg"][path],
+                     lists["exp_avg_sq"][path])]
+                for path in order],
+                "offload_step": int(flat.step),
+                "torn_step": self.offload.torn_step}
         return {"device_shards": {
             "master": as_lists("master"),
             "opt": {"step": np.asarray(flat.step, np.int32),

@@ -108,10 +108,12 @@ class Layer(nn.Module):
 
 
 def _call_accepting(fn, *args, **kwargs):
-    """``fn(*args)`` with only the kwargs its signature takes."""
+    """``fn(*args)`` with only the kwargs its signature (a module's:
+    its ``forward``'s) takes."""
     if kwargs:
         try:
-            params = inspect.signature(fn).parameters
+            params = inspect.signature(
+                fn.forward if isinstance(fn, nn.Module) else fn).parameters
             if not any(q.kind == inspect.Parameter.VAR_KEYWORD
                        for q in params.values()):
                 kwargs = {k: v for k, v in kwargs.items() if k in params}
@@ -438,10 +440,42 @@ class PipelineModule(nn.Module):
             return layer(x)
         return mods[str(i)](x)
 
+    def _zero3_runtime(self):
+        """The engine's ZeRO-3 gather runtime (``Stage3``) when this
+        stage's parameters are partitioned over its data group, else
+        None."""
+        return self.__dict__.get("_zero3")
+
+    def _entry_units(self, entries, kind, i):
+        """(units, borrowed units) of entry ``i`` of the pre or post
+        layers under ZeRO-3: a layer's own unit; a tied layer's, borrowed
+        by the head when this stage also holds the embedding (the
+        embedding's call, whose backward runs last, reduces it)."""
+        what, key, _ = entries[i]
+        if what == "fn":
+            return (), ()
+        if what == "layer":
+            return ("{}.{}".format(kind, i),), ()
+        unit = "tied." + key
+        if kind == "post" and any(k == key for w, k, _ in self.pre_layers
+                                  if w == "tied") and self.is_first_stage:
+            return (), (unit,)
+        return (unit,), ()
+
     def apply_pre(self, x):
-        """The hoisted head layers (e.g. the embedding): first stage."""
+        """The hoisted head layers (e.g. the embedding): first stage.
+        Under ZeRO-3 each layer runs as one ``Stage3.call`` over its
+        unit."""
+        z3 = self._zero3_runtime()
         for i in range(len(self.pre_layers)):
-            x = self._apply_entry(self.pre_layers, self.pre, i, x)
+            units, borrow = self._entry_units(self.pre_layers, "pre", i) \
+                if z3 is not None else ((), ())
+            if not units and not borrow:
+                x = self._apply_entry(self.pre_layers, self.pre, i, x)
+                continue
+            x = z3.call(lambda h, i=i: self._apply_entry(
+                self.pre_layers, self.pre, i, h), x, units=units,
+                borrow=borrow)
         return x
 
     def apply_post(self, x):
@@ -450,14 +484,39 @@ class PipelineModule(nn.Module):
             x = self._apply_entry(self.post_layers, self.post, i, x)
         return x
 
+    def post_loss(self, x, labels):
+        """``loss(apply_post(x), labels)``; under ZeRO-3 one
+        ``Stage3.call`` over the tail layers' units (the head's output is
+        the tied table and the hidden states, which only the loss
+        reads)."""
+        z3 = self._zero3_runtime()
+        if z3 is None:
+            return self.loss(self.apply_post(x), labels)
+        units, borrow = [], []
+        for i in range(len(self.post_layers)):
+            u, b = self._entry_units(self.post_layers, "post", i)
+            units += u
+            borrow += b
+        return z3.call(lambda h, lab: self.loss(self.apply_post(h), lab),
+                       x, labels, units=tuple(units), borrow=tuple(borrow))
+
     def run_chunk(self, c, x, seeds=None):
         """This rank's chunk ``c`` of the body on ``x``; ``seeds`` (one
         per layer, or None) reach the layers that take ``seed=``. With
         ``activation_checkpoint_interval`` N > 0 and gradients on, every
         N layers run under ``torch.utils.checkpoint`` (reference forward
-        :292-346)."""
+        :292-346). Under ZeRO-3 each layer runs as one ``Stage3.call``
+        over its unit (which recomputes it in the backward: no other
+        checkpoint)."""
         layers = list(self.body[c])
         seeds = seeds if seeds is not None else [None] * len(layers)
+        z3 = self._zero3_runtime()
+        if z3 is not None:
+            for j, (layer, seed) in enumerate(zip(layers, seeds)):
+                x = z3.call(lambda h, layer=layer, seed=seed:
+                            _call_accepting(layer, h, seed=seed), x,
+                            units=("body.{}.{}".format(c, j),))
+            return x
 
         def run(lo, hi, h):
             for layer, seed in zip(layers[lo:hi], seeds[lo:hi]):
@@ -471,6 +530,20 @@ class PipelineModule(nn.Module):
         for lo in range(0, len(layers), interval):
             x = checkpoint(run, lo, lo + interval, x, use_reentrant=False)
         return x
+
+    @staticmethod
+    def zero3_units(module):
+        """ZeRO stage 3's gather units of this stage: each tied layer,
+        each pre and post layer, each body layer (``body.c.j``)."""
+        names = [n for n, _ in module.named_parameters()]
+        prefixes = ["tied." + k for k in module.tied] + \
+            ["pre." + k for k in module.pre] + \
+            ["body.{}.{}".format(c, j) for c in range(len(module.body))
+             for j in range(len(module.body[c]))] + \
+            ["post." + k for k in module.post]
+        units = [(p, [n for n in names if n.startswith(p + ".")])
+                 for p in prefixes]
+        return [u for u in units if u[1]]
 
     def loss(self, out, labels):
         if self.loss_fn is not None:

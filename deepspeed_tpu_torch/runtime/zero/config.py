@@ -6,14 +6,15 @@ flat buffers partitioned over the data group
 (``runtime/zero/partition.py``; stage 3 gathers each unit of the
 compute-dtype parameters around its use, ``runtime/zero/stage3.py``) and
 ZeRO-Offload (``cpu_offload``: the fp32 master and moments in host memory
-and the host Adam, ``runtime/zero/offload.py``); ``sub_group_size``,
+and the host Adam, ``runtime/zero/offload.py``) and streamed parameter
+offload (``cpu_offload_params``, ``runtime/zero/stream.py``; the engine
+refuses it below stage 3, as the JAX engine does); ``sub_group_size``,
 ``stage3_max_live_parameters``, ``stage3_prefetch_bucket_size`` and
 ``stage3_param_persistence_threshold`` are live, and the engine warns on
 (or under ``strict`` refuses) ``stage3_max_reuse_distance`` and
 ``cpu_offload_use_pin_memory``. What it does not run yet raises
-``NotImplementedError`` naming the later item that brings it: streamed
-parameter offload (``cpu_offload_params``, which also needs stage 3, as in
-the JAX package) and the ZeRO++ modes. The
+``NotImplementedError`` naming the later item that brings it: the
+ZeRO++ modes. The
 bucket, overlap and contiguity keys (``reduce_bucket_size``,
 ``allgather_bucket_size``, ``overlap_comm``, ``reduce_scatter``,
 ``allgather_partitions``, ``contiguous_gradients``) are parsed and
@@ -29,10 +30,6 @@ from ...utils.logging import logger
 # ZeRO features of the JAX package that this slice does not run, with the
 # later slice of the port that brings each
 UNPORTED_ZERO_KEYS = {
-    ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS:
-        "the streamed parameter offload item of ROADMAP.md (Queue 1 "
-        "item 7a: the JAX package's runtime/zero/stream.py and "
-        "runtime/executor/stream.py)",
     ZERO_OPTIMIZATION_QUANTIZED_WEIGHTS: "the ZeRO++ slice",
     ZERO_OPTIMIZATION_QUANTIZED_GRADIENTS: "the ZeRO++ slice",
 }
@@ -136,11 +133,6 @@ class DeepSpeedZeroConfig(object):
                              ZERO_OPTIMIZATION_STRICT_DEFAULT))
 
     def _reject_unported(self, zero_config_dict):
-        if self.cpu_offload_params and (self.stage or 0) < 3:
-            # the JAX engine's refusal: streamed offload is a stage-3 mode
-            raise ValueError(
-                "zero_optimization.cpu_offload_params requires stage 3 "
-                "(got stage {})".format(self.stage))
         for key, later in UNPORTED_ZERO_KEYS.items():
             if zero_config_dict.get(key):
                 raise NotImplementedError(

@@ -60,7 +60,12 @@ there; a ``zero.Init`` store keeps this layout at any size.
 ZeRO-Offload (``offload``): the master and both moments (fp32) live in
 host memory, this rank's owned part only; the accumulator and the
 compute-dtype parameters stay on the device, and
-``runtime/zero/offload.py`` steps the host state.
+``runtime/zero/offload.py`` steps the host state. Streamed parameter
+offload (``streamed``, one rank, stage 2's whole layout) keeps the
+compute-dtype parameters in host memory too (pinned when the device is
+CUDA) and the fp32 accumulator there: no parameter has a resident device
+copy, and ``runtime/zero/stream.py`` uploads them a layer group at a
+time.
 
 ``segments`` is the segment table of the owned part, one ``(offset,
 numel)`` per parameter (per JAX leaf), offsets local to the owned part
@@ -68,14 +73,21 @@ and each parameter clipped to it (0 elements where the rank holds none
 of it), so entry i names the same leaf on every rank: LAMB takes one
 trust ratio per segment from its sums over the data group.
 
-Under tensor parallelism (stages 0-2) each rank's module holds its own
-shards, and each rank keeps one such set of buffers over them. The
-parameters every rank holds whole (``replicated``: layer norms, ``wpe``,
-the proj biases) are laid out first, so ``[0, replicated_end)`` is one
-slice the engine all-reduces over the ring and counts once in the global
-norm; in the owned range that slice is ``[0, own_replicated_end)``.
-Model ranks at one data coordinate hold the same layout and so own the
-same range.
+Under tensor parallelism each rank's module holds its own shards, and
+each rank keeps one such set of buffers over them. The parameters every
+rank holds whole (``replicated``: layer norms, ``wpe``, the proj biases)
+are laid out first (stages 0-2: ``[0, replicated_end)`` of the layout;
+stage 3: first within each unit), so they are a few slices the engine
+all-reduces over the ring and counts once in the global norm:
+``own_replicated``, ranges of the owned part (stages 0-2 one,
+``[0, own_replicated_end)``). Model ranks at one data coordinate hold the
+same layout and so own the same ranges.
+
+Held leaves (:meth:`hold`, stage 3): the gradients of the named leaves
+(a pipeline's tied embedding) bypass their unit's reduce-scatter and sum
+whole, in fp32, in ``held_acc``, as stage 2 keeps the pipeline's tied
+slice whole; the engine reduces them and adds the owned parts into the
+accumulator (:meth:`fold_held`).
 """
 import numpy as np
 import torch
@@ -154,11 +166,12 @@ class FlatPartition:
                  moments_dtype=torch.float32, group=None, stage=0,
                  offload=False, units=None, persistence_threshold=100000,
                  max_live_parameters=None, train_state=True,
-                 local_grads=False):
+                 local_grads=False, streamed=False):
         self.device, self.compute_dtype = device, compute_dtype
         self.group = group
         self.stage = stage
-        self.offload = bool(offload)
+        self.streamed = bool(streamed)
+        self.offload = bool(offload) or self.streamed
         self.dp_world = dist.get_world_size(group) if group is not None \
             else 1
         self.dp_rank = dist.get_rank(group) if group is not None else 0
@@ -172,7 +185,7 @@ class FlatPartition:
         if self.stage3:
             groups = self._stage3_groups(named, shape_of, units,
                                          persistence_threshold,
-                                         max_live_parameters)
+                                         max_live_parameters, replicated)
         else:
             groups = [("all", [n for n, _ in named if n in replicated] +
                        [n for n, _ in named if n not in replicated])]
@@ -181,19 +194,25 @@ class FlatPartition:
         # each unit: (name, start, padded numel, [leaf indices])
         self.units = []
         self.replicated_end = 0
+        # per unit, one past its replicated leaves (they lead the unit)
+        unit_rep_end = []
         total = 0
         for uname, leaf_names in groups:
             start, leaves = total, []
+            rep_end = start
             for name in leaf_names:
                 leaves.append(len(self.names))
                 self.names.append(name)
                 self.shapes.append(shape_of[name])
                 self.offsets.append(total)
                 total += _padded(_numel(shape_of[name]))
-                if not self.stage3 and name in replicated:
-                    self.replicated_end = total
+                if name in replicated:
+                    rep_end = total
+                    if not self.stage3:
+                        self.replicated_end = total
             total = start + _padded(total - start, unit)
             self.units.append((uname, start, total - start, leaves))
+            unit_rep_end.append(rep_end)
         self.numel = total
         self.sharded = self.dp_world > 1 and stage >= 1
         # (global lo, global hi, local offset) of each owned piece
@@ -210,6 +229,17 @@ class FlatPartition:
             self.lo, self.hi = self.spans[0][0], self.spans[0][1]
         self.own_replicated_end = 0 if self.stage3 else min(
             max(self.replicated_end - self.lo, 0), self.part_numel)
+        # the replicated leaves' ranges of the owned part
+        self.own_replicated = []
+        for (_, start, _, _), (lo, hi, local), rep_end in zip(
+                self.units, self.spans, unit_rep_end):
+            a, b = max(lo, start), min(hi, rep_end)
+            if a < b:
+                self.own_replicated.append((local + a - lo, local + b - lo))
+        # the indices of the leaves a rank holds a shard of (stage 3's
+        # LAMB trust ratios over the ring)
+        self.sharded_leaves = tuple(i for i, n in enumerate(self.names)
+                                    if n not in replicated)
         self.unit_of = {}
         for u, (_, _, _, leaves) in enumerate(self.units):
             for i in leaves:
@@ -225,6 +255,13 @@ class FlatPartition:
             self.params = own.to(compute_dtype) if self.mixed \
                 else own.clone()
             self.master = own.to(host) if self.offload else own
+        elif self.streamed:
+            # one rank: the whole layout, already in host memory
+            self.master = own
+            self.params = torch.empty(
+                self.numel, dtype=compute_dtype,
+                pin_memory=torch.device(device).type == "cuda")
+            self.params.copy_(own)
         else:
             whole = own
             own = whole[self.lo:self.hi]
@@ -245,7 +282,8 @@ class FlatPartition:
         if train_state:
             self.acc = torch.zeros(self.part_numel if self.grads_sharded or
                                    self.stage3 else self.numel,
-                                   dtype=accum_dtype, device=device)
+                                   dtype=accum_dtype,
+                                   device=host if self.streamed else device)
             self.exp_avg = torch.zeros(self.part_numel, dtype=moments_dtype,
                                        device=state_device)
             self.exp_avg_sq = torch.zeros(self.part_numel,
@@ -257,8 +295,17 @@ class FlatPartition:
         self.step = 0
         self._module_params = module_params
         self._pending = {}
+        self.held, self.held_acc = {}, None
         if self.stage3:
             self._init_stage3_views(module_params)
+        elif self.streamed:
+            # no resident device copy: the leaves hold an empty placeholder
+            self.grads = None
+            placeholder = torch.empty(0, dtype=compute_dtype, device=device)
+            for p, shape in zip(module_params, self.shapes):
+                p.grad = None
+                p.data = placeholder
+                p.ds_shape = shape
         else:
             self.grads = torch.zeros(self.numel, dtype=compute_dtype,
                                      device=device)
@@ -270,10 +317,12 @@ class FlatPartition:
 
     # ------------------------------------------------------------- layout
 
-    def _stage3_groups(self, named, shape_of, units, threshold, max_live):
+    def _stage3_groups(self, named, shape_of, units, threshold, max_live,
+                       replicated=()):
         """Stage 3's units: the persistent leaves first (one unit), then
         each of ``units``' ``(name, [parameter names])`` with its
-        data-sharded leaves (units left empty dropped)."""
+        data-sharded leaves (units left empty dropped); within each unit
+        the ``replicated`` leaves (tensor parallelism) lead."""
         names = [n for n, _ in named]
         if units is None:
             units = [("module", names)]
@@ -291,7 +340,9 @@ class FlatPartition:
         groups = [("persistent", keep)] if keep else []
         groups += [(uname, [n for n in members if n not in persistent])
                    for uname, members in units]
-        return [g for g in groups if g[1]]
+        return [(uname, [n for n in members if n in replicated] +
+                 [n for n in members if n not in replicated])
+                for uname, members in groups if members]
 
     def _initial_own(self, module, module_params):
         """The fp32 values of the owned part (stage 3) or of the whole
@@ -304,7 +355,7 @@ class FlatPartition:
             return store.local.to(self.device, torch.float32, copy=True)
         values = store.gather_full() if store is not None else None
         whole = torch.zeros(self.numel, dtype=torch.float32,
-                            device=self.device)
+                            device="cpu" if self.streamed else self.device)
         for name, p, off, shape in zip(self.names, module_params,
                                        self.offsets, self.shapes):
             src = values[name] if values is not None else p.detach()
@@ -329,6 +380,25 @@ class FlatPartition:
         b = min(max(off + n, lo), hi)
         return local + a - lo, b - a
 
+    def layout_signature(self):
+        """What the model ranks of one data coordinate must share: the
+        layout's size, the owned pieces and the replicated ranges."""
+        return [self.numel, self.part_numel] + \
+            [x for span in self.spans for x in span] + \
+            [x for r in self.own_replicated for x in r]
+
+    def owned_ranges(self, indices):
+        """The ranges ``[(a, b), ...]`` of the owned part that hold the
+        leaves ``indices`` (local offsets)."""
+        out = []
+        for i in indices:
+            off, n = self.offsets[i], _numel(self.shapes[i])
+            for lo, hi, local in self.spans:
+                a, b = max(off, lo), min(off + n, hi)
+                if a < b:
+                    out.append((local + a - lo, local + b - lo))
+        return sorted(out)
+
     def state_bytes(self):
         """Bytes this rank holds of master, moments and accumulator."""
         return {name: t.numel() * t.element_size() for name, t in (
@@ -339,6 +409,8 @@ class FlatPartition:
         """Bytes of compute-dtype parameters this rank keeps between
         steps: the whole buffer (stages 0-2), or its pieces plus the
         gathered persistent unit (stage 3)."""
+        if self.streamed:
+            return 0
         size = self.params.numel() * self.params.element_size()
         if self.stage3 and self.sharded and self.persist is not None:
             size += self.persist.numel() * self.persist.element_size()
@@ -414,10 +486,45 @@ class FlatPartition:
         for p, _, _ in self.unit_leaves(u):
             p.data = self._placeholder
 
+    def hold(self, names):
+        """Keep the gradients of the leaves ``names`` whole, in fp32, in
+        ``held_acc`` (stage 3; see the module docstring)."""
+        self.held, total = {}, 0
+        for name in names:
+            i = self.names.index(name)
+            self.held[i] = (total, _numel(self.shapes[i]))
+            total += _numel(self.shapes[i])
+        self.held_acc = torch.zeros(total, dtype=torch.float32,
+                                    device=self.device)
+
+    def fold_held(self):
+        """The held gradients' owned parts added into the accumulator (in
+        its dtype), then ``held_acc`` zeroed."""
+        for i, (o, n) in self.held.items():
+            off = self.offsets[i]
+            for lo, hi, local in self.spans:
+                a, b = max(off, lo), min(off + n, hi)
+                if a < b:
+                    self.acc[local + a - lo:local + b - lo].add_(
+                        self.held_acc[o + a - off:o + b - off].to(
+                            self.acc.dtype))
+        self.held_acc.zero_()
+
     def deposit(self, u, grads):
         """Add the gradients ``grads`` (one per leaf of unit ``u``, None
         where unused) into the unit's compute-dtype gradient buffer, as
-        autograd adds into a ``.grad``."""
+        autograd adds into a ``.grad`` (a held leaf's into ``held_acc``)."""
+        if self.held:
+            rest = []
+            for i, g in zip(self.units[u][3], grads):
+                if i in self.held and g is not None:
+                    o, n = self.held[i]
+                    self.held_acc[o:o + n].add_(g.reshape(-1))
+                    g = None
+                rest.append(g)
+            grads = rest
+            if all(g is None for g in grads):
+                return
         if u == self.persist_unit:
             buf = self.persist_grads
         else:

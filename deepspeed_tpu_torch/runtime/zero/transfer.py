@@ -13,7 +13,11 @@ staging buffer in the same order as the device range they go to, so
 packing is free: a bucket is a run of whole leaves (a leaf larger than
 the bucket alone), copied with one ``non_blocking`` host-to-device copy
 on the upload stream. ``batches`` counts the copies, as the JAX
-batcher's ``batches`` counts its ``device_put`` calls.
+batcher's ``batches`` counts its ``device_put`` calls. The streamed
+parameter offload
+(``runtime/zero/stream.py``) uploads a layer group's ranges of the host
+parameters into one device buffer through the same buckets (``base``:
+the layout offset the buffer's element 0 stands for).
 """
 import numpy as np
 import torch
@@ -75,11 +79,12 @@ class H2DBatcher:
         out.append((start, hi))
         return out
 
-    def upload(self, dst, src, lo, hi):
-        """``dst[lo:hi] = src[:hi - lo]`` in buckets."""
+    def upload(self, dst, src, lo, hi, base=0):
+        """``dst[lo - base:hi - base] = src[:hi - lo]`` in buckets."""
         non_blocking = dst.device.type == "cuda"
         for a, b in self.buckets(lo, hi):
-            dst[a:b].copy_(src[a - lo:b - lo], non_blocking=non_blocking)
+            dst[a - base:b - base].copy_(src[a - lo:b - lo],
+                                         non_blocking=non_blocking)
             self.batches += 1
 
 

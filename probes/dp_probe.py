@@ -9,8 +9,9 @@ PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
 ``serve_spec``, ``serve_tp``, ``train_example_data``, ``cpu_adam``,
 ``train_xl_offload``, ``train_offload_parity``, ``train_dp3``,
 ``train_offload_ckpt``, ``train_pipe``, ``train_pipe_parity``,
-``train_comm`` (``train_onebit`` and ``train_qc``, one spawn); on four
-cards ``dp_nccl_zero3``), optionally with
+``train_comm`` (``train_onebit`` and ``train_qc``, one spawn),
+``train_xl_stream``, ``train_stream_parity``, ``train_pipe3`` (its own
+four ranks); on four cards ``dp_nccl_zero3``), optionally with
 integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
 JSON line. Not a test and on no path of the package.
 """

@@ -66,7 +66,8 @@ def example_conf(spec):
                 train_micro_batch_size_per_gpu=spec.get("micro", MICRO),
                 gradient_accumulation_steps=spec["M"],
                 transformer={"flash_attention": "auto"})
-    conf["zero_optimization"] = {"stage": spec.get("stage", 2)}
+    conf["zero_optimization"] = dict({"stage": spec.get("stage", 2)},
+                                     **spec.get("zero", {}))
     if spec.get("tp", 1) > 1:
         conf["comm"] = {"collective_matmul": {"enabled": True,
                                               "backend": "pallas"}}
@@ -98,7 +99,9 @@ def build_engine(spec):
                                             config_params=example_conf(spec))[0]
     assert engine.device.type == "cuda", engine.device
     assert engine.flash_attention_backend == "pallas"
-    assert engine.fused_optimizer_kernel == "pallas"
+    # the CUDA Adam, or under cpu_offload the host Adam
+    assert engine.fused_optimizer_kernel == (
+        "host" if engine.offload is not None else "pallas")
     return engine
 
 
@@ -131,19 +134,23 @@ def expected_launches(engine, M):
     """Launches a step of this rank's flash and Adam kernels: the flash
     forward once a layer and micro-batch in the forward phase (not on the
     last virtual stage, whose backward recomputes it anyway) and once in
-    the backward's recompute (once in all with ``save_stage_residuals``);
-    each backward kernel once; Adam once. The ring kernels (under TP)
-    are only required to launch."""
+    the backward's recompute (once in all with ``save_stage_residuals``;
+    at ZeRO stage 3 twice on every stage: the forward phase, then each
+    unit call's recompute); each backward kernel once; Adam once (never
+    under ``cpu_offload``). The ring kernels (under TP) are only required
+    to launch."""
     module = engine.module
     S, r, v = module.num_stages, module.stage_id, module.num_virtual
     fwd = 0
     for c in range(v):
         n = len(module.body[c])
         last = r == S - 1 and c == v - 1
-        fwd += n * (1 if last or module.save_residuals else 2)
+        once = (last or module.save_residuals) and engine.zero3 is None
+        fwd += n * (1 if once else 2)
     layers = sum(len(chunk) for chunk in module.body)
     return {"flash_fwd": fwd * M, "flash_bwd_dkdv": layers * M,
-            "flash_bwd_dq": layers * M, "fused_adam": 1}
+            "flash_bwd_dq": layers * M,
+            "fused_adam": 0 if engine.offload is not None else 1}
 
 
 def train_rank(rank, world, spec):
@@ -288,6 +295,77 @@ def parity_rank(rank, world, spec):
         out[name] = res
         del engine
         torch.cuda.empty_cache()
+    return out
+
+
+def pipe3_rank(rank, world, spec):
+    """train_pipe3's runs on this rank (PP 2 x DP 2): ZeRO stage 2 and
+    stage 3 from the dense model's seeded weights, ``spec["steps"]``
+    steps each with the counts set to 0 just before and read just after
+    (and the launches the stage should make a step); then stage 3 with
+    ``cpu_offload``: one step, a tag saved, the rest of the steps; and a
+    fresh offload engine that loads the tag and takes the same steps. The
+    masters are compared here, on this stage's leaves (gathered over the
+    data group): stage 3 against stage 2 from stage 2's start
+    (``chip_smoke._master_diff``, bit for bit too), the resumed run
+    against the one that kept going, bit for bit. TF32 off."""
+    import torch
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base, steps = spec["base"], spec["steps"]
+    offload = {"cpu_offload": True}
+    runs = [("s2", dict(base, stage=2), [steps]),
+            ("s3", dict(base, stage=3), [steps]),
+            ("offload_save", dict(base, stage=3, zero=offload),
+             [1, "save", steps - 1]),
+            ("offload_resume", dict(base, stage=3, zero=offload),
+             ["load", steps - 1])]
+    cs = counters()
+    out, masters = {}, {}
+
+    def local_master(engine):
+        return {k: v.numpy() for k, v in
+                engine._full_tree(engine.flat.master).items()}
+
+    for name, run, actions in runs:
+        t0 = time.perf_counter()
+        engine = build_engine(run)
+        batch = rank_rows(global_batch(run, seed=spec["seed"]), engine)
+        res = {"losses": [], "stage": engine.stage_id,
+               "expected": expected_launches(engine, run["M"]),
+               "gathers": engine.zero3.gathers if engine.zero3 else 0}
+        if name == "s2":
+            masters["init"] = local_master(engine)
+        for c in cs:
+            c.launches = 0
+        for action in actions:
+            if action == "save":
+                engine.save_checkpoint(spec["dir"], tag="pipe3")
+            elif action == "load":
+                path, _ = engine.load_checkpoint(spec["dir"], tag="pipe3")
+                assert path is not None
+            else:
+                for _ in range(action):
+                    res["losses"].append(float(engine.train_batch(
+                        batch=batch)))
+        res["launches"] = {c.__name__: c.launches for c in cs}
+        res["launch_steps"] = sum(a for a in actions if isinstance(a, int))
+        if engine.zero3 is not None:
+            res["gathers"] = engine.zero3.gathers - res["gathers"]
+        masters[name] = local_master(engine)
+        res["run_s"] = time.perf_counter() - t0
+        out[name] = res
+        del engine
+        torch.cuda.empty_cache()
+    d_model = gpt2_config(1).d_model
+    out["master_s3_vs_s2"] = chip_smoke._master_diff(
+        masters["s3"], masters["s2"], d_model, masters["init"])
+    out["bit_equal_s3_vs_s2"] = all(
+        np.array_equal(v, masters["s2"][k]) for k, v in masters["s3"].items())
+    out["resumed_equal"] = all(
+        np.array_equal(v, masters["offload_save"][k])
+        for k, v in masters["offload_resume"].items())
     return out
 
 

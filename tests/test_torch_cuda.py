@@ -34,6 +34,12 @@ imports nothing of JAX, so it also runs where JAX is not installed:
   layer per step and one Adam launch per step; the same at data-parallel
   world 2 (two gloo ranks on the card), fp32 and bf16 ZeRO-2, Adam with
   both moment dtypes and LAMB.
+* ZeRO-3: DP 2 x TP 2 at stage 3 equal to stage 2 bit for bit through
+  the kernels (four gloo ranks on the card); streamed parameter offload
+  (``cpu_offload_params``) through the flash kernels: its loss bit for
+  bit the segments on one device copy of the host parameters, 3 steps
+  and eval within 2e-4 of the classic offload engine, the flash forward
+  twice a layer a step and the device Adam never.
 * checkpoints: a tiny bf16 ZeRO-2 GPT-2 saved after 2 steps (sync, and
   async with fp32 moments) and resumed by a fresh engine takes the same
   next 2 steps bit for bit (losses, master, moments); under
@@ -974,6 +980,111 @@ def test_dp2_training_kernels_match_plain_versions(cuda):
             assert k["launches"][opt_kernel] == 3, k["launches"]
             assert not any(p["launches"].values()), p["launches"]
             assert k["adam_numel"] * (2 if stage else 1) == k["numel"]
+
+
+def test_zero3_tp_equals_stage2_on_the_card(cuda):
+    """ZeRO stage 3 under tensor parallelism on the card: DP 2 x TP 2, four
+    gloo ranks sharing it (``tests/torch_zero3_workers.py``), a tiny bf16
+    GPT-2 through the flash, ring and Adam kernels: stage 3 (every block
+    partitioned over the data group, the units holding each rank's TP
+    shards) equals stage 2 bit for bit, losses and gathered masters; the
+    flash forward launches twice as often (each unit's recompute), the
+    backward kernels and Adam as often."""
+    import torch_zero3_workers as workers
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=2, n_heads=2,
+               d_model=128, remat=False, loss_chunk=32)
+    ids = np.random.RandomState(6).randint(0, 256, size=(1, 8, 128))
+    base = dict(model=cfg, seed=5, data=2, tp=2, micro=4, batch=(ids, ids),
+                steps=3, backend="pallas", device="cuda")
+    specs = [dict(base, zero={"stage": 3,
+                              "stage3_param_persistence_threshold": 1000}),
+             dict(base, zero={"stage": 2})]
+    ranks = spawn(workers.zero_engine, 4, args=(specs,), timeout_s=600)
+    for s3, s2 in ranks:
+        assert s3["losses"] == s2["losses"] and s3["gathers"] > 0
+        for (_, a), (_, b) in zip(sorted(_np_leaves(s3["master"])),
+                                  sorted(_np_leaves(s2["master"]))):
+            assert np.array_equal(a, b)
+        k3, k2 = s3["launches"], s2["launches"]
+        assert k3["flash_fwd"] == 2 * k2["flash_fwd"] == 2 * 2 * 3, k3
+        for name in ("flash_bwd_dkdv", "flash_bwd_dq", "fused_adam"):
+            assert k3[name] == k2[name] > 0, (name, k3, k2)
+        assert k3["ring_ag_gemm"] > k2["ring_ag_gemm"] > 0, (k3, k2)
+
+
+def _np_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key in tree:
+            yield from _np_leaves(tree[key], prefix + str(key) + ".")
+    elif isinstance(tree, (list, tuple)):
+        for i, child in enumerate(tree):
+            yield from _np_leaves(child, prefix + str(i) + ".")
+    else:
+        yield prefix, np.asarray(tree, np.float32)
+
+
+def test_streamed_offload_kernels_on_the_card(cuda):
+    """Streamed parameter offload on the card: a tiny bf16 GPT-2 (4
+    layers, one block a group) with the flash kernels, its parameters in
+    pinned host memory and uploaded a group at a time on a side stream:
+    the first loss equal, bit for bit, to the segments run on one device
+    copy of the host parameters; 3 steps and eval within 2e-4 relative of
+    the classic stage 3 + offload engine; the flash forward twice a layer
+    a step (the group's recompute), dk/dv and dq once, the device Adam
+    never; the parameters hold no device memory between steps."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    cfg = dict(vocab_size=256, max_seq_len=128, n_layers=4, n_heads=2,
+               d_model=128, remat=True, loss_chunk=32)
+    d, v, s = 128, 256, 128
+    budget = v * d + s * d + 2 * (12 * d * d + 13 * d)
+    ids = np.random.RandomState(4).randint(0, 256, size=(1, 4, 128))
+
+    def engine(streamed):
+        zero = {"stage": 3, "cpu_offload": True}
+        if streamed:
+            zero.update(cpu_offload_params=True,
+                        stage3_max_live_parameters=budget)
+        model = gpt2.make_gpt2_model(config=gpt2.GPT2Config(**cfg), seed=5)
+        return deepspeed_tpu_torch.initialize(model=model, config_params={
+            "train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
+            "zero_optimization": zero,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+            "transformer": {"flash_attention": "pallas"}})[0]
+
+    streamed = engine(True)
+    runner = streamed.stream_runner
+    assert streamed.device.type == "cuda" and len(runner.groups) == 4
+    assert all(p.numel() == 0 for p in streamed.module.parameters())
+    flat = streamed.flat
+    assert flat.params.is_pinned()
+    dev = flat.params.to(cuda)
+    tree = {n: dev[o:o + int(np.prod(sh))].view(sh) for n, o, sh in
+            zip(flat.names, flat.offsets, flat.shapes)}
+    spec = streamed.module.stream_spec
+    x_ids = torch.as_tensor(ids[0], device=cuda)
+    with torch.no_grad():
+        e, blocks, h = spec.split(tree)
+        x = spec.embed_apply(e, (x_ids, x_ids), None, True)
+        for bt in blocks:
+            x = spec.block_apply(bt, x, None, True)
+    with torch.enable_grad():
+        ref = float(spec.head_apply(h, x, (x_ids, x_ids), None, True))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq, fused_adam)
+    for fn in kernels:
+        fn.launches = 0
+    losses = [float(streamed.train_batch(batch=(ids, ids)))
+              for _ in range(3)]
+    assert [fn.launches for fn in kernels] == [2 * 4 * 3, 4 * 3, 4 * 3, 0]
+    assert losses[0] == ref
+    streamed.eval()
+    ev = float(streamed(x_ids, x_ids))
+    classic = engine(False)
+    want = [float(classic.train_batch(batch=(ids, ids))) for _ in range(3)]
+    classic.eval()
+    np.testing.assert_allclose(losses, want, rtol=2e-4)
+    np.testing.assert_allclose(ev, float(classic(x_ids, x_ids)), rtol=2e-4)
 
 
 # ----------------------------------------------- block-sparse attention

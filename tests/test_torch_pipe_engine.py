@@ -4,8 +4,8 @@ engine runs here):
 * the refused combinations raise as in the JAX package: ZeRO stage 2 and
   3 with PP x TP (PipelineError, "not a certified combination"),
   elasticity with PP (PipelineError), the micro API (``forward``,
-  ``backward``, ``step``: PipelineError); ZeRO stage 3 under PP raises
-  NotImplementedError naming the ROADMAP item that brings it;
+  ``backward``, ``step``: PipelineError); ZeRO stage 3 under PP builds
+  (one stage in one process keeps every leaf whole: no gathers);
 * fp16: an overflow forced on the first stage only (an inf in its
   gradients) makes every stage skip the step: the skipped count, the
   halved loss scale, and master weights and tied copies unchanged on
@@ -64,10 +64,10 @@ def test_refused_in_process():
             config_params=dict(workers.config(run), elasticity={
                 "enabled": True, "max_train_batch_size": 64,
                 "micro_batch_sizes": [2], "min_gpus": 1, "max_gpus": 8}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        deepspeed_tpu_torch.initialize(
-            model=workers.build(run), device="cpu",
-            config_params=workers.config(dict(run, stage=3)))
+    staged, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=workers.build(run), device="cpu",
+        config_params=workers.config(dict(run, stage=3)))
+    assert isinstance(staged, PipelineEngine) and staged.zero3 is None
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         model=workers.build(run), config_params=workers.config(run),
         device="cpu")

@@ -286,8 +286,11 @@ UNPORTED = {
 }
 
 
-# sections ported since the case was written: they now parse
-PORTED_SINCE = {"comm"}
+# sections ported since the case was written: they now parse (the
+# streamed parameter offload since the cpu_offload_params cases)
+PORTED_SINCE = {"comm": lambda c: c.comm_config.quantized_collectives.enabled,
+                "zero_stage_3": lambda c: c.zero_config.cpu_offload_params,
+                "cpu_offload": lambda c: c.zero_config.cpu_offload_params}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -297,7 +300,7 @@ def test_unported_sections_raise_not_implemented(name):
     if name in PORTED_SINCE:
         parsed = tconfig.DeepSpeedConfig(None, param_dict=cfg,
                                          world_size=WORLD)
-        assert parsed.comm_config.quantized_collectives.enabled
+        assert PORTED_SINCE[name](parsed)
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tconfig.DeepSpeedConfig(None, param_dict=cfg, world_size=WORLD)
@@ -670,14 +673,14 @@ def test_world_size_above_one_and_unported_arguments_raise(monkeypatch):
     model = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE))
     # a data-parallel world above one needs a process group of its size
     # (tests/test_torch_zero_dp.py trains one); ZeRO-3's streamed
-    # parameter offload is a later item
+    # parameter offload runs at one rank (tests/test_torch_stream_offload.py)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh(data=2)
     streamed = _ds("bf16", 3, 1, 2)
     streamed["zero_optimization"]["cpu_offload_params"] = True
-    with pytest.raises(NotImplementedError, match="streamed parameter"):
-        deepspeed_tpu_torch.initialize(
-            model=model, config_params=streamed, device="cpu")
+    assert deepspeed_tpu_torch.initialize(
+        model=tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(**ENGINE_SHAPE)),
+        config_params=streamed, device="cpu")[0].stream_runner is not None
     # the batch triple follows the mesh's data axis (1 here), not the
     # size of a process group the mesh does not span
     monkeypatch.setattr(tconfig, "_world_size", lambda: 2)

@@ -14,7 +14,8 @@ package's offload engine.
   ``stage3_prefetch_bucket_size`` makes more host-to-device copies and
   changes no value, ``stage3_max_reuse_distance`` and
   ``cpu_offload_use_pin_memory`` warn (raise under ``strict``), a strict
-  clean config trains, ``cpu_offload_params`` needs stage 3;
+  clean config trains, ``cpu_offload_params`` needs stage 3 (and
+  runs there);
 * the port's offload engine against the JAX offload engine on tiny GPT-2
   (2 layers, d 64, bf16, 5 steps, stages 2 and 3; the JAX engine on
   ``build_mesh(data=2)`` with the global batch, the port on one rank
@@ -269,8 +270,10 @@ def test_strict_mode_clean_config_builds():
 def test_params_offload_requires_stage3():
     with pytest.raises(ValueError, match="cpu_offload_params"):
         _gpt2_engine({"cpu_offload_params": True}, stage=2)
-    with pytest.raises(NotImplementedError, match="streamed parameter"):
-        _gpt2_engine({"cpu_offload_params": True}, stage=3)
+    # at stage 3 it runs (tests/test_torch_stream_offload.py)
+    engine = _gpt2_engine({"cpu_offload_params": True}, stage=3)
+    assert engine.stream_runner is not None and \
+        engine.zero_params_offload()
 
 
 # ------------------------------------------- against the JAX offload engine
@@ -434,12 +437,17 @@ def test_chunk_rows_is_the_jax_function(shape, sub_group):
 
 
 def test_stage3_refuses_sparse_embedding_grads():
+    """Stage 3 with sparse embedding gradients runs now (against the JAX
+    engine over a data group: tests/test_torch_zero3_tp.py); at one rank
+    the lookup keeps its dense gradient and the engine trains."""
     model = tgpt2.make_gpt2_model(config=tgpt2.GPT2Config(
         **CFG, sparse_embedding_grads=True))
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        deepspeed_tpu_torch.initialize(
-            model=model, device="cpu", config_params={
-                "train_micro_batch_size_per_gpu": 2,
-                "bf16": {"enabled": True},
-                "zero_optimization": {"stage": 3},
-                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, device="cpu", config_params={
+            "train_micro_batch_size_per_gpu": 2,
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 3},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})[0]
+    ids = np.random.RandomState(0).randint(0, CFG["vocab_size"],
+                                           size=(1, 2, CFG["max_seq_len"]))
+    assert np.isfinite(float(engine.train_batch(batch=(ids, ids))))

@@ -128,7 +128,8 @@ def pipe_rank(rank, world, spec):
     """Run ``spec["runs"]``: each builds an engine on the rank's stage and
     plays its actions — ("train", batch, steps), ("eval", batch),
     ("master",), ("tied",), ("save", dir), ("load", dir), ("saved_bytes",
-    batch), ("overflow_on_stage", s, batch) — returning per run the
+    batch), ("overflow_on_stage", s, batch), ("steps",) (the optimizer
+    step count and whether the host Adam runs) — returning per run the
     losses, evals, the whole master tree (rank 0), the tied copies, the
     engine's pipe stats and counters."""
     import deepspeed_tpu_torch
@@ -195,6 +196,9 @@ def pipe_rank(rank, world, spec):
                         np.array_equal(v, before[k]) for k, v in
                         _tied_copies(engine).items())}
                 engine.flat.__dict__.pop("fold_grads", None)
+            elif kind == "steps":
+                res["opt_step"] = engine.flat.step
+                res["offload"] = engine.offload is not None
         res["stats"] = dict(engine.pipe_stats)
         res["state_numel"] = engine.flat.master.numel()
         out[name] = res

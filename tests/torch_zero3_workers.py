@@ -54,13 +54,16 @@ def optimizer_state_from_jax(state):
 def zero_config(spec):
     conf = {"train_micro_batch_size_per_gpu": spec["micro"],
             "gradient_accumulation_steps": spec.get("gas", 1),
-            "optimizer": {"type": "Adam", "params": {"lr": spec.get("lr",
-                                                                    1e-3)}},
+            "optimizer": {"type": spec.get("optimizer", "Adam"),
+                          "params": {"lr": spec.get("lr", 1e-3)}},
             "bf16": {"enabled": True},
             "zero_optimization": dict(spec["zero"]),
             "steps_per_print": 10 ** 9}
     if spec.get("backend"):
         conf["transformer"] = {"flash_attention": spec["backend"]}
+    if spec.get("tp", 1) > 1:
+        conf["comm"] = {"collective_matmul": dict(
+            {"enabled": True, "backend": "pallas"}, **spec.get("cm", {}))}
     return conf
 
 
@@ -69,8 +72,21 @@ def _rows(batch, coord, micro):
                  for x in batch)
 
 
+def _counters():
+    """The kernel wrappers these paths launch (each holds its count)."""
+    from deepspeed_tpu_torch.ops import ring_gemm as rg
+    from deepspeed_tpu_torch.ops.adam.fused_adam import fused_adam
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    return [fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq, fused_adam,
+            rg.ring_ag_gemm, rg.ring_rs_gemm_add, rg.ring_gc_gemm_acc]
+
+
 def zero_engine(rank, world, specs):
-    """Per spec: ``build_mesh(data=spec["data"])``, the seeded GPT-2 of
+    """Per spec: ``build_mesh(data=spec["data"], model=spec["tp"])`` (a
+    model axis runs through ``comm.collective_matmul``; ``spec["sparse"]``
+    turns on the sparse embedding-gradient exchange over the mesh; with
+    ``spec["expect_error"]`` only the engine's ValueError is returned),
+    the seeded GPT-2 of
     ``spec["model"]`` (built inside ``zero.Init`` with ``spec["init"]``),
     the engine on ``spec["zero"]``, ``spec["steps"]`` steps on this data
     coordinate's rows of ``spec["batch"]``; then, where asked, a save to
@@ -85,8 +101,12 @@ def zero_engine(rank, world, specs):
     single_threaded()
     results = []
     for spec in specs:
-        mesh = build_mesh(data=spec["data"])
+        tp = spec.get("tp", 1)
+        mesh = build_mesh(data=spec["data"], model=tp if tp > 1 else None)
         cfg = gpt2.GPT2Config(**spec["model"])
+        if spec.get("sparse"):
+            cfg.sparse_embedding_grads = True
+            cfg.embedding_grad_mesh = mesh
         if spec.get("init") is not None:
             with zero.Init(mesh=mesh, device="cpu", **spec["init"]):
                 model = gpt2.make_gpt2_model(config=cfg, seed=spec["seed"])
@@ -95,16 +115,30 @@ def zero_engine(rank, world, specs):
         else:
             model = gpt2.make_gpt2_model(config=cfg, seed=spec["seed"])
             init_bytes = None
+        device = spec.get("device", "cpu")
+        if spec.get("expect_error"):
+            try:
+                deepspeed_tpu_torch.initialize(
+                    model=model, mesh=mesh, config_params=zero_config(spec),
+                    device=device)
+                results.append({"error": None})
+            except ValueError as err:
+                results.append({"error": str(err)})
+            continue
         engine = deepspeed_tpu_torch.initialize(
             model=model, mesh=mesh, config_params=zero_config(spec),
-            device="cpu")[0]
+            device=device)[0]
         coord = engine.dp_rank
         batch = _rows(spec["batch"], coord, spec["micro"])
         res = {"init_bytes": init_bytes}
         if spec.get("load"):
             engine.load_checkpoint(spec["load"])
+        counters = _counters()
+        for c in counters:
+            c.launches = 0
         losses = [float(engine.train_batch(batch=batch))
                   for _ in range(spec["steps"])]
+        res["launches"] = {c.__name__: c.launches for c in counters}
         if spec.get("save"):
             engine.save_checkpoint(spec["save"], tag="t")
             losses += [float(engine.train_batch(batch=batch))
@@ -120,6 +154,8 @@ def zero_engine(rank, world, specs):
             units=[(u[0], u[2]) for u in flat.units],
             views=flat.check_views(),
             gathers=engine.zero3.gathers if engine.zero3 else 0,
+            own_replicated=list(flat.own_replicated),
+            csr=sorted(engine.csr_tensor_module_names),
             offload_chunks=engine.offload_work_chunks,
             master_device=str(flat.master.device))
         results.append(res)
