@@ -215,8 +215,10 @@ with no ``ok`` line):
    other's tags;
 29. train_pipe — BASELINE config 5's pipeline, the PP main path:
    ``initialize(model=make_gpt2_pipeline(...)).train_batch(...)`` on
-   gpt2_medium at full width and depth as PP 2, two spawned ranks sharing
-   this card over gloo (every hop and the tied-embedding sum through host
+   gpt2_medium at full width as PP 2, 12 of its 24 layers on one card
+   (``PIPE_ONE_CARD_LAYERS``: the depth is cut, not the steps, to keep
+   the script inside its limit; ``--pp-nccl`` keeps the full depth), two
+   spawned ranks sharing this card over gloo (every hop and the tied-embedding sum through host
    memory), the GPT-2 example's ``examples/gpt2/ds_config_zero2.json``
    (bf16, ZeRO-2, clipping, WarmupDecayLR) at micro 4 and M = 8
    micro-batches, seq 1024; 2 warm-up and 3 timed steps (counts set to 0
@@ -235,9 +237,10 @@ with no ``ok`` line):
    going; each rank's peak at M = 4 and M = 8 within 10%;
 31. train_onebit — compressed communication, OneBitAdam: two spawned
    ranks sharing this card over gloo, ``initialize(mesh=build_mesh(
-   data=2), ...)`` on gpt2_medium at full width with 6 of its 24 layers
-   (``ONE_CARD_LAYERS``: the depth is cut, not the steps, to keep the
-   script inside its limit), seq 1024, micro 8 a rank, bf16, ZeRO stage
+   data=2), ...)`` on gpt2_medium at full width with 4 of its 24 layers
+   (``COMM_ONE_CARD_LAYERS``: the depth is cut, not the steps, to keep
+   the script inside its limit), seq 1024, micro 8 a rank,
+   bf16, ZeRO stage
    0, the 1-bit Adam tutorial's optimizer block (betas (0.9, 0.999),
    weight decay 0.01, lr 4e-4) with ``freeze_step`` 2: 2 warmup and 3
    frozen steps. The warmup losses and masters against stage 0 Adam in
@@ -256,6 +259,21 @@ with no ``ok`` line):
    (quantize, dequantize, sign pack and unpack) over 354,871,296 lanes,
    gpt2_medium's exchange buffer. Both phases share one spawn;
 
+33. train_zeropp — ZeRO++ and the stage-3 ring gather: train_dp_parity's
+   two ranks (after train_dp3's runs) at gpt2_medium width (d 1024), 2
+   layers, stage 3 on train_dp3's config, one warm-up and 2 timed steps a
+   leg from one init: the ring gather (``zero_gather``) against plain
+   stage 3 bit for bit and with its gather bytes, with qwZ against qwZ
+   bit for bit, each ring leg serving gathers from posted rings; qwZ,
+   qgZ, the ring with qwZ and the three modes (qwZ, hpZ 2, qgZ) apart
+   from plain stage 3 but within the CPU tests' tolerances of it (losses
+   5e-4 relative, each leaf's move 0.25, the key bias 1e-2), qwZ's
+   gathers about half plain's bytes; each leg's modes as its keys name
+   them; then hpZ 2 at DP 4 in train_dp_tp_parity's four ranks, bit for bit
+   flat stage 3 at DP 4; each leg's step ms, unit gathers, bytes handed
+   to ``torch.distributed`` and peak GB a step, and the flash and Adam
+   launches;
+
 then one ``kernels`` line (the Adam and LAMB rows at the bf16-moment
 variant the main paths run) and, last, ``{"ok": true, "device":
 {...}}``.
@@ -263,7 +281,8 @@ variant the main paths run) and, last, ``{"ok": true, "device":
 only the NCCL mode: TP 2 and TP 4 with one rank per card, each site's
 ring op against the unfused collective + torch.matmul, and the train_tp
 step on both backends, then DP 2 x TP 2 at ZeRO stage 3 against stage 2
-at gpt2_medium full depth (step ms, the NCCL and ring kernels' ms a
+at gpt2_medium full depth (stage 3's units gathered by the ring,
+``zero_gather``'s default; step ms, the NCCL and ring kernels' ms a
 step; ``tp_nccl_zero3``); ``--pp-nccl`` (four cards) runs train_pipe at
 full depth over NCCL as PP 4, PP 2 x DP 2 (ZeRO-2 and ZeRO-3) and PP 2 x
 TP 2 (ZeRO-1, the ring GEMMs), with each rank's busy share and the NCCL
@@ -275,7 +294,11 @@ DP 2 x TP 2 (``dp_nccl_ckpt``), then ``dp_nccl_zero3``: gpt2_xl at
 full depth, DP 4, stage 2, stage 3 and stage 3 with ``cpu_offload`` from
 one init (step ms, each rank's peak and parameter bytes, the all-gather
 and reduce-scatter kernel ms a step), stage 3 held to stage 2 and the
-offload run to stage 3 (losses, the whole masters); ``--comm-nccl``
+offload run to stage 3 (losses, the whole masters), then the ZeRO++
+legs (qwZ, qgZ, the ring gather with and without qwZ, the three modes
+with hpZ 2) against stage 3: step ms, the NCCL all-gather,
+reduce-scatter and send/recv kernel ms, the bytes handed over and the
+peak a step; ``--comm-nccl``
 (four cards) trains gpt2_medium at full depth at DP 4, one rank per
 card: the example's config with the fp32 exchange (the reference run),
 with ``quantized_collectives`` flat and with ``hierarchical: 2``, and
@@ -305,6 +328,8 @@ SERVE_LAYERS = 24                # gpt2_medium depth
 # gpt2_medium's 24), so that the script stays inside its time limit; the
 # four-card modes run them at full depth
 ONE_CARD_LAYERS = 6
+# train_onebit and train_qc's depth (the script's time limit)
+COMM_ONE_CARD_LAYERS = 4
 
 
 T0 = time.perf_counter()
@@ -3503,6 +3528,8 @@ def dp_parity_rank(rank, world, spec):
         out["ckpt"] = dp_ckpt_rank(rank, world, spec["ckpt"])
     if spec.get("dp3"):
         out["dp3"] = dp3_rank(rank, world, spec["dp3"])
+    if spec.get("zeropp"):
+        out["zeropp"] = zeropp_rank(rank, world, spec["zeropp"])
     if spec.get("pipe3"):
         out["pipe3"] = _pipe_chip().pipe3_rank(rank, world, spec["pipe3"])
     return out
@@ -3544,7 +3571,7 @@ def _rel(a, b):
 
 
 def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
-                          scale=20.0, ckpt=None, dp3=None):
+                          scale=20.0, ckpt=None, dp3=None, zeropp=None):
     """DP 2 on the card (two gloo ranks) at gpt2_medium width with
     ``DP_PARITY_LAYERS`` layers (2; 4 before the ZeRO-3 phases came, cut
     for the script's time limit), seq 1024, micro 2 a rank, TF32 off:
@@ -3563,7 +3590,8 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
     run train_dp_ckpt's DP 2 part (:func:`dp_ckpt_rank`), sharing their
     start-up; its returns come back under "dp_ckpt_ranks"; with ``dp3``
     (train_dp3's rank spec) they then run train_dp3's four engines, whose
-    returns come back under "dp3_ranks"."""
+    returns come back under "dp3_ranks"; with ``zeropp`` (train_zeropp's
+    rank spec, :func:`zeropp_spec`) its legs, under "zeropp_ranks"."""
     import os
     import tempfile
     import torch
@@ -3600,11 +3628,12 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
                           "lamb/pallas/s2": ("lamb/pallas/s0",)},
                 "keep": ("fp32/pallas/s0", "bf16/pallas/s0",
                          "bf16/pallas/s2", "lamb/pallas/s0"),
-                "ckpt": ckpt, "dp3": dp3}
+                "ckpt": ckpt, "dp3": dp3, "zeropp": zeropp}
         ranks = spawn(dp_parity_rank, DP, args=(spec,), timeout_s=900)
     torch.cuda.empty_cache()
     ckpt_ranks = [r.pop("ckpt") for r in ranks] if ckpt else None
     dp3_ranks = [r.pop("dp3") for r in ranks] if dp3 else None
+    zeropp_ranks = [r.pop("zeropp") for r in ranks] if zeropp else None
     r0 = ranks[0]
     for r in ranks:
         for name in r0:
@@ -3666,6 +3695,8 @@ def phase_train_dp_parity(loss_tol=1e-4, master_atol=5e-5, moved_rtol=0.25,
         result["dp_ckpt_ranks"] = ckpt_ranks
     if dp3:
         result["dp3_ranks"] = dp3_ranks
+    if zeropp:
+        result["zeropp_ranks"] = zeropp_ranks
     return result
 
 
@@ -3684,7 +3715,7 @@ def _check_masters(masters, atol, moved_rtol, result):
 
 
 def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
-                             moved_rtol=0.25, pipe3=None):
+                             moved_rtol=0.25, pipe3=None, zeropp=None):
     """DP 2 x TP 2 on the card: four gloo ranks over ``build_mesh(data=2,
     model=2)`` (the ring kernels for the TP matmuls, flash, Adam), fp32
     stage 0 and bf16 stage 2, at gpt2_medium width with ``layers`` layers,
@@ -3698,8 +3729,11 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
     ``loss_tol``, masters' moves within ``moved_rtol``. The flash forward
     runs twice a layer at stage 3 (the unit's recompute), the ring
     kernels more than at stage 2. Depth 2 keeps the phase inside the
-    script's time limit. With ``pipe3`` (:func:`pipe3_spec`) the same four
-    ranks then run train_pipe3's runs, returned under "pipe3_ranks"."""
+    script's time limit. Stage 3 under TP gathers its units as the ring
+    (``zero_gather``, on by default with the section). With ``zeropp``
+    (:func:`zeropp_spec`) the same four ranks then run train_zeropp's DP 4
+    legs (hpZ), returned under "zeropp_ranks"; with ``pipe3``
+    (:func:`pipe3_spec`) train_pipe3's runs, under "pipe3_ranks"."""
     import os
     import tempfile
     import torch
@@ -3723,10 +3757,12 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
                 "pairs": {"bf16_s3": ("bf16",),
                           "bf16_s3_sparse": ("bf16_s3",)},
                 "keep": ("bf16", "bf16_s3"),
-                "sparse": ("bf16_s3_sparse",), "pipe3": pipe3}
+                "sparse": ("bf16_s3_sparse",), "pipe3": pipe3,
+                "zeropp": zeropp}
         ranks = spawn(dp_parity_rank, 4, args=(spec,), timeout_s=900)
     torch.cuda.empty_cache()
     pipe3_ranks = [r.pop("pipe3") for r in ranks] if pipe3 else None
+    zeropp_ranks = [r.pop("zeropp") for r in ranks] if zeropp else None
     r0 = ranks[0]
     names = [r[0] for r in runs]
     rel = {name: _rel(r0[name]["losses"], dp1["dp1/" + name]["losses"])
@@ -3774,6 +3810,7 @@ def phase_train_dp_tp_parity(layers=2, loss_tol=1e-4, master_atol=5e-5,
     assert stage3["sparse_vs_dense_master"]["moved_rel"] <= moved_rtol, \
         result
     result["pipe3_ranks"] = pipe3_ranks
+    result["zeropp_ranks"] = zeropp_ranks
     return result
 
 
@@ -5053,6 +5090,264 @@ def phase_train_dp3(world=DP, spec=None, ranks=None):
             "ranks": ranks}
 
 
+ZEROPP_LAYERS, ZEROPP_STEPS = 2, 2
+# the quantized legs against plain stage 3, at the CPU tests' tolerances
+# (tests/test_torch_zeropp.py against the JAX engine): losses relative,
+# each leaf's move by norm (the qkv biases' key part apart), that key
+# part elementwise; inside the JAX package's own loss bound of 0.05
+ZEROPP_LOSS_RTOL, ZEROPP_MOVED_RTOL, ZEROPP_KEY_BIAS_ATOL = 5e-4, 0.25, 1e-2
+# qwZ's gather bytes over plain's: int8 lanes and an fp32 scale a block
+# of 200-256 lanes against bf16 lanes (0.504 at d 1024, 0.505 at 1600)
+QWZ_GATHER_SHARE = (0.45, 0.56)
+QWZ = {"zero_quantized_weights": True}
+ZEROPP_ALL = {"zero_quantized_weights": True,
+              "zero_hierarchical_partition": 2,
+              "zero_quantized_gradients": True}
+# (name, zero_optimization keys over stage 3, collective_matmul section)
+ZEROPP_LEGS = (("s3", {}, None), ("qwz", QWZ, None),
+               ("qgz", {"zero_quantized_gradients": True}, None),
+               ("ring", {}, {"zero_gather": True}),
+               ("ring_qwz", QWZ, {"zero_gather": True}),
+               ("all", ZEROPP_ALL, None))
+ZEROPP_DP4_LEGS = (("s3", {}, None),
+                   ("hpz", {"zero_hierarchical_partition": 2}, None))
+# the legs the CPU tests find bit-equal to another (the ring gather moves
+# the same bits; hpZ partitions the same pieces), and the quantized ones
+ZEROPP_BIT_EQUAL = {"ring": "s3", "ring_qwz": "qwz", "hpz": "s3",
+                    "stage3_ring": "stage3"}
+ZEROPP_QUANTIZED = ("qwz", "qgz", "ring_qwz", "all", "stage3_qwz",
+                    "stage3_qgz", "stage3_ring_qwz", "stage3_all")
+
+
+def _zeropp_modes(zero, cm):
+    """The modes a leg's keys turn on, as the engine's accessors report
+    them: [qwZ, hpZ degree (0: off), qgZ, the ring gather]."""
+    return [bool(zero.get("zero_quantized_weights")),
+            int(zero.get("zero_hierarchical_partition", 0)),
+            bool(zero.get("zero_quantized_gradients")),
+            bool(cm and cm.get("zero_gather"))]
+
+
+def _zeropp_leg_checks(where, name, run, vs, base, failed):
+    """One ZeRO++ leg held to the legs before it; failures appended to
+    ``failed`` under ``where``. ``run``: its ``modes``, ``want_modes``
+    (:func:`_zeropp_modes` of its keys), ``prefetched_gathers`` and
+    ``wire_bytes_per_step``; ``vs``: its readings against plain stage 3
+    (``base``, the run of that leg) and, for a leg ZEROPP_BIT_EQUAL
+    names, against that leg (``vs_equal``, with its gather bytes). A ring
+    leg moves the same gather bytes as the leg it equals, and served
+    gathers from posted rings; a quantized leg differs from plain stage 3 and follows it to
+    the CPU tests' tolerances; qwZ without hpZ hands over about half of
+    plain's gather bytes."""
+    if run["modes"] != run["want_modes"]:
+        failed.append((where, name, "modes", run["modes"],
+                       run["want_modes"]))
+    qwz, hpz, _, ring = run["want_modes"]
+    if ring and not run["prefetched_gathers"] > 0:
+        failed.append((where, name, "no ring posted"))
+    gathered = run["wire_bytes_per_step"].get("allgather", 0.0)
+    plain = base["wire_bytes_per_step"].get("allgather", 0.0)
+    if name in ZEROPP_BIT_EQUAL:
+        got = vs["vs_equal"]
+        if not got["bit_equal"]:
+            failed.append((where, name, "not bit-equal to",
+                           ZEROPP_BIT_EQUAL[name]))
+        if ring and gathered != got["allgather"]:
+            failed.append((where, name, "gather bytes", gathered,
+                           got["allgather"]))
+    if name in ZEROPP_QUANTIZED:
+        got = vs["vs_base"]
+        if got["bit_equal"] or not got["max_abs"] > 0:
+            failed.append((where, name, "equal to plain stage 3"))
+        for key, tol in (("loss_rel", ZEROPP_LOSS_RTOL),
+                         ("moved_rel", ZEROPP_MOVED_RTOL),
+                         ("key_bias_max_abs", ZEROPP_KEY_BIAS_ATOL)):
+            if not got[key] <= tol:
+                failed.append((where, name, key, got[key], tol))
+    if qwz and hpz <= 1:
+        share = gathered / plain
+        if not QWZ_GATHER_SHARE[0] <= share <= QWZ_GATHER_SHARE[1]:
+            failed.append((where, name, "qwZ gather bytes over plain",
+                           share, QWZ_GATHER_SHARE))
+
+
+def zeropp_rank(rank, world, spec):
+    """One rank of ``train_zeropp``: for each leg of ``spec["legs"]``, ZeRO
+    stage 3 with the leg's ZeRO++ keys on train_dp3's config (the GPT-2
+    example's, without clipping) at gpt2_medium width and
+    ``spec["layers"]`` layers over ``build_mesh(data=world)``, this data
+    coordinate's rows of one global batch, one warm-up and
+    ``spec["steps"]`` timed steps from one init (counts, the wire tally
+    and the peak reset just before them): losses, step ms, unit gathers
+    and the bytes handed to ``torch.distributed`` (``quantize.WIRE``, by
+    kind) a step, peak GB, parameter bytes, launches; each leg against
+    the first (plain stage 3): the masters' difference and whether they
+    and the losses agree bit for bit."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    from deepspeed_tpu_torch.runtime.comm.quantize import WIRE
+    with open(EXAMPLE_CONFIG) as f:
+        conf = json.load(f)
+    conf["steps_per_print"] = 10 ** 9
+    conf.pop("gradient_clipping", None)
+    cfg = gpt2.config_for("gpt2_medium", max_seq_len=TRAIN_SEQ,
+                          loss_chunk=128, remat=TRAIN_REMAT,
+                          n_layers=spec["layers"])
+    mesh = build_mesh(data=world)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(
+        1, DP_MICRO * world, TRAIN_SEQ)).astype(np.int64)
+    counters = _dp_counters()[:4]
+    steps = spec["steps"]
+    runs, kept, init = {}, {}, None
+    for name, extra, cm in spec["legs"]:
+        leg_conf = dict(conf, zero_optimization=dict({"stage": 3}, **extra))
+        if cm is not None:
+            leg_conf["comm"] = {"collective_matmul": dict(
+                {"enabled": True}, **cm)}
+        engine = deepspeed_tpu_torch.initialize(
+            model=device_gpt2(cfg, seed=0), mesh=mesh,
+            config_params=leg_conf)[0]
+        if init is None:
+            init = _leaf_items(engine.get_master_params())
+        batch = dp_rows((ids, ids.copy()), engine.dp_rank, DP_MICRO)
+        losses = [float(engine.train_batch(batch=batch))]
+        for c in counters:
+            c.launches = 0
+        WIRE.reset()
+        gathers = engine.zero3.gathers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [float(engine.train_batch(batch=batch))
+                   for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        master = _leaf_items(engine.get_master_params())
+        flat = engine.flat
+        run = {"losses": losses, "step_ms": wall * 1e3 / steps,
+               "gathers_per_step": (engine.zero3.gathers - gathers) / steps,
+               "prefetched_gathers": engine.zero3.prefetched,
+               "wire_bytes_per_step": {k: v / steps for k, v in
+                                       WIRE.by_kind.items()},
+               "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "param_bytes": flat.param_bytes(),
+               "shard_world": flat.shard_world,
+               "modes": [engine.zero_quantized_weights(),
+                         engine.zero_hierarchical_partition(),
+                         engine.zero_quantized_gradients(),
+                         engine._cm_zero3],
+               "want_modes": _zeropp_modes(extra, cm),
+               "launches": {c.__name__: c.launches for c in counters}}
+        for other in {spec["legs"][0][0], ZEROPP_BIT_EQUAL.get(name)}:
+            if other in kept:
+                want_losses, want = kept[other]
+                run["vs_" + other] = dict(
+                    _master_diff(master, want, cfg.d_model, init),
+                    loss_rel=_rel(losses, want_losses),
+                    bit_equal=losses == want_losses and all(
+                        np.array_equal(master[k], w)
+                        for k, w in want.items()))
+        if name == spec["legs"][0][0] or \
+                name in ZEROPP_BIT_EQUAL.values():
+            kept[name] = (losses, master)
+        runs[name] = run
+        del engine, flat, master
+        torch.cuda.empty_cache()
+    return {"rank": rank, "runs": runs,
+            "transport": torch.distributed.get_backend()}
+
+
+def zeropp_spec(legs=ZEROPP_LEGS, layers=ZEROPP_LAYERS, steps=ZEROPP_STEPS):
+    return {"legs": legs, "layers": layers, "steps": steps}
+
+
+def _zeropp_checks(ranks, steps, failed):
+    """The legs held to plain stage 3 (see :func:`phase_train_zeropp`);
+    failures appended to ``failed``."""
+    base = ranks[0]["runs"]
+    first = next(iter(base))
+    for r in ranks:
+        for name, run in r["runs"].items():
+            if run["losses"] != base[name]["losses"]:
+                failed.append((r["rank"], name, "ranks' losses differ"))
+            if not all(np.isfinite(run["losses"])):
+                failed.append((r["rank"], name, "loss not finite"))
+            counts = run["launches"]
+            if counts["fused_adam"] != steps or \
+                    counts["flash_fwd"] != 2 * counts["flash_bwd_dq"] or \
+                    counts["flash_fwd"] == 0:
+                failed.append((r["rank"], name, "launches", counts))
+            if run["gathers_per_step"] != \
+                    r["runs"][first]["gathers_per_step"]:
+                failed.append((r["rank"], name, "gathers"))
+            equal = ZEROPP_BIT_EQUAL.get(name)
+            vs = {"vs_base": run.get("vs_" + first)}
+            if equal in r["runs"]:
+                vs["vs_equal"] = dict(
+                    run["vs_" + equal], allgather=r["runs"][equal][
+                        "wire_bytes_per_step"].get("allgather", 0.0))
+            _zeropp_leg_checks(r["rank"], name, run, vs, r["runs"][first],
+                               failed)
+
+
+def phase_train_zeropp(spec=None, ranks=None, dp4_spec=None, dp4_ranks=None,
+                       world=DP):
+    """ZeRO++ and the ring gather on the stage-3 path: two spawned ranks
+    sharing this card over gloo (train_dp_parity's, after its runs), ZeRO
+    stage 3 on train_dp3's config at gpt2_medium width (d 1024) and 2
+    layers, each leg from one init against plain stage 3: the ring gather
+    (``comm.collective_matmul.zero_gather``) bit for bit, with qwZ against
+    qwZ bit for bit; qwZ, qgZ, ring + qwZ and the three modes together
+    (qwZ, hpZ 2, qgZ) held to plain stage 3 as
+    :func:`_zeropp_leg_checks` says (``ZEROPP_LOSS_RTOL``,
+    ``ZEROPP_MOVED_RTOL``, ``ZEROPP_KEY_BIAS_ATOL``: the CPU tests'
+    tolerances against the JAX engine); then hpZ 2 at DP 4 (train_dp_tp_parity's four ranks, after their runs)
+    against flat stage 3 at DP 4 bit for bit, each rank keeping about half
+    the parameter pieces. Each leg: step ms (gloo on one card: the times
+    only show that the path runs), unit gathers, bytes and peak GB a step,
+    and the flash and Adam launches (the flash forward twice a layer:
+    the unit's recompute)."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    spec = spec or zeropp_spec()
+    dp4_spec = dp4_spec or zeropp_spec(ZEROPP_DP4_LEGS)
+    if ranks is None:
+        ranks = spawn(zeropp_rank, world, args=(spec,), timeout_s=600)
+    if dp4_ranks is None:
+        dp4_ranks = spawn(zeropp_rank, 4, args=(dp4_spec,), timeout_s=600)
+    failed = []
+    _zeropp_checks(ranks, spec["steps"], failed)
+    _zeropp_checks(dp4_ranks, dp4_spec["steps"], failed)
+    for r in dp4_ranks:
+        hpz, s3 = r["runs"]["hpz"], r["runs"]["s3"]
+        if hpz["shard_world"] != 2 or s3["shard_world"] != 4:
+            failed.append((r["rank"], "shard groups"))
+        share = hpz["param_bytes"] / (2 * s3["param_bytes"])
+        r["hpz_param_bytes_over_twice_flat"] = share
+        if not 0.9 < share <= 1.0:
+            failed.append((r["rank"], "hpz param bytes", share))
+    assert not failed, (failed, ranks, dp4_ranks)
+    legs = {name: {k: v for k, v in run.items() if k != "launches"}
+            for name, run in ranks[0]["runs"].items()}
+    return {"phase": "train_zeropp", "model": "gpt2_medium",
+            "layers": spec["layers"], "seq": TRAIN_SEQ,
+            "micro_batch_per_rank": DP_MICRO, "data": world,
+            "config": EXAMPLE_CONFIG + " without clipping, stage 3",
+            "transport": ranks[0]["transport"], "steps": spec["steps"],
+            "tolerance_quantized": {"loss_rel": ZEROPP_LOSS_RTOL,
+                                    "moved_rel": ZEROPP_MOVED_RTOL,
+                                    "key_bias_max_abs":
+                                    ZEROPP_KEY_BIAS_ATOL},
+            "legs_rank0": legs,
+            "launches_rank0": {name: run["launches"] for name, run in
+                               ranks[0]["runs"].items()},
+            "dp4_hpz_rank0": dp4_ranks[0]["runs"],
+            "step_ms_note": "ranks share one card over gloo: the times "
+                            "only show that the path runs"}
+
+
 def phase_train_offload_ckpt(layers=OFFLOAD_CKPT_LAYERS, steps=2):
     """Checkpoints of ZeRO-Offload at gpt2_medium width, ``layers``
     layers: an offload engine (stage 3) saves after ``steps`` steps and
@@ -5165,54 +5460,93 @@ def _master_diff_on_card(got, want, d_model, init):
             "moved_rel": moved, "moved_rel_model": (diff2 / move2) ** 0.5}
 
 
+XL_ZERO3_LEGS = (("stage2", {"stage": 2}, None),
+                 ("stage3", {"stage": 3}, None),
+                 ("stage3_offload", {"stage": 3, "cpu_offload": True}, None))
+# the ZeRO++ legs, each against stage 3 (ZEROPP_BIT_EQUAL, ZEROPP_QUANTIZED)
+XL_ZEROPP_LEGS = (("stage3_qwz", dict(QWZ, stage=3), None),
+                  ("stage3_qgz", {"stage": 3,
+                                  "zero_quantized_gradients": True}, None),
+                  ("stage3_ring", {"stage": 3}, {"zero_gather": True}),
+                  ("stage3_ring_qwz", dict(QWZ, stage=3),
+                   {"zero_gather": True}),
+                  ("stage3_all", dict(ZEROPP_ALL, stage=3), None))
+XL_COMPARE = dict({"stage3": "stage2", "stage3_offload": "stage3"},
+                  **{name: "stage3" for name, _, _ in XL_ZEROPP_LEGS})
+
+
 def nccl_zero3_rank(rank, world, spec):
     """One rank of ``dp_nccl_zero3``: gpt2_xl at full depth over
     ``build_mesh(data=world)`` (NCCL, one rank a card), bench_gpt2_xl.py's
-    config and batch shape a rank, at stage 2 (the reference), stage 3,
-    and stage 3 with cpu_offload, from one init: step ms, the rank's peak
-    and parameter bytes, a profiled step's all-gather and reduce-scatter
-    kernel ms; then stage 3 against stage 2 and the offload run against
-    stage 3: losses (relative) and the whole masters after the last step
-    (:func:`_master_diff_on_card`), and whether stage 3 equals stage 2 bit
-    for bit."""
+    config and batch shape a rank, one run per leg of ``spec["legs"]``
+    (stage 2, the reference; stage 3; stage 3 with cpu_offload; the ZeRO++
+    legs), from one init: step ms, the rank's peak (with the whole masters
+    this harness keeps on the card, ``reference_masters_gb``) and
+    parameter bytes,
+    the bytes handed to ``torch.distributed`` a step (``quantize.WIRE``, by
+    kind), a profiled step's all-gather, reduce-scatter and send/recv
+    (the ring gather's hops) kernel ms; each run against the one
+    ``XL_COMPARE`` names: losses (relative) and the whole masters after
+    the last step (:func:`_master_diff_on_card`), and whether they agree
+    bit for bit."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.parallel.topology import build_mesh
+    from deepspeed_tpu_torch.runtime.comm.quantize import WIRE
     cfg = _xl_cfg()
     mesh = build_mesh(data=world)
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size, size=(
         1, XL_MICRO * world, XL_SEQ)).astype(np.int64)
-    out = {"rank": rank}
+    out = {"rank": rank, "compared": {}}
+    legs = spec["legs"]
+    refs = {XL_COMPARE.get(name) for name, _, _ in legs}
     masters, init = {}, None
-    for name, zero in (("stage2", {"stage": 2}), ("stage3", {"stage": 3}),
-                       ("stage3_offload", {"stage": 3,
-                                           "cpu_offload": True})):
+    for name, zero, cm in legs:
         conf = dict(XL_CONFIG, zero_optimization=zero)
+        if cm is not None:
+            conf["comm"] = {"collective_matmul": dict({"enabled": True},
+                                                      **cm)}
         engine = deepspeed_tpu_torch.initialize(
             model=device_gpt2(cfg, seed=0), mesh=mesh,
             config_params=conf)[0]
         if init is None:
             init = _whole_master(engine.flat)
         batch = dp_rows((ids, ids.copy()), engine.dp_rank, XL_MICRO)
+        # the whole masters this harness keeps on the card for its
+        # comparisons, inside the peak below
+        held = sum(t.numel() * t.element_size() for tree in
+                   [init] + list(masters.values()) for t in tree.values())
         losses = [float(engine.train_batch(batch=batch))]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        WIRE.reset()
         t0 = time.perf_counter()
         losses += [float(engine.train_batch(batch=batch))
                    for _ in range(spec["steps"])]
         wall = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        wire = {k: v / spec["steps"] for k, v in WIRE.by_kind.items()}
         prof = train_profile(engine, batch, steps=1,
                              span_names=ZERO3_SPANS,
                              kernel_groups=("AllGather", "ReduceScatter",
-                                            "AllReduce", "flash_"))
-        masters[name] = _whole_master(engine.flat)
+                                            "AllReduce", "SendRecv",
+                                            "flash_"))
+        master = _whole_master(engine.flat)
         out[name] = {"losses": losses,
                      "step_ms": wall * 1e3 / spec["steps"],
                      "peak_memory_gb": peak_gb,
+                     "reference_masters_gb": held / 2 ** 30,
                      "param_bytes": engine.flat.param_bytes(),
                      "state_bytes": engine.flat.state_bytes(),
+                     "wire_bytes_per_step": wire,
+                     "modes": [engine.zero_quantized_weights(),
+                               engine.zero_hierarchical_partition(),
+                               engine.zero_quantized_gradients(),
+                               engine._cm_zero3],
+                     "want_modes": _zeropp_modes(zero, cm),
+                     "prefetched_gathers": engine.zero3.prefetched
+                     if engine.zero3 else 0,
                      "collective_kernel_ms_per_step":
                      prof.get("kernel_ms_per_step_by_group"),
                      "host_ms_per_step_in_spans":
@@ -5221,20 +5555,62 @@ def nccl_zero3_rank(rank, world, spec):
                      "offload_ms": dict(engine.offload.last_times)
                      if engine.offload else None}
         del engine
+        ref = XL_COMPARE.get(name)
+        if ref in masters:
+            want = masters[ref]
+            out["compared"]["{}_vs_{}".format(name, ref)] = dict(
+                _master_diff_on_card(master, want, cfg.d_model, init),
+                loss_rel=max(abs(x - y) / abs(y) for x, y in
+                             zip(losses, out[ref]["losses"])),
+                bit_equal=losses == out[ref]["losses"] and all(
+                    torch.equal(master[k], w) for k, w in want.items()))
+        if name in refs:
+            masters[name] = master
+        del master
         torch.cuda.empty_cache()
-    out["compared"] = {}
-    for a, b in (("stage3", "stage2"), ("stage3_offload", "stage3")):
-        out["compared"]["{}_vs_{}".format(a, b)] = dict(
-            _master_diff_on_card(masters[a], masters[b], cfg.d_model, init),
-            loss_rel=max(abs(x - y) / abs(y) for x, y in
-                         zip(out[a]["losses"], out[b]["losses"])),
-            bit_equal=out[a]["losses"] == out[b]["losses"] and all(
-                torch.equal(masters[a][k], w)
-                for k, w in masters[b].items()))
     del masters, init
     torch.cuda.empty_cache()
     out["transport"] = torch.distributed.get_backend()
     return out
+
+
+def _nccl_zero3_checks(ranks, names, loss_tol=1e-4,
+                       leaf_moved_rtol=DEEP_LEAF_MOVED_RTOL,
+                       model_moved_rtol=OFFLOAD_MOVED_RTOL,
+                       key_bias_atol=1e-3):
+    """:func:`phase_dp_nccl_zero3`'s checks of the runs ``names`` (stage 3
+    first when a ZeRO++ leg is among them): a list of the failures."""
+    failed = []
+    for r in ranks:
+        for name in names:
+            if not all(np.isfinite(r[name]["losses"])):
+                failed.append((r["rank"], name, "loss not finite"))
+            if r[name]["losses"] != ranks[0][name]["losses"]:
+                failed.append((r["rank"], name, "ranks' losses differ"))
+            if name in ZEROPP_BIT_EQUAL or name in ZEROPP_QUANTIZED:
+                equal = ZEROPP_BIT_EQUAL.get(name)
+                vs = {"vs_base": r["compared"][name + "_vs_stage3"]}
+                if equal is not None:
+                    vs["vs_equal"] = dict(
+                        r["compared"]["{}_vs_{}".format(name, equal)],
+                        allgather=r[equal]["wire_bytes_per_step"].get(
+                            "allgather", 0.0))
+                _zeropp_leg_checks(r["rank"], name, r[name], vs,
+                                   r["stage3"], failed)
+        for pair, got in r["compared"].items():
+            leg = pair.split("_vs_")[0]
+            if leg in ZEROPP_BIT_EQUAL or leg in ZEROPP_QUANTIZED:
+                continue
+            for key, tol in (("loss_rel", loss_tol),
+                             ("moved_rel", leaf_moved_rtol),
+                             ("moved_rel_model", model_moved_rtol),
+                             ("key_bias_max_abs", key_bias_atol)):
+                if not got[key] <= tol:
+                    failed.append((r["rank"], pair, key, got[key], tol))
+        if "stage2" in names and not r["stage3"]["param_bytes"] < \
+                1.2 / len(ranks) * r["stage2"]["param_bytes"]:
+            failed.append((r["rank"], "param_bytes"))
+    return failed
 
 
 def phase_dp_nccl_zero3(world=4, steps=2, loss_tol=1e-4,
@@ -5250,27 +5626,20 @@ def phase_dp_nccl_zero3(world=4, steps=2, loss_tol=1e-4,
     Stage 3 cuts each unit over the ranks where stage 2 cuts the whole
     layout, so an element's four gradients reach it in another order: the
     two agree to a tolerance at DP 4 (bit for bit at DP 2, train_dp3),
-    and the run reports whether they agreed bit for bit."""
+    and the run reports whether they agreed bit for bit. Then the ZeRO++
+    legs against stage 3 (:func:`_zeropp_leg_checks`): each leg's modes
+    as its keys name them; the ring gather bit for bit, with stage 3's
+    gather bytes and gathers served by posted rings; qwZ, qgZ, the ring
+    with qwZ and the three modes (qwZ, hpZ 2, qgZ) apart from stage 3 but
+    within the CPU tests' tolerances of it, qwZ's gathers about half
+    stage 3's bytes."""
     from deepspeed_tpu_torch.utils.distributed import spawn
-    ranks = spawn(nccl_zero3_rank, world, args=({"steps": steps},),
-                  timeout_s=1200)
-    failed = []
-    for r in ranks:
-        for name in ("stage2", "stage3", "stage3_offload"):
-            if not all(np.isfinite(r[name]["losses"])):
-                failed.append((r["rank"], name, "loss not finite"))
-        for pair, got in r["compared"].items():
-            for key, tol in (("loss_rel", loss_tol),
-                             ("moved_rel", leaf_moved_rtol),
-                             ("moved_rel_model", model_moved_rtol),
-                             ("key_bias_max_abs", key_bias_atol)):
-                if not got[key] <= tol:
-                    failed.append((r["rank"], pair, key, got[key], tol))
-        if not r["stage3"]["param_bytes"] < \
-                1.2 / world * r["stage2"]["param_bytes"]:
-            failed.append((r["rank"], "param_bytes"))
-        if r["stage3"]["losses"] != ranks[0]["stage3"]["losses"]:
-            failed.append((r["rank"], "ranks' losses differ"))
+    legs = XL_ZERO3_LEGS + XL_ZEROPP_LEGS
+    ranks = spawn(nccl_zero3_rank, world,
+                  args=({"steps": steps, "legs": legs},), timeout_s=2400)
+    failed = _nccl_zero3_checks(ranks, [name for name, _, _ in legs],
+                                loss_tol, leaf_moved_rtol, model_moved_rtol,
+                                key_bias_atol)
     # every check read before any fails, so a failure shows all readings
     assert not failed, (failed, [r["compared"] for r in ranks])
     return {"phase": "dp_nccl_zero3", "model": "gpt2_xl", "data": world,
@@ -5279,11 +5648,18 @@ def phase_dp_nccl_zero3(world=4, steps=2, loss_tol=1e-4,
             "tolerances": {"loss_rel": loss_tol,
                            "moved_rel": leaf_moved_rtol,
                            "moved_rel_model": model_moved_rtol,
-                           "key_bias_max_abs": key_bias_atol},
+                           "key_bias_max_abs": key_bias_atol,
+                           "zeropp_quantized": {
+                               "loss_rel": ZEROPP_LOSS_RTOL,
+                               "moved_rel": ZEROPP_MOVED_RTOL,
+                               "key_bias_max_abs": ZEROPP_KEY_BIAS_ATOL}},
             "ranks": ranks}
 
 
 PIPE_LAYERS, PIPE_M, PIPE_WARMUP, PIPE_STEPS = 24, 8, 2, 3
+# train_pipe's depth on one card (the script's time limit; the
+# four-card --pp-nccl runs PIPE_LAYERS)
+PIPE_ONE_CARD_LAYERS = 12
 PIPE_PARITY_LAYERS, PIPE_PARITY_M, PIPE_PARITY_STEPS = 4, 4, 3
 PIPE_MOVED_RTOL = 0.1
 
@@ -6319,23 +6695,32 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_ckpt_") as tmp:
         dp_ckpt = dp_ckpt_spec(tmp)
         dp3 = dp3_spec()
-        parity = phase_train_dp_parity(ckpt=dp_ckpt, dp3=dp3)
+        zeropp = zeropp_spec()
+        parity = phase_train_dp_parity(ckpt=dp_ckpt, dp3=dp3, zeropp=zeropp)
         dp_ckpt_ranks = parity.pop("dp_ckpt_ranks")
         dp3_ranks = parity.pop("dp3_ranks")
+        zeropp_ranks = parity.pop("zeropp_ranks")
         emit(parity)
         emit(phase_train_dp_ckpt(train_counters, spec=dp_ckpt,
                                  ranks=dp_ckpt_ranks))
     # DP 2 x TP 2 (with its stage-3 and sparse legs); the same four ranks
     # then run train_pipe3 (PP 2 x DP 2 at stage 3, the offload tag)
     pipe3 = pipe3_spec()
+    zeropp_dp4 = zeropp_spec(ZEROPP_DP4_LEGS)
     try:
-        dp_tp = phase_train_dp_tp_parity(pipe3=pipe3)
+        dp_tp = phase_train_dp_tp_parity(pipe3=pipe3, zeropp=zeropp_dp4)
     finally:
         _pipe_chip().remove(pipe3["dir"])
     pipe3_ranks = dp_tp.pop("pipe3_ranks")
+    zeropp_dp4_ranks = dp_tp.pop("zeropp_ranks")
     emit(dp_tp)
     train_pipe3 = phase_train_pipe3(pipe3, pipe3_ranks)
     emit(train_pipe3)
+    # ZeRO++ and the ring gather: train_dp_parity's two ranks and
+    # train_dp_tp_parity's four ran the legs
+    train_zeropp = phase_train_zeropp(zeropp, zeropp_ranks, zeropp_dp4,
+                                      zeropp_dp4_ranks)
+    emit(train_zeropp)
 
     # checkpoints on the train path: save and resume; then bench.py's
     # remat rung under both policies
@@ -6368,7 +6753,8 @@ def main():
     # train_pipe's ranks then make train_pipe_parity's runs
     pipe_parity = pipe_parity_spec()
     try:
-        train_pipe = phase_train_pipe(parity=pipe_parity)
+        train_pipe = phase_train_pipe(parity=pipe_parity,
+                                      layers=PIPE_ONE_CARD_LAYERS)
     finally:
         _pipe_chip().remove(pipe_parity["dir"])
     pipe_parity_ranks = train_pipe.pop("parity_ranks")
@@ -6377,7 +6763,7 @@ def main():
 
     # compressed communication: OneBitAdam and the int8 gradient exchange,
     # two ranks on this card, one spawn
-    train_onebit, train_qc = phase_train_comm()
+    train_onebit, train_qc = phase_train_comm(layers=COMM_ONE_CARD_LAYERS)
     emit(train_onebit)
     emit(train_qc)
 
@@ -6426,7 +6812,10 @@ def main():
             r["s3"][name] // train_pipe3["steps"]
             for r in train_pipe3["launches_per_rank"]],
         "train_dp_tp_parity_stage3_rank0":
-            dp_tp["launches_rank0"]["bf16_s3"][name]}}
+            dp_tp["launches_rank0"]["bf16_s3"][name],
+        "train_zeropp_rank0_per_leg": {
+            leg: counts[name] for leg, counts in
+            train_zeropp["launches_rank0"].items()}}}
         for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                      "fused_adam")}
     for name in RING_NAMES:

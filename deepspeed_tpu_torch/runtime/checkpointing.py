@@ -358,7 +358,8 @@ def _key(full):
 def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
     """One rank's zero file, ``device_shards`` as the JAX engine writes it
     (``_device_zero_shard_payload``): ``bufs`` holds the owned parts of
-    ``master``, ``exp_avg`` and ``exp_avg_sq`` on the host, cut into the
+    ``master``, ``exp_avg`` and ``exp_avg_sq`` (and qgZ's ``qg_error``,
+    partitioned like the master here) on the host, cut into the
     boxes of :func:`owned_boxes` (``layout``, ``box_map``). Per leaf, in
     ``order``: ``(full_shapes[name], [(key, array), ...])``."""
     boxes = owned_boxes(layout, box_map)
@@ -375,7 +376,8 @@ def zero_payload(order, layout, bufs, step, full_shapes, box_map=None):
     return {"device_shards": {
         "master": lists(bufs["master"]),
         "opt": opt,
-        "qg_error": None}}
+        "qg_error": lists(bufs["qg_error"]) if "qg_error" in bufs
+        else None}}
 
 
 def fused_entry(flat, write):
@@ -474,6 +476,18 @@ def zero_state(payloads, order, module_tree, load_optimizer_states=True,
         opt[key] = {"_flat": assemble_shard_lists(lists, "opt/" + key)[0]} \
             if fused else as_state(lists, "opt/" + key)
     return master, opt
+
+
+def zero_qg_error(payloads, order):
+    """qgZ's error feedback ``{name: tensor}`` reassembled from every zero
+    file's ``device_shards`` (the JAX engine's ``qg_error`` shard lists),
+    or None where the tag carries none."""
+    device = [p.get("device_shards") for p in payloads]
+    if device[0] is None or device[0].get("qg_error") is None:
+        return None
+    leaves = assemble_shard_lists([d["qg_error"] for d in device],
+                                  "qg_error")
+    return dict(zip(order, leaves))
 
 
 # ------------------------------------------------------- the serial writer

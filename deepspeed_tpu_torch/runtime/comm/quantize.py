@@ -3,11 +3,13 @@ the in-collective int8 exchange over ``torch.distributed``.
 
 Port of ``deepspeed_tpu/runtime/comm/quantize.py`` (the flat codec, the
 sign helpers, ``FusedFlatLayout``, ``qc_padded_size`` and the EQuARX
-exchange bodies). The JAX package runs each exchange body inside
-``shard_map`` over a mesh axis; here each is a function of this rank's
-local tensor and a process group, and the rank is the group's. The
-ZeRO++ weight codec (``quantize_param``, ``qwz_gather``) and the
-all-to-all quantized reduce-scatter come with ZeRO++.
+exchange bodies, the shape-preserving codec of ZeRO++'s weight gather
+and the all-to-all quantized reduce-scatter). The JAX package runs each
+exchange body inside ``shard_map`` over a mesh axis; here each is a
+function of this rank's local tensor and a process group, and the rank
+is the group's. ``qwz_gather``, the JAX package's GSPMD form of the
+quantized weight gather, is ZeRO-3's gather of a unit here
+(``runtime/zero/zeropp.py``).
 
 Rules kept from the JAX package, so that the two give the same bits:
 
@@ -32,14 +34,16 @@ The exchanges (:func:`ring_reduce_scatter_inline`,
 :func:`hierarchical_all_reduce_local`) add to :data:`WIRE` the bytes
 this rank hands to ``torch.distributed`` for other ranks: a ring hop
 its payload, an all-gather ``(w - 1)`` times its part, an all-to-all
-all but its own chunk: the quantities ``wire.py``'s formulas price.
+all but its own chunk: the quantities ``wire.py``'s formulas price. ZeRO
+stage 3's unit collectives add to it too (``kind`` "allgather" and
+"reduce", :attr:`WireTally.by_kind`).
 """
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ...parallel.ring import ring_perm, ring_rotate_start
-from ...utils.distributed import all_gather
+from ...utils.distributed import all_gather, all_to_all
 
 DEFAULT_BLOCK_SIZE = 256
 
@@ -59,10 +63,12 @@ class WireTally:
     def reset(self):
         self.bytes = 0
         self.calls = 0
+        self.by_kind = {}
 
-    def add(self, nbytes):
+    def add(self, nbytes, kind="exchange"):
         self.bytes += int(nbytes)
         self.calls += 1
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + int(nbytes)
 
 
 WIRE = WireTally()
@@ -206,6 +212,37 @@ def quantize_with_error_feedback(x, err, block_size=DEFAULT_BLOCK_SIZE,
         x.shape)
 
 
+# ------------------------------------------------- shape-preserving codec
+def _lastdim_block(last, block_size):
+    """Largest divisor of ``last`` that is <= ``block_size``: the block
+    that tiles a last dimension with no ragged tail."""
+    block = min(int(block_size), int(last))
+    while last % block:
+        block -= 1
+    return block
+
+
+def quantize_param(x, block_size=DEFAULT_BLOCK_SIZE):
+    """Shape-preserving codec: ``q`` is int8 of ``x``'s shape, the scales
+    have shape ``x.shape[:-1] + (nblocks,)``, blocks tiling the LAST
+    dimension (``_lastdim_block``). A 0-dim input is one lane."""
+    if x.dim() == 0:
+        x = x.reshape(1)
+    block = _lastdim_block(x.shape[-1], block_size)
+    blocks = x.reshape(tuple(x.shape[:-1]) + (x.shape[-1] // block, block))
+    q, scales = _quantize_blocks(blocks, x.dtype)
+    return q.reshape(x.shape), scales.squeeze(-1)
+
+
+def dequantize_param(q, scales, dtype):
+    """Inverse of :func:`quantize_param`, in ``dtype``."""
+    nblocks = scales.shape[-1]
+    block = q.shape[-1] // nblocks
+    blocks = q.reshape(tuple(q.shape[:-1]) + (nblocks, block))
+    out = blocks.float() * scales.float()[..., None]
+    return out.reshape(q.shape).to(dtype)
+
+
 # -------------------------------------------------- fused flat layout
 class FusedFlatLayout:
     """One fused flat fp32 buffer over a model's leaves: ``leaves`` are
@@ -303,6 +340,48 @@ def quantized_all_gather_local(x, group, block_size=DEFAULT_BLOCK_SIZE):
                       for i in range(world)])
 
 
+def quantized_reduce_scatter_local(x, group, block_size=DEFAULT_BLOCK_SIZE,
+                                   error=None):
+    """The qgZ quantized reduce-scatter over ``group``: ``x`` is this
+    rank's ``(world * chunk,)`` partials, chunk w destined to rank w. Each
+    chunk is quantized with its own block grid (after adding ``error``,
+    the persistent feedback, when given), the int8 chunks and their scales
+    cross in one ``all_to_all`` each, and every rank dequantizes what it
+    received and sums it over the senders in rank order, in fp32 (each
+    sender's dequantize-and-add one fused multiply-add, as XLA fuses it).
+    Returns ``(this rank's summed chunk in x's dtype, new error in fp32 or
+    None)``."""
+    world = group_size(group)
+    chunk = x.numel() // world
+    corrected = x.reshape(-1) if error is None else \
+        x.reshape(-1) + error.to(x.dtype).reshape(-1)
+    rows = corrected.reshape(world, chunk)
+    parts = [quantize_blockwise(rows[w], block_size) for w in range(world)]
+    q = torch.stack([p[0] for p in parts])
+    scales = torch.stack([p[1] for p in parts])
+    padded = q.shape[1] * q.shape[2]
+
+    def lanes(v):
+        return torch.nn.functional.pad(v.float(), (0, padded - chunk)) \
+            .reshape(q.shape[1:])
+
+    new_error = None
+    if error is not None:
+        # corrected - q * s in one rounding (XLA fuses the dequantize in)
+        new_error = torch.cat([
+            fma(-q[w].float(), scales[w].float()[:, None],
+                lanes(rows[w])).reshape(-1)[:chunk] for w in range(world)])
+    if world > 1:
+        WIRE.add((world - 1) * q[0].numel() * q.element_size())
+        WIRE.add((world - 1) * scales[0].numel() * scales.element_size())
+        q = all_to_all(q, group)
+        scales = all_to_all(scales, group)
+    total = q[0].float() * scales[0].float()[:, None]
+    for w in range(1, world):
+        total = fma(q[w].float(), scales[w].float()[:, None], total)
+    return total.reshape(-1)[:chunk].to(x.dtype), new_error
+
+
 def ring_reduce_scatter_inline(x, group, block_size=DEFAULT_BLOCK_SIZE):
     """EQuARX in-collective ring reduce-scatter over ``group``: ``x`` is
     this rank's ``(world * chunk,)`` partials (chunk a multiple of
@@ -367,9 +446,10 @@ class QuantizedCollectives:
     factored ``(data_replica, data_shard)`` groups when the mesh was
     factored (``parallel/topology.py::factor_data_axis``). Each rank
     passes its own row: ``all_gather(x)`` -> ``(world * n,)``;
+    ``reduce_scatter(x)``: ``(world * chunk,)`` partials -> this rank's
+    ``(chunk,)`` sum through the all-to-all exchange;
     ``all_reduce(x)`` -> the ``(n,)`` sum through the in-collective ring
-    (two levels on a factored mesh). The quantized reduce-scatter of
-    ZeRO++ comes with ZeRO++."""
+    (two levels on a factored mesh)."""
 
     def __init__(self, mesh, block_size=DEFAULT_BLOCK_SIZE):
         from ...parallel.topology import (DATA_AXIS, DATA_REPLICA_AXIS,
@@ -386,6 +466,13 @@ class QuantizedCollectives:
     def all_gather(self, x):
         return quantized_all_gather_local(x.reshape(-1), self.group,
                                           self.block_size)
+
+    def reduce_scatter(self, x):
+        assert x.numel() % self.world_size == 0, (x.numel(),
+                                                  self.world_size)
+        out, _ = quantized_reduce_scatter_local(x.reshape(-1), self.group,
+                                                self.block_size)
+        return out
 
     def all_reduce(self, x):
         """In-collective quantized SUM of this rank's ``(n,)`` row; n a

@@ -116,7 +116,8 @@ from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.sgd import SGD
 from ..ops.transformer.attention import resolve_flash_backend
 from ..parallel.collective_matmul import CollectiveMatmulBinding
-from ..parallel.topology import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+from ..parallel.topology import (DATA_AXIS, DATA_REPLICA_AXIS,
+                                 DATA_SHARD_AXIS, MODEL_AXIS, PIPE_AXIS,
                                  build_mesh, factor_data_axis)
 from ..utils.distributed import (all_gather, all_reduce_, broadcast_,
                                  local_world_size)
@@ -175,6 +176,7 @@ class DeepSpeedEngine:
         self.fused_optimizer_kernel = None
         self._configure_precision()
         self._apply_transformer_overrides()
+        self._configure_zero()
         self._configure_comm()
         self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
@@ -197,6 +199,8 @@ class DeepSpeedEngine:
         self._forward_kwargs = set(inspect.signature(
             model.forward).parameters)
         self._pending_backward = False
+        # train_batch's micro-step is the last before the apply step
+        self._last_micro = None
         self._step_metrics = {}
         self._configure_sparse_gradients()
         self.module.train()
@@ -257,19 +261,98 @@ class DeepSpeedEngine:
                 else mesh.get_group(MODEL_AXIS)
         self.global_rank = dist.get_rank() if dist.is_initialized() else 0
 
+    def _configure_zero(self):
+        """The ZeRO++ modes, resolved as the JAX engine's
+        ``_configure_zero`` with its warnings and errors: hpZ
+        (``zero_hierarchical_partition`` N > 1 at stage 3) factors the data
+        axis into ``(data_replica, data_shard)`` (``factor_data_axis``) so
+        the compute-dtype pieces are partitioned over the N-rank shard
+        group while the master, moments and accumulator stay partitioned
+        over the whole data group; qwZ (``zero_quantized_weights``, stage
+        3) gathers the units' data-sharded leaves as int8 blocks; qgZ
+        (``zero_quantized_gradients``, stage >= 2) passes each
+        reduce-scattered gradient piece through the error-compensated
+        codec."""
+        zc = self._config.zero_config
+        stage = self.zero_optimization_stage()
+        zero_enabled = self._config.zero_enabled
+        hpz = int(zc.hierarchical_partition or 0)
+        self._hpz = 0
+        if hpz > 1 and not zero_enabled:
+            logger.warning(
+                "zero_hierarchical_partition=%d ignored: ZeRO is "
+                "disabled (zero_optimization.stage=0)", hpz)
+        if hpz > 1 and zero_enabled:
+            if stage < 3:
+                logger.warning(
+                    "zero_hierarchical_partition=%d has no effect below "
+                    "ZeRO stage 3 (params are not data-sharded); ignoring",
+                    hpz)
+            elif PIPE_AXIS in self.mesh.shape:
+                raise ValueError(
+                    "zero_hierarchical_partition is not a certified "
+                    "combination with pipeline parallelism (the pipe "
+                    "loop's shard_map specs name the flat 'data' axis)")
+            elif DATA_AXIS not in self.mesh.shape or \
+                    DATA_SHARD_AXIS in self.mesh.shape:
+                raise ValueError(
+                    "zero_hierarchical_partition needs a 'data' mesh axis "
+                    "to factor; mesh has {}".format(dict(self.mesh.shape)))
+            else:
+                if self.dp_world_size % hpz:
+                    raise ValueError(
+                        "zero_hierarchical_partition={} must be >1 and "
+                        "divide the data-parallel degree {}".format(
+                            hpz, self.dp_world_size))
+                self.mesh = factor_data_axis(self.mesh, hpz)
+                self._hpz = hpz
+        qc = self._config.comm_config.quantized_collectives
+        if qc.enabled and qc.hierarchical >= 2 and \
+                DATA_SHARD_AXIS in self.mesh.shape and \
+                int(self.mesh.shape[DATA_SHARD_AXIS]) != qc.hierarchical:
+            raise ValueError(
+                "comm.quantized_collectives.hierarchical={} conflicts with "
+                "the hpZ-factored mesh (data_shard={}); use "
+                "hierarchical=0 to follow the mesh".format(
+                    qc.hierarchical, int(self.mesh.shape[DATA_SHARD_AXIS])))
+        # the JAX plan's param_data_axes != (): a data axis to shard over
+        self._qwz_enabled = bool(zc.quantized_weights) and stage >= 3 and \
+            DATA_AXIS in self.mesh.shape
+        if zc.quantized_weights and stage < 3:
+            logger.warning(
+                "zero_quantized_weights has no effect below ZeRO stage 3 "
+                "(there is no per-step weight all-gather); ignoring")
+        self._qgz_enabled = bool(zc.quantized_gradients) and \
+            zero_enabled and stage >= 2
+        if zc.quantized_gradients and not self._qgz_enabled:
+            logger.warning(
+                "zero_quantized_gradients needs ZeRO stage >= 2 (the "
+                "gradient reduce-scatter partition); ignoring")
+        if (self._qwz_enabled or self._qgz_enabled) and \
+                self.mp_world_size > 1:
+            # the port's own divergence, not a JAX engine message
+            logger.warning(
+                "zero_quantized_weights / zero_quantized_gradients under a "
+                "model axis of %d: this port's int8 blocks tile each rank's "
+                "tensor-parallel shard, not the whole leaf as the JAX "
+                "engine's do, so the quantized values differ from its",
+                self.mp_world_size)
+
     def _configure_comm(self):
         """comm.collective_matmul, as the JAX engine's
-        ``_configure_comm``: with the section on and a ``model`` axis > 1,
-        swap in this rank's shard of the module, bound to a
+        ``_configure_comm``: ``_cm_zero3``, the stage-3 unit gather as a
+        ring of one-hop rotations over the data group (the shard group
+        under hpZ), carrying qwZ's int8 blocks and scales when both are on
+        (``runtime/zero/zeropp.py``); ``_cm_tp``, with a ``model`` axis >
+        1, this rank's shard of the module, bound to a
         CollectiveMatmulBinding over the model group (the caller's model
-        and config stay unbound). The ZeRO-3 ring
-        gather has no site at stages 0-2. Tensor parallelism runs only
-        through the ring ops here: a ``model`` axis > 1 without the
-        section raises."""
+        and config stay unbound). Tensor parallelism runs only through the
+        ring ops here: a ``model`` axis > 1 without the section raises."""
         self._configure_quantized_collectives()
         cm = self._config.comm_config.collective_matmul
         self._cm = cm
         self._cm_tp = False
+        self._cm_zero3 = False
         self.comm_transport = None
         if self.mp_world_size > 1 and not (cm.enabled and
                                            cm.tensor_parallel):
@@ -280,6 +363,13 @@ class DeepSpeedEngine:
                 "\"pallas\")".format(self.mp_world_size))
         if not cm.enabled:
             return
+        zc = self._config.zero_config
+        # the JAX engine runs the ring gather in no pipeline (it refuses
+        # the section under a pipe axis, where the port runs its TP rings)
+        self._cm_zero3 = bool(
+            cm.zero_gather and self.zero_optimization_stage() >= 3 and
+            DATA_AXIS in self.mesh.shape and PIPE_AXIS not in self.mesh.shape
+            and not bool(zc.cpu_offload_params))
         if cm.tensor_parallel and self.mp_world_size > 1:
             if hasattr(getattr(self.module, "config", None),
                        "collective_matmul") and \
@@ -297,25 +387,20 @@ class DeepSpeedEngine:
                     "collective_matmul config field and "
                     "tensor_parallel_shard)".format(
                         type(self.module).__name__))
-        if not self._cm_tp:
+        if not (self._cm_zero3 or self._cm_tp):
             warn_or_raise_noop(
-                "comm.collective_matmul is enabled but no fusion site is "
-                "live (needs a model mesh axis > 1 on a binding-aware "
-                "model; the ZeRO-3 ring gather needs stage 3)", cm.strict,
+                "comm.collective_matmul is enabled but no fusion site "
+                "is live (needs ZeRO stage >= 3 data-sharded params "
+                "without cpu_offload_params, and/or a model mesh axis "
+                "> 1 on a binding-aware model)", cm.strict,
                 flag="comm.collective_matmul.strict")
         else:
-            if cm.zero_gather and self.zero_optimization_stage() >= 3 and \
-                    self.dp_world_size > 1:
-                warn_or_raise_noop(
-                    "comm.collective_matmul.zero_gather has NO effect in "
-                    "this port yet: stage 3 gathers each unit with one "
-                    "all-gather over the data group (the ring gather comes "
-                    "with ROADMAP.md Queue 1 item 7b)", cm.strict,
-                    flag="comm.collective_matmul.strict")
-            log_dist("collective_matmul ON: tp_fused=True tp={} chunks={} "
-                     "dtype={} backend={} transport={}".format(
-                         self.mp_world_size, cm.chunks, cm.dtype,
-                         cm.backend, self.comm_transport), ranks=[0])
+            log_dist("collective_matmul ON: zero3_ring_gather={} "
+                     "tp_fused={} tp={} chunks={} dtype={} backend={} "
+                     "transport={}".format(
+                         self._cm_zero3, self._cm_tp, self.mp_world_size,
+                         cm.chunks, cm.dtype, cm.backend,
+                         self.comm_transport), ranks=[0])
 
     def _certify_local_grad_comm(self, feature):
         """The JAX engine's gate for the features that exchange each
@@ -363,9 +448,8 @@ class DeepSpeedEngine:
             return
         block = qc.block_size
         if qc.hierarchical >= 2:
-            from ..parallel.topology import DATA_REPLICA_AXIS, \
-                DATA_SHARD_AXIS
-            self.mesh = factor_data_axis(self.mesh, qc.hierarchical)
+            if DATA_SHARD_AXIS not in self.mesh.shape:
+                self.mesh = factor_data_axis(self.mesh, qc.hierarchical)
             shard = self.mesh.get_group(DATA_SHARD_AXIS)
             replica = self.mesh.get_group(DATA_REPLICA_AXIS)
             self._qc_exchange = lambda flat: hierarchical_all_reduce_local(
@@ -682,6 +766,20 @@ class DeepSpeedEngine:
                     (self._config.zero_config.cpu_offload or
                      self.zero_params_offload()))
 
+    def zero_quantized_weights(self):
+        """qwZ live: stage-3 unit gathers carry int8 blocks."""
+        return getattr(self, "_qwz_enabled", False)
+
+    def zero_hierarchical_partition(self):
+        """hpZ live: the secondary partition's (shard group's) size, or
+        0."""
+        return getattr(self, "_hpz", 0)
+
+    def zero_quantized_gradients(self):
+        """qgZ live: reduce-scattered gradients pass the
+        error-compensated codec."""
+        return getattr(self, "_qgz_enabled", False)
+
     def zero_params_offload(self):
         """Streamed parameter offload live (``cpu_offload_params``): the
         compute parameters live in host memory and are uploaded a layer
@@ -776,7 +874,17 @@ class DeepSpeedEngine:
             min(stage, 2), offload=offload, units=units,
             persistence_threshold=zc.param_persistence_threshold,
             max_live_parameters=max_live, local_grads=onebit,
-            streamed=streamed)
+            streamed=streamed,
+            shard_group=self.mesh.get_group(DATA_SHARD_AXIS)
+            if self._hpz and partitioned else None,
+            replica_group=self.mesh.get_group(DATA_REPLICA_AXIS)
+            if self._hpz and partitioned else None)
+        if partitioned and (self._qwz_enabled or self._cm_zero3):
+            self.flat.configure_gather(
+                quantized=self._qwz_enabled,
+                ring=int(self._cm.chunks) if self._cm_zero3 else None)
+        if self._qgz_enabled and not streamed:
+            self.flat.enable_grad_codec()
         self._configure_local_grad_state()
         # a zero.Init module's pieces now live in the engine's buffers
         self.module.__dict__.pop("_zero3_store", None)
@@ -946,6 +1054,8 @@ class DeepSpeedEngine:
     def _run_module(self, inputs, kwargs):
         """The module's forward; at stage 3 on a module that does not run
         its own units, one call with every parameter gathered."""
+        if self.zero3 is not None:
+            self.zero3.begin_pass()
         if self.zero3 is None or self._zero3_in_model:
             return self.module(*inputs, **kwargs)
         return self.zero3.call(lambda *xs: self.module(*xs, **kwargs),
@@ -961,6 +1071,14 @@ class DeepSpeedEngine:
         if self.stream_runner is not None:
             return loss
         scale = self.scaler.cur_scale / self.gradient_accumulation_steps()
+        # qgZ's residual is kept in the JAX engine's units: the loss
+        # scale, and the data degree the port's summed gradients carry
+        self.flat.qg_scale = self.scaler.cur_scale * self.dp_world_size
+        if self.zero3 is not None:
+            last = self._last_micro
+            self.zero3.last_backward = \
+                self.is_gradient_accumulation_boundary() if last is None \
+                else last
         (loss.float() * scale).backward()
         self.flat.fold_grads()
         return loss
@@ -987,6 +1105,7 @@ class DeepSpeedEngine:
         if self.stream_runner is not None:
             return self._stream_apply_step()
         flat = self.flat
+        self._drop_posted()
         tp = self._tp_group if self._cm_tp else None
         dp = self._dp_group
         pipe = self._pipe_group
@@ -1014,7 +1133,7 @@ class DeepSpeedEngine:
             # owned range's squares once over the data group, each TP
             # shard's once per model rank, each replicated element once,
             # each pipeline stage's once
-            stats = torch.stack([overflow.float(),
+            stats = torch.stack([overflow.double(),
                                  *self._grad_squares(grads, rep_ranges)])
             if flat.sharded:
                 all_reduce_(stats, dp)
@@ -1023,7 +1142,7 @@ class DeepSpeedEngine:
             if pipe is not None:
                 all_reduce_(stats, pipe)
             overflow = stats[0] > 0
-            total_norm = (stats[1] + stats[2]).sqrt()
+            total_norm = (stats[1] + stats[2]).sqrt().float()
         overflow = bool(overflow)
         clip = self.gradient_clipping()
         if clip > 0:
@@ -1057,10 +1176,20 @@ class DeepSpeedEngine:
             flat.step += 1
             flat.refresh_params()
         flat.acc.zero_()
+        if overflow and flat.qg_error is not None:
+            # the overflowed window quantized inf/nan gradients: the qgZ
+            # residual is reset with the skip, as the JAX engine does
+            flat.qg_error.zero_()
         metrics = {"overflow": overflow, "grad_norm": grad_norm,
                    "loss_scale": scale}
         self.scaler = ls.update_scale(self.scaler, overflow)
         return metrics
+
+    def _drop_posted(self):
+        """A ring posted ahead carries the parameters it read: finish and
+        drop it before they change."""
+        if self.zero3 is not None:
+            self.zero3.drop_posted()
 
     def _onebit_apply_step(self):
         """OneBitAdam's apply step (the JAX engine's OneBitAdam branch):
@@ -1164,10 +1293,15 @@ class DeepSpeedEngine:
 
     @staticmethod
     def _squares(grads, ranges):
-        total = grads.new_zeros((), dtype=torch.float32)
+        """The sum of the squares over ``ranges``, accumulated in fp64:
+        the owned ranges follow the layout (stage 2's one range, stage 3's
+        piece a unit), and an fp32 sum over them rounds by the layout, so
+        the norm and the clip coefficient would part the stages in the
+        last bits; in fp64 they round alike to fp32."""
+        total = grads.new_zeros((), dtype=torch.float64)
         for a, b in ranges:
             if a < b:
-                total = total + grads[a:b].pow(2).sum()
+                total = total + grads[a:b].pow(2).sum(dtype=torch.float64)
         return total
 
     @staticmethod
@@ -1225,8 +1359,10 @@ class DeepSpeedEngine:
         losses = []
         for i in range(gas):
             loss = self.forward(*(x[i] for x in batch))
+            self._last_micro = i == gas - 1
             self.backward(loss)
             losses.append(loss.detach().float())
+        self._last_micro = None
         self._take_model_step()
         self.micro_steps += gas
         self.global_samples += self.train_batch_size()
@@ -1453,6 +1589,7 @@ class DeepSpeedEngine:
         parameters are refreshed from the whole master tree."""
         conv = self._tree_converters()
         if master is not None:
+            self._drop_posted()
             self.flat.load(self.flat.master,
                            self._own_shard(conv["params_from_jax"](master)))
             self.flat.refresh_params()
@@ -1539,6 +1676,8 @@ class DeepSpeedEngine:
                 return full_boxes(name, shape, box, rank, size)[1]
         keys = ("master", "exp_avg_sq") if self._onebit_mode else \
             ("master", "exp_avg", "exp_avg_sq")
+        if flat.qg_error is not None and self.offload is None:
+            keys += ("qg_error",)
         bufs = {key: flat.own(getattr(flat, key)).detach().cpu()
                 for key in keys}
         layout = (flat.names, flat.offsets, flat.shapes, flat.spans)
@@ -1628,7 +1767,10 @@ class DeepSpeedEngine:
                 "cur_iter": np.asarray(self.scaler.cur_iter, np.int32)},
             "lr_scheduler": self.lr_scheduler.state_dict()
             if hasattr(self.lr_scheduler, "state_dict") else None,
-            "qg_error": None,
+            # qgZ's residual: the gathered tree here, the zero files' shard
+            # lists under device-state ZeRO (as the JAX engine)
+            "qg_error": self._jax_tree(flat.qg_error)
+            if flat.qg_error is not None and gathered else None,
             "csr_tensor_module_names": set(self.csr_tensor_module_names),
             "skipped_steps": self.skipped_steps,
             "global_steps": self.global_steps,
@@ -1821,6 +1963,8 @@ class DeepSpeedEngine:
                     "state starts fresh", load_dir, tag)
             return None, None
         payloads = [ckpt.load_state_dict(p) for p in paths]
+        self._loaded_qg_error = ckpt.zero_qg_error(payloads,
+                                                   self._jax_leaf_names())
         for path, payload in zip(paths, payloads):
             if payload.get("torn_step") is not None:
                 logger.warning(
@@ -1861,6 +2005,7 @@ class DeepSpeedEngine:
         sd = self._adapt_state_dict(ckpt.load_state_dict(path))
         conv = self._tree_converters()
         master, opt = None, None
+        self._loaded_qg_error = None
         if sd.get("master") is not None:
             master = conv["params_from_jax"](sd["master"])
         if sd.get("optimizer") is not None:
@@ -1875,9 +2020,17 @@ class DeepSpeedEngine:
         src = master if load_from_fp32_weights and master is not None \
             else module
         flat = self.flat
+        self._drop_posted()
         flat.load(flat.master, self._own_shard(
             {k: v.float() for k, v in src.items()}))
         flat.refresh_params()
+        qg = conv["params_from_jax"](sd["qg_error"]) \
+            if sd.get("qg_error") is not None else self._loaded_qg_error
+        if qg is not None and flat.qg_error is not None:
+            flat.load(flat.qg_error, self._own_shard(self._checked(
+                {k: torch.as_tensor(np.asarray(v, np.float32))
+                 if not isinstance(v, torch.Tensor) else v.float()
+                 for k, v in qg.items()}, "qg_error", load_module_strict)))
         self._onebit_pristine = None
         if load_optimizer_states and opt is not None and self._onebit_mode:
             if all(k in opt and isinstance(opt[k], dict) and "_flat" in

@@ -80,6 +80,7 @@ from ...parallel.topology import PIPE_AXIS
 from ...utils.distributed import all_reduce_, broadcast_
 from ...utils.logging import log_dist
 from .. import checkpointing as ckpt
+from ..comm.config import warn_or_raise_noop
 from ..engine import DeepSpeedEngine
 from . import p2p
 from .module import PipelineModule, _nest
@@ -137,6 +138,25 @@ class PipelineEngine(DeepSpeedEngine):
                                    self.mesh.shape, model.parts), ranks=[0])
 
     # ------------------------------------------------------------ setup
+    def _configure_zero(self):
+        """The dense engine's resolution (hpZ raises under a pipe axis),
+        then qwZ and qgZ: the JAX pipeline's step gathers no weight
+        through the qwZ codec and feeds no gradient through qgZ's, so here
+        they warn that they have no effect (raise under
+        ``zero_optimization.strict``) and stay off."""
+        super()._configure_zero()
+        strict = bool(getattr(self._config.zero_config, "strict", False))
+        for key, live in (("zero_quantized_weights", "_qwz_enabled"),
+                          ("zero_quantized_gradients", "_qgz_enabled")):
+            if getattr(self, live):
+                warn_or_raise_noop(
+                    "zero_optimization.{} has NO effect under pipeline "
+                    "parallelism: the pipeline step gathers and reduces "
+                    "its stages' parameters without the ZeRO++ "
+                    "codecs".format(key), strict,
+                    flag="zero_optimization.strict")
+                setattr(self, live, False)
+
     def _configure_mesh(self, mpu, mesh):
         super()._configure_mesh(mpu, mesh)
         if self.pipe_module.num_stages > 1:
@@ -251,17 +271,13 @@ class PipelineEngine(DeepSpeedEngine):
             # no TP under PP at stage 3: every owned element but the tied
             # leaves' ranges
             return (self._squares(grads, self._complement(
-                self._tied_ranges, grads.numel())), grads.new_zeros(()))
+                self._tied_ranges, grads.numel())),
+                grads.new_zeros((), dtype=torch.float64))
         rep_end = rep_ranges[0][1] if rep_ranges else 0
         # the tied slice leads the layout: [0, b) in owned coordinates
         b = min(max(self._tied_end - self.flat.lo, 0), grads.numel())
-
-        def squares(lo, hi):
-            lo = max(lo, b)
-            return grads[lo:hi].pow(2).sum() if lo < hi else \
-                grads.new_zeros(())
-
-        return squares(rep_end, grads.numel()), squares(0, rep_end)
+        return (self._squares(grads, [(max(rep_end, b), grads.numel())]),
+                self._squares(grads, [(b, rep_end)]))
 
     # --------------------------------------------------------- the API
     def forward(self, *args, **kwargs):

@@ -12,9 +12,10 @@ refuses it below stage 3, as the JAX engine does); ``sub_group_size``,
 ``stage3_max_live_parameters``, ``stage3_prefetch_bucket_size`` and
 ``stage3_param_persistence_threshold`` are live, and the engine warns on
 (or under ``strict`` refuses) ``stage3_max_reuse_distance`` and
-``cpu_offload_use_pin_memory``. What it does not run yet raises
-``NotImplementedError`` naming the later item that brings it: the
-ZeRO++ modes. The
+``cpu_offload_use_pin_memory``. The ZeRO++ keys
+(``zero_quantized_weights``, ``zero_hierarchical_partition``,
+``zero_quantized_gradients``) are live: the engine resolves them as the
+JAX engine's ``_configure_zero`` does (``runtime/zero/zeropp.py``). The
 bucket, overlap and contiguity keys (``reduce_bucket_size``,
 ``allgather_bucket_size``, ``overlap_comm``, ``reduce_scatter``,
 ``allgather_partitions``, ``contiguous_gradients``) are parsed and
@@ -27,14 +28,6 @@ from ..config_utils import get_scalar_param
 from .constants import *  # noqa: F401,F403
 from ...utils.logging import logger
 
-# ZeRO features of the JAX package that this slice does not run, with the
-# later slice of the port that brings each
-UNPORTED_ZERO_KEYS = {
-    ZERO_OPTIMIZATION_QUANTIZED_WEIGHTS: "the ZeRO++ slice",
-    ZERO_OPTIMIZATION_QUANTIZED_GRADIENTS: "the ZeRO++ slice",
-}
-
-
 class DeepSpeedZeroConfig(object):
     def __init__(self, param_dict):
         if ZERO_OPTIMIZATION in param_dict:
@@ -44,7 +37,6 @@ class DeepSpeedZeroConfig(object):
         else:
             zero_config_dict = {}
         self._initialize(zero_config_dict)
-        self._reject_unported(zero_config_dict)
 
     def read_zero_config_deprecated(self, param_dict):
         zero_config_dict = {
@@ -131,18 +123,6 @@ class DeepSpeedZeroConfig(object):
             ZERO_OPTIMIZATION_QUANTIZED_GRADIENTS_DEFAULT))
         self.strict = bool(g(ZERO_OPTIMIZATION_STRICT,
                              ZERO_OPTIMIZATION_STRICT_DEFAULT))
-
-    def _reject_unported(self, zero_config_dict):
-        for key, later in UNPORTED_ZERO_KEYS.items():
-            if zero_config_dict.get(key):
-                raise NotImplementedError(
-                    "zero_optimization.{} is not ported yet: it comes with "
-                    "{}".format(key, later))
-        if self.hierarchical_partition > 1:
-            raise NotImplementedError(
-                "zero_optimization.{} is not ported yet: it comes with the "
-                "ZeRO++ slice".format(
-                    ZERO_OPTIMIZATION_HIERARCHICAL_PARTITION))
 
     def repr(self):
         return self.__dict__

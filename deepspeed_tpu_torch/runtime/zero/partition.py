@@ -83,6 +83,25 @@ all-reduces over the ring and counts once in the global norm:
 ``[0, own_replicated_end)``). Model ranks at one data coordinate hold the
 same layout and so own the same ranges.
 
+ZeRO++ (``runtime/zero/zeropp.py``). hpZ (``shard_group`` and
+``replica_group``, the data group factored as ``factor_data_axis`` does:
+data rank r is shard ``r % N`` of replica ``r // N``): the master,
+moments and accumulator keep the pieces above, one per rank of the whole
+data group, while the compute-dtype parameters are held by the N-rank
+shard group: rank r keeps the primary pieces of its replica group (the
+ranks of its shard index), ``param_rows`` ``(R, part_numel)``, row rho
+the pieces of rank ``rho * N + r % N`` and ``params`` its own row. A
+unit's gather then runs over the shard group and one transpose puts the
+pieces in unit order; after the apply step each rank's updated pieces
+reach the others of its replica group in one all-gather. The unit
+reduce-scatter stays over the whole data group. Without hpZ the shard
+group is the data group and ``param_rows`` one row. ``gatherer``
+(:class:`~.zeropp.UnitGather`) gathers the units: one all-gather, qwZ's
+int8 lanes with their scales, or a ring. qgZ (``grad_codec``,
+:class:`~.zeropp.GradCodec`): each reduce-scattered gradient piece goes
+through the error-compensated int8 codec (``qg_error``, fp32, partitioned
+like the accumulator) before it is added.
+
 Held leaves (:meth:`hold`, stage 3): the gradients of the named leaves
 (a pipeline's tied embedding) bypass their unit's reduce-scatter and sum
 whole, in fp32, in ``held_acc``, as stage 2 keeps the pipeline's tied
@@ -96,6 +115,8 @@ from torch.profiler import record_function
 
 from ...utils.distributed import (GLOO, all_gather, all_gather_into,
                                   reduce_scatter)
+from ..comm.quantize import WIRE
+from .zeropp import GradCodec, UnitGather
 
 ALIGN = 64      # elements: 128-byte aligned bf16 views, 256-byte fp32
 
@@ -166,7 +187,8 @@ class FlatPartition:
                  moments_dtype=torch.float32, group=None, stage=0,
                  offload=False, units=None, persistence_threshold=100000,
                  max_live_parameters=None, train_state=True,
-                 local_grads=False, streamed=False):
+                 local_grads=False, streamed=False, shard_group=None,
+                 replica_group=None):
         self.device, self.compute_dtype = device, compute_dtype
         self.group = group
         self.stage = stage
@@ -176,6 +198,14 @@ class FlatPartition:
             else 1
         self.dp_rank = dist.get_rank(group) if group is not None else 0
         self.stage3 = stage >= 3
+        # hpZ: the compute-dtype pieces over the shard group of N ranks
+        hpz = shard_group is not None and self.stage3
+        self.gather_group = shard_group if hpz else group
+        self.shard_world = dist.get_world_size(shard_group) if hpz \
+            else self.dp_world
+        self.replicas = self.dp_world // self.shard_world
+        self.replica_group = replica_group if hpz else None
+        self.replica_rank = self.dp_rank // self.shard_world
         named = list(module.named_parameters())
         shape_of = {n: tuple(getattr(p, "ds_shape", p.shape))
                     for n, p in named}
@@ -185,7 +215,8 @@ class FlatPartition:
         if self.stage3:
             groups = self._stage3_groups(named, shape_of, units,
                                          persistence_threshold,
-                                         max_live_parameters, replicated)
+                                         max_live_parameters, replicated,
+                                         self.shard_world)
         else:
             groups = [("all", [n for n, _ in named if n in replicated] +
                        [n for n, _ in named if n not in replicated])]
@@ -216,13 +247,8 @@ class FlatPartition:
         self.numel = total
         self.sharded = self.dp_world > 1 and stage >= 1
         # (global lo, global hi, local offset) of each owned piece
-        self.spans, local = [], 0
-        for _, start, n, _ in self.units:
-            part = n // self.dp_world if self.sharded else n
-            lo = start + self.dp_rank * part if self.sharded else start
-            self.spans.append((lo, lo + part, local))
-            local += part
-        self.part_numel = local
+        self.spans = self._spans_of(self.dp_rank)
+        self.part_numel = sum(hi - lo for lo, hi, _ in self.spans)
         if self.stage3:
             self.lo = self.hi = None
         else:
@@ -252,9 +278,13 @@ class FlatPartition:
             dtype=torch.int64, device=device).reshape(-1, 2)
         host = torch.device("cpu")
         if self.stage3:
-            self.params = own.to(compute_dtype) if self.mixed \
-                else own.clone()
-            self.master = own.to(host) if self.offload else own
+            # the pieces of this rank's replica group, own row included
+            self.param_rows = own.to(compute_dtype).reshape(
+                self.replicas, self.part_numel)
+            self.params = self.param_rows[self.replica_rank]
+            own = own.reshape(self.replicas, -1)[self.replica_rank]
+            self.master = own.to(host) if self.offload else \
+                (own if self.replicas == 1 else own.clone())
         elif self.streamed:
             # one rank: the whole layout, already in host memory
             self.master = own
@@ -296,7 +326,12 @@ class FlatPartition:
         self._module_params = module_params
         self._pending = {}
         self.held, self.held_acc = {}, None
+        # qgZ (enable_grad_codec) and the unit gather (stage 3)
+        self.grad_codec = self.qg_error = None
+        self.qg_scale = 1.0
+        self.gatherer = None
         if self.stage3:
+            self.gatherer = UnitGather(self)
             self._init_stage3_views(module_params)
         elif self.streamed:
             # no resident device copy: the leaves hold an empty placeholder
@@ -318,7 +353,7 @@ class FlatPartition:
     # ------------------------------------------------------------- layout
 
     def _stage3_groups(self, named, shape_of, units, threshold, max_live,
-                       replicated=()):
+                       replicated=(), ways=None):
         """Stage 3's units: the persistent leaves first (one unit), then
         each of ``units``' ``(name, [parameter names])`` with its
         data-sharded leaves (units left empty dropped); within each unit
@@ -333,8 +368,8 @@ class FlatPartition:
                 "extra {}".format(sorted(set(names) - set(listed))[:5],
                                   sorted(set(listed) - set(names))[:5]))
         keep, self.demoted, self.persistent_numel = stage3_persistence(
-            [(n, shape_of[n]) for n in names], threshold, self.dp_world,
-            max_live)
+            [(n, shape_of[n]) for n in names], threshold,
+            self.dp_world if ways is None else ways, max_live)
         self.persistent = keep
         persistent = set(keep)
         groups = [("persistent", keep)] if keep else []
@@ -362,14 +397,79 @@ class FlatPartition:
             whole[off:off + _numel(shape)].copy_(src.reshape(-1))
         if not self.stage3:
             return whole
-        return torch.cat([whole[lo:hi] for lo, hi, _ in self.spans])
+        # stage 3: this rank's pieces, or (hpZ) its replica group's, by row
+        first = self.dp_rank - self.replica_rank * self.shard_world
+        return torch.cat([whole[lo:hi] for rho in range(self.replicas)
+                          for lo, hi, _ in self._spans_of(
+                              rho * self.shard_world + first)])
+
+    def _spans_of(self, rank):
+        """``spans`` of data rank ``rank``: the rank-th 1/dp_world piece of
+        each unit (stages 0-2: of the one unit, the layout)."""
+        spans, local = [], 0
+        for _, start, n, _ in self.units:
+            part = n // self.dp_world if self.sharded else n
+            lo = start + rank * part if self.sharded else start
+            spans.append((lo, lo + part, local))
+            local += part
+        return spans
+
+    def secondary_ranges(self, u, shard):
+        """The ranges of unit ``u`` (unit offsets) that shard rank
+        ``shard`` holds, in its piece's order: the primary pieces of its
+        replica group."""
+        n = self.units[u][2] // self.dp_world
+        return [((rho * self.shard_world + shard) * n,
+                 (rho * self.shard_world + shard + 1) * n)
+                for rho in range(self.replicas)]
+
+    def secondary_numel(self, u):
+        return self.units[u][2] // self.shard_world
+
+    def secondary_piece(self, u):
+        """This rank's compute-dtype piece of unit ``u`` over the shard
+        group, contiguous (a copy under hpZ)."""
+        lo, hi, local = self.spans[u]
+        rows = self.param_rows[:, local:local + hi - lo]
+        return rows[0] if self.replicas == 1 else rows.reshape(-1)
+
+    def unit_order(self, u, lanes):
+        """A unit gathered over the shard group (each rank's piece in
+        group order) -> unit order: under hpZ the ``(shard, replica,
+        piece)`` blocks transposed."""
+        if self.replicas == 1:
+            return lanes
+        n = self.units[u][2] // self.dp_world
+        return lanes.view(self.shard_world, self.replicas, n).transpose(
+            0, 1).reshape(-1)
+
+    def configure_gather(self, quantized=False, ring=None):
+        """Unit gathers with qwZ (``quantized``) and/or as a ring of
+        ``ring`` chunks a hop (``zeropp.UnitGather``)."""
+        self.gatherer = UnitGather(self, quantized=quantized, ring=ring)
+
+    def enable_grad_codec(self):
+        """qgZ: every reduce-scattered gradient piece through the
+        error-compensated codec, ``qg_error`` (fp32, the accumulator's
+        size) carrying the residual."""
+        self.grad_codec = GradCodec(self)
+        self.qg_error = torch.zeros(self.acc.numel(), dtype=torch.float32,
+                                    device=self.acc.device)
+
+    def _qgz(self, u, piece, err):
+        """A summed gradient piece through qgZ (as is without it), in the
+        accumulator's dtype."""
+        if self.grad_codec is None:
+            return piece
+        return self.grad_codec.apply(u, piece, err, self.qg_scale).to(
+            self.acc.dtype)
 
     def layout_key(self):
         """What two partitions must share for one's pieces to be the
         other's: names, shapes, units and the rank's place."""
         return (tuple(self.names), tuple(self.shapes),
                 tuple((u[1], u[2]) for u in self.units), self.dp_world,
-                self.dp_rank, self.stage3)
+                self.dp_rank, self.stage3, self.shard_world)
 
     def _clip(self, i):
         """Parameter i's ``(offset, numel)`` in the owned part (offset
@@ -411,7 +511,8 @@ class FlatPartition:
         gathered persistent unit (stage 3)."""
         if self.streamed:
             return 0
-        size = self.params.numel() * self.params.element_size()
+        params = self.param_rows if self.stage3 else self.params
+        size = params.numel() * params.element_size()
         if self.stage3 and self.sharded and self.persist is not None:
             size += self.persist.numel() * self.persist.element_size()
         return size
@@ -456,24 +557,26 @@ class FlatPartition:
         """The persistent unit's pieces all-gathered into ``persist``."""
         if self.persist_unit is None or not self.sharded:
             return
-        lo, hi, local = self.spans[0]
+        piece = self.secondary_piece(0)
         with record_function("zero3.all_gather"):
-            all_gather_into(self.persist,
-                            self.params[local:local + hi - lo], self.group)
+            if self.replicas == 1:
+                all_gather_into(self.persist, piece, self.gather_group)
+            else:
+                self.persist.copy_(self.unit_order(
+                    0, all_gather(piece, self.gather_group)))
 
-    def gather_unit(self, u):
-        """Unit ``u``'s full compute-dtype buffer: its pieces
-        all-gathered over the data group (one collective); its leaves are
-        then views of it. (The engine partitions only over two or more
-        ranks: at one rank stage 3 is stage 2's layout.)"""
+    def gather_unit(self, u, pending=None):
+        """Unit ``u``'s full compute-dtype buffer: its pieces gathered over
+        the shard group by ``gatherer`` (``pending``: its gather already
+        started, ``gatherer.start(u)``); its leaves are then views of it.
+        (The engine partitions only over two or more ranks: at one rank
+        stage 3 is stage 2's layout.)"""
         if u == self.persist_unit:
             return self.persist
-        lo, hi, local = self.spans[u]
-        full = torch.empty(self.units[u][2], dtype=self.compute_dtype,
-                           device=self.device)
         with record_function("zero3.all_gather"):
-            all_gather_into(full, self.params[local:local + hi - lo],
-                            self.group)
+            if pending is None:
+                pending = self.gatherer.start(u)
+            full = pending.finish()
         for p, off, shape in self.unit_leaves(u):
             p.data = full[off:off + _numel(shape)].view(shape)
         return full
@@ -548,8 +651,12 @@ class FlatPartition:
     def _fold_unit(self, u, buf):
         lo, hi, local = self.spans[u]
         with record_function("zero3.reduce_scatter"):
-            self.acc[local:local + hi - lo].add_(
-                reduce_scatter(buf.to(self.acc.dtype), self.group))
+            part = reduce_scatter(buf.to(self.acc.dtype), self.group)
+        WIRE.add((self.dp_world - 1) * part.numel() * part.element_size(),
+                 kind="reduce")
+        err = self.qg_error[local:local + hi - lo] \
+            if self.qg_error is not None else None
+        self.acc[local:local + hi - lo].add_(self._qgz(u, part, err))
 
     # ------------------------------------------------------------ updates
 
@@ -587,7 +694,9 @@ class FlatPartition:
             with record_function("zero.reduce_scatter"):
                 part = reduce_scatter(self.grads.to(self.acc.dtype),
                                       self.group)
-            self.acc.add_(part)
+            self.acc.add_(self._qgz(0, part, self.qg_error))
+        elif self.grad_codec is not None:
+            self.acc.add_(self._qgz(0, self.grads, self.qg_error))
         else:
             self.acc.add_(self.grads)
         self.grads.zero_()
@@ -601,6 +710,10 @@ class FlatPartition:
         all-gathered into the whole buffer (stages 1-2), or the
         persistent unit re-gathered (stage 3)."""
         if self.stage3:
+            if self.replicas > 1:
+                with record_function("zero3.hpz_all_gather"):
+                    all_gather_into(self.param_rows.view(-1), self.params,
+                                    self.replica_group)
             self.gather_persistent()
         elif self.sharded:
             with record_function("zero.all_gather"):

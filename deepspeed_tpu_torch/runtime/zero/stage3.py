@@ -39,6 +39,22 @@ The persistent unit (leaves kept whole on every rank) is never gathered
 here: its leaves view ``FlatPartition.persist`` between steps, its
 gradients collect in ``persist_grads`` across calls and are folded once
 a micro-step by the engine.
+
+How a unit is gathered is the partition's ``gatherer``
+(``runtime/zero/zeropp.py``): one all-gather, qwZ's int8 lanes and
+scales, or the ring gather (``comm.collective_matmul.zero_gather``). The
+ring overlaps as the JAX docstring puts it ("materialization for layer
+k+1 can overlap layer k's compute"): each gather notes which gather
+followed it last time (its units and its pass, forward or backward), and
+posts that one's ring before its own function runs, so one more gathered
+unit is alive at a time. A gather is known by its units, its pass and
+how many gathers of the same units and pass came before it in the
+forward call (GPT-2's head gathers the embedding unit again). The
+following gather takes the posted ring if it asked for those units, and
+otherwise finishes and drops it (every rank runs the
+same sequence, so every rank posts the same collectives in the same
+order); the backward before an apply step posts no ring for the next
+forward, whose parameters the step changes.
 """
 import torch
 
@@ -51,7 +67,7 @@ class _GatheredCall(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z3, fn, units, borrow, anchor, *inputs):
         ctx.z3, ctx.fn, ctx.units, ctx.borrow = z3, fn, units, borrow
-        with z3.gathered(units + borrow):
+        with z3.gathered(units + borrow, "forward"):
             out = fn(*inputs)
         ctx.save_for_backward(*inputs)
         return out
@@ -62,7 +78,7 @@ class _GatheredCall(torch.autograd.Function):
         needs = ctx.needs_input_grad[5:]
         inputs = [t.detach().requires_grad_(need and t.is_floating_point())
                   for t, need in zip(ctx.saved_tensors, needs)]
-        with z3.gathered(ctx.units + ctx.borrow):
+        with z3.gathered(ctx.units + ctx.borrow, "backward"):
             with torch.enable_grad():
                 out = ctx.fn(*inputs)
             params = z3.params_of(ctx.units + ctx.borrow)
@@ -92,6 +108,15 @@ class Stage3:
                         for uname, names in units}
         self._anchor = torch.zeros((), requires_grad=True)
         self.gathers = 0        # unit all-gathers (forward and backward)
+        # the ring's prefetch: gather key -> the key that followed it;
+        # the gathers of each (units, pass) since the forward call began
+        self._next, self._last, self._seen = {}, None, {}
+        self._posted = None     # (key, {unit: pending gather})
+        self.prefetched = 0     # gathers served by a posted ring
+        # set by the engine for the backward before an apply step: no
+        # ring is posted there for the next forward (the parameters
+        # change first)
+        self.last_backward = False
 
     def _leaf_indices(self, unames):
         seen, out = set(), []
@@ -117,8 +142,50 @@ class Stage3:
         return [self.flat._module_params[i]
                 for i in self._leaf_indices(unames)]
 
-    def gathered(self, unames):
-        return _Gathered(self, self._flat_units(unames))
+    def gathered(self, unames, phase="forward"):
+        return _Gathered(self, self._flat_units(unames), phase)
+
+    def begin_pass(self):
+        """A forward call begins (the engine's): the gathers' keys count
+        from there."""
+        self._seen = {}
+
+    def _acquire(self, units, key):
+        """The full buffers of ``units``: from the posted ring when it
+        gathered them, else gathered now; then the ring of the gather that
+        followed this one last time is posted."""
+        flat = self.flat
+        if not units:
+            return []
+        ring = flat.gatherer.ring is not None
+        posted, self._posted = self._posted, None
+        if ring:
+            if self._last is not None:
+                self._next[self._last] = key
+            self._last = key
+        pending = {}
+        if posted is not None:
+            if posted[0] == key:
+                pending = posted[1]
+                self.prefetched += len(units)
+            else:
+                for p in posted[1].values():
+                    p.finish()
+        full = [flat.gather_unit(u, pending.get(u)) for u in units]
+        nxt = self._next.get(key) if ring else None
+        if nxt is not None and not (self.last_backward and
+                                    nxt[1] == "forward"):
+            self._posted = (nxt, {u: flat.gatherer.start(u)
+                                  for u in nxt[0]})
+        return full
+
+    def drop_posted(self):
+        """Finish and drop a posted ring nothing took (before the
+        partition's parameters change)."""
+        posted, self._posted = self._posted, None
+        if posted is not None:
+            for p in posted[1].values():
+                p.finish()
 
     def deposit(self, unames, grads):
         """Add one gradient per leaf of ``params_of(unames)`` (None where
@@ -153,11 +220,14 @@ class _Gathered:
     """Context: the partition units gathered on entry, released on
     exit."""
 
-    def __init__(self, z3, units):
-        self.z3, self.units = z3, units
+    def __init__(self, z3, units, phase):
+        self.z3, self.units, self.phase = z3, units, phase
 
     def __enter__(self):
-        self._full = [self.z3.flat.gather_unit(u) for u in self.units]
+        z3, key = self.z3, (tuple(self.units), self.phase)
+        seen = z3._seen.get(key, 0)
+        z3._seen[key] = seen + 1
+        self._full = z3._acquire(self.units, key + (seen,))
         self.z3.gathers += len(self.units)
         return self
 

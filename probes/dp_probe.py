@@ -11,9 +11,15 @@ PHASE is a phase function's name without ``phase_`` (e.g. ``train_dp``,
 ``train_offload_ckpt``, ``train_pipe``, ``train_pipe_parity``,
 ``train_comm`` (``train_onebit`` and ``train_qc``, one spawn),
 ``train_xl_stream``, ``train_stream_parity``, ``train_pipe3`` (its own
-four ranks); on four cards ``dp_nccl_zero3``), optionally with
-integer keyword arguments, ``train_dp:world=1,steps=4``; each prints its
-JSON line. Not a test and on no path of the package.
+four ranks), ``train_zeropp`` (its own two and four ranks); on four
+cards ``dp_nccl_zero3``), optionally with integer keyword arguments,
+``train_dp:world=1,steps=4``; each prints its JSON line. Two phases of
+this file's own, on no path of ``chip_smoke.py``: ``train_pipe3_repeat``
+(stage 2 and stage 3 twice each, step by step; ``:deterministic=1``
+under PyTorch's deterministic-algorithm warnings) and, on four cards,
+``dp_nccl_zeropp`` (dp_nccl_zero3's stage 3 and ZeRO++ legs only;
+``:ring=1``: stage 3 and the two ring legs). Not a test and on no path
+of the package.
 """
 import sys
 import time
@@ -23,6 +29,41 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
+
+
+def phase_train_pipe3_repeat(steps=3, deterministic=0):
+    """train_pipe3's four gloo ranks on this card (PP 2 x DP 2, its
+    config): stage 2 twice and stage 3 twice from one init, step by step,
+    and where stage 3 parts from stage 2 (``pipe_chip.pipe3_repeat_rank``);
+    ``deterministic=1`` runs them under PyTorch's deterministic-algorithm
+    warnings."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    pc = cs._pipe_chip()
+    spec = dict(cs.pipe3_spec(steps=steps), deterministic=bool(deterministic))
+    try:
+        ranks = spawn(pc.pipe3_repeat_rank, 4, args=(spec,), timeout_s=900)
+    finally:
+        pc.remove(spec["dir"])
+    return {"phase": "train_pipe3_repeat", "steps": steps,
+            "deterministic": bool(deterministic), "ranks": ranks}
+
+
+def phase_dp_nccl_zeropp(world=4, steps=2, ring=0):
+    """dp_nccl_zero3 with stage 3 and the ZeRO++ legs only (``ring=1``:
+    stage 3 and the ring legs), held to stage 3 as that phase holds them;
+    the line is printed before a failed check raises."""
+    from deepspeed_tpu_torch.utils.distributed import spawn
+    legs = (("stage3", {"stage": 3}, None),) + tuple(
+        leg for leg in cs.XL_ZEROPP_LEGS
+        if not ring or leg[2] is not None)
+    ranks = spawn(cs.nccl_zero3_rank, world,
+                  args=({"steps": steps, "legs": legs},), timeout_s=2400)
+    failed = cs._nccl_zero3_checks(ranks, [name for name, _, _ in legs])
+    cs.emit({"phase": "dp_nccl_zeropp", "model": "gpt2_xl", "data": world,
+             "steps": steps, "transport": ranks[0]["transport"],
+             "failed": failed, "ranks": ranks})
+    assert not failed, failed
+    return {"phase": "dp_nccl_zeropp", "checks": "passed"}
 
 
 def main():
@@ -45,7 +86,7 @@ def main():
         name, _, kw = arg.partition(":")
         kwargs = {k: int(v) for k, v in
                   (item.split("=") for item in kw.split(",") if item)}
-        fn = getattr(cs, "phase_" + name)
+        fn = globals().get("phase_" + name) or getattr(cs, "phase_" + name)
         t0 = time.perf_counter()
         if name in ("train", "train_example", "train_ckpt", "train_dp_ckpt",
                     "train_remat", "train_example_data"):

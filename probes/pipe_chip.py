@@ -369,6 +369,88 @@ def pipe3_rank(rank, world, spec):
     return out
 
 
+def pipe3_repeat_rank(rank, world, spec):
+    """The train_pipe3 question on this rank (PP 2 x DP 2, train_pipe3's
+    config): stage 2 twice and stage 3 twice from the same seeded
+    weights, ``spec["steps"]`` steps each, TF32 off; after every step the
+    stage's masters (gathered over the data group) and the step's
+    gradient before the update (the accumulator, gathered) are kept, so
+    the runs can be compared step by step: whether each stage repeats
+    itself, and at which step and in which leaves stage 3 parts from
+    stage 2; each step's global gradient norm (the clip's input). With ``spec["deterministic"]`` the runs go under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` and the
+    names of the operations PyTorch warns about are returned."""
+    import warnings
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base, steps = spec["base"], spec["steps"]
+    caught = []
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = [("s2a", 2), ("s2b", 2), ("s3a", 3), ("s3b", 3)]
+    trace = {}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for name, stage in runs:
+            engine = build_engine(dict(base, stage=stage))
+            batch = rank_rows(global_batch(dict(base, stage=stage),
+                                           seed=spec["seed"]), engine)
+            steps_out = []
+            apply = engine._apply_step
+            grads = {}
+
+            def capture(apply=apply, engine=engine, grads=grads):
+                grads["acc"] = {k: v.numpy() for k, v in engine._full_tree(
+                    engine.flat.acc).items()}
+                return apply()
+
+            engine._apply_step = capture
+            for _ in range(steps):
+                loss = float(engine.train_batch(batch=batch))
+                norm = engine._step_metrics.get("grad_norm")
+                steps_out.append({"loss": loss, "grad": grads.pop("acc"),
+                                  "grad_norm": None if norm is None
+                                  else float(norm),
+                                  "master": {k: v.numpy() for k, v in
+                                             engine._full_tree(
+                                                 engine.flat.master).items()}})
+            trace[name] = steps_out
+            del engine
+            torch.cuda.empty_cache()
+        caught = sorted({str(w.message).split("\n")[0][:200]
+                         for w in seen if "deterministic" in
+                         str(w.message).lower()})
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(False)
+
+    def parting(a, b):
+        """The first step where runs a and b differ: the loss, the
+        leaves whose gradient differs, those whose master does."""
+        for i, (x, y) in enumerate(zip(trace[a], trace[b])):
+            grad = sorted(k for k, v in x["grad"].items()
+                          if not np.array_equal(v, y["grad"][k]))
+            master = sorted(k for k, v in x["master"].items()
+                            if not np.array_equal(v, y["master"][k]))
+            if x["loss"] != y["loss"] or grad or master:
+                worst = max((float(np.abs(x["grad"][k] - y["grad"][k])
+                                   .max()) for k in grad), default=0.0)
+                return {"step": i, "loss_equal": x["loss"] == y["loss"],
+                        "grad_leaves": grad[:12], "n_grad_leaves": len(grad),
+                        "grad_max_abs": worst, "master_leaves": master[:12],
+                        "n_master_leaves": len(master)}
+        return None
+
+    return {"rank": rank, "losses": {n: [s["loss"] for s in t]
+                                     for n, t in trace.items()},
+            "grad_norms": {n: [s["grad_norm"] for s in t]
+                           for n, t in trace.items()},
+            "s2_repeats": parting("s2a", "s2b"),
+            "s3_repeats": parting("s3a", "s3b"),
+            "s3_vs_s2": parting("s3a", "s2a"),
+            "nondeterministic_ops": caught}
+
+
 def dense_reference(spec, layers, M, steps, seed):
     """The one-rank engine (the dense GPT2Model of the same seed) on the
     same micro-batches, gradient_accumulation_steps = M: losses and the

@@ -269,8 +269,8 @@ def test_bad_configs_raise_alike(name):
             module.DeepSpeedConfig(None, param_dict=dict(cfg), **kw)
 
 
-# stage 3 and cpu_offload run now; what stays unported of them is the
-# streamed parameter offload (cpu_offload_params, a stage-3 mode)
+# stage 3 and cpu_offload run now, the streamed parameter offload
+# (cpu_offload_params, a stage-3 mode) and the ZeRO++ modes too
 UNPORTED = {
     "zero_stage_3": {"zero_optimization": {"stage": 3,
                                            "cpu_offload_params": True}},
@@ -287,10 +287,12 @@ UNPORTED = {
 
 
 # sections ported since the case was written: they now parse (the
-# streamed parameter offload since the cpu_offload_params cases)
+# streamed parameter offload since the cpu_offload_params cases, ZeRO++
+# since zeropp_qwz)
 PORTED_SINCE = {"comm": lambda c: c.comm_config.quantized_collectives.enabled,
                 "zero_stage_3": lambda c: c.zero_config.cpu_offload_params,
-                "cpu_offload": lambda c: c.zero_config.cpu_offload_params}
+                "cpu_offload": lambda c: c.zero_config.cpu_offload_params,
+                "zeropp_qwz": lambda c: c.zero_config.quantized_gradients}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

@@ -19,8 +19,9 @@ one spawn a world size.
   reduce-scatter, and the two uses of the gathered ``wte`` reduce-scatter
   their sum once, as at stage 2). The units are TP shards: model ranks of
   one data coordinate share their layout and replicated ranges;
-  ``comm.collective_matmul.zero_gather`` (the ring gather, not ported)
-  raises under the section's ``strict``;
+  ``comm.collective_matmul.zero_gather`` (on by default) runs: stage 3
+  gathers each unit as a ring over the data group, and the section's
+  ``strict`` accepts it;
 * LAMB at stage 3 under TP against stage 2 under TP, at the bounds
   above (a trust ratio from a piece's sums would be off by far more);
 * DP 2 with ``sparse_embedding_grads`` (two ranks): stage 3 against the
@@ -176,7 +177,8 @@ def test_stage3_tp_units_hold_the_ranks_shards(runs):
     units = dict(ranks[0][0]["units"])
     assert units["blocks.0"] < 12 * 64 * 64
     for res in ranks:
-        assert "zero_gather" in res[2]["error"], res[2]
+        assert res[2]["error"] is None, res[2]
+        assert res[0]["modes"][3] and res[0]["prefetched"] > 0
 
 
 def test_stage3_tp_lamb_matches_stage2(runs):

@@ -61,9 +61,9 @@ def zero_config(spec):
             "steps_per_print": 10 ** 9}
     if spec.get("backend"):
         conf["transformer"] = {"flash_attention": spec["backend"]}
-    if spec.get("tp", 1) > 1:
+    if spec.get("tp", 1) > 1 or spec.get("cm") is not None:
         conf["comm"] = {"collective_matmul": dict(
-            {"enabled": True, "backend": "pallas"}, **spec.get("cm", {}))}
+            {"enabled": True, "backend": "pallas"}, **(spec.get("cm") or {}))}
     return conf
 
 
@@ -132,15 +132,25 @@ def zero_engine(rank, world, specs):
         batch = _rows(spec["batch"], coord, spec["micro"])
         res = {"init_bytes": init_bytes}
         if spec.get("load"):
-            engine.load_checkpoint(spec["load"])
+            if spec.get("wait_for"):
+                _wait_for(spec["wait_for"])
+            engine.load_checkpoint(spec["load"], tag=spec.get("load_tag"))
+            res["loaded_qg_error"] = _qg_tree(engine)
         counters = _counters()
         for c in counters:
             c.launches = 0
+        from deepspeed_tpu_torch.runtime.comm import quantize, wire
+        quantize.WIRE.reset()
         losses = [float(engine.train_batch(batch=batch))
                   for _ in range(spec["steps"])]
+        res["wire"] = dict(quantize.WIRE.by_kind)
         res["launches"] = {c.__name__: c.launches for c in counters}
+        res["census"] = wire.estimate_engine_comm_bytes(engine)
+        if spec.get("overflow"):
+            res["overflow"] = _overflow_step(engine, batch)
         if spec.get("save"):
-            engine.save_checkpoint(spec["save"], tag="t")
+            engine.save_checkpoint(spec["save"], tag=spec.get("save_tag",
+                                                              "t"))
             losses += [float(engine.train_batch(batch=batch))
                        for _ in range(spec.get("after", 0))]
         flat = engine.flat
@@ -157,9 +167,102 @@ def zero_engine(rank, world, specs):
             own_replicated=list(flat.own_replicated),
             csr=sorted(engine.csr_tensor_module_names),
             offload_chunks=engine.offload_work_chunks,
-            master_device=str(flat.master.device))
+            master_device=str(flat.master.device),
+            exp_avg_sq=opt["exp_avg_sq"], qg_error=_qg_tree(engine),
+            modes=(engine.zero_quantized_weights(),
+                   engine.zero_hierarchical_partition(),
+                   engine.zero_quantized_gradients(), engine._cm_zero3),
+            shard_world=flat.shard_world,
+            prefetched=engine.zero3.prefetched if engine.zero3 else 0)
         results.append(res)
     return results
+
+
+def _wait_for(path, timeout_s=120.0):
+    import os
+    import time
+    deadline = time.time() + timeout_s
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(path)
+        time.sleep(0.2)
+
+
+def _qg_tree(engine):
+    """The qgZ error feedback as the JAX-shaped tree (every rank calls),
+    or None."""
+    flat = engine.flat
+    if flat.qg_error is None:
+        return None
+    return engine._jax_tree(flat.qg_error)
+
+
+def _overflow_step(engine, batch):
+    """One micro-step per accumulation step with the accumulator poisoned
+    (an inf) before the apply: the step is skipped and qgZ's residual
+    reset. Returns its norm before and after, and the skip count."""
+    before = float(engine.flat.qg_error.norm())
+    for m in range(engine.gradient_accumulation_steps()):
+        loss = engine(*(x[m] for x in batch))
+        engine.backward(loss)
+        if engine.is_gradient_accumulation_boundary():
+            engine.flat.acc[0] = float("inf")
+        engine.step()
+    return dict(before=before, after=float(engine.flat.qg_error.norm()),
+                skipped=engine.skipped_steps)
+
+
+def gather_cases(rank, world, cases):
+    """Unit gathers of ``Linear`` models at stage 3 over ``world`` ranks:
+    per case ``(leaves [(name, numpy fp32 array)], quantized, ring, hpz)``
+    the leaves of one unit (bf16, every leaf data-sharded) gathered by the
+    partition's ``gatherer``; returns each leaf's gathered values as fp32
+    numpy arrays."""
+    from deepspeed_tpu_torch.parallel.topology import (
+        DATA_AXIS, DATA_REPLICA_AXIS, DATA_SHARD_AXIS, build_mesh,
+        factor_data_axis)
+    from deepspeed_tpu_torch.runtime.zero.partition import FlatPartition
+    single_threaded()
+    out = []
+    for leaves, quantized, ring, hpz in cases:
+        mesh = build_mesh(data=world)
+        shard = replica = None
+        if hpz:
+            mesh = factor_data_axis(mesh, hpz)
+            shard = mesh.get_group(DATA_SHARD_AXIS)
+            replica = mesh.get_group(DATA_REPLICA_AXIS)
+        model = Linear(shapes=[(n, a.shape) for n, a in leaves])
+        with torch.no_grad():
+            for n, a in leaves:
+                getattr(model, n).copy_(torch.from_numpy(a))
+        flat = FlatPartition(
+            model, torch.device("cpu"), torch.bfloat16,
+            group=mesh.get_group(DATA_AXIS), stage=3,
+            units=[("u", [n for n, _ in leaves])], persistence_threshold=0,
+            train_state=False, shard_group=shard, replica_group=replica)
+        assert flat.persist_unit is None
+        flat.configure_gather(quantized=quantized, ring=ring)
+        flat.gather_unit(0)
+        out.append({n: getattr(model, n).detach().float().numpy().copy()
+                    for n, _ in leaves})
+        flat.release_unit(0)
+    return out
+
+
+def reduce_scatter_cases(rank, world, rows, errors):
+    """``quantized_reduce_scatter_local`` over the data group: this rank's
+    row of ``rows`` (numpy fp32), without and with its row of ``errors``;
+    returns the summed chunks and the new error."""
+    from deepspeed_tpu_torch.parallel.topology import DATA_AXIS, build_mesh
+    from deepspeed_tpu_torch.runtime.comm.quantize import \
+        quantized_reduce_scatter_local
+    single_threaded()
+    group = build_mesh(data=world).get_group(DATA_AXIS)
+    x = torch.from_numpy(rows[rank])
+    plain, _ = quantized_reduce_scatter_local(x, group)
+    fed, err = quantized_reduce_scatter_local(
+        x, group, error=torch.from_numpy(errors[rank]))
+    return plain.numpy(), fed.numpy(), err.numpy()
 
 
 def context_cases(rank, world):
